@@ -1,0 +1,540 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases (any failed check exits non-zero; nothing is caught and passed):
+  1. the card's name and power limit; build every CUDA kernel from
+     ``src/repro_torch/csrc`` (one nvcc per source, in parallel);
+  2. each kernel against its plain PyTorch version on the card, at the
+     shapes the serving path gives it, with times: kernel, plain version,
+     one PyTorch library call computing the same function (a yardstick
+     the port never calls), and the bound (the larger of bytes over the
+     memory rate and operations over the float32 rate);
+  3. path check: a 2-layer, full-width qwen3-1.7b with the same random
+     quantized weights runs one prefill chunk and a few decode steps on
+     the card (kernels) and on the CPU (plain versions); logits must
+     agree within tolerance and greedy tokens must be equal;
+  4. serving: full-width qwen3-1.7b (28 layers), weights random from a
+     seed and quantized to 7-bit DNA-TEQ codes on the card, serves 12
+     requests through ``InferenceServer.generate`` with every launch
+     counter read around that run.
+The line before the last is a JSON object of per-kernel figures; the
+last line is ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
+F32_FLOPS = 67e12               # H100 SXM float32 outside the tensor cores
+ARCH = "qwen3-1.7b"
+
+# name -> (source, TPU kernel it replaces)
+KERNELS = {
+    "lut_dequant_matmul": (
+        "src/repro_torch/csrc/lut_dequant_matmul.cu",
+        "src/repro/kernels/lut_dequant_matmul/lut_dequant_matmul.py:121"),
+    "lut_dequant_matmul_gated": (
+        "src/repro_torch/csrc/lut_dequant_matmul.cu",
+        "src/repro/kernels/lut_dequant_matmul/lut_dequant_matmul.py:207"),
+    "flash_prefill_paged": (
+        "src/repro_torch/csrc/flash_prefill.cu",
+        "src/repro/kernels/flash_prefill/flash_prefill.py:211"),
+    "decode_gqa_paged": (
+        "src/repro_torch/csrc/decode_gqa.cu",
+        "src/repro/kernels/decode_gqa/decode_gqa.py:199"),
+}
+
+
+class CheckFailed(Exception):
+    pass
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise CheckFailed(msg)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ------------------------------------------------------------- timing --
+
+def time_ms(fn, iters: int = 10, flush=None) -> float:
+    """Mean device time of ``fn`` over ``iters`` launches, after a
+    warm-up.  Before each launch the stream sleeps (``torch.cuda._sleep``,
+    about a millisecond) while the host enqueues ``fn``, so the CUDA
+    events around it time the device's work, not the wrapper's host
+    time.  ``flush`` (a 64 MiB buffer) is overwritten first, so weights
+    come from device memory as on the serving path, not from the 50 MB
+    L2."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(iters):
+        if flush is not None:
+            flush.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        total += a.elapsed_time(b)
+    return total / iters
+
+
+def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+class Tally:
+    """Per-kernel sums over the shapes tested."""
+
+    def __init__(self):
+        self.rows = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
+                             bound_ms=0.0, library_ms=0.0, nbytes=0.0,
+                             flops=0.0) for k in KERNELS}
+
+    def add(self, name, err, ms, plain_ms, lib_ms, nbytes, flops, label):
+        r = self.rows[name]
+        b, by = bound_ms(nbytes, flops)
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["ms"] += ms
+        r["plain_ms"] += plain_ms
+        r["library_ms"] += lib_ms
+        r["bound_ms"] += b
+        r["nbytes"] += nbytes
+        r["flops"] += flops
+        print(f"  {name:26s} {label:34s} err {err:.3e}  kernel {ms:9.4f} ms"
+              f"  plain {plain_ms:9.4f} ms  library {lib_ms:9.4f} ms"
+              f"  bound {b:8.4f} ms ({by})", flush=True)
+
+
+# --------------------------------------------------- phase 2: kernels --
+
+def check_kernels(tally: Tally) -> None:
+    import torch
+
+    from repro_torch.core import exponential_quant as eq
+    from repro_torch.kernels.decode_gqa import decode_gqa_paged
+    from repro_torch.kernels.decode_gqa.ref import decode_gqa_paged_ref
+    from repro_torch.kernels.flash_prefill import flash_prefill_paged
+    from repro_torch.kernels.flash_prefill.ref import flash_prefill_paged_ref
+    from repro_torch.kernels.lut_dequant_matmul import (
+        lut_dequant_matmul, lut_dequant_matmul_gated)
+    from repro_torch.kernels.lut_dequant_matmul.ref import (
+        decode_weight, lut_dequant_matmul_gated_ref, lut_dequant_matmul_ref)
+
+    dev = torch.device("cuda")
+    f32 = torch.float32
+    gen = torch.Generator(device=dev).manual_seed(0)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+
+    def rnd(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    def qweight(*shape):
+        """A random weight (std 0.02) fitted and encoded by the port's
+        own quantizer: realistic codes and table."""
+        codes, p = eq.quantize(rnd(*shape, scale=0.02), 7)
+        return codes, eq.decode_table(p)
+
+    # float32 FMA in the kernels vs float32 matmul in the plain version:
+    # only the summation order differs, K <= 6144 terms
+    def mm_tol(ref):
+        return 1e-4 * max(1.0, ref.abs().max().item())
+
+    x_dt = torch.bfloat16     # the full config's compute dtype
+    for m in (8, 2048):
+        for k, n in ((2048, 2048), (2048, 1024), (6144, 2048)):
+            x = rnd(m, k, dtype=x_dt)
+            c, lut = qweight(k, n)
+            out = lut_dequant_matmul(x, c, lut, out_dtype=torch.float32)
+            ref = lut_dequant_matmul_ref(x, c, lut)
+            err = (out - ref).abs().max().item()
+            require(err <= mm_tol(ref), f"lut_dequant_matmul M={m} K={k} "
+                    f"N={n}: max err {err} > {mm_tol(ref)}")
+            w = decode_weight(c, lut, None)
+            xf = x.float()
+            tally.add("lut_dequant_matmul", err,
+                      time_ms(lambda: lut_dequant_matmul(x, c, lut, out_dtype=f32), flush=flush),
+                      time_ms(lambda: lut_dequant_matmul_ref(x, c, lut), flush=flush),
+                      time_ms(lambda: torch.matmul(xf, w), flush=flush),
+                      m * k * 2 + k * n + 1024 + m * n * 4, 2.0 * m * k * n,
+                      f"M={m} K={k} N={n}")
+    # tied unembedding: codes [V, D], M = slots
+    m, k, n = 8, 2048, 151936
+    x = rnd(m, k, dtype=x_dt)
+    c, lut = qweight(n, k)
+    out = lut_dequant_matmul(x, c, lut, transpose_codes=True,
+                             out_dtype=torch.float32)
+    ref = lut_dequant_matmul_ref(x, c, lut, transpose_codes=True)
+    err = (out - ref).abs().max().item()
+    require(err <= mm_tol(ref), f"transposed unembedding: max err {err}")
+    wt = decode_weight(c, lut, None).t()
+    xf = x.float()
+    tally.add("lut_dequant_matmul", err,
+              time_ms(lambda: lut_dequant_matmul(x, c, lut, transpose_codes=True,
+                                               out_dtype=f32)),
+              time_ms(lambda: lut_dequant_matmul_ref(x, c, lut, transpose_codes=True)),
+              time_ms(lambda: torch.matmul(xf, wt)),
+              m * k * 2 + k * n + 1024 + m * n * 4, 2.0 * m * k * n,
+              f"M={m} K={k} N={n} transposed")
+    del wt, w
+
+    for m in (8, 2048):
+        k, n = 2048, 6144
+        x = rnd(m, k, dtype=x_dt)
+        (cg, lg), (cu, lu) = qweight(k, n), qweight(k, n)
+        out = lut_dequant_matmul_gated(x, cg, cu, lg, lu,
+                                       out_dtype=torch.float32)
+        ref = lut_dequant_matmul_gated_ref(x, cg, cu, lg, lu)
+        tol = 1e-4 * max(1.0, ref.abs().max().item())
+        err = (out - ref).abs().max().item()
+        require(err <= tol, f"gated M={m}: max err {err} > {tol}")
+        wgu = torch.cat([decode_weight(cg, lg, None),
+                         decode_weight(cu, lu, None)], dim=1)
+        xf = x.float()
+        tally.add("lut_dequant_matmul_gated", err,
+                  time_ms(lambda: lut_dequant_matmul_gated(x, cg, cu, lg, lu,
+                                                   out_dtype=f32), flush=flush),
+                  time_ms(lambda: lut_dequant_matmul_gated_ref(x, cg, cu, lg, lu),
+                          flush=flush),
+                  time_ms(lambda: torch.matmul(xf, wgu), flush=flush),
+                  m * k * 2 + 2 * k * n + 2048 + m * n * 4, 4.0 * m * k * n,
+                  f"M={m} K={k} N={n}")
+        del wgu
+
+    # paged attention at the serving shapes: 8 rows, n_kv 8, g 2, hd 128,
+    # block 16, float32 pages, bf16 queries
+    b, n_kv, g, hd, bs = 8, 8, 2, 128, 16
+    max_blk = 64
+    n_pages = 1 + b * max_blk
+    kp, vp = rnd(n_pages, bs, n_kv, hd), rnd(n_pages, bs, n_kv, hd)
+    perm = torch.randperm(n_pages - 1, generator=gen, device=dev)[: b * max_blk] + 1
+    bt = perm.reshape(b, max_blk).to(torch.int32).contiguous()
+    scale = 1.0 / math.sqrt(hd)
+
+    def gather_kv(lens):
+        t = max_blk * bs
+        kk = kp[bt.long()].reshape(b, t, n_kv, hd).permute(0, 2, 1, 3)
+        vv = vp[bt.long()].reshape(b, t, n_kv, hd).permute(0, 2, 1, 3)
+        return (kk.repeat_interleave(g, 1).contiguous(),
+                vv.repeat_interleave(g, 1).contiguous(), t)
+
+    # prefill chunk of 256 at mixed offsets (rows 6, 7 are a cold start
+    # and a row with nothing to do)
+    s = 256
+    q_start = torch.tensor([0, 256, 512, 768, 128, 384, 0, 300],
+                           dtype=torch.int32, device=dev)
+    valid = torch.tensor([256, 256, 256, 200, 256, 17, 256, 0],
+                         dtype=torch.int32, device=dev)
+    kv_lens = torch.where(valid > 0, q_start + valid, 0).to(torch.int32)
+    q = rnd(b, s, n_kv, g, hd, dtype=x_dt)
+    out = flash_prefill_paged(q, kp, vp, bt, q_start, kv_lens)
+    ref = flash_prefill_paged_ref(q, kp, vp, bt, q_start, kv_lens)
+    err = (out - ref).abs().max().item()
+    # softmax-weighted averages of O(1) values: float32 exp and sums in
+    # another order
+    require(err <= 1e-4, f"flash_prefill_paged: max err {err} > 1e-4")
+    kk, vv, t = gather_kv(kv_lens)
+    qpos = q_start[:, None].long() + torch.arange(s, device=dev)[None]
+    kvpos = torch.arange(t, device=dev)
+    mask = ((kvpos[None, None] <= qpos[:, :, None])
+            & (kvpos[None, None] < kv_lens[:, None, None].long()))[:, None]
+    qs = q.float().reshape(b, s, n_kv * g, hd).permute(0, 2, 1, 3).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    seen = [min(int(qp) + 1, int(kl)) for row_qp, kl in
+            zip(qpos.tolist(), kv_lens.tolist()) for qp in row_qp]
+    pages_read = sum(-(-int(kl) // bs) for kl in kv_lens.tolist())
+    kv_bytes = pages_read * bs * n_kv * hd * 4 * 2
+    tally.add("flash_prefill_paged", err,
+              time_ms(lambda: flash_prefill_paged(q, kp, vp, bt, q_start, kv_lens),
+                      flush=flush),
+              time_ms(lambda: flash_prefill_paged_ref(q, kp, vp, bt, q_start,
+                                                      kv_lens), flush=flush),
+              time_ms(lambda: sdpa(qs, kk, vv, attn_mask=mask), flush=flush),
+              q.numel() * 2 + kv_bytes + q.numel() * 4 + bt.numel() * 4,
+              4.0 * n_kv * g * hd * sum(max(v, 0) for v in seen),
+              f"B={b} S={s} max_blk={max_blk}")
+
+    lengths = torch.tensor([17, 732, 400, 0, 256, 33, 600, 129],
+                           dtype=torch.int32, device=dev)
+    qd = rnd(b, n_kv, g, hd, dtype=x_dt)
+    out = decode_gqa_paged(qd, kp, vp, bt, lengths)
+    ref = decode_gqa_paged_ref(qd, kp, vp, bt, lengths)
+    err = (out - ref).abs().max().item()
+    require(err <= 1e-4, f"decode_gqa_paged: max err {err} > 1e-4")
+    kk, vv, t = gather_kv(lengths)
+    maskd = (torch.arange(t, device=dev)[None] < lengths[:, None].long())
+    maskd = maskd[:, None, None]
+    qds = qd.float().reshape(b, n_kv * g, 1, hd)
+    pages_read = sum(-(-int(n) // bs) for n in lengths.tolist())
+    tally.add("decode_gqa_paged", err,
+              time_ms(lambda: decode_gqa_paged(qd, kp, vp, bt, lengths), flush=flush),
+              time_ms(lambda: decode_gqa_paged_ref(qd, kp, vp, bt, lengths),
+                      flush=flush),
+              time_ms(lambda: sdpa(qds, kk, vv, attn_mask=maskd), flush=flush),
+              qd.numel() * 2 + pages_read * bs * n_kv * hd * 8
+              + qd.numel() * 4 + bt.numel() * 4,
+              4.0 * n_kv * g * hd * int(lengths.sum()),
+              f"B={b} lengths<=732 max_blk={max_blk}")
+
+
+# ------------------------------------------------ phase 3: path check --
+
+def path_check() -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import lama_layers as ll
+    from repro_torch.models import api as mapi
+    from repro_torch.models.transformer import DecoderLM
+    from repro_torch.runtime.paged_cache import PagedKVCache
+
+    # float32 compute, so that greedy tokens are a fair equality check
+    cfg = get_config(ARCH).replace(num_layers=2, compute_dtype="float32")
+    api = mapi.get_model(cfg)
+    dense = api.init("cuda", seed=1)
+    qtree, _ = ll.quantize_tree(dense.tree(), 7, axes=api.logical_axes())
+    del dense
+    gpu = DecoderLM(cfg, qtree, device="cuda")
+    cpu = copy.deepcopy(gpu).to("cpu")
+    rng = np.random.default_rng(1)
+    lens = (100, 37)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in lens]
+    chunk, steps, bs = 128, 3, 16
+
+    def run(model, dev):
+        cache = PagedKVCache(num_layers=cfg.num_layers,
+                             num_kv_heads=cfg.num_kv_heads,
+                             head_dim=cfg.resolved_head_dim, num_slots=2,
+                             block_size=bs, num_blocks=32,
+                             max_blocks_per_seq=16, device=dev)
+        toks = np.zeros((2, chunk), np.int32)
+        for i, p in enumerate(prompts):
+            cache.bind_slot(i, len(p), reserved=False)
+            toks[i, :len(p)] = p
+        logits, _ = api.prefill_into_cache(
+            model, torch.as_tensor(toks, device=dev), cache.view(cols=8), cfg)
+        outs = [logits[:, -1].float().cpu()]
+        nxt = logits[:, -1].argmax(-1)
+        active = torch.ones(2, dtype=torch.bool, device=dev)
+        for _ in range(steps):
+            for i in range(2):
+                cache.ensure_capacity(i, reserved=False)
+            logits, view = api.decode_step_paged(
+                model, cache.view(cols=16), nxt[:, None].to(torch.int32),
+                active, cfg)
+            cache.lengths[:] = view.lengths.cpu().numpy()
+            outs.append(logits[:, -1].float().cpu())
+            nxt = logits[:, -1].argmax(-1)
+        return outs
+
+    t0 = time.perf_counter()
+    on_card = run(gpu, torch.device("cuda"))
+    t1 = time.perf_counter()
+    on_cpu = run(cpu, torch.device("cpu"))
+    t2 = time.perf_counter()
+    for step, (a, r) in enumerate(zip(on_card, on_cpu)):
+        # float32 end to end; kernel and plain version differ only in
+        # summation order and the library's exp/rsqrt
+        tol = 1e-4 * max(1.0, r.abs().max().item())
+        err = (a - r).abs().max().item()
+        top2 = r.topk(2, -1).values
+        gap = (top2[:, 0] - top2[:, 1]).min().item()
+        print(f"  step {step}: logits max err {err:.3e} (tol {tol:.3e}), "
+              f"min top-2 gap {gap:.3e}", flush=True)
+        require(err <= tol, f"path check step {step}: err {err} > {tol}")
+        require(torch.equal(a.argmax(-1), r.argmax(-1)),
+                f"path check step {step}: greedy tokens differ")
+    print(f"  path check ok: card {t1 - t0:.2f} s, cpu {t2 - t1:.2f} s",
+          flush=True)
+
+
+# ---------------------------------------------------- phase 4: serving --
+
+def serve(counts_out: dict) -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.runtime.server import InferenceServer, Request
+
+    cfg = get_config(ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    srv = InferenceServer(cfg, quant_bits=7, num_slots=8, prefill_chunk=256,
+                          device="cuda", rng_seed=0)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    lens = rng.integers(17, 701, 12)
+    new = 32
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32),
+                    max_new_tokens=new) for i, n in enumerate(lens)]
+    sqnr = [db for _, db in srv.quant_report.values()]
+    print(f"  setup (random init + quantize on the card) {t_setup:.1f} s; "
+          f"{len(sqnr)} tensors at 7 bits, round-trip SQNR "
+          f"{min(sqnr):.1f}..{max(sqnr):.1f} dB; prompt lengths "
+          f"{lens.tolist()}", flush=True)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = srv.generate(reqs)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    counts_out.update(counts)
+    eng = srv.last_engine
+    require(len(outs) == len(reqs), "missing completions")
+    for c in outs:
+        require(c.status == "ok", f"request {c.uid}: status {c.status}")
+        require(len(c.tokens) == new, f"request {c.uid}: {len(c.tokens)} tokens")
+        require(bool(((c.tokens >= 0) & (c.tokens < cfg.vocab_size)).all()),
+                f"request {c.uid}: token out of range")
+    for name in KERNELS:
+        require(counts.get(name, 0) > 0, f"{name} never launched while serving")
+    require(counts["decode_gqa_paged"] == cfg.num_layers * eng.total_decode_steps,
+            f"decode_gqa_paged launches {counts['decode_gqa_paged']} != "
+            f"{cfg.num_layers} x {eng.total_decode_steps} decode steps")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  served {len(outs)} requests in {t_run:.2f} s: "
+          f"{eng.prefill_batches} prefill dispatches, "
+          f"{eng.total_decode_steps} decode steps, launches {counts}",
+          flush=True)
+    print(f"  prefill {eng.prefill_tokens_computed / eng.prefill_dispatch_s:.1f} "
+          f"tok/s ({eng.prefill_tokens_computed} tokens in "
+          f"{eng.prefill_dispatch_s:.3f} s), decode "
+          f"{eng.decode_tokens / eng.decode_dispatch_s:.1f} tok/s "
+          f"({eng.decode_tokens} tokens in {eng.decode_dispatch_s:.3f} s, "
+          f"{1e3 * eng.decode_dispatch_s / eng.total_decode_steps:.2f} ms/step), "
+          f"peak memory {peak:.2f} GiB", flush=True)
+    print(f"  first completion tokens {outs[0].tokens[:8].tolist()}", flush=True)
+    profile_decode(srv, cfg)
+
+
+def profile_decode(srv, cfg) -> None:
+    """Where a decode step's time goes: 8 requests of 64-token prompts,
+    8 new tokens each, under torch.profiler; device time by kernel and
+    the device's busy share of the wall time."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.runtime.server import Request
+
+    rng = np.random.default_rng(1)
+    reqs = [Request(100 + i, rng.integers(0, cfg.vocab_size, 64).astype(np.int32),
+                    max_new_tokens=8) for i in range(8)]
+    srv.generate(reqs[:1])          # warm
+    steps0 = srv.last_engine.total_decode_steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        srv.generate(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if getattr(e, "self_device_time_total", 0) > 0]
+    busy = sum(e.self_device_time_total for e in events) / 1e6
+    eng = srv.last_engine
+    print(f"  profile: wall {wall * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms "
+          f"({100 * busy / wall:.1f}%); "
+          f"{eng.total_decode_steps - steps0} decode steps", flush=True)
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"    {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d} x  "
+              f"{e.key[:90]}", flush=True)
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script measures the "
+              "port on a card", file=sys.stderr)
+        return 2
+    try:
+        from repro_torch.kernels import _build
+    except ImportError as e:
+        print(f"chip_smoke: the port's package is missing ({e}); run from "
+              f"a checkout of the repository", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}",
+          flush=True)
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    print(f"phase 1: built {len(logs)} kernel libraries in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for name, log in logs.items():
+        regs = [int(w) for line in log.splitlines() if "registers" in line
+                for w, nxt in zip(line.split(), line.split()[1:])
+                if nxt.startswith("registers")]
+        spills = [line.strip() for line in log.splitlines()
+                  if "spill" in line and " 0 bytes spill stores" not in line]
+        print(f"  {name}: {len(regs)} kernels, registers {min(regs)}..{max(regs)}"
+              f" per thread, {'spills: ' + '; '.join(spills) if spills else 'no spills'}")
+
+    try:
+        print("phase 2: kernels vs plain versions on the card", flush=True)
+        tally = Tally()
+        check_kernels(tally)
+        print("phase 3: 2-layer full-width path check, card vs CPU", flush=True)
+        path_check()
+        print("phase 4: serving full-width qwen3-1.7b, 7-bit codes", flush=True)
+        counts: dict = {}
+        serve(counts)
+    except CheckFailed as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+
+    rows = []
+    for name, (src, replaces) in KERNELS.items():
+        r = tally.rows[name]
+        _, by = bound_ms(r["nbytes"], r["flops"])
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": replaces, "launches": counts.get(name, 0),
+                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": by, "library_ms": r["library_ms"]})
+    print(card)                     # name, power limit as nvidia-smi gives them
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

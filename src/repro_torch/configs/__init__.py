@@ -1,0 +1,21 @@
+"""Architecture registry of the PyTorch port.
+
+The port keeps its own copy of the config dataclasses (``base.py``) and
+of each architecture it serves; it never imports the JAX package.  Only
+``qwen3-1.7b`` is registered so far.
+"""
+
+from repro_torch.configs import qwen3_1_7b
+from repro_torch.configs.base import ModelConfig, RunShape  # noqa: F401
+
+_MODULES = (qwen3_1_7b,)
+
+ARCHS = {m.ARCH: m for m in _MODULES}
+ARCH_NAMES = tuple(ARCHS)
+
+
+def get_config(name: str, tiny: bool = False) -> ModelConfig:
+    if name not in ARCHS:
+        raise KeyError(f"unknown arch {name!r}; available: {ARCH_NAMES}")
+    mod = ARCHS[name]
+    return mod.tiny() if tiny else mod.full()

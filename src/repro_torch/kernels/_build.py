@@ -1,0 +1,133 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its
+own by ``nvcc`` for ``sm_90a`` into ``build/kernels/<name>-<hash>.so``
+under the repository root (``build/`` is git-ignored), then loaded with
+``ctypes``.  The hash covers the source, every ``csrc/*.cuh`` header and
+the compiler flags, so an edited source rebuilds and an unchanged one is
+loaded as it is.  Nothing is built at import: the first launch builds
+(``build_all`` builds every kernel at once, one ``nvcc`` per source, all
+started together).
+
+Every wrapper counts its launches here (:func:`count_launch`), once per
+call that launched its kernel; the plain PyTorch versions never count.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+KERNEL_SOURCES = ("lut_dequant_matmul", "flash_prefill", "decode_gqa")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+_LAUNCHES: dict[str, int] = {}
+
+
+# ------------------------------------------------------------ counters --
+
+def count_launch(name: str) -> None:
+    _LAUNCHES[name] = _LAUNCHES.get(name, 0) + 1
+
+
+def launch_counts() -> dict[str, int]:
+    return dict(_LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    _LAUNCHES.clear()
+
+
+# --------------------------------------------------------------- build --
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where "
+                       "the CUDA toolkit is installed")
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256()
+    h.update((CSRC / f"{name}.cu").read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def _start(name: str):
+    """Start nvcc for one source unless its library is already built.
+    Returns (name, final path, temp path, process) or None."""
+    path = _lib_path(name)
+    if path.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
+           str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return name, path, tmp, proc
+
+
+def _finish(job) -> str:
+    name, path, tmp, proc = job
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
+    os.replace(tmp, path)
+    return out
+
+
+def build_all(names=KERNEL_SOURCES) -> dict[str, str]:
+    """Build every kernel library in parallel; returns nvcc's output
+    (register and shared-memory use from ``-Xptxas -v``) per source.
+    Raises if any build fails."""
+    jobs = [j for j in (_start(n) for n in names) if j is not None]
+    logs, err = {}, None
+    for job in jobs:
+        try:
+            logs[job[0]] = _finish(job)
+        except RuntimeError as e:   # finish the others, then raise
+            err = err or e
+    if err is not None:
+        raise err
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build_all((name,))
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        _LIBS[name] = lib
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise on a non-zero ``cudaError_t`` returned by a C entry point."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    """PyTorch's current stream on ``t``'s device, for a launch."""
+    return torch.cuda.current_stream(t.device).cuda_stream

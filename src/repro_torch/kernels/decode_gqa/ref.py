@@ -1,0 +1,23 @@
+"""Plain PyTorch version of flash decode over a paged KV cache.
+
+Decoding one query at position ``len-1`` against ``len`` cached tokens
+is the chunked prefill of a one-token chunk (validity
+``kv_pos <= len-1 and kv_pos < len`` is ``kv_pos < len``), so this runs
+the same page-scan recurrence as the kernel; zero-length rows return
+zeros.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.flash_prefill.ref import flash_prefill_paged_ref
+
+
+def decode_gqa_paged_ref(q, k_pages, v_pages, block_tables, lengths,
+                         out_dtype=torch.float32) -> torch.Tensor:
+    """q [B, n_kv, g, hd]; pages [N, bs, n_kv, hd]; block_tables
+    [B, max_blk]; lengths [B].  Returns [B, n_kv, g, hd]."""
+    out = flash_prefill_paged_ref(q[:, None], k_pages, v_pages, block_tables,
+                                  lengths - 1, lengths, out_dtype=out_dtype)
+    return out[:, 0]

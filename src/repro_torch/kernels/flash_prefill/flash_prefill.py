@@ -1,0 +1,76 @@
+"""CUDA launch of chunked flash prefill over a paged KV cache
+(``csrc/flash_prefill.cu``); counterpart of the JAX package's
+``flash_prefill_paged_kernel``."""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+
+NAME = "flash_prefill_paged"
+HEAD_DIM = 128
+ROWS_PER_BLOCK = 32
+PAGE_DTYPES = (torch.float32, torch.bfloat16)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = _build.load("flash_prefill")
+    lib.flash_prefill_paged_launch.argtypes = (
+        [_P, _I, _P, _P, _I, _P, _P, _P, _P] + [_I] * 7
+        + [ctypes.c_float, _P])
+    lib.flash_prefill_paged_launch.restype = _I
+    return lib
+
+
+def check_paged(q, k_pages, v_pages, block_tables, rows) -> None:
+    """Device, dtype, shape and contiguity checks shared with the decode
+    kernel's launch."""
+    for t, name in ((q, "q"), (k_pages, "k_pages"), (v_pages, "v_pages"),
+                    (block_tables, "block_tables")):
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"{name} must be on {q.device}, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if q.dtype not in PAGE_DTYPES or k_pages.dtype not in PAGE_DTYPES:
+        raise TypeError(f"q/pages dtype must be one of {PAGE_DTYPES}, got "
+                        f"{q.dtype}/{k_pages.dtype}")
+    if v_pages.dtype != k_pages.dtype or v_pages.shape != k_pages.shape:
+        raise ValueError("k_pages and v_pages must match in dtype and shape")
+    if block_tables.dtype != torch.int32:
+        raise TypeError("block_tables must be int32")
+    for t, name in rows:
+        if t.dtype != torch.int32 or t.shape != (q.shape[0],) \
+                or not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"{name} must be contiguous int32 [{q.shape[0]}] "
+                             f"on {q.device}")
+    hd = q.shape[-1]
+    if hd != HEAD_DIM or k_pages.shape[-1] != hd:
+        raise ValueError(f"the CUDA kernel takes head_dim {HEAD_DIM}, got {hd}")
+    if not 1 <= k_pages.shape[1] <= 64:
+        raise ValueError(f"block size {k_pages.shape[1]} outside 1..64")
+
+
+def launch(q, k_pages, v_pages, block_tables, q_start, kv_lens) -> torch.Tensor:
+    """q [B, S, n_kv, g, 128]; returns float32 of q's shape."""
+    check_paged(q, k_pages, v_pages, block_tables,
+                ((q_start, "q_start"), (kv_lens, "kv_lens")))
+    b, s, n_kv, g, hd = q.shape
+    if ROWS_PER_BLOCK % g or k_pages.shape[2] != n_kv:
+        raise ValueError(f"unsupported head layout n_kv={n_kv}, g={g}")
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    err = _lib().flash_prefill_paged_launch(
+        q.data_ptr(), int(q.dtype == torch.bfloat16), k_pages.data_ptr(),
+        v_pages.data_ptr(), int(k_pages.dtype == torch.bfloat16),
+        block_tables.data_ptr(), q_start.data_ptr(), kv_lens.data_ptr(),
+        out.data_ptr(), b, s, n_kv, g, hd, k_pages.shape[1],
+        block_tables.shape[1], 1.0 / math.sqrt(hd), _build.stream_ptr(q))
+    _build.check(err, NAME)
+    _build.count_launch(NAME)
+    return out

@@ -1,0 +1,4 @@
+from repro_torch.kernels.lut_dequant_matmul.ops import (  # noqa: F401
+    lut_dequant_matmul,
+    lut_dequant_matmul_gated,
+)

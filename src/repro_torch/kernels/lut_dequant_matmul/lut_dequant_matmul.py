@@ -1,0 +1,146 @@
+"""CUDA launch of the fused LUT-dequant matmuls (``csrc/lut_dequant_matmul.cu``).
+
+Counterpart of the JAX package's ``lut_dequant_matmul_kernel`` and
+``lut_dequant_matmul_gated_kernel``.  There is no M-bucketing ladder and
+no autotuner here: the kernel masks its own ragged edges, so any M, K, N
+runs without padding or a rebuild.  The launch chooses the skinny path
+for M <= 8 and splits K across blocks (a deterministic second pass sums
+the partials) when the output tiles alone cannot fill the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+
+NAME = "lut_dequant_matmul"
+ACTS = {None: 0, "gelu": 1, "silu": 2, "relu": 3}
+_SKINNY_M = 8
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = _build.load(NAME)
+    lib.lut_dequant_matmul_launch.argtypes = (
+        [_P, _I, _P, _P, _P, _P, _P, _P] + [_I] * 8 + [_P])
+    lib.lut_dequant_matmul_launch.restype = _I
+    lib.lut_dequant_matmul_gated_launch.argtypes = (
+        [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P] + [_I] * 7 + [_P])
+    lib.lut_dequant_matmul_gated_launch.restype = _I
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def split_k(m: int, k: int, n: int, transposed: bool, sms: int):
+    """(splits, k_per_split): split K only when the output tiles give
+    fewer blocks than SMs, aiming at two blocks per SM and at least 256
+    of K per split."""
+    if m <= _SKINNY_M:
+        blocks = math.ceil(n / (32 if transposed else 64))
+    else:
+        blocks = math.ceil(n / 128) * math.ceil(m / 128)
+    if blocks >= sms or k < 512:
+        return 1, k
+    splits = min(math.ceil(2 * sms / blocks), k // 256)
+    kps = math.ceil(math.ceil(k / splits) / 16) * 16
+    return math.ceil(k / kps), kps
+
+
+def _check(t: torch.Tensor, name: str, dtypes, shape=None) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name}: dtype {t.dtype} not in {dtypes}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _tables(lut, qmeta, alu: bool, dev):
+    """(lut, qmeta) as the kernel takes them; the unused one of the pair
+    is a zero placeholder so the kernel never reads a null pointer."""
+    if alu:
+        if qmeta is None:
+            raise ValueError("decode_mode='alu' needs qmeta")
+        qmeta = qmeta.to(torch.float32).contiguous()
+        lut = torch.zeros(256, dtype=torch.float32, device=dev)
+    else:
+        lut = lut.to(torch.float32).contiguous()
+        qmeta = (torch.zeros(4, dtype=torch.float32, device=dev)
+                 if qmeta is None else qmeta.to(torch.float32).contiguous())
+    _check(lut, "lut", (torch.float32,), (256,))
+    _check(qmeta, "qmeta", (torch.float32,), (4,))
+    return lut, qmeta
+
+
+def launch(x, codes, lut, qmeta, bias, *, transpose_codes: bool,
+           decode_mode: str, epilogue: str | None) -> torch.Tensor:
+    """``act(x @ dec(codes) + bias)`` on the card; returns float32 [M, N]."""
+    _check(x, "x", (torch.float32, torch.bfloat16))
+    if x.ndim != 2:
+        raise ValueError(f"x must be [M, K], got {tuple(x.shape)}")
+    m, k = x.shape
+    n = codes.shape[0] if transpose_codes else codes.shape[1]
+    _check(codes, "codes", (torch.uint8,), (n, k) if transpose_codes else (k, n))
+    alu = decode_mode == "alu"
+    if decode_mode not in ("gather", "alu"):
+        raise ValueError(decode_mode)
+    lut, qmeta = _tables(lut, qmeta, alu, x.device)
+    if bias is not None:
+        bias = bias.to(torch.float32).contiguous()
+        _check(bias, "bias", (torch.float32,), (n,))
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    splits, kps = split_k(m, k, n, transpose_codes, _num_sms(x.device.index or 0))
+    ws = (torch.empty(splits * m * n, dtype=torch.float32, device=x.device)
+          if splits > 1 else None)
+    err = _lib().lut_dequant_matmul_launch(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), codes.data_ptr(),
+        lut.data_ptr(), qmeta.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), m, k, n, int(transpose_codes),
+        int(alu), ACTS[epilogue], splits, kps, _build.stream_ptr(x))
+    _build.check(err, NAME)
+    _build.count_launch(NAME)
+    return out
+
+
+def launch_gated(x, codes_g, codes_u, lut_g, lut_u, qmeta_g, qmeta_u, *,
+                 decode_mode: str, activation: str) -> torch.Tensor:
+    """``act(x @ dec(codes_g)) * (x @ dec(codes_u))`` on the card."""
+    name = NAME + "_gated"
+    _check(x, "x", (torch.float32, torch.bfloat16))
+    if x.ndim != 2:
+        raise ValueError(f"x must be [M, K], got {tuple(x.shape)}")
+    m, k = x.shape
+    n = codes_g.shape[1]
+    _check(codes_g, "codes_g", (torch.uint8,), (k, n))
+    _check(codes_u, "codes_u", (torch.uint8,), (k, n))
+    alu = decode_mode == "alu"
+    if decode_mode not in ("gather", "alu"):
+        raise ValueError(decode_mode)
+    lut_g, qmeta_g = _tables(lut_g, qmeta_g, alu, x.device)
+    lut_u, qmeta_u = _tables(lut_u, qmeta_u, alu, x.device)
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    splits, kps = split_k(m, k, n, False, _num_sms(x.device.index or 0))
+    ws = (torch.empty(2 * splits * m * n, dtype=torch.float32, device=x.device)
+          if splits > 1 else None)
+    err = _lib().lut_dequant_matmul_gated_launch(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), codes_g.data_ptr(),
+        codes_u.data_ptr(), lut_g.data_ptr(), lut_u.data_ptr(),
+        qmeta_g.data_ptr(), qmeta_u.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), m, k, n, int(alu),
+        ACTS[activation], splits, kps, _build.stream_ptr(x))
+    _build.check(err, name)
+    _build.count_launch(name)
+    return out

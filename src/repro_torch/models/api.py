@@ -1,0 +1,37 @@
+"""Model API (port of the JAX package's ``models/api.py``): one entry per
+architecture family; only the ``decoder`` family is ported."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer
+from repro_torch.models.params import logical_axes
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelAPI:
+    cfg: ModelConfig
+    specs: Any
+    prefill_into_cache: Callable
+    decode_step_paged: Callable
+
+    def init(self, device=None, seed: int = 0) -> transformer.DecoderLM:
+        """Random weights from a seeded ``torch.Generator`` on ``device``
+        (the card unless ``device="cpu"``)."""
+        return transformer.DecoderLM(self.cfg, device=device, seed=seed)
+
+    def logical_axes(self):
+        return logical_axes(self.specs)
+
+
+def get_model(cfg: ModelConfig) -> ModelAPI:
+    if cfg.family != "decoder" or cfg.frontend:
+        raise NotImplementedError(
+            f"family {cfg.family!r} (frontend={cfg.frontend!r}) is not "
+            f"ported yet (ROADMAP Queue 1 item 13)")
+    return ModelAPI(cfg=cfg, specs=transformer.model_specs(cfg),
+                    prefill_into_cache=transformer.prefill_into_cache,
+                    decode_step_paged=transformer.decode_step_paged)

@@ -1,0 +1,172 @@
+"""Decoder-only transformer LM: the paged serving entry points (port of
+the JAX package's ``models/transformer.py``, dense decoder family).
+
+``prefill_into_cache`` and ``decode_step_paged`` take a
+:class:`~repro_torch.runtime.paged_cache.PagedView` and update its page
+pools *in place* (``index_put_``); the reference returns a new view
+instead, because JAX arrays are immutable.  The loop over the layer
+index takes the place of the reference's ``scan_blocks``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models.params import (ParamTree, init_params, layer_slice,
+                                       stack_specs)
+
+
+# --------------------------------------------------------------- specs --
+
+def block_specs(cfg: ModelConfig) -> dict:
+    if cfg.is_moe:
+        raise NotImplementedError("MoE blocks are not ported yet "
+                                  "(ROADMAP Queue 1 item 13)")
+    return {"ln1": L.norm_specs(cfg), "attn": L.attention_specs(cfg),
+            "ln2": L.norm_specs(cfg), "mlp": L.mlp_specs(cfg)}
+
+
+def model_specs(cfg: ModelConfig) -> dict:
+    s = {"embed": L.embed_specs(cfg),
+         "blocks": stack_specs(block_specs(cfg), cfg.num_layers),
+         "ln_f": L.norm_specs(cfg)}
+    if not cfg.tie_embeddings:
+        raise NotImplementedError("untied unembedding is not ported yet")
+    return s
+
+
+class DecoderLM(ParamTree):
+    """The decoder's parameters as a module.  Buffers mirror the
+    reference's params tree path for path (``embed.tokens``,
+    ``blocks.attn.wq``, ``blocks.mlp.w_down.codes``, ``ln_f.scale``);
+    layer-stacked leaves stay stacked ``[L, ...]``.
+
+    ``params`` is a nested dict of tensors / ``QWeight`` (e.g. from
+    :func:`repro_torch.convert.params_from_jax` or ``quantize_tree``);
+    without it the weights are drawn from a ``torch.Generator`` seeded
+    with ``seed`` on the device.  The device is the card unless
+    ``device="cpu"`` is passed."""
+
+    def __init__(self, cfg: ModelConfig, params: dict | None = None, *,
+                 device=None, seed: int = 0, dtype=torch.float32):
+        dev = resolve_device(device)
+        if params is None:
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            params = init_params(model_specs(cfg), gen, dev, dtype)
+        super().__init__(params)
+        self.cfg = cfg
+        self.to(dev)
+        self._layers: list[dict] | None = None
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.buffers()).device
+
+    def layer(self, i: int) -> dict:
+        """Layer ``i``'s parameters as a nested dict of views (cached:
+        serving weights do not change)."""
+        if self._layers is None:
+            blocks = self["blocks"].tree()
+            self._layers = [layer_slice(blocks, j)
+                            for j in range(self.cfg.num_layers)]
+        return self._layers[i]
+
+    def _apply(self, fn, *args, **kw):
+        self._layers = None
+        return super()._apply(fn, *args, **kw)
+
+
+# ------------------------------------------------------- paged serving --
+
+def _block(lp: dict, x, cfg: ModelConfig, positions, k_pages, v_pages,
+           page, off, attend):
+    """One block: scatter this step's K/V into the pages, then attend
+    through ``attend``, then the MLP."""
+    h = L.apply_norm(lp["ln1"], x, cfg)
+    k_new, v_new = L.self_kv(lp["attn"], h, cfg, positions)
+    # in place: the page pool is updated where it lives
+    k_pages.index_put_((page, off), k_new.to(k_pages.dtype))
+    v_pages.index_put_((page, off), v_new.to(v_pages.dtype))
+    x = x + attend(lp["attn"], h, k_pages, v_pages)
+    h = L.apply_norm(lp["ln2"], x, cfg)
+    return x + L.apply_mlp(lp["mlp"], h, cfg)
+
+
+def prefill_into_cache(params: DecoderLM, tokens: torch.Tensor, view,
+                       cfg: ModelConfig, start_pos: torch.Tensor | None = None):
+    """Run one chunk of each row's prompt and scatter its KV into the
+    paged cache -- the one prefill path (cold, prefix tail and
+    mid-prompt chunk differ only in ``start_pos``).
+
+    ``tokens[b]`` covers absolute positions ``[start_pos[b],
+    start_pos[b] + S)``; ``view.lengths`` holds the true total prompt
+    lengths, so the row's valid count is ``clip(lengths - start, 0,
+    S)``.  Padding (and positions past the table) scatter to the trash
+    page *before* the attend; a row with nothing to do writes nothing
+    and attends nothing.  Returns (logits [B, 1, V] at each row's true
+    last token ``lengths - 1 - start``, the view)."""
+    x = L.embed_tokens(params["embed"], tokens, cfg)
+    b, s, _ = x.shape
+    dev = x.device
+    bs = view.block_size
+    max_blk = view.block_tables.shape[1]
+    start = (torch.zeros(b, dtype=torch.int32, device=dev) if start_pos is None
+             else start_pos.to(torch.int32))
+    valid = torch.clamp(view.lengths - start, 0, s)
+    kv_lens = torch.where(valid > 0, start + valid, torch.zeros_like(valid))
+    ar = torch.arange(s, device=dev)
+    positions = start[:, None].long() + ar[None, :]
+    tok_ok = (ar[None, :] < valid[:, None]) & (positions // bs < max_blk)
+    col = torch.where(tok_ok, positions // bs, 0)
+    page = torch.where(tok_ok, torch.gather(view.block_tables.long(), 1, col), 0)
+    off = torch.where(tok_ok, positions % bs, 0)
+
+    def attend(p, h, kp, vp):
+        return L.mha_prefill_paged(p, h, cfg, positions, kp, vp,
+                                   view.block_tables, start, kv_lens)
+
+    for i in range(cfg.num_layers):
+        x = _block(params.layer(i), x, cfg, positions, view.k_pages[i],
+                   view.v_pages[i], page, off, attend)
+    x = L.apply_norm(params["ln_f"], x, cfg)
+    idx = torch.clamp(view.lengths - 1 - start, 0, s - 1).long()
+    x_last = torch.gather(x, 1, idx[:, None, None].expand(b, 1, x.shape[-1]))
+    return L.logits_fn(params, x_last, cfg), view
+
+
+def decode_step_paged(params: DecoderLM, view, tokens: torch.Tensor,
+                      active: torch.Tensor, cfg: ModelConfig):
+    """One continuous-batching decode step over the paged cache.
+
+    tokens [B, 1] (last sampled token per slot); active [B] bool.  Each
+    active slot's new KV goes to page ``table[len // bs]``, offset
+    ``len % bs`` (inactive slots write the trash page), then the
+    flash-decode kernel attends with lengths ``len + 1`` (0 for inactive
+    slots).  Returns (logits [B, 1, V], the view with active lengths
+    advanced by one)."""
+    x = L.embed_tokens(params["embed"], tokens, cfg)
+    b, s, _ = x.shape
+    assert s == 1, s
+    bs = view.block_size
+    pos = view.lengths
+    positions = pos[:, None].long()
+    blk_col = torch.clamp(pos // bs, 0, view.block_tables.shape[1] - 1).long()
+    blk = torch.gather(view.block_tables.long(), 1, blk_col[:, None])
+    blk = torch.where(active[:, None], blk, 0)                # trash page
+    off = torch.where(active, pos % bs, 0).long()[:, None]
+    attn_lengths = torch.where(active, pos + 1, 0).to(torch.int32)
+
+    def attend(p, h, kp, vp):
+        return L.mha_decode_paged(p, h, cfg, positions, kp, vp,
+                                  view.block_tables, attn_lengths)
+
+    for i in range(cfg.num_layers):
+        x = _block(params.layer(i), x, cfg, positions, view.k_pages[i],
+                   view.v_pages[i], blk, off, attend)
+    x = L.apply_norm(params["ln_f"], x, cfg)
+    logits = L.logits_fn(params, x, cfg)
+    new_lengths = torch.where(active, pos + 1, pos).to(torch.int32)
+    return logits, view._replace(lengths=new_lengths)

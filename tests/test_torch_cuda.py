@@ -1,0 +1,187 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card.  Every test skips without CUDA (decided inside the test, so that
+every worker collects the same tests); run them on a machine with an
+H100:
+
+    PYTHONPATH=src python -m pytest tests/test_torch_cuda.py
+
+Covers what ``chip_smoke.py`` does not: ragged M/K/N, split-K, ALU
+decode, bias and every epilogue, float32 and bfloat16 activations,
+other group sizes and block sizes (one above 48 KB of shared memory),
+zero-length rows, the wrappers' refusals, and a small engine served on
+the card against the same engine on the CPU.  Tolerance: 1e-4 of the
+reference's largest magnitude -- float32 on both sides, only the
+summation order and the library's exp differ.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import exponential_quant as eq
+from repro_torch.kernels.decode_gqa import decode_gqa_paged
+from repro_torch.kernels.decode_gqa.ref import decode_gqa_paged_ref
+from repro_torch.kernels.flash_prefill import flash_prefill_paged
+from repro_torch.kernels.flash_prefill.ref import flash_prefill_paged_ref
+from repro_torch.kernels.lut_dequant_matmul import (lut_dequant_matmul,
+                                                    lut_dequant_matmul_gated)
+from repro_torch.kernels.lut_dequant_matmul.ref import (
+    lut_dequant_matmul_gated_ref, lut_dequant_matmul_ref)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _gen(dev, seed):
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+def _qweight(shape, dev, gen):
+    w = torch.randn(shape, generator=gen, device=dev) * 0.05
+    codes, p = eq.quantize(w, 7)
+    return codes, eq.decode_table(p), eq.pack_qmeta(p)
+
+
+def _close(out, ref):
+    tol = 1e-4 * max(1.0, ref.abs().max().item())
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("m,k,n,trans,mode,epi,bias,xdt", [
+    (1, 40, 24, False, "gather", None, False, torch.float32),
+    (5, 600, 70, False, "alu", "gelu", True, torch.float32),      # split-K
+    (8, 2048, 1000, False, "gather", "silu", False, torch.bfloat16),
+    (8, 520, 77, True, "alu", "relu", True, torch.bfloat16),
+    (9, 96, 33, False, "gather", "relu", True, torch.float32),    # tiled
+    (130, 600, 150, True, "gather", "gelu", False, torch.bfloat16),
+    (200, 2048, 64, False, "alu", None, True, torch.float32),     # split-K
+])
+def test_lut_dequant_matmul_kernel(dev, m, k, n, trans, mode, epi, bias, xdt):
+    gen = _gen(dev, m + n)
+    x = torch.randn(m, k, generator=gen, device=dev).to(xdt)
+    codes, lut, qmeta = _qweight((n, k) if trans else (k, n), dev, gen)
+    b = torch.randn(n, generator=gen, device=dev) if bias else None
+    out = lut_dequant_matmul(x, codes, lut, qmeta, decode_mode=mode,
+                             epilogue=epi, bias=b, transpose_codes=trans,
+                             out_dtype=torch.float32)
+    ref = lut_dequant_matmul_ref(x, codes, lut, qmeta, epilogue=epi, bias=b,
+                                 transpose_codes=trans, decode_mode=mode)
+    _close(out, ref)
+
+
+@pytest.mark.parametrize("m,k,n,mode,act", [
+    (3, 600, 70, "gather", "silu"),
+    (8, 2048, 6144, "alu", "gelu"),
+    (70, 100, 130, "gather", "relu"),
+    (256, 2048, 200, "alu", "silu"),
+])
+def test_lut_dequant_matmul_gated_kernel(dev, m, k, n, mode, act):
+    gen = _gen(dev, m)
+    x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+    cg, lg, qg = _qweight((k, n), dev, gen)
+    cu, lu, qu = _qweight((k, n), dev, gen)
+    out = lut_dequant_matmul_gated(x, cg, cu, lg, lu, qg, qu, activation=act,
+                                   decode_mode=mode, out_dtype=torch.float32)
+    ref = lut_dequant_matmul_gated_ref(x, cg, cu, lg, lu, qg, qu,
+                                       activation=act, decode_mode=mode)
+    _close(out, ref)
+
+
+def _pages(dev, gen, b, n_kv, bs, max_blk, dtype):
+    n = 1 + b * max_blk
+    kp = torch.randn(n, bs, n_kv, 128, generator=gen, device=dev).to(dtype)
+    vp = torch.randn(n, bs, n_kv, 128, generator=gen, device=dev).to(dtype)
+    perm = torch.randperm(n - 1, generator=gen, device=dev)[: b * max_blk] + 1
+    return kp, vp, perm.reshape(b, max_blk).to(torch.int32).contiguous()
+
+
+@pytest.mark.parametrize("g,bs,s,pdt", [
+    (2, 16, 37, torch.float32),
+    (1, 8, 5, torch.bfloat16),
+    (4, 32, 64, torch.float32),
+    (2, 48, 20, torch.bfloat16),     # > 48 KB of dynamic shared memory
+])
+def test_flash_prefill_paged_kernel(dev, g, bs, s, pdt):
+    gen = _gen(dev, g * 100 + bs)
+    b, n_kv, max_blk = 4, 2, 8
+    kp, vp, bt = _pages(dev, gen, b, n_kv, bs, max_blk, pdt)
+    q = torch.randn(b, s, n_kv, g, 128, generator=gen, device=dev)
+    q_start = torch.tensor([0, 3, bs + 1, 0], dtype=torch.int32, device=dev)
+    valid = torch.tensor([s, s // 2, s, 0], dtype=torch.int32, device=dev)
+    kv_lens = torch.where(valid > 0, q_start + valid, 0).to(torch.int32)
+    out = flash_prefill_paged(q, kp, vp, bt, q_start, kv_lens)
+    ref = flash_prefill_paged_ref(q, kp, vp, bt, q_start, kv_lens)
+    _close(out, ref)
+    assert torch.all(out[3] == 0)
+
+
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("pdt", [torch.float32, torch.bfloat16])
+def test_decode_gqa_paged_kernel(dev, g, pdt):
+    gen = _gen(dev, g)
+    b, n_kv, bs, max_blk = 5, 2, 16, 6
+    kp, vp, bt = _pages(dev, gen, b, n_kv, bs, max_blk, pdt)
+    q = torch.randn(b, n_kv, g, 128, generator=gen, device=dev).to(torch.bfloat16)
+    lengths = torch.tensor([1, 0, 17, 96, 50], dtype=torch.int32, device=dev)
+    out = decode_gqa_paged(q, kp, vp, bt, lengths)
+    ref = decode_gqa_paged_ref(q, kp, vp, bt, lengths)
+    _close(out, ref)
+    assert torch.all(out[1] == 0)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    gen = _gen(dev, 0)
+    codes, lut, _ = _qweight((64, 32), dev, gen)
+    x = torch.randn(4, 128, generator=gen, device=dev)
+    with pytest.raises(ValueError):           # K mismatch
+        lut_dequant_matmul(x, codes, lut)
+    with pytest.raises(ValueError):           # non-contiguous x
+        lut_dequant_matmul(x[:, ::2], codes, lut)
+    with pytest.raises(TypeError):            # x dtype
+        lut_dequant_matmul(x[:, :64].to(torch.float16), codes, lut)
+    kp, vp, bt = _pages(dev, gen, 2, 2, 16, 4, torch.float32)
+    q = torch.randn(2, 2, 2, 64, generator=gen, device=dev)
+    with pytest.raises(ValueError):           # head_dim 64
+        decode_gqa_paged(q, kp[..., :64].contiguous(), vp[..., :64].contiguous(),
+                         bt, torch.tensor([3, 4], device=dev))
+
+
+def test_launch_counters_count_kernel_launches(dev):
+    from repro_torch.kernels import _build
+
+    gen = _gen(dev, 1)
+    codes, lut, _ = _qweight((64, 32), dev, gen)
+    x = torch.randn(4, 64, generator=gen, device=dev)
+    before = _build.launch_counts().get("lut_dequant_matmul", 0)
+    lut_dequant_matmul(x, codes, lut)
+    lut_dequant_matmul(x.cpu(), codes.cpu(), lut.cpu())    # plain version
+    assert _build.launch_counts()["lut_dequant_matmul"] == before + 1
+
+
+def test_small_engine_on_the_card_matches_the_cpu(dev):
+    """A 2-layer, head_dim-128 decoder with 7-bit codes, served on the
+    card and on the CPU from the same weights: equal token streams."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.engine import Engine, EngineConfig, Request
+
+    cfg = get_config("qwen3-1.7b").replace(
+        num_layers=2, d_model=256, num_heads=2, num_kv_heads=1, head_dim=128,
+        d_ff=512, vocab_size=1024, compute_dtype="float32")
+    ec = EngineConfig(num_slots=3, block_size=16, max_seq_len=96,
+                      prefill_chunk=32)
+    card = Engine(cfg, quant_bits=7, engine=ec, device="cuda", rng_seed=3)
+    cpu = Engine(cfg, params=copy.deepcopy(card.params).to("cpu"), engine=ec,
+                 device="cpu")
+    rng = np.random.default_rng(0)
+    reqs = lambda: [Request(i, rng_p, 10) for i, rng_p in enumerate(prompts)]
+    prompts = [rng.integers(0, 1024, n).astype(np.int32) for n in (5, 40, 70, 17)]
+    a, b = card.generate(reqs()), cpu.generate(reqs())
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x.tokens, y.tokens)
