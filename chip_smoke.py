@@ -7,18 +7,26 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
   1. the card's name and power limit; build every CUDA kernel from
      ``src/repro_torch/csrc`` (one nvcc per source, in parallel);
   2. each kernel against its plain PyTorch version on the card, at the
-     shapes the serving path gives it, with times: kernel, plain version,
+     shapes the serving paths give it, with times: kernel, plain version,
      one PyTorch library call computing the same function (a yardstick
      the port never calls), and the bound (the larger of bytes over the
      memory rate and operations over the float32 rate);
-  3. path check: a 2-layer, full-width qwen3-1.7b with the same random
+  3. path checks: a 2-layer, full-width qwen3-1.7b with the same random
      quantized weights runs one prefill chunk and a few decode steps on
-     the card (kernels) and on the CPU (plain versions); logits must
-     agree within tolerance and greedy tokens must be equal;
+     the card (kernels) and on the CPU (plain versions), first with
+     float activations and float32 pages, then with activations and KV
+     pages as codes (act-quant tables calibrated on the CPU); logits must
+     agree within tolerance (codes: four times the CPU's own spread
+     under a last-bit change of the weight tables) and greedy tokens
+     must be equal where the top-2 gap exceeds twice the tolerance;
   4. serving: full-width qwen3-1.7b (28 layers), weights random from a
      seed and quantized to 7-bit DNA-TEQ codes on the card, serves 12
      requests through ``InferenceServer.generate`` with every launch
-     counter read around that run.
+     counter read around that run;
+  5. codes serving: the same weights with activations and KV pages as
+     codes (``act_quant=7, kv_codes=True``), calibrated afresh on the
+     card, serve the same 12 requests, launch counters read around that
+     run.
 The line before the last is a JSON object of per-kernel figures; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -54,7 +62,24 @@ KERNELS = {
     "decode_gqa_paged": (
         "src/repro_torch/csrc/decode_gqa.cu",
         "src/repro/kernels/decode_gqa/decode_gqa.py:199"),
+    "lut_dequant_matmul_dual": (
+        "src/repro_torch/csrc/lut_dequant_matmul.cu",
+        "src/repro/kernels/lut_dequant_matmul/lut_dequant_matmul.py:309"),
+    "lut_dequant_matmul_dual_gated": (
+        "src/repro_torch/csrc/lut_dequant_matmul.cu",
+        "src/repro/kernels/lut_dequant_matmul/lut_dequant_matmul.py:397"),
+    "flash_prefill_paged_codes": (
+        "src/repro_torch/csrc/flash_prefill.cu",
+        "src/repro/kernels/flash_prefill/flash_prefill.py:145"),
+    "decode_gqa_paged_codes": (
+        "src/repro_torch/csrc/decode_gqa.cu",
+        "src/repro/kernels/decode_gqa/decode_gqa.py:135"),
 }
+# the kernels each serving path must launch
+FLOAT_PATH = ("lut_dequant_matmul", "lut_dequant_matmul_gated",
+              "flash_prefill_paged", "decode_gqa_paged")
+CODES_PATH = ("lut_dequant_matmul_dual", "lut_dequant_matmul_dual_gated",
+              "flash_prefill_paged_codes", "decode_gqa_paged_codes")
 
 
 class CheckFailed(Exception):
@@ -64,6 +89,22 @@ class CheckFailed(Exception):
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise CheckFailed(msg)
+
+
+def codes_err(out, ref, label: str) -> float:
+    """The uint8 tolerance: at most 1e-3 of the codes differ, each by one
+    rounding step (a last-bit float difference moves a value across a
+    rounding boundary now and then).  Returns the differing fraction."""
+    from repro_torch.core import exponential_quant as eq
+
+    require(out.dtype == ref.dtype and out.shape == ref.shape,
+            f"{label}: {out.dtype}{tuple(out.shape)} vs "
+            f"{ref.dtype}{tuple(ref.shape)}")
+    require(bool(eq.codes_agree(out, ref).all()),
+            f"{label}: codes more than one rounding step apart")
+    frac = (out != ref).float().mean().item()
+    require(frac <= 1e-3, f"{label}: {frac:.2e} of the codes differ > 1e-3")
+    return frac
 
 
 def card_line() -> str:
@@ -302,9 +343,202 @@ def check_kernels(tally: Tally) -> None:
               f"B={b} lengths<=732 max_blk={max_blk}")
 
 
+def check_codes_kernels(tally: Tally) -> None:
+    """The codes path's kernels (#3, #4, #6, #8) at its serving shapes.
+    Activation codes come from random tensors under their own fit on
+    the activation base grid; weights as in ``check_kernels``."""
+    import torch
+
+    from repro_torch.core import exponential_quant as eq
+    from repro_torch.kernels.decode_gqa import decode_gqa_paged_codes
+    from repro_torch.kernels.decode_gqa.ref import decode_gqa_paged_codes_ref
+    from repro_torch.kernels.flash_prefill import flash_prefill_paged_codes
+    from repro_torch.kernels.flash_prefill.ref import (
+        flash_prefill_paged_codes_ref)
+    from repro_torch.kernels.lut_dequant_matmul import (
+        lut_dequant_matmul_dual, lut_dequant_matmul_dual_gated)
+    from repro_torch.kernels.lut_dequant_matmul.lut_dequant_matmul import (
+        split_k)
+    from repro_torch.kernels.lut_dequant_matmul.ref import (
+        decode_weight, lut_dequant_matmul_dual_gated_ref,
+        lut_dequant_matmul_dual_ref)
+    from repro_torch.runtime.calibration import ACT_BASES
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def act_codes(*shape, scale=1.0):
+        """(codes, lut, qmeta) of a random activation under its fit."""
+        x = rnd(*shape, scale=scale)
+        p = eq.fit(x, 7, bases=ACT_BASES)
+        return eq.encode(x, p), eq.decode_table(p), eq.pack_qmeta(p)
+
+    def qweight(*shape):
+        codes, p = eq.quantize(rnd(*shape, scale=0.02), 7)
+        return codes, eq.decode_table(p), eq.pack_qmeta(p)
+
+    def out_table(y):
+        return eq.pack_qmeta(eq.fit(y, 7, bases=ACT_BASES))
+
+    def mm_tol(ref):
+        return 1e-4 * max(1.0, ref.abs().max().item())
+
+    def value_err(out, ref, qo):
+        """max |decode(out) - decode(ref)| of two code tensors."""
+        return (eq.decode_meta(out, qo) - eq.decode_meta(ref, qo)).abs().max().item()
+
+    for m in (8, 2048):
+        xs = {k: act_codes(m, k) for k in (2048, 6144)}
+        for k, n in ((2048, 2048), (2048, 1024), (6144, 2048)):
+            xc, lx, qx = xs[k]
+            c, lw, qw = qweight(k, n)
+            args = (xc, c, lx, lw, qx, qw)
+            out = lut_dequant_matmul_dual(*args)
+            ref = lut_dequant_matmul_dual_ref(*args)
+            err = (out - ref).abs().max().item()
+            require(err <= mm_tol(ref), f"dual M={m} K={k} N={n}: max err "
+                    f"{err} > {mm_tol(ref)}")
+            xf, wf = decode_weight(xc, lx, None), decode_weight(c, lw, None)
+            tally.add("lut_dequant_matmul_dual", err,
+                      time_ms(lambda: lut_dequant_matmul_dual(*args), flush=flush),
+                      time_ms(lambda: lut_dequant_matmul_dual_ref(*args),
+                              flush=flush),
+                      time_ms(lambda: torch.matmul(xf, wf), flush=flush),
+                      m * k + k * n + 2048 + m * n * 4, 2.0 * m * k * n,
+                      f"M={m} K={k} N={n}")
+        # code out (the quantize epilogue); at M = 8 under split-K, so
+        # the encode runs in the reduce pass
+        k, n = 2048, 2048
+        xc, lx, qx = xs[k]
+        c, lw, qw = qweight(k, n)
+        qo = out_table(lut_dequant_matmul_dual_ref(xc, c, lx, lw))
+        args = (xc, c, lx, lw, qx, qw)
+        splits = split_k(m, k, n, False, sms)[0]
+        require(m > 8 or splits > 1, f"M={m}: split-K expected, got {splits}")
+        out = lut_dequant_matmul_dual(*args, out_qmeta=qo)
+        ref = lut_dequant_matmul_dual_ref(*args, out_qmeta=qo)
+        frac = codes_err(out, ref, f"dual u8 M={m}")
+        xf, wf = decode_weight(xc, lx, None), decode_weight(c, lw, None)
+        tally.add("lut_dequant_matmul_dual", value_err(out, ref, qo),
+                  time_ms(lambda: lut_dequant_matmul_dual(*args, out_qmeta=qo),
+                          flush=flush),
+                  time_ms(lambda: lut_dequant_matmul_dual_ref(*args, out_qmeta=qo),
+                          flush=flush),
+                  time_ms(lambda: torch.matmul(xf, wf), flush=flush),
+                  m * k + k * n + 2048 + 16 + m * n, 2.0 * m * k * n,
+                  f"M={m} K={k} N={n} u8 out, {splits} splits, "
+                  f"{frac:.1e} flipped")
+
+    for m in (8, 2048):
+        k, n = 2048, 6144
+        xc, lx, qx = act_codes(m, k)
+        (cg, lg, qg), (cu, lu, qu) = qweight(k, n), qweight(k, n)
+        args = (xc, cg, cu, lx, lg, lu, qx, qg, qu)
+        qo = out_table(lut_dequant_matmul_dual_gated_ref(*args))
+        out = lut_dequant_matmul_dual_gated(*args, out_qmeta=qo)
+        ref = lut_dequant_matmul_dual_gated_ref(*args, out_qmeta=qo)
+        frac = codes_err(out, ref, f"dual gated M={m}")
+        xf = decode_weight(xc, lx, None)
+        wgu = torch.cat([decode_weight(cg, lg, None),
+                         decode_weight(cu, lu, None)], dim=1)
+        tally.add("lut_dequant_matmul_dual_gated", value_err(out, ref, qo),
+                  time_ms(lambda: lut_dequant_matmul_dual_gated(
+                      *args, out_qmeta=qo), flush=flush),
+                  time_ms(lambda: lut_dequant_matmul_dual_gated_ref(
+                      *args, out_qmeta=qo), flush=flush),
+                  time_ms(lambda: torch.matmul(xf, wgu), flush=flush),
+                  m * k + 2 * k * n + 3072 + 16 + m * n, 4.0 * m * k * n,
+                  f"M={m} K={k} N={n} u8 out, {frac:.1e} flipped")
+        del wgu
+
+    # codes attention at the serving shapes: 8 rows, n_kv 8, g 2, hd 128,
+    # block 16; uint8 pages under per-head tables
+    b, n_kv, g, hd, bs = 8, 8, 2, 128, 16
+    max_blk = 64
+    n_pages = 1 + b * max_blk
+    tabs = []
+    for _ in range(2):
+        x = rnd(n_pages, bs, n_kv, hd)
+        fit = eq.fit(x.permute(2, 0, 1, 3).reshape(n_kv, -1), 7,
+                     bases=ACT_BASES, stacked=True)
+        tabs += [eq.encode_meta(x, eq.pack_qmeta(fit)[:, None, :]),
+                 eq.decode_table(fit)]
+    kc, kl, vc, vl = tabs
+    perm = torch.randperm(n_pages - 1, generator=gen, device=dev)[: b * max_blk] + 1
+    bt = perm.reshape(b, max_blk).to(torch.int32).contiguous()
+    oq = out_table(rnd(1 << 16, scale=0.5))
+    kd = kl[torch.arange(n_kv, device=dev)[:, None], kc.long()]
+    vd = vl[torch.arange(n_kv, device=dev)[:, None], vc.long()]
+
+    def gathered():
+        t = max_blk * bs
+        kk = kd[bt.long()].reshape(b, t, n_kv, hd).permute(0, 2, 1, 3)
+        vv = vd[bt.long()].reshape(b, t, n_kv, hd).permute(0, 2, 1, 3)
+        return (kk.repeat_interleave(g, 1).contiguous(),
+                vv.repeat_interleave(g, 1).contiguous(), t)
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    s = 256
+    q_start = torch.tensor([0, 256, 512, 768, 128, 384, 0, 300],
+                           dtype=torch.int32, device=dev)
+    valid = torch.tensor([256, 256, 256, 200, 256, 17, 256, 0],
+                         dtype=torch.int32, device=dev)
+    kv_lens = torch.where(valid > 0, q_start + valid, 0).to(torch.int32)
+    qc, ql, _ = act_codes(b, s, n_kv, g, hd)
+    args = (qc, kc, vc, ql, kl, vl, oq, bt, q_start, kv_lens)
+    out = flash_prefill_paged_codes(*args)
+    ref = flash_prefill_paged_codes_ref(*args)
+    frac = codes_err(out, ref, "flash_prefill_paged_codes")
+    kk, vv, t = gathered()
+    qpos = q_start[:, None].long() + torch.arange(s, device=dev)[None]
+    kvpos = torch.arange(t, device=dev)
+    mask = ((kvpos[None, None] <= qpos[:, :, None])
+            & (kvpos[None, None] < kv_lens[:, None, None].long()))[:, None]
+    qs = ql[qc.long()].reshape(b, s, n_kv * g, hd).permute(0, 2, 1, 3).contiguous()
+    seen = [min(int(qp) + 1, int(kl_)) for row_qp, kl_ in
+            zip(qpos.tolist(), kv_lens.tolist()) for qp in row_qp]
+    pages_read = sum(-(-int(x) // bs) for x in kv_lens.tolist())
+    tally.add("flash_prefill_paged_codes", value_err(out, ref, oq),
+              time_ms(lambda: flash_prefill_paged_codes(*args), flush=flush),
+              time_ms(lambda: flash_prefill_paged_codes_ref(*args), flush=flush),
+              time_ms(lambda: sdpa(qs, kk, vv, attn_mask=mask), flush=flush),
+              qc.numel() + pages_read * bs * n_kv * hd * 2 + qc.numel()
+              + bt.numel() * 4 + (1 + 2 * n_kv) * 1024 + 16,
+              4.0 * n_kv * g * hd * sum(max(v, 0) for v in seen),
+              f"B={b} S={s} max_blk={max_blk}, {frac:.1e} flipped")
+
+    lengths = torch.tensor([17, 732, 400, 0, 256, 33, 600, 129],
+                           dtype=torch.int32, device=dev)
+    qc, ql, _ = act_codes(b, n_kv, g, hd)
+    args = (qc, kc, vc, ql, kl, vl, oq, bt, lengths)
+    out = decode_gqa_paged_codes(*args)
+    ref = decode_gqa_paged_codes_ref(*args)
+    frac = codes_err(out, ref, "decode_gqa_paged_codes")
+    maskd = (torch.arange(t, device=dev)[None] < lengths[:, None].long())
+    maskd = maskd[:, None, None]
+    qds = ql[qc.long()].reshape(b, n_kv * g, 1, hd)
+    pages_read = sum(-(-int(x) // bs) for x in lengths.tolist())
+    tally.add("decode_gqa_paged_codes", value_err(out, ref, oq),
+              time_ms(lambda: decode_gqa_paged_codes(*args), flush=flush),
+              time_ms(lambda: decode_gqa_paged_codes_ref(*args), flush=flush),
+              time_ms(lambda: sdpa(qds, kk, vv, attn_mask=maskd), flush=flush),
+              qc.numel() + pages_read * bs * n_kv * hd * 2 + qc.numel()
+              + bt.numel() * 4 + (1 + 2 * n_kv) * 1024 + 16,
+              4.0 * n_kv * g * hd * int(lengths.sum()),
+              f"B={b} lengths<=732 max_blk={max_blk}, {frac:.1e} flipped")
+
+
 # ------------------------------------------------ phase 3: path check --
 
 def path_check() -> None:
+    """Card against CPU on a 2-layer, full-width model: float activations
+    over float32 pages, then activations and KV pages as codes under
+    act-quant tables calibrated on the CPU."""
     import numpy as np
     import torch
 
@@ -312,6 +546,7 @@ def path_check() -> None:
     from repro_torch.core import lama_layers as ll
     from repro_torch.models import api as mapi
     from repro_torch.models.transformer import DecoderLM
+    from repro_torch.runtime import calibration as cal
     from repro_torch.runtime.paged_cache import PagedKVCache
 
     # float32 compute, so that greedy tokens are a fair equality check
@@ -328,12 +563,16 @@ def path_check() -> None:
                for n in lens]
     chunk, steps, bs = 128, 3, 16
 
-    def run(model, dev):
+    def run(model, dev, kv_dtype, feed=None):
+        """Logits of the prefill chunk and each decode step; the decode
+        steps take ``feed[i]`` as their tokens when given (the CPU's
+        greedy tokens), else this run's own argmax."""
         cache = PagedKVCache(num_layers=cfg.num_layers,
                              num_kv_heads=cfg.num_kv_heads,
                              head_dim=cfg.resolved_head_dim, num_slots=2,
                              block_size=bs, num_blocks=32,
-                             max_blocks_per_seq=16, device=dev)
+                             max_blocks_per_seq=16, dtype=kv_dtype,
+                             device=dev)
         toks = np.zeros((2, chunk), np.int32)
         for i, p in enumerate(prompts):
             cache.bind_slot(i, len(p), reserved=False)
@@ -343,7 +582,9 @@ def path_check() -> None:
         outs = [logits[:, -1].float().cpu()]
         nxt = logits[:, -1].argmax(-1)
         active = torch.ones(2, dtype=torch.bool, device=dev)
-        for _ in range(steps):
+        for step in range(steps):
+            if feed is not None:
+                nxt = feed[step].to(dev)
             for i in range(2):
                 cache.ensure_capacity(i, reserved=False)
             logits, view = api.decode_step_paged(
@@ -354,36 +595,131 @@ def path_check() -> None:
             nxt = logits[:, -1].argmax(-1)
         return outs
 
+    def rel_err(outs, refs):
+        return max((a - r).abs().max().item() / max(1.0, r.abs().max().item())
+                   for a, r in zip(outs, refs))
+
+    def compare(label, on_card, on_cpu, rel_tol):
+        """Logits within ``rel_tol`` of their scale at every step; greedy
+        tokens equal wherever the CPU's top-2 gap exceeds twice the
+        tolerance (a smaller gap may be crossed legitimately)."""
+        for step, (a, r) in enumerate(zip(on_card, on_cpu)):
+            tol = rel_tol * max(1.0, r.abs().max().item())
+            err = (a - r).abs().max().item()
+            top2 = r.topk(2, -1).values
+            gaps = top2[:, 0] - top2[:, 1]
+            clear = gaps > 2 * tol
+            print(f"  {label} step {step}: logits max err {err:.3e} (tol "
+                  f"{tol:.3e}), top-2 gaps {gaps.tolist()}", flush=True)
+            require(err <= tol, f"{label} path check step {step}: err {err} "
+                    f"> {tol}")
+            require(torch.equal(a.argmax(-1)[clear], r.argmax(-1)[clear]),
+                    f"{label} path check step {step}: greedy tokens differ")
+
     t0 = time.perf_counter()
-    on_card = run(gpu, torch.device("cuda"))
+    on_card = run(gpu, torch.device("cuda"), torch.float32)
     t1 = time.perf_counter()
-    on_cpu = run(cpu, torch.device("cpu"))
+    on_cpu = run(cpu, torch.device("cpu"), torch.float32)
     t2 = time.perf_counter()
-    for step, (a, r) in enumerate(zip(on_card, on_cpu)):
-        # float32 end to end; kernel and plain version differ only in
-        # summation order and the library's exp/rsqrt
-        tol = 1e-4 * max(1.0, r.abs().max().item())
-        err = (a - r).abs().max().item()
-        top2 = r.topk(2, -1).values
-        gap = (top2[:, 0] - top2[:, 1]).min().item()
-        print(f"  step {step}: logits max err {err:.3e} (tol {tol:.3e}), "
-              f"min top-2 gap {gap:.3e}", flush=True)
-        require(err <= tol, f"path check step {step}: err {err} > {tol}")
-        require(torch.equal(a.argmax(-1), r.argmax(-1)),
-                f"path check step {step}: greedy tokens differ")
-    print(f"  path check ok: card {t1 - t0:.2f} s, cpu {t2 - t1:.2f} s",
+    # float32 end to end; kernel and plain version differ only in
+    # summation order and the library's exp/rsqrt
+    compare("float", on_card, on_cpu, 1e-4)
+    print(f"  float path check ok: card {t1 - t0:.2f} s, cpu {t2 - t1:.2f} s",
           flush=True)
+
+    path = os.path.join(ROOT, "build", "chip_smoke_path_calib.json")
+    if os.path.exists(path):
+        os.unlink(path)
+    t0 = time.perf_counter()
+    cpu, report = cal.calibrate_act_quant(api, cpu, cfg, 7, path=path)
+    t_cal = time.perf_counter() - t0
+    gpu = copy.deepcopy(cpu).to("cuda")
+    t0 = time.perf_counter()
+    on_cpu = run(cpu, torch.device("cpu"), torch.uint8)
+    t1 = time.perf_counter()
+    # both sides decode the CPU's greedy tokens, so every step compares
+    # like with like
+    feed = [o.argmax(-1) for o in on_cpu[:-1]]
+    on_card = run(gpu, torch.device("cuda"), torch.uint8, feed)
+    t2 = time.perf_counter()
+    # Codes: a last-bit float difference (another summation order, the
+    # card's logf) flips an activation or K/V code at a rounding boundary
+    # now and then, and a flipped code moves its value by one
+    # quantization step, which flips further codes downstream: at full
+    # width the logits differ by far more than the 1e-4 of the float
+    # path.  The CPU measures that spread on itself, with every weight
+    # table scaled by (1 + 2**-22) -- a last-bit change -- and the card
+    # is held to four times it (at least 1e-3 of the scale).  A wrong
+    # table, site or mask moves the logits by a sizeable share of their
+    # scale instead.
+    spread = rel_err(run(_nudged(cpu), torch.device("cpu"), torch.uint8,
+                         feed), on_cpu)
+    print(f"  codes: CPU against itself with last-bit weight tables: logits "
+          f"differ by {spread:.3e} of their scale", flush=True)
+    compare("codes", on_card, on_cpu, max(1e-3, 4 * spread))
+    sqnr = cal.report_means(report)
+    print(f"  codes path check ok: calibration on the CPU {t_cal:.2f} s "
+          f"(mean SQNR {min(sqnr.values()):.1f}..{max(sqnr.values()):.1f} dB), "
+          f"card {t2 - t1:.2f} s, cpu {t1 - t0:.2f} s", flush=True)
+
+
+def _nudged(model):
+    """``model`` with every weight table scaled by ``1 + 2**-22`` (a change
+    in the last bits) and nothing else changed."""
+    from repro_torch.core.exponential_quant import QWeight
+
+    def walk(tree):
+        return {k: (walk(v) if isinstance(v, dict) else
+                    QWeight(v.codes, v.lut * (1 + 2 ** -22), v.qmeta)
+                    if isinstance(v, QWeight) else v)
+                for k, v in tree.items()}
+
+    return model.with_tree(walk(model.tree()))
 
 
 # ---------------------------------------------------- phase 4: serving --
 
-def serve(counts_out: dict) -> None:
+def serving_requests(cfg):
+    """The serving cell's 12 requests: prompt lengths in 17..700 and 32
+    new tokens each, from seed 0."""
     import numpy as np
+
+    from repro_torch.runtime.server import Request
+
+    rng = np.random.default_rng(0)
+    lens = rng.integers(17, 701, 12)
+    return lens, [Request(i, rng.integers(0, cfg.vocab_size, int(n))
+                          .astype(np.int32), max_new_tokens=32)
+                  for i, n in enumerate(lens)]
+
+
+def check_served(outs, reqs, cfg) -> None:
+    require(len(outs) == len(reqs), "missing completions")
+    for c in outs:
+        require(c.status == "ok", f"request {c.uid}: status {c.status}")
+        require(len(c.tokens) == 32, f"request {c.uid}: {len(c.tokens)} tokens")
+        require(bool(((c.tokens >= 0) & (c.tokens < cfg.vocab_size)).all()),
+                f"request {c.uid}: token out of range")
+
+
+def print_rates(eng, peak_gib: float) -> None:
+    print(f"  prefill {eng.prefill_tokens_computed / eng.prefill_dispatch_s:.1f} "
+          f"tok/s ({eng.prefill_tokens_computed} tokens in "
+          f"{eng.prefill_dispatch_s:.3f} s), decode "
+          f"{eng.decode_tokens / eng.decode_dispatch_s:.1f} tok/s "
+          f"({eng.decode_tokens} tokens in {eng.decode_dispatch_s:.3f} s, "
+          f"{1e3 * eng.decode_dispatch_s / eng.total_decode_steps:.2f} ms/step), "
+          f"peak memory {peak_gib:.2f} GiB, page pools {eng.cache.nbytes} B "
+          f"({eng.cache.k_pages.dtype})", flush=True)
+
+
+def serve(counts_out: dict):
+    """Phase 4; returns the completions and the page-pool bytes."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
-    from repro_torch.runtime.server import InferenceServer, Request
+    from repro_torch.runtime.server import InferenceServer
 
     cfg = get_config(ARCH)
     torch.cuda.reset_peak_memory_stats()
@@ -392,11 +728,7 @@ def serve(counts_out: dict) -> None:
                           device="cuda", rng_seed=0)
     torch.cuda.synchronize()
     t_setup = time.perf_counter() - t0
-    rng = np.random.default_rng(0)
-    lens = rng.integers(17, 701, 12)
-    new = 32
-    reqs = [Request(i, rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32),
-                    max_new_tokens=new) for i, n in enumerate(lens)]
+    lens, reqs = serving_requests(cfg)
     sqnr = [db for _, db in srv.quant_report.values()]
     print(f"  setup (random init + quantize on the card) {t_setup:.1f} s; "
           f"{len(sqnr)} tensors at 7 bits, round-trip SQNR "
@@ -410,13 +742,8 @@ def serve(counts_out: dict) -> None:
     counts = _build.launch_counts()
     counts_out.update(counts)
     eng = srv.last_engine
-    require(len(outs) == len(reqs), "missing completions")
-    for c in outs:
-        require(c.status == "ok", f"request {c.uid}: status {c.status}")
-        require(len(c.tokens) == new, f"request {c.uid}: {len(c.tokens)} tokens")
-        require(bool(((c.tokens >= 0) & (c.tokens < cfg.vocab_size)).all()),
-                f"request {c.uid}: token out of range")
-    for name in KERNELS:
+    check_served(outs, reqs, cfg)
+    for name in FLOAT_PATH:
         require(counts.get(name, 0) > 0, f"{name} never launched while serving")
     require(counts["decode_gqa_paged"] == cfg.num_layers * eng.total_decode_steps,
             f"decode_gqa_paged launches {counts['decode_gqa_paged']} != "
@@ -426,14 +753,89 @@ def serve(counts_out: dict) -> None:
           f"{eng.prefill_batches} prefill dispatches, "
           f"{eng.total_decode_steps} decode steps, launches {counts}",
           flush=True)
-    print(f"  prefill {eng.prefill_tokens_computed / eng.prefill_dispatch_s:.1f} "
-          f"tok/s ({eng.prefill_tokens_computed} tokens in "
-          f"{eng.prefill_dispatch_s:.3f} s), decode "
-          f"{eng.decode_tokens / eng.decode_dispatch_s:.1f} tok/s "
-          f"({eng.decode_tokens} tokens in {eng.decode_dispatch_s:.3f} s, "
-          f"{1e3 * eng.decode_dispatch_s / eng.total_decode_steps:.2f} ms/step), "
-          f"peak memory {peak:.2f} GiB", flush=True)
+    print_rates(eng, peak)
     print(f"  first completion tokens {outs[0].tokens[:8].tolist()}", flush=True)
+    pool = eng.cache.nbytes
+    profile_decode(srv, cfg)
+    return outs, pool
+
+
+def serve_codes(counts_out: dict, float_outs, float_pool: int) -> None:
+    """Phase 5: the same weights with activations and KV pages as codes,
+    calibrated afresh on the card (a cache file under build/, deleted
+    first, so no stale fit can stand in)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.runtime import calibration as cal
+    from repro_torch.runtime.server import InferenceServer
+
+    cfg = get_config(ARCH)
+    path = os.path.join(ROOT, "build", "chip_smoke_calib.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if os.path.exists(path):
+        os.unlink(path)
+    os.environ["REPRO_ACT_CALIB_CACHE"] = path
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    srv = InferenceServer(cfg, quant_bits=7, act_quant=7, kv_codes=True,
+                          num_slots=8, prefill_chunk=256, device="cuda",
+                          rng_seed=0)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    lens, reqs = serving_requests(cfg)
+    t0 = time.perf_counter()
+    eng = srv.make_engine(reqs)          # calibrates, on the card
+    torch.cuda.synchronize()
+    t_cal = time.perf_counter() - t0
+    require(os.path.exists(path), "calibration wrote no cache entry")
+    sqnr = cal.report_means(eng.act_report)
+    print(f"  setup {t_setup:.1f} s; calibration on the card {t_cal:.2f} s, "
+          f"mean SQNR per site (dB): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in sqnr.items()), flush=True)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = srv.generate(reqs)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    counts_out.update(counts)
+    require(srv.last_engine is eng, "the calibrated engine was not reused")
+    check_served(outs, reqs, cfg)
+    for name in CODES_PATH:
+        require(counts.get(name, 0) > 0, f"{name} never launched while "
+                f"serving codes")
+    require(counts["decode_gqa_paged_codes"]
+            == cfg.num_layers * eng.total_decode_steps,
+            f"decode_gqa_paged_codes launches "
+            f"{counts['decode_gqa_paged_codes']} != {cfg.num_layers} x "
+            f"{eng.total_decode_steps} decode steps")
+    for name in ("flash_prefill_paged", "decode_gqa_paged",
+                 "lut_dequant_matmul_gated"):
+        require(counts.get(name, 0) == 0, f"{name} launched "
+                f"{counts.get(name)} times while serving codes")
+    dispatches = eng.prefill_batches + eng.total_decode_steps
+    require(counts.get("lut_dequant_matmul", 0) == dispatches,
+            f"lut_dequant_matmul launched {counts.get('lut_dequant_matmul')} "
+            f"times, not once per dispatch ({dispatches}): only the tied "
+            f"unembedding may take float activations")
+    require(eng.cache.k_pages.dtype == torch.uint8, "pages are not uint8")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  served {len(outs)} requests in {t_run:.2f} s: "
+          f"{eng.prefill_batches} prefill dispatches, "
+          f"{eng.total_decode_steps} decode steps, launches {counts}",
+          flush=True)
+    print_rates(eng, peak)
+    agree = np.mean([np.mean(a.tokens == b.tokens)
+                     for a, b in zip(float_outs, outs)])
+    print(f"  page pools {eng.cache.nbytes} B uint8 vs {float_pool} B "
+          f"float32 ({eng.cache.nbytes / float_pool:.3f}x); greedy-token "
+          f"agreement with the float-activation run {agree:.4f} (random "
+          f"weights: printed, not gated); attention counters: bytes read "
+          f"{eng.attn_bytes_read}, activation bytes {eng.attn_act_bytes}, "
+          f"dequants {eng.attn_dequants}", flush=True)
     profile_decode(srv, cfg)
 
 
@@ -493,10 +895,13 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}",
           flush=True)
-    t0 = time.perf_counter()
+    start = time.perf_counter()
+
+    def phase(msg: str) -> None:
+        print(f"{msg} (at {time.perf_counter() - start:.0f} s)", flush=True)
+
     logs = _build.build_all()
-    print(f"phase 1: built {len(logs)} kernel libraries in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    phase(f"phase 1: built {len(logs)} kernel libraries")
     for name, log in logs.items():
         regs = [int(w) for line in log.splitlines() if "registers" in line
                 for w, nxt in zip(line.split(), line.split()[1:])
@@ -507,14 +912,19 @@ def main() -> int:
               f" per thread, {'spills: ' + '; '.join(spills) if spills else 'no spills'}")
 
     try:
-        print("phase 2: kernels vs plain versions on the card", flush=True)
+        phase("phase 2: kernels vs plain versions on the card")
         tally = Tally()
         check_kernels(tally)
-        print("phase 3: 2-layer full-width path check, card vs CPU", flush=True)
+        check_codes_kernels(tally)
+        phase("phase 3: 2-layer full-width path checks, card vs CPU")
         path_check()
-        print("phase 4: serving full-width qwen3-1.7b, 7-bit codes", flush=True)
+        phase("phase 4: serving full-width qwen3-1.7b, 7-bit codes")
         counts: dict = {}
-        serve(counts)
+        float_outs, float_pool = serve(counts)
+        phase("phase 5: serving with activations and KV pages as codes")
+        codes_counts: dict = {}
+        serve_codes(codes_counts, float_outs, float_pool)
+        phase("all phases passed")
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -523,8 +933,9 @@ def main() -> int:
     for name, (src, replaces) in KERNELS.items():
         r = tally.rows[name]
         _, by = bound_ms(r["nbytes"], r["flops"])
+        launched = (codes_counts if name in CODES_PATH else counts).get(name, 0)
         rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces, "launches": counts.get(name, 0),
+                     "replaces": replaces, "launches": launched,
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": by, "library_ms": r["library_ms"]})

@@ -5,8 +5,10 @@ nothing of JAX); :func:`params_from_jax` copies them byte for byte into
 a :class:`~repro_torch.models.transformer.DecoderLM`, so both sides
 compute with the same values.  It handles float leaves (bfloat16
 included), qtensor leaves ``{codes, lut, qmeta}`` (per-tensor or
-layer-stacked), the stacked blocks, the qk-norm scales and the tied
-``embed.tokens`` table.
+layer-stacked), the stacked blocks, the qk-norm scales, the tied
+``embed.tokens`` table and the calibrated act-quant tables
+``blocks.act_q[site] = {lut, qmeta}`` (per KV head for attn_k/attn_v),
+so a reference-calibrated tree serves identically in the port.
 """
 
 from __future__ import annotations

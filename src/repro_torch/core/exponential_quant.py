@@ -58,6 +58,32 @@ class QWeight(nn.Module):
         return QWeight(self.codes[i], self.lut[i], self.qmeta[i])
 
 
+class QTensor(NamedTuple):
+    """The activation carrier: uint8 ``codes`` (the logical shape), their
+    decode table ``lut`` ``[256]`` and packed params ``qmeta`` ``[4]``.
+    The counterpart of the reference's ``eq.QTensor``; activations flow
+    between quantized matmuls in it, never decoded outside a kernel on
+    the fused path.  :func:`is_qtensor` and :func:`qt_parts` treat it and
+    :class:`QWeight` alike."""
+
+    codes: torch.Tensor
+    lut: torch.Tensor
+    qmeta: torch.Tensor
+
+    @property
+    def shape(self) -> torch.Size:
+        return self.codes.shape
+
+    @property
+    def ndim(self) -> int:
+        return self.codes.ndim
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The carrier's decode dtype (what consumers compute in)."""
+        return self.lut.dtype
+
+
 def _bcast(p: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """A ``[L]`` parameter against a ``[L, ...]`` tensor."""
     return p.reshape(p.shape + (1,) * (x.ndim - p.ndim)) if p.ndim else p
@@ -135,6 +161,19 @@ def decode_meta(codes: torch.Tensor, qmeta: torch.Tensor,
     e = (c & 0x7F).to(F32) + e_min
     mag = alpha * torch.exp(e * torch.log(base)) + beta
     return (sign * mag).to(dtype)
+
+
+def codes_agree(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise: the codes are equal, or one rounding step apart --
+    adjacent exponents of the same sign, or the smallest magnitude under
+    the two signs.  Two encoders of the same value differ by no more
+    than this when their float inputs or their ``log`` differ in the last
+    bits."""
+    a, b = a.to(torch.int32), b.to(torch.int32)
+    ea, eb = a & 0x7F, b & 0x7F
+    same_sign = (a >> 7) == (b >> 7)
+    return ((a == b) | (same_sign & ((ea - eb).abs() == 1))
+            | (~same_sign & (ea == 0) & (eb == 0)))
 
 
 # ----------------------------------------------------------------- fit --
@@ -276,9 +315,11 @@ def pack_qtensor(codes: torch.Tensor, params: ExpQuantParams,
 
 
 def is_qtensor(leaf) -> bool:
-    return isinstance(leaf, QWeight)
+    """True for either carrier: a weight :class:`QWeight` or an
+    activation :class:`QTensor`."""
+    return isinstance(leaf, (QWeight, QTensor))
 
 
-def qt_parts(leaf: QWeight):
-    """(codes, lut, qmeta) of a quantized carrier."""
+def qt_parts(leaf):
+    """(codes, lut, qmeta) of either carrier."""
     return leaf.codes, leaf.lut, leaf.qmeta

@@ -11,10 +11,16 @@ unembedding ``'bsd,vd->bsv'`` runs the kernel's transposed-codes layout.
 Float weights go to ``torch.matmul``/``torch.einsum`` in float32, as the
 reference leaves them to XLA.
 
-Of the reference's ``FusedPolicy`` only ``decode_mode`` (``gather``, the
-default, or ``alu``) is ported; the materialize, unfused-epilogue and
-``flash_decode=False`` A/B modes and the activation-as-codes paths are
-later ROADMAP items.
+An activation may arrive as a :class:`~repro_torch.core.exponential_quant.QTensor`
+(encoded by :func:`encode_act` at a calibrated site, or emitted by a
+kernel's quantize epilogue).  Against quantized weights it takes the
+dual-LUT kernels, and ``out_quant`` returns the result as codes too, so
+consecutive quantized matmuls are code-in/code-out.
+
+Of the reference's ``FusedPolicy``, ``decode_mode`` (``gather``, the
+default, or ``alu``) and ``act_quant`` (the A/B switch for calibrated
+activation tables) are ported; the materialize, unfused-epilogue and
+``flash_decode=False`` A/B modes are later ROADMAP items.
 """
 
 from __future__ import annotations
@@ -37,6 +43,9 @@ F32 = torch.float32
 @dataclasses.dataclass(frozen=True)
 class FusedPolicy:
     decode_mode: str = "gather"     # gather | alu
+    act_quant: bool = True          # honor act-quant tables when present
+                                    # (False A/B-disables encoding without
+                                    # re-calibrating)
 
 
 _POLICY = FusedPolicy()
@@ -59,10 +68,27 @@ def policy(**overrides):
 
 
 def materialize(w, dtype=torch.bfloat16) -> torch.Tensor:
-    """Decode a quantized weight to a dense tensor of ``dtype``."""
+    """Decode a quantized carrier (weight or activation) to a dense
+    tensor of ``dtype``: the only place codes become floats outside a
+    kernel."""
     if eq.is_qtensor(w):
         return w.lut.to(dtype)[w.codes.long()]
     return w.to(dtype)
+
+
+def encode_act(x: torch.Tensor, aq: dict) -> eq.QTensor:
+    """Encode an activation under one calibrated site entry ``{"lut":
+    [256], "qmeta": [4]}`` (a layer's slice of ``blocks.act_q``)."""
+    return eq.QTensor(eq.encode_meta(x, aq["qmeta"]), aq["lut"], aq["qmeta"])
+
+
+def maybe_encode_act(x, act_q, site: str):
+    """Encode ``x`` when ``act_q`` holds ``site`` and the policy honors
+    act-quant tables; pass the float through otherwise."""
+    if (act_q is None or not _POLICY.act_quant
+            or not isinstance(act_q, dict) or site not in act_q):
+        return x
+    return encode_act(x, act_q[site])
 
 
 # ----------------------------------------------------------------------
@@ -121,10 +147,20 @@ def _fused_einsum(x, w: eq.QWeight, plan: _EinsumPlan, spec: str,
     """Run a canonicalized einsum against codes through the fused
     kernel.  A pure 2-D ``[N, K]`` weight (the tied unembedding) uses the
     kernel's transposed-codes layout; batched specs loop the kernel over
-    the batch (the reference vmaps it)."""
+    the batch (the reference vmaps it).  An activation ``QTensor`` ``x``
+    takes its transposes and reshapes as bytes and runs the dual kernel,
+    except against the transposed layout, which has no dual variant:
+    there (only there) the carrier is decoded to float32 first, as in
+    the reference."""
     codes = w.codes
+    kernel_transpose = (not plan.batch and codes.ndim == 2
+                        and plan.w_perm == (1, 0))
+    if isinstance(x, eq.QTensor) and kernel_transpose:
+        x = materialize(x, F32)
+    x_is_q = isinstance(x, eq.QTensor)
+    xarr = x.codes if x_is_q else x
     xs, ws = spec.replace(" ", "").split("->")[0].split(",")
-    xdims = dict(zip(xs, x.shape))
+    xdims = dict(zip(xs, xarr.shape))
     wdims = dict(zip(ws, codes.shape))
     for l in plan.contract + plan.batch:
         if xdims[l] != wdims[l]:
@@ -136,13 +172,17 @@ def _fused_einsum(x, w: eq.QWeight, plan: _EinsumPlan, spec: str,
     n_shape = tuple(wdims[l] for l in plan.wfree)
     b, m, k, n = (math.prod(b_shape), math.prod(m_shape),
                   math.prod(k_shape), math.prod(n_shape))
-    xt = _maybe_permute(x, plan.x_perm)
-    kernel_transpose = (not plan.batch and codes.ndim == 2
-                        and plan.w_perm == (1, 0))
+    xt = _maybe_permute(xarr, plan.x_perm)
     ct = codes if kernel_transpose else _maybe_permute(codes, plan.w_perm)
-    call = functools.partial(_ops.lut_dequant_matmul, lut=w.lut,
-                             qmeta=w.qmeta, decode_mode=_POLICY.decode_mode,
-                             out_dtype=F32)
+    if x_is_q:
+        call = functools.partial(_ops.lut_dequant_matmul_dual, lut_x=x.lut,
+                                 lut_w=w.lut, qmeta_x=x.qmeta, qmeta_w=w.qmeta,
+                                 decode_mode=_POLICY.decode_mode)
+    else:
+        call = functools.partial(_ops.lut_dequant_matmul, lut=w.lut,
+                                 qmeta=w.qmeta,
+                                 decode_mode=_POLICY.decode_mode,
+                                 out_dtype=F32)
     if plan.batch:
         x3 = xt.reshape(b, m, k)
         c3 = ct.reshape(b, k, n)
@@ -156,55 +196,102 @@ def _fused_einsum(x, w: eq.QWeight, plan: _EinsumPlan, spec: str,
     return _maybe_permute(out, plan.out_perm).to(cdtype)
 
 
-def dense(x: torch.Tensor, w, *, dtype=None, epilogue: str | None = None,
-          bias=None) -> torch.Tensor:
-    """``act(x @ w + bias)``, contracting x's last axis with w's first."""
-    cdtype = dtype or x.dtype
+def _finish_out(out: torch.Tensor, out_quant: dict | None):
+    """Encode under the requested output site (a ``QTensor`` comes back)
+    or pass the float through: the tail of every path whose epilogue did
+    not encode in-kernel."""
+    if out_quant is not None:
+        return encode_act(out, out_quant)
+    return out
+
+
+def _as_float(x, cdtype) -> torch.Tensor:
+    return materialize(x, cdtype) if isinstance(x, eq.QTensor) else x.to(cdtype)
+
+
+def dense(x, w, *, dtype=None, epilogue: str | None = None, bias=None,
+          out_quant: dict | None = None):
+    """``act(x @ w + bias)``, contracting x's last axis with w's first.
+
+    ``x`` may be an activation ``QTensor``: against 2-D codes both
+    operands then cross as codes through the dual kernel, and
+    ``out_quant`` (a site entry ``{"lut", "qmeta"}``) re-encodes the
+    result in the kernel and returns a ``QTensor``."""
+    x_is_q = isinstance(x, eq.QTensor)
+    cdtype = dtype or (F32 if x_is_q else x.dtype)
     if eq.is_qtensor(w) and w.codes.ndim == 2:
         lead = x.shape[:-1]
-        out = _ops.lut_dequant_matmul(
-            x.reshape(-1, x.shape[-1]).contiguous(), w.codes, w.lut, w.qmeta,
-            decode_mode=_POLICY.decode_mode, epilogue=epilogue, bias=bias,
-            out_dtype=F32)
-        return out.reshape(lead + (w.codes.shape[-1],)).to(cdtype)
+        n = w.codes.shape[-1]
+        if x_is_q:
+            out = _ops.lut_dequant_matmul_dual(
+                x.codes.reshape(-1, x.shape[-1]).contiguous(), w.codes,
+                x.lut, w.lut, x.qmeta, w.qmeta,
+                decode_mode=_POLICY.decode_mode, epilogue=epilogue, bias=bias,
+                out_qmeta=None if out_quant is None else out_quant["qmeta"])
+            if out_quant is not None:
+                return eq.QTensor(out.reshape(lead + (n,)), out_quant["lut"],
+                                  out_quant["qmeta"])
+        else:
+            out = _ops.lut_dequant_matmul(
+                x.reshape(-1, x.shape[-1]).contiguous(), w.codes, w.lut,
+                w.qmeta, decode_mode=_POLICY.decode_mode, epilogue=epilogue,
+                bias=bias, out_dtype=F32)
+        return _finish_out(out.reshape(lead + (n,)).to(cdtype), out_quant)
     wf = materialize(w, cdtype)
-    out = torch.matmul(x.to(cdtype).to(F32), wf.to(F32))
+    out = torch.matmul(_as_float(x, cdtype).to(F32), wf.to(F32))
     if bias is not None:
         out = out + bias.to(F32)
-    return apply_activation(out, epilogue).to(cdtype)
+    return _finish_out(apply_activation(out, epilogue).to(cdtype), out_quant)
 
 
-def dense_general(x: torch.Tensor, w, contract_spec: str, *,
-                  dtype=None) -> torch.Tensor:
-    """Einsum with a possibly quantized weight, e.g. ``'bsd,dnh->bsnh'``."""
-    cdtype = dtype or x.dtype
+def dense_general(x, w, contract_spec: str, *, dtype=None) -> torch.Tensor:
+    """Einsum with a possibly quantized weight, e.g. ``'bsd,dnh->bsnh'``;
+    ``x`` may be an activation ``QTensor``."""
+    cdtype = dtype or (F32 if isinstance(x, eq.QTensor) else x.dtype)
     if eq.is_qtensor(w):
         plan = _einsum_plan(contract_spec)
         wspec = contract_spec.replace(" ", "").split("->")[0].split(",")[1]
         if plan is not None and w.codes.ndim == len(wspec):
             return _fused_einsum(x, w, plan, contract_spec, cdtype)
     wf = materialize(w, cdtype)
-    return torch.einsum(contract_spec, x.to(cdtype).to(F32),
+    return torch.einsum(contract_spec, _as_float(x, cdtype).to(F32),
                         wf.to(F32)).to(cdtype)
 
 
-def gated_mlp(x: torch.Tensor, w_gate, w_up, activation: str, *,
-              dtype=None) -> torch.Tensor:
+def gated_mlp(x, w_gate, w_up, activation: str, *, dtype=None,
+              out_quant: dict | None = None):
     """``act(x @ w_gate) * (x @ w_up)``: one gated kernel when both
-    weights are quantized 2-D codes of one shape, else two dense calls."""
-    cdtype = dtype or x.dtype
+    weights are quantized 2-D codes of one shape, else two dense calls.
+    An activation ``QTensor`` ``x`` takes the dual-gated kernel, and
+    ``out_quant`` re-encodes the gated result in the kernel (a
+    ``QTensor`` comes back) so the down projection reads codes."""
+    x_is_q = isinstance(x, eq.QTensor)
+    cdtype = dtype or (F32 if x_is_q else x.dtype)
     if (eq.is_qtensor(w_gate) and eq.is_qtensor(w_up)
             and w_gate.codes.ndim == 2
             and w_gate.codes.shape == w_up.codes.shape):
         lead = x.shape[:-1]
-        out = _ops.lut_dequant_matmul_gated(
-            x.reshape(-1, x.shape[-1]).contiguous(), w_gate.codes,
-            w_up.codes, w_gate.lut, w_up.lut, w_gate.qmeta, w_up.qmeta,
-            activation=activation, decode_mode=_POLICY.decode_mode,
-            out_dtype=F32)
-        return out.reshape(lead + (w_gate.codes.shape[-1],)).to(cdtype)
+        n = w_gate.codes.shape[-1]
+        if x_is_q:
+            out = _ops.lut_dequant_matmul_dual_gated(
+                x.codes.reshape(-1, x.shape[-1]).contiguous(), w_gate.codes,
+                w_up.codes, x.lut, w_gate.lut, w_up.lut, x.qmeta,
+                w_gate.qmeta, w_up.qmeta, activation=activation,
+                out_qmeta=None if out_quant is None else out_quant["qmeta"],
+                decode_mode=_POLICY.decode_mode)
+            if out_quant is not None:
+                return eq.QTensor(out.reshape(lead + (n,)), out_quant["lut"],
+                                  out_quant["qmeta"])
+        else:
+            out = _ops.lut_dequant_matmul_gated(
+                x.reshape(-1, x.shape[-1]).contiguous(), w_gate.codes,
+                w_up.codes, w_gate.lut, w_up.lut, w_gate.qmeta, w_up.qmeta,
+                activation=activation, decode_mode=_POLICY.decode_mode,
+                out_dtype=F32)
+        return _finish_out(out.reshape(lead + (n,)).to(cdtype), out_quant)
     g = dense(x, w_gate, dtype=cdtype, epilogue=activation)
-    return (g * dense(x, w_up, dtype=cdtype)).to(cdtype)
+    out = (g * dense(x, w_up, dtype=cdtype)).to(cdtype)
+    return _finish_out(out, out_quant)
 
 
 def embed_lookup(w, idx: torch.Tensor, dtype) -> torch.Tensor:

@@ -1,7 +1,10 @@
 // Flash decode over a paged KV cache, Hopper (sm_90a).
 //
 // Replaces src/repro/kernels/decode_gqa/decode_gqa.py:
-//   decode_gqa_paged_kernel (#7) (body _paged_kernel -> _kernel).
+//   decode_gqa_paged_kernel (#7) (body _paged_kernel -> _kernel), and
+//   decode_gqa_paged_codes_kernel (#8): uint8 q and pages decoded through
+//   per-KV-head tables in shared memory, the context encoded to uint8 at
+//   the flush.  Bound by the page bytes, which are 1 B per element there.
 // One query per row, masked by lengths[b]: the shared body of
 // paged_attention.cuh with S = 1 and the query at position len-1.  A
 // block owns one (row, KV head) and its g query heads (R = g), so every
@@ -34,4 +37,37 @@ extern "C" int decode_gqa_paged_launch(
       return (int)cudaErrorInvalidValue;
   }
 #undef REPRO_DECODE_CASE
+}
+
+// Codes mode: q_codes [B, n_kv, g, 128] and pages uint8; q_lut [256],
+// k_lut/v_lut [n_kv, 256], out_qmeta [4] float32; out uint8 of q's shape.
+extern "C" int decode_gqa_paged_codes_launch(
+    const void* q_codes, const void* k_pages, const void* v_pages,
+    const void* q_lut, const void* k_lut, const void* v_lut,
+    const void* out_qmeta, const void* block_tables, const void* lengths,
+    void* out, int B, int n_kv, int g, int hd, int bs, int max_blk,
+    float scale, void* stream) {
+  if (hd != paged::HD || bs < 1 || bs > 64) return (int)cudaErrorInvalidValue;
+  const int* bt = static_cast<const int*>(block_tables);
+  const int* ln = static_cast<const int*>(lengths);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const paged::Codes codes{static_cast<const float*>(q_lut),
+                           static_cast<const float*>(k_lut),
+                           static_cast<const float*>(v_lut),
+                           static_cast<const float*>(out_qmeta)};
+#define REPRO_DECODE_CODES_CASE(G)                                       \
+  case G:                                                                \
+    return (int)paged::launch_codes<G>(q_codes, k_pages, v_pages, bt,    \
+                                       nullptr, ln, out, B, 1, n_kv, g,  \
+                                       bs, max_blk, scale, 1, 1, st,     \
+                                       codes);
+  switch (g) {
+    REPRO_DECODE_CODES_CASE(1)
+    REPRO_DECODE_CODES_CASE(2)
+    REPRO_DECODE_CODES_CASE(4)
+    REPRO_DECODE_CODES_CASE(8)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef REPRO_DECODE_CODES_CASE
 }

@@ -4,6 +4,9 @@
 //   src/repro/kernels/lut_dequant_matmul/lut_dequant_matmul.py:
 //     lut_dequant_matmul_kernel        (#1)  y = act(x @ dec(codes) + bias)
 //     lut_dequant_matmul_gated_kernel  (#2)  y = act(x @ dec(cg)) * (x @ dec(cu))
+//     lut_dequant_matmul_dual_kernel   (#3)  y = act(dec_a(xc) @ dec(codes) + bias)
+//     lut_dequant_matmul_dual_gated_kernel (#4)
+//                                            y = act(dec_a(xc) @ dec(cg)) * (dec_a(xc) @ dec(cu))
 //
 // dec() maps uint8 DNA-TEQ codes through a 256-entry table.  The table is
 // loaded into shared memory once per block ("gather" mode) or computed
@@ -24,10 +27,27 @@
 // Layouts: codes [K, N], or [N, K] (transposed: the tied unembedding),
 // where the transpose happens while a decoded tile is stored to shared
 // memory, never on the table in device memory.
+//
+// Dual variants (#3, #4; XT = uint8_t): x arrives as uint8 activation
+// codes and decodes through its own table in shared memory (gather or
+// ALU form) while the x tile is staged, so activations cross device
+// memory at 1 B/element too.  The ragged K edge stores 0.0 *after*
+// decode: code 0 is a live code (it decodes to +-(alpha*base^e_min +
+// beta)), so a past-K element must never be "load code 0".  With an out
+// qmeta the epilogue is bias, activation (gated: act(g)*u), then the
+// DNA-TEQ encode (dnateq.cuh), writing uint8; under split-K it runs only
+// in the reduce pass, after the partials are summed, never per split.
+// At decode the dual GEMMs are bound by the weight-code bytes like #1/#2
+// (the activation codes are a quarter of the float32 x bytes); at
+// prefill by the float32 FMAs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "dnateq.cuh"
 
 namespace {
 
@@ -67,18 +87,53 @@ __device__ __forceinline__ void fill_table(float* s_lut, const float* lut,
 }
 
 struct Args {
-  const void* x;
+  const void* x;        // [M, K] float32, bfloat16 or uint8 codes
   const uint8_t* c0;
   const uint8_t* c1;
   const float* lut0;
   const float* lut1;
   const float* qm0;
   const float* qm1;
+  const float* lutx;    // activation-code table and params (uint8 x only)
+  const float* qmx;
+  const float* qmo;     // out params: encode to uint8 when set
   const float* bias;
-  float* out;
+  void* out;            // [M, N] float32, or uint8 when qmo is set
   float* ws;  // [NW, splits, M, N] partial sums when splits > 1
   int M, K, N, k_per_split, alu, act;
 };
+
+// One element of x as float32: a float operand converted, or an
+// activation code decoded through the shared-memory table.
+template <typename XT>
+__device__ __forceinline__ float load_x(const XT* x, size_t i,
+                                        const float* s_xlut) {
+  if constexpr (std::is_same<XT, uint8_t>::value) {
+    return s_xlut[x[i]];
+  } else {
+    return to_f32(x[i]);
+  }
+}
+
+// The epilogue of one output element: bias and activation (gated:
+// act(g) * u), then either a float32 store or the DNA-TEQ encode.
+template <bool GATED>
+__device__ __forceinline__ void finish(const Args& a, size_t i, int n,
+                                       float v0, float v1) {
+  float v;
+  if (GATED) {
+    v = act_fn(v0, a.act) * v1;
+  } else {
+    v = v0;
+    if (a.bias) v += a.bias[n];
+    v = act_fn(v, a.act);
+  }
+  if (a.qmo) {
+    static_cast<uint8_t*>(a.out)[i] = dnateq::encode(v, a.qmo);
+  } else {
+    static_cast<float*>(a.out)[i] = v;
+  }
+}
 
 // Flush one output element, or park its partial sum for the reduce pass.
 template <bool GATED>
@@ -86,15 +141,7 @@ __device__ __forceinline__ void emit(const Args& a, int m, int n, float v0,
                                      float v1) {
   const int splits = gridDim.z;
   if (splits == 1) {
-    float v;
-    if (GATED) {
-      v = act_fn(v0, a.act) * v1;
-    } else {
-      v = v0;
-      if (a.bias) v += a.bias[n];
-      v = act_fn(v, a.act);
-    }
-    a.out[(size_t)m * a.N + n] = v;
+    finish<GATED>(a, (size_t)m * a.N + n, n, v0, v1);
   } else {
     const size_t mn = (size_t)a.M * a.N;
     a.ws[(size_t)blockIdx.z * mn + (size_t)m * a.N + n] = v0;
@@ -111,7 +158,9 @@ constexpr int TM = 128, TN = 128, TK = 16;
 template <typename XT, bool TRANS, bool GATED>
 __global__ void __launch_bounds__(256) lut_mm_tiled(Args a) {
   constexpr int NW = GATED ? 2 : 1;
+  constexpr bool XC = std::is_same<XT, uint8_t>::value;
   __shared__ float s_lut[NW][256];
+  __shared__ float s_xlut[XC ? 256 : 1];
   __shared__ __align__(16) float As[TK][TM + 4];
   __shared__ __align__(16) float Bs[NW][TK][TN + 4];
 
@@ -122,6 +171,7 @@ __global__ void __launch_bounds__(256) lut_mm_tiled(Args a) {
   const int ke = min(a.K, kb + a.k_per_split);
   fill_table(s_lut[0], a.lut0, a.qm0, a.alu);
   if (GATED) fill_table(s_lut[1], a.lut1, a.qm1, a.alu);
+  if constexpr (XC) fill_table(s_xlut, a.lutx, a.qmx, a.alu);
   const int tr = tid >> 4, tc = tid & 15;
 
   float acc[NW][8][8];
@@ -140,7 +190,7 @@ __global__ void __launch_bounds__(256) lut_mm_tiled(Args a) {
       for (int i = 0; i < 8; ++i) {
         const int gk = k0 + kk + i;
         As[kk + i][r] = (gm < a.M && gk < ke)
-                            ? to_f32(x[(size_t)gm * a.K + gk]) : 0.0f;
+                            ? load_x(x, (size_t)gm * a.K + gk, s_xlut) : 0.0f;
       }
     }
 #pragma unroll
@@ -211,7 +261,9 @@ constexpr int SM = 8, SN = 64, SKC = 256;
 template <typename XT, bool GATED>
 __global__ void __launch_bounds__(256) lut_mm_skinny(Args a) {
   constexpr int NW = GATED ? 2 : 1;
+  constexpr bool XC = std::is_same<XT, uint8_t>::value;
   __shared__ float s_lut[NW][256];
+  __shared__ float s_xlut[XC ? 256 : 1];
   __shared__ float s_x[SM][SKC];
   __shared__ float s_red[NW][8][SM][SN];
 
@@ -223,6 +275,7 @@ __global__ void __launch_bounds__(256) lut_mm_skinny(Args a) {
   const int ke = min(a.K, kb + a.k_per_split);
   fill_table(s_lut[0], a.lut0, a.qm0, a.alu);
   if (GATED) fill_table(s_lut[1], a.lut1, a.qm1, a.alu);
+  if constexpr (XC) fill_table(s_xlut, a.lutx, a.qmx, a.alu);
 
   float acc[NW][SM][4];
 #pragma unroll
@@ -237,8 +290,8 @@ __global__ void __launch_bounds__(256) lut_mm_skinny(Args a) {
     __syncthreads();
     for (int i = tid; i < SM * SKC; i += 256) {
       const int m = i / SKC, kk = i % SKC;
-      s_x[m][kk] = (m < a.M && kk < kc) ? to_f32(x[(size_t)m * a.K + k0 + kk])
-                                        : 0.0f;
+      s_x[m][kk] = (m < a.M && kk < kc)
+                       ? load_x(x, (size_t)m * a.K + k0 + kk, s_xlut) : 0.0f;
     }
     __syncthreads();
     for (int kk = kl; kk < kc; kk += 16) {
@@ -371,22 +424,15 @@ __global__ void lut_mm_reduce(Args a, int splits) {
   if (i >= mn) return;
   float s0 = 0.0f, s1 = 0.0f;
   for (int z = 0; z < splits; ++z) s0 += a.ws[(size_t)z * mn + i];
-  float v;
-  if (GATED) {
+  if (GATED)
     for (int z = 0; z < splits; ++z) s1 += a.ws[(size_t)(splits + z) * mn + i];
-    v = act_fn(s0, a.act) * s1;
-  } else {
-    v = s0;
-    if (a.bias) v += a.bias[i % a.N];
-    v = act_fn(v, a.act);
-  }
-  a.out[i] = v;
+  finish<GATED>(a, i, (int)(i % a.N), s0, s1);
 }
 
 template <typename XT, bool TRANS, bool GATED>
 void launch(const Args& a, int splits, cudaStream_t st) {
   if (a.M <= SM) {
-    if (TRANS) {
+    if constexpr (TRANS) {
       dim3 grid((a.N + 8 * TCPW - 1) / (8 * TCPW), 1, splits);
       lut_mm_skinny_t<XT><<<grid, 256, 0, st>>>(a);
     } else {
@@ -403,6 +449,35 @@ void launch(const Args& a, int splits, cudaStream_t st) {
   }
 }
 
+// Every field of Args; the operands a variant does not use are null.
+Args make_args(const void* x, const void* c0, const void* c1,
+               const void* lut0, const void* lut1, const void* qm0,
+               const void* qm1, const void* lutx, const void* qmx,
+               const void* qmo, const void* bias, void* out, void* ws, int M,
+               int K, int N, int k_per_split, int alu, int act) {
+  Args a;
+  a.x = x;
+  a.c0 = static_cast<const uint8_t*>(c0);
+  a.c1 = static_cast<const uint8_t*>(c1);
+  a.lut0 = static_cast<const float*>(lut0);
+  a.lut1 = static_cast<const float*>(lut1);
+  a.qm0 = static_cast<const float*>(qm0);
+  a.qm1 = static_cast<const float*>(qm1);
+  a.lutx = static_cast<const float*>(lutx);
+  a.qmx = static_cast<const float*>(qmx);
+  a.qmo = static_cast<const float*>(qmo);
+  a.bias = static_cast<const float*>(bias);
+  a.out = out;
+  a.ws = static_cast<float*>(ws);
+  a.M = M;
+  a.K = K;
+  a.N = N;
+  a.k_per_split = k_per_split;
+  a.alu = alu;
+  a.act = act;
+  return a;
+}
+
 }  // namespace
 
 extern "C" {
@@ -416,11 +491,9 @@ int lut_dequant_matmul_launch(const void* x, int x_bf16, const void* codes,
                               const void* bias, void* out, void* ws, int M,
                               int K, int N, int transposed, int alu, int act,
                               int splits, int k_per_split, void* stream) {
-  Args a{x, static_cast<const uint8_t*>(codes), nullptr,
-         static_cast<const float*>(lut), nullptr,
-         static_cast<const float*>(qmeta), nullptr,
-         static_cast<const float*>(bias), static_cast<float*>(out),
-         static_cast<float*>(ws), M, K, N, k_per_split, alu, act};
+  const Args a = make_args(x, codes, nullptr, lut, nullptr, qmeta, nullptr,
+                           nullptr, nullptr, nullptr, bias, out, ws, M, K, N,
+                           k_per_split, alu, act);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (x_bf16) {
     if (transposed) launch<__nv_bfloat16, true, false>(a, splits, st);
@@ -441,15 +514,46 @@ int lut_dequant_matmul_gated_launch(const void* x, int x_bf16,
                                     void* out, void* ws, int M, int K, int N,
                                     int alu, int act, int splits,
                                     int k_per_split, void* stream) {
-  Args a{x, static_cast<const uint8_t*>(codes_g),
-         static_cast<const uint8_t*>(codes_u),
-         static_cast<const float*>(lut_g), static_cast<const float*>(lut_u),
-         static_cast<const float*>(qmeta_g), static_cast<const float*>(qmeta_u),
-         nullptr, static_cast<float*>(out), static_cast<float*>(ws),
-         M, K, N, k_per_split, alu, act};
+  const Args a = make_args(x, codes_g, codes_u, lut_g, lut_u, qmeta_g,
+                           qmeta_u, nullptr, nullptr, nullptr, nullptr, out,
+                           ws, M, K, N, k_per_split, alu, act);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (x_bf16) launch<__nv_bfloat16, false, true>(a, splits, st);
   else launch<float, false, true>(a, splits, st);
+  return (int)cudaGetLastError();
+}
+
+// y[M, N] = act(dec_x(x_codes) @ dec_w(codes) + bias): x_codes [M, K] and
+// codes [K, N] uint8, each with its table (lut_x/lut_w [256]) and params
+// (qmeta_x/qmeta_w [4]).  With qmeta_out set, out is uint8 [M, N] codes
+// encoded under it; otherwise float32.  ws as for the single variant.
+int lut_dequant_matmul_dual_launch(const void* x_codes, const void* codes,
+                                   const void* lut_x, const void* lut_w,
+                                   const void* qmeta_x, const void* qmeta_w,
+                                   const void* qmeta_out, const void* bias,
+                                   void* out, void* ws, int M, int K, int N,
+                                   int alu, int act, int splits,
+                                   int k_per_split, void* stream) {
+  const Args a = make_args(x_codes, codes, nullptr, lut_w, nullptr, qmeta_w,
+                           nullptr, lut_x, qmeta_x, qmeta_out, bias, out, ws,
+                           M, K, N, k_per_split, alu, act);
+  launch<uint8_t, false, false>(a, splits, static_cast<cudaStream_t>(stream));
+  return (int)cudaGetLastError();
+}
+
+// y[M, N] = act(dec_x(x_codes) @ dec_g(codes_g)) * (dec_x(x_codes) @
+// dec_u(codes_u)), one shared activation decode; qmeta_out and out as
+// for the dual variant; ws holds 2*splits*M*N floats when splits > 1.
+int lut_dequant_matmul_dual_gated_launch(
+    const void* x_codes, const void* codes_g, const void* codes_u,
+    const void* lut_x, const void* lut_g, const void* lut_u,
+    const void* qmeta_x, const void* qmeta_g, const void* qmeta_u,
+    const void* qmeta_out, void* out, void* ws, int M, int K, int N, int alu,
+    int act, int splits, int k_per_split, void* stream) {
+  const Args a = make_args(x_codes, codes_g, codes_u, lut_g, lut_u, qmeta_g,
+                           qmeta_u, lut_x, qmeta_x, qmeta_out, nullptr, out,
+                           ws, M, K, N, k_per_split, alu, act);
+  launch<uint8_t, false, true>(a, splits, static_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
 }
 

@@ -22,11 +22,23 @@
 // Bounds on an H100: KV bytes at decode (one page read per block), the
 // per-page scalar dot products at prefill; a tensor-core version is
 // later work.
+//
+// Codes instantiation (CODES = true; q and pages uint8 DNA-TEQ codes):
+// the block copies the q table and its own KV head's K and V tables
+// (3 x 256 floats) into shared memory first, decodes q, K and V through
+// them right after each load -- the per-head gather of the reference's
+// kernels/_codes.decode_heads -- and runs the same recurrence, then
+// encodes the context under out_qmeta at the flush (dnateq.cuh), so the
+// output leaves as uint8 codes.  Pages cross device memory at 1 B per
+// element, a quarter of float32 pages.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "dnateq.cuh"
 
 namespace paged {
 
@@ -38,25 +50,44 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-inline size_t smem_bytes(int R, int bs) {
+// The codes mode's tables: q [256], K and V [n_kv, 256], and the
+// context's out params [4].  All null for float operands.
+struct Codes {
+  const float* q_lut;
+  const float* k_lut;
+  const float* v_lut;
+  const float* out_qmeta;
+};
+
+inline size_t smem_bytes(int R, int bs, bool codes) {
   return sizeof(float) *
          ((size_t)R * HD + (size_t)bs * (HD + 1) + (size_t)bs * HD +
-          (size_t)R * bs + 3 * (size_t)R);
+          (size_t)R * bs + 3 * (size_t)R + (codes ? 3 * 256 : 0));
+}
+
+// An operand element as float32: converted, or decoded through a table.
+template <bool CODES, typename T>
+__device__ __forceinline__ float operand(T v, const float* lut) {
+  if constexpr (CODES) {
+    return lut[v];
+  } else {
+    return to_f32(v);
+  }
 }
 
 // q [B, S, n_kv, g, HD]; pages [N, bs, n_kv, HD]; block_tables
-// [B, max_blk]; out [B, S, n_kv, g, HD] float32.  decode=1 reads
-// kv_lens as the decode lengths and puts the single query at position
-// len-1 (validity then reduces to kv_pos < len).
-template <int R, typename QT, typename KT>
+// [B, max_blk]; out [B, S, n_kv, g, HD] float32 (uint8 codes when
+// CODES).  decode=1 reads kv_lens as the decode lengths and puts the
+// single query at position len-1 (validity then reduces to kv_pos < len).
+template <int R, typename QT, typename KT, bool CODES>
 __global__ void __launch_bounds__(THREADS)
 attention_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pages,
                  const KT* __restrict__ v_pages,
                  const int* __restrict__ block_tables,
                  const int* __restrict__ q_start,
-                 const int* __restrict__ kv_lens, float* __restrict__ out,
+                 const int* __restrict__ kv_lens, void* __restrict__ out,
                  int S, int n_kv, int g, int bs, int max_blk, float scale,
-                 int decode) {
+                 int decode, Codes codes) {
   extern __shared__ float smem[];
   float* s_q = smem;                    // [R][HD]
   float* s_k = s_q + R * HD;            // [bs][HD + 1]
@@ -65,6 +96,9 @@ attention_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pages,
   float* s_m = s_p + R * bs;            // [R]
   float* s_l = s_m + R;                 // [R]
   float* s_c = s_l + R;                 // [R]
+  float* s_ql = s_c + R;                // [256] (codes only)
+  float* s_kl = s_ql + 256;             // [256] this KV head's K table
+  float* s_vl = s_kl + 256;             // [256] this KV head's V table
 
   const int b = blockIdx.x, h = blockIdx.y;
   const int tid = threadIdx.x;
@@ -73,11 +107,20 @@ attention_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pages,
   const int kvl = kv_lens[b];
   const int qs = decode ? kvl - 1 : q_start[b];
 
+  if constexpr (CODES) {
+    for (int c = tid; c < 256; c += THREADS) {
+      s_ql[c] = codes.q_lut[c];
+      s_kl[c] = codes.k_lut[(size_t)h * 256 + c];
+      s_vl[c] = codes.v_lut[(size_t)h * 256 + c];
+    }
+    __syncthreads();
+  }
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int qi = qi0 + r / g, gi = r % g;
     s_q[r * HD + tid] =
-        qi < S ? to_f32(q[((((size_t)b * S + qi) * n_kv + h) * g + gi) * HD + tid])
+        qi < S ? operand<CODES>(
+                     q[((((size_t)b * S + qi) * n_kv + h) * g + gi) * HD + tid], s_ql)
                : 0.0f;
   }
   if (tid < R) {
@@ -99,8 +142,8 @@ attention_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pages,
     const size_t page = (size_t)block_tables[(size_t)b * max_blk + j];
     for (int t = 0; t < bs; ++t) {
       const size_t off = ((page * bs + t) * n_kv + h) * HD + tid;
-      s_k[t * (HD + 1) + tid] = to_f32(k_pages[off]);
-      s_v[t * HD + tid] = to_f32(v_pages[off]);
+      s_k[t * (HD + 1) + tid] = operand<CODES>(k_pages[off], s_kl);
+      s_v[t * HD + tid] = operand<CODES>(v_pages[off], s_vl);
     }
     __syncthreads();
     for (int p = tid; p < R * bs; p += THREADS) {
@@ -149,18 +192,24 @@ attention_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pages,
     const int qi = qi0 + r / g, gi = r % g;
     if (qi >= S) continue;
     const float o = s_m[r] > -5e29f ? acc[r] / fmaxf(s_l[r], 1e-30f) : 0.0f;
-    out[((((size_t)b * S + qi) * n_kv + h) * g + gi) * HD + tid] = o;
+    const size_t i = ((((size_t)b * S + qi) * n_kv + h) * g + gi) * HD + tid;
+    if constexpr (CODES) {
+      static_cast<uint8_t*>(out)[i] = dnateq::encode(o, codes.out_qmeta);
+    } else {
+      static_cast<float*>(out)[i] = o;
+    }
   }
 }
 
 // Launch one instantiation with dynamic shared memory sized for bs.
-template <int R, typename QT, typename KT>
+template <int R, typename QT, typename KT, bool CODES = false>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* bt, const int* qs, const int* kl, void* out,
                    int B, int S, int n_kv, int g, int bs, int max_blk,
-                   float scale, int decode, int tiles, cudaStream_t st) {
-  const size_t smem = smem_bytes(R, bs);
-  auto kern = attention_kernel<R, QT, KT>;
+                   float scale, int decode, int tiles, cudaStream_t st,
+                   Codes codes = Codes{nullptr, nullptr, nullptr, nullptr}) {
+  const size_t smem = smem_bytes(R, bs, CODES);
+  auto kern = attention_kernel<R, QT, KT, CODES>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -169,9 +218,21 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   dim3 grid(B, n_kv, tiles);
   kern<<<grid, THREADS, smem, st>>>(
       static_cast<const QT*>(q), static_cast<const KT*>(k),
-      static_cast<const KT*>(v), bt, qs, kl, static_cast<float*>(out), S,
-      n_kv, g, bs, max_blk, scale, decode);
+      static_cast<const KT*>(v), bt, qs, kl, out, S, n_kv, g, bs, max_blk,
+      scale, decode, codes);
   return cudaGetLastError();
+}
+
+// The codes instantiation: uint8 q and pages, uint8 out.
+template <int R>
+cudaError_t launch_codes(const void* q, const void* k, const void* v,
+                         const int* bt, const int* qs, const int* kl,
+                         void* out, int B, int S, int n_kv, int g, int bs,
+                         int max_blk, float scale, int decode, int tiles,
+                         cudaStream_t st, Codes codes) {
+  return launch<R, uint8_t, uint8_t, true>(q, k, v, bt, qs, kl, out, B, S,
+                                           n_kv, g, bs, max_blk, scale,
+                                           decode, tiles, st, codes);
 }
 
 // Dispatch on the q and page dtypes (float32 or bfloat16).

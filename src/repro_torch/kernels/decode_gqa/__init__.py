@@ -1,1 +1,4 @@
-from repro_torch.kernels.decode_gqa.ops import decode_gqa_paged  # noqa: F401
+from repro_torch.kernels.decode_gqa.ops import (  # noqa: F401
+    decode_gqa_paged,
+    decode_gqa_paged_codes,
+)

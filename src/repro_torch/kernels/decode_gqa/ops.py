@@ -1,4 +1,5 @@
-"""Public wrapper of flash decode over a paged KV cache.
+"""Public wrappers of flash decode over a paged KV cache (float pages,
+and uint8 codes pages).
 
 A CPU tensor goes to the plain page-scan version, a CUDA tensor to the
 kernel (or the call raises)."""
@@ -8,7 +9,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.decode_gqa import decode_gqa as _k
-from repro_torch.kernels.decode_gqa.ref import decode_gqa_paged_ref
+from repro_torch.kernels.decode_gqa.ref import (decode_gqa_paged_codes_ref,
+                                               decode_gqa_paged_ref)
 from repro_torch.kernels.flash_prefill.ops import row_ints
 
 
@@ -26,3 +28,20 @@ def decode_gqa_paged(q, k_pages, v_pages, block_tables, lengths, *,
         return decode_gqa_paged_ref(q, k_pages, v_pages, block_tables,
                                     lengths, out_dtype=out_dtype)
     return _k.launch(q, k_pages, v_pages, block_tables, lengths).to(out_dtype)
+
+
+def decode_gqa_paged_codes(q_codes, k_pages, v_pages, q_lut, k_lut, v_lut,
+                           out_qmeta, block_tables, lengths) -> torch.Tensor:
+    """Codes mode, uint8 in and out: ``q_codes`` [B, n_kv, g, hd] under
+    ``q_lut`` [256]; uint8 pages under the per-head ``k_lut``/``v_lut``
+    [n_kv, 256]; the context encoded under ``out_qmeta`` [4].  Same
+    paging and masking contract as :func:`decode_gqa_paged`."""
+    b = q_codes.shape[0]
+    max_tokens = block_tables.shape[1] * k_pages.shape[1]
+    lengths = row_ints(lengths, b, q_codes.device, max_tokens)
+    if q_codes.device.type == "cpu":
+        return decode_gqa_paged_codes_ref(q_codes, k_pages, v_pages, q_lut,
+                                          k_lut, v_lut, out_qmeta,
+                                          block_tables, lengths)
+    return _k.launch_codes(q_codes, k_pages, v_pages, q_lut, k_lut, v_lut,
+                           out_qmeta, block_tables, lengths)

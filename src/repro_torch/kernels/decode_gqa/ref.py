@@ -1,4 +1,4 @@
-"""Plain PyTorch version of flash decode over a paged KV cache.
+"""Plain PyTorch versions of flash decode over a paged KV cache.
 
 Decoding one query at position ``len-1`` against ``len`` cached tokens
 is the chunked prefill of a one-token chunk (validity
@@ -11,7 +11,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flash_prefill.ref import flash_prefill_paged_ref
+from repro_torch.kernels.flash_prefill.ref import (
+    flash_prefill_paged_codes_ref, flash_prefill_paged_ref)
 
 
 def decode_gqa_paged_ref(q, k_pages, v_pages, block_tables, lengths,
@@ -20,4 +21,16 @@ def decode_gqa_paged_ref(q, k_pages, v_pages, block_tables, lengths,
     [B, max_blk]; lengths [B].  Returns [B, n_kv, g, hd]."""
     out = flash_prefill_paged_ref(q[:, None], k_pages, v_pages, block_tables,
                                   lengths - 1, lengths, out_dtype=out_dtype)
+    return out[:, 0]
+
+
+def decode_gqa_paged_codes_ref(q_codes, k_pages, v_pages, q_lut, k_lut, v_lut,
+                               out_qmeta, block_tables,
+                               lengths) -> torch.Tensor:
+    """Codes mode: uint8 q [B, n_kv, g, hd] and pages, tables as
+    :func:`flash_prefill_paged_codes_ref`.  Returns uint8 [B, n_kv, g,
+    hd]; a zero-length row holds the code of 0.0."""
+    out = flash_prefill_paged_codes_ref(
+        q_codes[:, None], k_pages, v_pages, q_lut, k_lut, v_lut, out_qmeta,
+        block_tables, lengths - 1, lengths)
     return out[:, 0]

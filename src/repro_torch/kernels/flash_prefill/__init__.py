@@ -1,1 +1,4 @@
-from repro_torch.kernels.flash_prefill.ops import flash_prefill_paged  # noqa: F401
+from repro_torch.kernels.flash_prefill.ops import (  # noqa: F401
+    flash_prefill_paged,
+    flash_prefill_paged_codes,
+)

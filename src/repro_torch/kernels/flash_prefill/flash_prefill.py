@@ -1,6 +1,6 @@
 """CUDA launch of chunked flash prefill over a paged KV cache
 (``csrc/flash_prefill.cu``); counterpart of the JAX package's
-``flash_prefill_paged_kernel``."""
+``flash_prefill_paged_kernel`` and ``flash_prefill_paged_codes_kernel``."""
 
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ import torch
 from repro_torch.kernels import _build
 
 NAME = "flash_prefill_paged"
+CODES_NAME = NAME + "_codes"
 HEAD_DIM = 128
 ROWS_PER_BLOCK = 32
 PAGE_DTYPES = (torch.float32, torch.bfloat16)
@@ -26,20 +27,24 @@ def _lib():
         [_P, _I, _P, _P, _I, _P, _P, _P, _P] + [_I] * 7
         + [ctypes.c_float, _P])
     lib.flash_prefill_paged_launch.restype = _I
+    lib.flash_prefill_paged_codes_launch.argtypes = (
+        [_P] * 11 + [_I] * 7 + [ctypes.c_float, _P])
+    lib.flash_prefill_paged_codes_launch.restype = _I
     return lib
 
 
-def check_paged(q, k_pages, v_pages, block_tables, rows) -> None:
+def check_paged(q, k_pages, v_pages, block_tables, rows,
+                dtypes=PAGE_DTYPES) -> None:
     """Device, dtype, shape and contiguity checks shared with the decode
-    kernel's launch."""
+    kernel's launch; ``dtypes`` are the q and page dtypes taken."""
     for t, name in ((q, "q"), (k_pages, "k_pages"), (v_pages, "v_pages"),
                     (block_tables, "block_tables")):
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"{name} must be on {q.device}, got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if q.dtype not in PAGE_DTYPES or k_pages.dtype not in PAGE_DTYPES:
-        raise TypeError(f"q/pages dtype must be one of {PAGE_DTYPES}, got "
+    if q.dtype not in dtypes or k_pages.dtype not in dtypes:
+        raise TypeError(f"q/pages dtype must be one of {dtypes}, got "
                         f"{q.dtype}/{k_pages.dtype}")
     if v_pages.dtype != k_pages.dtype or v_pages.shape != k_pages.shape:
         raise ValueError("k_pages and v_pages must match in dtype and shape")
@@ -73,4 +78,45 @@ def launch(q, k_pages, v_pages, block_tables, q_start, kv_lens) -> torch.Tensor:
         block_tables.shape[1], 1.0 / math.sqrt(hd), _build.stream_ptr(q))
     _build.check(err, NAME)
     _build.count_launch(NAME)
+    return out
+
+
+def check_tables(q, n_kv, q_lut, k_lut, v_lut, out_qmeta):
+    """The codes mode's tables as the kernels take them: float32,
+    contiguous, on q's device; q_lut [256], k_lut/v_lut [n_kv, 256],
+    out_qmeta [4]."""
+    out = []
+    for t, name, shape in ((q_lut, "q_lut", (256,)),
+                           (k_lut, "k_lut", (n_kv, 256)),
+                           (v_lut, "v_lut", (n_kv, 256)),
+                           (out_qmeta, "out_qmeta", (4,))):
+        if t.device != q.device:
+            raise ValueError(f"{name} must be on {q.device}, got {t.device}")
+        t = t.to(torch.float32).reshape(shape).contiguous()
+        out.append(t)
+    return out
+
+
+def launch_codes(q_codes, k_pages, v_pages, q_lut, k_lut, v_lut, out_qmeta,
+                 block_tables, q_start, kv_lens) -> torch.Tensor:
+    """q_codes [B, S, n_kv, g, 128] and pages uint8; returns uint8 codes
+    of q's shape."""
+    check_paged(q_codes, k_pages, v_pages, block_tables,
+                ((q_start, "q_start"), (kv_lens, "kv_lens")),
+                dtypes=(torch.uint8,))
+    b, s, n_kv, g, hd = q_codes.shape
+    if ROWS_PER_BLOCK % g or k_pages.shape[2] != n_kv:
+        raise ValueError(f"unsupported head layout n_kv={n_kv}, g={g}")
+    q_lut, k_lut, v_lut, out_qmeta = check_tables(
+        q_codes, n_kv, q_lut, k_lut, v_lut, out_qmeta)
+    out = torch.empty(q_codes.shape, dtype=torch.uint8, device=q_codes.device)
+    err = _lib().flash_prefill_paged_codes_launch(
+        q_codes.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        q_lut.data_ptr(), k_lut.data_ptr(), v_lut.data_ptr(),
+        out_qmeta.data_ptr(), block_tables.data_ptr(), q_start.data_ptr(),
+        kv_lens.data_ptr(), out.data_ptr(), b, s, n_kv, g, hd,
+        k_pages.shape[1], block_tables.shape[1], 1.0 / math.sqrt(hd),
+        _build.stream_ptr(q_codes))
+    _build.check(err, CODES_NAME)
+    _build.count_launch(CODES_NAME)
     return out

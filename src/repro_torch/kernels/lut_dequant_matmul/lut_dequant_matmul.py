@@ -1,7 +1,9 @@
 """CUDA launch of the fused LUT-dequant matmuls (``csrc/lut_dequant_matmul.cu``).
 
-Counterpart of the JAX package's ``lut_dequant_matmul_kernel`` and
-``lut_dequant_matmul_gated_kernel``.  There is no M-bucketing ladder and
+Counterpart of the JAX package's ``lut_dequant_matmul_kernel``,
+``lut_dequant_matmul_gated_kernel`` and their dual-operand variants
+(``lut_dequant_matmul_dual_kernel``, ``..._dual_gated_kernel``: x as
+uint8 activation codes, optionally uint8 codes out).  There is no M-bucketing ladder and
 no autotuner here: the kernel masks its own ragged edges, so any M, K, N
 runs without padding or a rebuild.  The launch chooses the skinny path
 for M <= 8 and splits K across blocks (a deterministic second pass sums
@@ -33,6 +35,11 @@ def _lib():
     lib.lut_dequant_matmul_gated_launch.argtypes = (
         [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P] + [_I] * 7 + [_P])
     lib.lut_dequant_matmul_gated_launch.restype = _I
+    lib.lut_dequant_matmul_dual_launch.argtypes = [_P] * 10 + [_I] * 7 + [_P]
+    lib.lut_dequant_matmul_dual_launch.restype = _I
+    lib.lut_dequant_matmul_dual_gated_launch.argtypes = (
+        [_P] * 12 + [_I] * 7 + [_P])
+    lib.lut_dequant_matmul_dual_gated_launch.restype = _I
     return lib
 
 
@@ -141,6 +148,95 @@ def launch_gated(x, codes_g, codes_u, lut_g, lut_u, qmeta_g, qmeta_u, *,
         qmeta_g.data_ptr(), qmeta_u.data_ptr(), out.data_ptr(),
         None if ws is None else ws.data_ptr(), m, k, n, int(alu),
         ACTS[activation], splits, kps, _build.stream_ptr(x))
+    _build.check(err, name)
+    _build.count_launch(name)
+    return out
+
+
+def _out_and_ws(m, n, nw, splits, qmeta_out, dev):
+    """The output (uint8 codes with an out qmeta, else float32) and the
+    split-K partial sums."""
+    out = torch.empty((m, n), device=dev, dtype=(
+        torch.uint8 if qmeta_out is not None else torch.float32))
+    ws = (torch.empty(nw * splits * m * n, dtype=torch.float32, device=dev)
+          if splits > 1 else None)
+    return out, ws
+
+
+def _out_qmeta(qmeta_out):
+    if qmeta_out is None:
+        return None
+    qmeta_out = qmeta_out.to(torch.float32).contiguous()
+    _check(qmeta_out, "out_qmeta", (torch.float32,), (4,))
+    return qmeta_out
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def launch_dual(x_codes, codes, lut_x, lut_w, qmeta_x, qmeta_w, *,
+                out_qmeta, bias, decode_mode: str,
+                epilogue: str | None) -> torch.Tensor:
+    """``act(dec_x(x_codes) @ dec_w(codes) + bias)`` on the card; float32
+    [M, N], or uint8 codes under ``out_qmeta``."""
+    name = NAME + "_dual"
+    _check(x_codes, "x_codes", (torch.uint8,))
+    if x_codes.ndim != 2:
+        raise ValueError(f"x_codes must be [M, K], got {tuple(x_codes.shape)}")
+    m, k = x_codes.shape
+    n = codes.shape[1]
+    _check(codes, "codes", (torch.uint8,), (k, n))
+    if decode_mode not in ("gather", "alu"):
+        raise ValueError(decode_mode)
+    alu = decode_mode == "alu"
+    lut_x, qmeta_x = _tables(lut_x, qmeta_x, alu, x_codes.device)
+    lut_w, qmeta_w = _tables(lut_w, qmeta_w, alu, x_codes.device)
+    out_qmeta = _out_qmeta(out_qmeta)
+    if bias is not None:
+        bias = bias.to(torch.float32).contiguous()
+        _check(bias, "bias", (torch.float32,), (n,))
+    splits, kps = split_k(m, k, n, False, _num_sms(x_codes.device.index or 0))
+    out, ws = _out_and_ws(m, n, 1, splits, out_qmeta, x_codes.device)
+    err = _lib().lut_dequant_matmul_dual_launch(
+        x_codes.data_ptr(), codes.data_ptr(), lut_x.data_ptr(),
+        lut_w.data_ptr(), qmeta_x.data_ptr(), qmeta_w.data_ptr(),
+        _ptr(out_qmeta), _ptr(bias), out.data_ptr(), _ptr(ws), m, k, n,
+        int(alu), ACTS[epilogue], splits, kps, _build.stream_ptr(x_codes))
+    _build.check(err, name)
+    _build.count_launch(name)
+    return out
+
+
+def launch_dual_gated(x_codes, codes_g, codes_u, lut_x, lut_g, lut_u,
+                      qmeta_x, qmeta_g, qmeta_u, *, out_qmeta,
+                      decode_mode: str, activation: str) -> torch.Tensor:
+    """``act(a @ dec(codes_g)) * (a @ dec(codes_u))`` with ``a`` the
+    decoded activation codes, on the card; float32 or uint8 codes."""
+    name = NAME + "_dual_gated"
+    _check(x_codes, "x_codes", (torch.uint8,))
+    if x_codes.ndim != 2:
+        raise ValueError(f"x_codes must be [M, K], got {tuple(x_codes.shape)}")
+    m, k = x_codes.shape
+    n = codes_g.shape[1]
+    _check(codes_g, "codes_g", (torch.uint8,), (k, n))
+    _check(codes_u, "codes_u", (torch.uint8,), (k, n))
+    if decode_mode not in ("gather", "alu"):
+        raise ValueError(decode_mode)
+    alu = decode_mode == "alu"
+    dev = x_codes.device
+    lut_x, qmeta_x = _tables(lut_x, qmeta_x, alu, dev)
+    lut_g, qmeta_g = _tables(lut_g, qmeta_g, alu, dev)
+    lut_u, qmeta_u = _tables(lut_u, qmeta_u, alu, dev)
+    out_qmeta = _out_qmeta(out_qmeta)
+    splits, kps = split_k(m, k, n, False, _num_sms(dev.index or 0))
+    out, ws = _out_and_ws(m, n, 2, splits, out_qmeta, dev)
+    err = _lib().lut_dequant_matmul_dual_gated_launch(
+        x_codes.data_ptr(), codes_g.data_ptr(), codes_u.data_ptr(),
+        lut_x.data_ptr(), lut_g.data_ptr(), lut_u.data_ptr(),
+        qmeta_x.data_ptr(), qmeta_g.data_ptr(), qmeta_u.data_ptr(),
+        _ptr(out_qmeta), out.data_ptr(), _ptr(ws), m, k, n, int(alu),
+        ACTS[activation], splits, kps, _build.stream_ptr(x_codes))
     _build.check(err, name)
     _build.count_launch(name)
     return out

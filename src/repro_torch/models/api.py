@@ -17,6 +17,7 @@ class ModelAPI:
     specs: Any
     prefill_into_cache: Callable
     decode_step_paged: Callable
+    collect_act_calibration: Callable | None = None
 
     def init(self, device=None, seed: int = 0) -> transformer.DecoderLM:
         """Random weights from a seeded ``torch.Generator`` on ``device``
@@ -34,4 +35,5 @@ def get_model(cfg: ModelConfig) -> ModelAPI:
             f"ported yet (ROADMAP Queue 1 item 13)")
     return ModelAPI(cfg=cfg, specs=transformer.model_specs(cfg),
                     prefill_into_cache=transformer.prefill_into_cache,
-                    decode_step_paged=transformer.decode_step_paged)
+                    decode_step_paged=transformer.decode_step_paged,
+                    collect_act_calibration=transformer.collect_act_calibration)

@@ -3,21 +3,26 @@ norms, RoPE, the paged attends, the MLP, embeddings and logits).
 
 Every matmul routes through :mod:`repro_torch.core.lama_layers`, so any
 weight may be a :class:`~repro_torch.core.exponential_quant.QWeight`.
-Only float KV pages are served so far (f8 and code pages are later
-ROADMAP items).
+With a layer's act-quant tables (``act_q``), activations are encoded at
+the calibrated sites and the matmuls run on codes; KV pages are float
+(float32, bfloat16) or uint8 codes (codes mode).  f8 pages are a later
+ROADMAP item.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import lama_layers as ll
-from repro_torch.core.exponential_quant import is_qtensor
-from repro_torch.kernels.decode_gqa import decode_gqa_paged
-from repro_torch.kernels.flash_prefill import flash_prefill_paged
+from repro_torch.core.exponential_quant import QTensor, encode_meta, is_qtensor
+from repro_torch.kernels.decode_gqa import (decode_gqa_paged,
+                                            decode_gqa_paged_codes)
+from repro_torch.kernels.flash_prefill import (flash_prefill_paged,
+                                               flash_prefill_paged_codes)
 from repro_torch.models.params import ParamSpec
 
 Params = Any
@@ -75,6 +80,59 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+# ------------------------------------------------- act quantization --
+#
+# Per-(layer, site) calibrated tables ride the params as
+# ``blocks.act_q[site] = {"lut": [L, 256], "qmeta": [L, 4]}`` (per KV
+# head for attn_k/attn_v: ``[L, n_kv, 256]`` / ``[L, n_kv, 4]``); a
+# layer's slice is its ``act_q``.  A site marks the float tensor feeding
+# a quantized matmul (attn_in, attn_out, mlp_in; mlp_mid is produced by
+# the gated kernel's quantize epilogue) or the attention boundary of the
+# codes-mode KV cache (attn_q: the roped query; attn_k/attn_v: what a
+# uint8 page stores).
+
+ACT_SITES = ("attn_in", "attn_out", "mlp_in", "mlp_mid",
+             "attn_q", "attn_k", "attn_v")
+
+# The sites codes-mode attention needs beyond the matmul sites.
+KV_CODE_SITES = ("attn_q", "attn_k", "attn_v", "attn_out")
+
+
+def _q(x, act_q, site: str):
+    """Encode ``x`` at an act-quant site (no-op without tables)."""
+    return ll.maybe_encode_act(x, act_q, site)
+
+
+def _mid_q(act_q):
+    """The mlp_mid site entry when present and the policy honors it:
+    the gated kernel's quantize epilogue."""
+    if act_q is None or not ll.get_policy().act_quant:
+        return None
+    return act_q.get("mlp_mid")
+
+
+def _kv_codes_q(act_q):
+    """``act_q`` when it holds every attention boundary site and the
+    policy honors it; raises otherwise (uint8 pages cannot be attended
+    or written without their tables)."""
+    if (act_q is None or not ll.get_policy().act_quant
+            or not all(s in act_q for s in KV_CODE_SITES)):
+        raise ValueError(
+            "uint8 codes-mode KV pages need calibrated attn_q/attn_k/"
+            "attn_v/attn_out act-quant sites with the act_quant policy on "
+            "(kv_codes engines calibrate them; found none on this attend)")
+    return act_q
+
+
+def encode_kv_codes(k: torch.Tensor, v: torch.Tensor, act_q: dict):
+    """Quantize-at-write: fresh K/V ``[B, S, n_kv, hd]`` to uint8 codes
+    under this layer's per-head attn_k/attn_v params (``qmeta [n_kv,
+    4]``, broadcast per head) -- what a codes-mode page stores."""
+    aq = _kv_codes_q(act_q)
+    return (encode_meta(k, aq["attn_k"]["qmeta"][:, None, :]),
+            encode_meta(v, aq["attn_v"]["qmeta"][:, None, :]))
+
+
 # --------------------------------------------------------- attention --
 
 def attention_specs(cfg: ModelConfig) -> dict:
@@ -94,55 +152,109 @@ def attention_specs(cfg: ModelConfig) -> dict:
 
 
 def roped_q(p: Params, x: torch.Tensor, cfg: ModelConfig,
-            positions: torch.Tensor) -> torch.Tensor:
-    """Project + (qk_norm) + rope the query. Returns [B, S, H, hd]."""
-    q = ll.dense_general(x, p["wq"], "bsd,dnh->bsnh", dtype=x.dtype)
+            positions: torch.Tensor, act_q: dict | None = None) -> torch.Tensor:
+    """Project + (qk_norm) + rope the query. Returns [B, S, H, hd] float."""
+    q = ll.dense_general(_q(x, act_q, "attn_in"), p["wq"], "bsd,dnh->bsnh",
+                         dtype=x.dtype)
     if cfg.qk_norm:
         q = apply_head_rms(p["q_norm"], q)
     return rope(q, positions, cfg.rope_theta)
 
 
 def self_kv(p: Params, x: torch.Tensor, cfg: ModelConfig,
-            positions: torch.Tensor):
-    """Project K, V for cache writes (K normed and roped)."""
-    k = ll.dense_general(x, p["wk"], "bsd,dnh->bsnh", dtype=x.dtype)
-    v = ll.dense_general(x, p["wv"], "bsd,dnh->bsnh", dtype=x.dtype)
+            positions: torch.Tensor, act_q: dict | None = None):
+    """Project K, V for cache writes (K normed and roped); ``x`` is
+    encoded once at attn_in for both."""
+    xq = _q(x, act_q, "attn_in")
+    k = ll.dense_general(xq, p["wk"], "bsd,dnh->bsnh", dtype=x.dtype)
+    v = ll.dense_general(xq, p["wv"], "bsd,dnh->bsnh", dtype=x.dtype)
     if cfg.qk_norm:
         k = apply_head_rms(p["k_norm"], k)
     return rope(k, positions, cfg.rope_theta), v
 
 
+def mha_causal(p: Params, x: torch.Tensor, cfg: ModelConfig,
+               positions: torch.Tensor):
+    """Causal self-attention over a whole prompt, for calibration only
+    (the reference's contiguous ``mha`` with a causal mask, in plain
+    PyTorch).  Returns (the ``wo`` projection, the context [B, S, H,
+    hd] before it)."""
+    dt = x.dtype
+    q = roped_q(p, x, cfg, positions)
+    k, v = self_kv(p, x, cfg, positions)
+    b, s, h, hd = q.shape
+    groups = cfg.num_heads // cfg.num_kv_heads
+    qg = q.reshape(b, s, cfg.num_kv_heads, groups, hd).to(F32)
+    logits = torch.einsum("bsngh,btnh->bnsgt", qg, k.to(F32)) / math.sqrt(hd)
+    causal = torch.ones(s, s, dtype=torch.bool, device=x.device).tril()
+    logits = torch.where(causal[None, None, :, None, :], logits,
+                         torch.tensor(-1e30, dtype=F32, device=x.device))
+    probs = torch.softmax(logits, dim=-1)
+    ctx = torch.einsum("bnsgt,btnh->bsngh", probs, v.to(F32))
+    ctx = ctx.reshape(b, s, h, hd).to(dt)
+    return ll.dense_general(ctx, p["wo"], "bsnh,nhd->bsd", dtype=dt), ctx
+
+
+def _attend_out(p: Params, out: torch.Tensor, k_pages, act_q, dt):
+    """The output projection of an attend: a codes-mode context (uint8,
+    under attn_out) goes to ``wo`` as a ``QTensor``; a float one is
+    encoded at attn_out when that site is calibrated."""
+    b, s = out.shape[:2]
+    out = out.reshape(b, s, -1, out.shape[-1])
+    if k_pages.dtype == torch.uint8:
+        aq = act_q["attn_out"]
+        ctx = QTensor(out, aq["lut"], aq["qmeta"])
+    else:
+        ctx = _q(out.to(dt), act_q, "attn_out")
+    return ll.dense_general(ctx, p["wo"], "bsnh,nhd->bsd", dtype=dt)
+
+
 def mha_prefill_paged(p: Params, x: torch.Tensor, cfg: ModelConfig,
                       positions, k_pages, v_pages, block_tables, q_start,
-                      kv_lens) -> torch.Tensor:
+                      kv_lens, act_q: dict | None = None) -> torch.Tensor:
     """Chunked-prefill GQA straight from the paged cache: the chunk's
     roped queries attend every written position ``<=`` their own
     through the flash-prefill kernel.  The caller scatters the chunk's
-    own K/V into the pages first."""
+    own K/V into the pages first.  With uint8 codes pages the chunk runs
+    code-in/code-out: queries encoded at attn_q, the codes kernel, and
+    the uint8 context fed to ``wo`` as a ``QTensor``."""
     dt = x.dtype
-    q = roped_q(p, x, cfg, positions)
+    q = roped_q(p, x, cfg, positions, act_q=act_q)
     b, s, h, hd = q.shape
     groups = cfg.num_heads // cfg.num_kv_heads
     qg = q.reshape(b, s, cfg.num_kv_heads, groups, hd)
-    out = flash_prefill_paged(qg, k_pages, v_pages, block_tables, q_start,
-                              kv_lens)
-    out = out.reshape(b, s, h, hd).to(dt)
-    return ll.dense_general(out, p["wo"], "bsnh,nhd->bsd", dtype=dt)
+    if k_pages.dtype == torch.uint8:
+        aq = _kv_codes_q(act_q)
+        out = flash_prefill_paged_codes(
+            encode_meta(qg, aq["attn_q"]["qmeta"]), k_pages, v_pages,
+            aq["attn_q"]["lut"], aq["attn_k"]["lut"], aq["attn_v"]["lut"],
+            aq["attn_out"]["qmeta"], block_tables, q_start, kv_lens)
+    else:
+        out = flash_prefill_paged(qg, k_pages, v_pages, block_tables,
+                                  q_start, kv_lens)
+    return _attend_out(p, out, k_pages, act_q, dt)
 
 
 def mha_decode_paged(p: Params, x: torch.Tensor, cfg: ModelConfig,
                      positions, k_pages, v_pages, block_tables,
-                     lengths) -> torch.Tensor:
+                     lengths, act_q: dict | None = None) -> torch.Tensor:
     """Decode-step GQA over the paged cache through the flash-decode
-    kernel (zero-length rows attend nothing and return zeros)."""
+    kernel (zero-length rows attend nothing and return zeros); codes
+    pages as in :func:`mha_prefill_paged`."""
     dt = x.dtype
-    q = roped_q(p, x, cfg, positions)
+    q = roped_q(p, x, cfg, positions, act_q=act_q)
     b, s, h, hd = q.shape
     groups = cfg.num_heads // cfg.num_kv_heads
     qg = q[:, 0].reshape(b, cfg.num_kv_heads, groups, hd)
-    out = decode_gqa_paged(qg, k_pages, v_pages, block_tables, lengths)
-    out = out.reshape(b, 1, h, hd).to(dt)
-    return ll.dense_general(out, p["wo"], "bsnh,nhd->bsd", dtype=dt)
+    if k_pages.dtype == torch.uint8:
+        aq = _kv_codes_q(act_q)
+        out = decode_gqa_paged_codes(
+            encode_meta(qg, aq["attn_q"]["qmeta"]), k_pages, v_pages,
+            aq["attn_q"]["lut"], aq["attn_k"]["lut"], aq["attn_v"]["lut"],
+            aq["attn_out"]["qmeta"], block_tables, lengths)
+    else:
+        out = decode_gqa_paged(qg, k_pages, v_pages, block_tables, lengths)
+    return _attend_out(p, out[:, None], k_pages, act_q, dt)
 
 
 # --------------------------------------------------------------- mlp --
@@ -157,15 +269,24 @@ def mlp_specs(cfg: ModelConfig) -> dict:
     return s
 
 
-def apply_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def apply_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig,
+              act_q: dict | None = None, return_mid: bool = False):
     """Gated MLP: one gated kernel for ``act(x@w_gate) * (x@w_up)``,
-    then the down projection."""
+    then the down projection.  With ``act_q`` the chain is
+    code-in/code-out: x encoded once at mlp_in, the front half's
+    quantize epilogue emits the mlp_mid codes, and the down projection
+    reads them.  ``return_mid`` also returns the intermediate (the
+    mlp_mid calibration sample, a float there)."""
     dt = x.dtype
+    xq = _q(x, act_q, "mlp_in")
     if cfg.gated_mlp:
-        h = ll.gated_mlp(x, p["w_gate"], p["w_up"], cfg.activation, dtype=dt)
+        h = ll.gated_mlp(xq, p["w_gate"], p["w_up"], cfg.activation,
+                         dtype=dt, out_quant=_mid_q(act_q))
     else:
-        h = ll.dense(x, p["w_up"], epilogue=cfg.activation, dtype=dt)
-    return ll.dense(h, p["w_down"], dtype=dt)
+        h = ll.dense(xq, p["w_up"], epilogue=cfg.activation, dtype=dt,
+                     out_quant=_mid_q(act_q))
+    out = ll.dense(h, p["w_down"], dtype=dt)
+    return (out, h) if return_mid else out
 
 
 # -------------------------------------------------------- embeddings --

@@ -5,7 +5,10 @@ the JAX package's ``models/transformer.py``, dense decoder family).
 :class:`~repro_torch.runtime.paged_cache.PagedView` and update its page
 pools *in place* (``index_put_``); the reference returns a new view
 instead, because JAX arrays are immutable.  The loop over the layer
-index takes the place of the reference's ``scan_blocks``.
+index takes the place of the reference's ``scan_blocks``.  A layer's
+act-quant tables (``blocks.act_q``, attached by calibration) switch its
+activations to codes; uint8 pages store K/V as codes, encoded at the
+write.  ``collect_act_calibration`` is the calibration hook.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.exponential_quant import QWeight
 from repro_torch.models import layers as L
 from repro_torch.models.params import (ParamTree, init_params, layer_slice,
                                        stack_specs)
@@ -65,6 +69,12 @@ class DecoderLM(ParamTree):
     def device(self) -> torch.device:
         return next(self.buffers()).device
 
+    def with_tree(self, tree: dict) -> "DecoderLM":
+        """A new module over ``tree`` (e.g. this module's tree with
+        ``blocks.act_q`` attached or removed), sharing every tensor and
+        with its own layer cache; this module is left as it is."""
+        return DecoderLM(self.cfg, _rewrap(tree), device=self.device)
+
     def layer(self, i: int) -> dict:
         """Layer ``i``'s parameters as a nested dict of views (cached:
         serving weights do not change)."""
@@ -79,20 +89,40 @@ class DecoderLM(ParamTree):
         return super()._apply(fn, *args, **kw)
 
 
+def _rewrap(tree: dict) -> dict:
+    """``tree`` with fresh carrier modules over the same tensors, so two
+    modules never share a submodule (moving one must not move the
+    other)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = _rewrap(v)
+        elif isinstance(v, QWeight):
+            out[k] = QWeight(v.codes, v.lut, v.qmeta)
+        else:
+            out[k] = v
+    return out
+
+
 # ------------------------------------------------------- paged serving --
 
 def _block(lp: dict, x, cfg: ModelConfig, positions, k_pages, v_pages,
            page, off, attend):
-    """One block: scatter this step's K/V into the pages, then attend
-    through ``attend``, then the MLP."""
+    """One block: scatter this step's K/V into the pages (encoded to
+    codes first when the pages are uint8), then attend through
+    ``attend``, then the MLP."""
+    aq = lp.get("act_q")
     h = L.apply_norm(lp["ln1"], x, cfg)
-    k_new, v_new = L.self_kv(lp["attn"], h, cfg, positions)
+    k_new, v_new = L.self_kv(lp["attn"], h, cfg, positions, act_q=aq)
+    if k_pages.dtype == torch.uint8:
+        # a uint8 page stores codes: a cast would truncate floats to junk
+        k_new, v_new = L.encode_kv_codes(k_new, v_new, aq)
     # in place: the page pool is updated where it lives
     k_pages.index_put_((page, off), k_new.to(k_pages.dtype))
     v_pages.index_put_((page, off), v_new.to(v_pages.dtype))
-    x = x + attend(lp["attn"], h, k_pages, v_pages)
+    x = x + attend(lp["attn"], h, k_pages, v_pages, aq)
     h = L.apply_norm(lp["ln2"], x, cfg)
-    return x + L.apply_mlp(lp["mlp"], h, cfg)
+    return x + L.apply_mlp(lp["mlp"], h, cfg, act_q=aq)
 
 
 def prefill_into_cache(params: DecoderLM, tokens: torch.Tensor, view,
@@ -124,9 +154,10 @@ def prefill_into_cache(params: DecoderLM, tokens: torch.Tensor, view,
     page = torch.where(tok_ok, torch.gather(view.block_tables.long(), 1, col), 0)
     off = torch.where(tok_ok, positions % bs, 0)
 
-    def attend(p, h, kp, vp):
+    def attend(p, h, kp, vp, aq):
         return L.mha_prefill_paged(p, h, cfg, positions, kp, vp,
-                                   view.block_tables, start, kv_lens)
+                                   view.block_tables, start, kv_lens,
+                                   act_q=aq)
 
     for i in range(cfg.num_layers):
         x = _block(params.layer(i), x, cfg, positions, view.k_pages[i],
@@ -159,9 +190,9 @@ def decode_step_paged(params: DecoderLM, view, tokens: torch.Tensor,
     off = torch.where(active, pos % bs, 0).long()[:, None]
     attn_lengths = torch.where(active, pos + 1, 0).to(torch.int32)
 
-    def attend(p, h, kp, vp):
+    def attend(p, h, kp, vp, aq):
         return L.mha_decode_paged(p, h, cfg, positions, kp, vp,
-                                  view.block_tables, attn_lengths)
+                                  view.block_tables, attn_lengths, act_q=aq)
 
     for i in range(cfg.num_layers):
         x = _block(params.layer(i), x, cfg, positions, view.k_pages[i],
@@ -170,3 +201,38 @@ def decode_step_paged(params: DecoderLM, view, tokens: torch.Tensor,
     logits = L.logits_fn(params, x, cfg)
     new_lengths = torch.where(active, pos + 1, pos).to(torch.int32)
     return logits, view._replace(lengths=new_lengths)
+
+
+# ----------------------------------------------------- act calibration --
+
+def collect_act_calibration(params: DecoderLM, tokens: torch.Tensor,
+                            cfg: ModelConfig) -> dict:
+    """One forward over calibration prompts ``tokens`` [B, S], capturing
+    per layer the float activation at every site of
+    :data:`~repro_torch.models.layers.ACT_SITES`: attn_in (ln1 output),
+    attn_out (the attention context before ``wo``), mlp_in (ln2 output),
+    mlp_mid (the MLP intermediate), attn_q (the roped query), attn_k /
+    attn_v (the roped keys and the values a page stores).  Attention is
+    causal over the prompt, computed in plain PyTorch
+    (:func:`~repro_torch.models.layers.mha_causal`); the projections go
+    through the usual dispatch.  No act-quant table is consulted.
+    Returns ``{site: [L, B, S, ...]}``."""
+    x = L.embed_tokens(params["embed"], tokens, cfg)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    samples: dict[str, list] = {site: [] for site in L.ACT_SITES}
+    for i in range(cfg.num_layers):
+        lp = params.layer(i)
+        h1 = L.apply_norm(lp["ln1"], x, cfg)
+        attn, ctx = L.mha_causal(lp["attn"], h1, cfg, positions)
+        x = x + attn
+        h2 = L.apply_norm(lp["ln2"], x, cfg)
+        k_cal, v_cal = L.self_kv(lp["attn"], h1, cfg, positions)
+        y, mid = L.apply_mlp(lp["mlp"], h2, cfg, return_mid=True)
+        for site, t in (("attn_in", h1), ("attn_out", ctx), ("mlp_in", h2),
+                        ("mlp_mid", mid),
+                        ("attn_q", L.roped_q(lp["attn"], h1, cfg, positions)),
+                        ("attn_k", k_cal), ("attn_v", v_cal)):
+            samples[site].append(t)
+        x = x + y
+    return {site: torch.stack(ts) for site, ts in samples.items()}

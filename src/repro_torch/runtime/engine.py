@@ -21,13 +21,19 @@ same M and page-column counts as the reference's.
 Greedy argmax and the per-row ``isfinite`` flag are computed in the same
 step as the logits and cross to the host in one transfer per tick.
 
+Activations as codes (``act_quant``: per-(layer, site) tables fit on
+sample prompts at construction, on the engine's device, disk-cached) and
+KV pages as codes (``kv_codes``: uint8 pages under per-head tables) are
+served; the engine counts the attention boundary's traffic from shapes
+(``attn_bytes_read``, ``attn_act_bytes``, ``attn_dequants``).
+
 Not ported yet, and refused with ``NotImplementedError`` naming the
 ROADMAP item that brings it: the prefix cache (item 7; the port's
 ``EngineConfig.prefix_cache`` therefore defaults to False), speculative
 decoding (10), bounded queues and load shedding, deadlines, chaos,
 checksums and the handling of non-finite rows (11: until then a
-non-finite row raises), disaggregation roles (12), activation codes and
-the calibration drift guard (8), KV as codes (9) and f8 KV (6).
+non-finite row raises), disaggregation roles and the calibration drift
+guard, which reports through the metrics registry (12), and f8 KV (6).
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import lama_layers as ll
 from repro_torch.models import api as mapi
 from repro_torch.models.transformer import DecoderLM
+from repro_torch.runtime import calibration as cal
 from repro_torch.runtime.paged_cache import PagedKVCache
 
 ST_OK = "ok"
@@ -95,7 +102,7 @@ class EngineConfig:
     spec_k: int = 0               # ROADMAP item 10
     spec_max_ngram: int = 3
     spec_min_ngram: int = 1
-    drift_check_every: int = 0    # ROADMAP item 8
+    drift_check_every: int = 0    # ROADMAP item 12
     drift_threshold_db: float = 6.0
 
 
@@ -103,7 +110,7 @@ class EngineConfig:
 _UNPORTED = {"prefix_cache": (False, 7), "max_queue": (None, 11),
              "shed_policy": ("reject-new", 11), "checksum_pages": (False, 11),
              "replay_dir": (None, 11), "role": ("unified", 12),
-             "spec_k": (0, 10), "drift_check_every": (0, 8)}
+             "spec_k": (0, 10), "drift_check_every": (0, 12)}
 
 
 def _not_ported(what: str, item: int):
@@ -171,19 +178,22 @@ class _SeqState:
 
 class Engine:
     """Continuous-batching serving engine over a paged KV cache, on the
-    card unless ``device="cpu"`` is passed."""
+    card unless ``device="cpu"`` is passed.
+
+    ``act_quant`` (bits) fits the activation tables on ``calib_prompts``
+    (default: 4 random prompts) and serves activations as codes;
+    ``params`` that already carry tables are served with them.
+    ``kv_codes`` stores KV pages as uint8 codes under the per-head
+    attn_k/attn_v tables, which must exist (``act_quant`` or params that
+    carry them)."""
 
     def __init__(self, cfg: ModelConfig, params: DecoderLM | None = None,
                  rng_seed: int = 0, quant_bits: int | None = None,
-                 act_quant: int | None = None,
+                 act_quant: int | None = None, calib_prompts=None,
                  engine: EngineConfig | None = None,
                  kv_dtype="float32", kv_codes: bool = False, chaos=None,
                  device=None):
         self.device = resolve_device(device)
-        if act_quant is not None:
-            raise _not_ported("act_quant (activations as codes)", 8)
-        if kv_codes:
-            raise _not_ported("kv_codes (KV pages as codes)", 9)
         if chaos is not None:
             raise _not_ported("chaos injection", 11)
         self.cfg = cfg
@@ -196,7 +206,9 @@ class Engine:
         if ec.prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got "
                              f"{ec.prefill_chunk}")
-        self.kv_dtype = kv_dtype_of(kv_dtype)
+        self.kv_codes = bool(kv_codes)
+        # codes mode: pages hold uint8 codes (1 B per element)
+        self.kv_dtype = torch.uint8 if self.kv_codes else kv_dtype_of(kv_dtype)
         if params is None:
             params = self.api.init(self.device, seed=rng_seed)
         self.quant_report = None
@@ -204,7 +216,25 @@ class Engine:
             qtree, self.quant_report = ll.quantize_tree(
                 params.tree(), quant_bits, axes=self.api.logical_axes())
             params = DecoderLM(cfg, qtree, device=self.device)
-        self.params = params.to(self.device)
+        params = params.to(self.device)
+        self.act_report = None
+        if act_quant is not None:
+            # fit on the weight-quantized model, as served, on its device
+            params, self.act_report = cal.calibrate_act_quant(
+                self.api, params, cfg, bits=act_quant, prompts=calib_prompts,
+                seq_len=min(32, ec.max_seq_len))
+        self.params = params
+        self._kv_fingerprint: int | None = None
+        if self.kv_codes:
+            aq = params.tree()["blocks"].get("act_q")
+            if not (isinstance(aq, dict) and "attn_k" in aq
+                    and "attn_v" in aq):
+                raise ValueError(
+                    "kv_codes=True requires act_quant bits: the per-head "
+                    "K/V code tables come from activation calibration "
+                    "(pass act_quant=<bits> or params that already carry "
+                    "the calibrated attn_k/attn_v tables)")
+            self._kv_fingerprint = cal.kv_tables_fingerprint(aq)
 
         max_blk = math.ceil(ec.max_seq_len / ec.block_size)
         num_blocks = ec.num_blocks
@@ -231,6 +261,10 @@ class Engine:
         # the host transfer that waits for the device)
         self.prefill_dispatch_s = 0.0
         self.decode_dispatch_s = 0.0
+        # the attention boundary's traffic, from shapes (_attn_accounting)
+        self.attn_bytes_read = 0
+        self.attn_act_bytes = 0
+        self.attn_dequants = 0
 
     # ---------------------------------------------------------------- api
     def submit(self, request: Request) -> int:
@@ -431,6 +465,24 @@ class Engine:
             self._queue.appendleft(st)    # head-of-line: wait for pages
             break
 
+    def _attn_accounting(self, q_tokens: int, kv_tokens: int) -> None:
+        """Analytic attention traffic of one dispatched row: the bytes
+        the attention kernel reads (q and the touched KV pages), the
+        activation bytes crossing the boundary (q in, context out: 1 B
+        per element as codes, 4 as float32) and the elements decoded in
+        the kernel (codes mode)."""
+        cfg = self.cfg
+        hd = cfg.resolved_head_dim
+        bs = self.engine_cfg.block_size
+        act_item = 1 if self.kv_codes else 4
+        q_bytes = q_tokens * cfg.num_heads * hd * act_item
+        blocks = -(-kv_tokens // bs)
+        kv_elems = blocks * bs * cfg.num_kv_heads * hd * 2
+        self.attn_bytes_read += q_bytes + kv_elems * self.kv_dtype.itemsize
+        self.attn_act_bytes += 2 * q_bytes
+        if self.kv_codes:
+            self.attn_dequants += q_tokens * cfg.num_heads * hd + kv_elems
+
     def _check_finite(self, ok, rows) -> None:
         bad = [self._slots[i].request.uid for i in rows if not ok[i]]
         if bad:
@@ -463,6 +515,7 @@ class Engine:
             start[i] = s0
             takes[i] = take
             self.prefill_tokens_computed += take
+            self._attn_accounting(take, s0 + take)
             cols_need = max(cols_need, -(-(s0 + take) // bs))
         self.prefill_batches += 1
         cols = min(self._pow2(cols_need), self.cache.max_blocks_per_seq)
@@ -514,6 +567,7 @@ class Engine:
         for i, st in active:
             tokens[i, 0] = st.next_token
             mask[i] = True
+            self._attn_accounting(1, int(self.cache.lengths[i]) + 1)
 
         t0 = self._clock()
         logits, _ = self.api.decode_step_paged(

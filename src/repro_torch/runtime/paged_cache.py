@@ -14,7 +14,8 @@ port owns this copy).
 The page pools ``k_pages``/``v_pages`` live on the device and are
 written in place by the model steps; the host keeps the allocator, the
 block tables and the lengths, and hands the device a small int32 view
-of them each step.
+of them each step.  Pools are float32 or bfloat16, or uint8 in codes
+mode (each element a DNA-TEQ code under its layer's per-head table).
 """
 
 from __future__ import annotations
@@ -129,6 +130,11 @@ class PagedKVCache:
                                     TRASH_PAGE, np.int32)
         self.lengths = np.zeros((num_slots,), np.int32)
         self.slot_blocks: list[list[int]] = [[] for _ in range(num_slots)]
+
+    @property
+    def nbytes(self) -> int:
+        """Device bytes of both page pools."""
+        return self.k_pages.nbytes + self.v_pages.nbytes
 
     def blocks_for(self, tokens: int) -> int:
         return max(1, math.ceil(tokens / self.block_size))

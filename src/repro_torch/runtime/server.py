@@ -5,7 +5,9 @@
 signature: requests go to an :class:`~repro_torch.runtime.engine.Engine`
 sized by the server and are drained.  Weights may be served as DNA-TEQ
 codes (``quant_bits``): the port fits and encodes them itself, on the
-device, and every matmul then runs the fused LUT-dequant kernel.
+device, and every matmul then runs the fused LUT-dequant kernel.  With
+``act_quant`` the activations are codes too (the Engine calibrates its
+tables), and with ``kv_codes`` the KV pages.
 """
 
 from __future__ import annotations
@@ -37,10 +39,13 @@ class InferenceServer:
         ``device="cpu"`` is passed.  ``kv_dtype`` is ``"float32"`` or
         ``"bfloat16"``.  ``prefix_cache`` defaults to False (the
         reference's default is True) until the prefix cache is ported
-        (ROADMAP Queue 1 item 7); ``act_quant``, ``kv_codes``,
-        ``max_queue`` and ``spec_k`` are refused by the Engine until
-        their ROADMAP items land.  With ``quant_bits`` the weights are
-        quantized by the port's ``quantize_tree`` on the device."""
+        (ROADMAP Queue 1 item 7); ``max_queue`` and ``spec_k`` are
+        refused by the Engine until their ROADMAP items land.  With
+        ``quant_bits`` the weights are quantized by the port's
+        ``quantize_tree`` on the device.  ``act_quant`` (bits) serves
+        activations as codes, calibrated by each Engine the server
+        builds (disk-cached); ``kv_codes`` stores KV pages as uint8
+        codes and requires ``act_quant``."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.api = mapi.get_model(cfg)
@@ -48,6 +53,8 @@ class InferenceServer:
         self.kv_dtype = kv_dtype_of(kv_dtype)
         self.act_quant = act_quant
         self.kv_codes = bool(kv_codes)
+        if self.kv_codes and act_quant is None:
+            raise ValueError("kv_codes=True requires act_quant bits")
         self.num_slots = num_slots
         self.block_size = block_size
         self.prefix_cache = prefix_cache

@@ -8,10 +8,13 @@ H100:
 Covers what ``chip_smoke.py`` does not: ragged M/K/N, split-K, ALU
 decode, bias and every epilogue, float32 and bfloat16 activations,
 other group sizes and block sizes (one above 48 KB of shared memory),
-zero-length rows, the wrappers' refusals, and a small engine served on
-the card against the same engine on the CPU.  Tolerance: 1e-4 of the
-reference's largest magnitude -- float32 on both sides, only the
-summation order and the library's exp differ.
+zero-length rows, the wrappers' refusals, and small engines (float and
+codes mode) served on the card against the same engine on the CPU.
+Tolerance: 1e-4 of the reference's largest magnitude for float outputs
+-- float32 on both sides, only the summation order and the library's
+exp differ.  uint8 code outputs: at most 1e-3 of the codes may differ,
+each by one rounding step (``eq.codes_agree``), since a last-bit float
+difference moves a value across a rounding boundary now and then.
 """
 
 import numpy as np
@@ -19,13 +22,20 @@ import pytest
 import torch
 
 from repro_torch.core import exponential_quant as eq
-from repro_torch.kernels.decode_gqa import decode_gqa_paged
-from repro_torch.kernels.decode_gqa.ref import decode_gqa_paged_ref
-from repro_torch.kernels.flash_prefill import flash_prefill_paged
-from repro_torch.kernels.flash_prefill.ref import flash_prefill_paged_ref
-from repro_torch.kernels.lut_dequant_matmul import (lut_dequant_matmul,
-                                                    lut_dequant_matmul_gated)
+from repro_torch.kernels.decode_gqa import (decode_gqa_paged,
+                                            decode_gqa_paged_codes)
+from repro_torch.kernels.decode_gqa.ref import (decode_gqa_paged_codes_ref,
+                                                decode_gqa_paged_ref)
+from repro_torch.kernels.flash_prefill import (flash_prefill_paged,
+                                               flash_prefill_paged_codes)
+from repro_torch.kernels.flash_prefill.ref import (
+    flash_prefill_paged_codes_ref, flash_prefill_paged_ref)
+from repro_torch.kernels.lut_dequant_matmul import (
+    lut_dequant_matmul, lut_dequant_matmul_dual, lut_dequant_matmul_dual_gated,
+    lut_dequant_matmul_gated)
+from repro_torch.kernels.lut_dequant_matmul.lut_dequant_matmul import split_k
 from repro_torch.kernels.lut_dequant_matmul.ref import (
+    lut_dequant_matmul_dual_gated_ref, lut_dequant_matmul_dual_ref,
     lut_dequant_matmul_gated_ref, lut_dequant_matmul_ref)
 
 
@@ -50,6 +60,26 @@ def _qweight(shape, dev, gen):
 def _close(out, ref):
     tol = 1e-4 * max(1.0, ref.abs().max().item())
     assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+def _codes_close(out, ref):
+    assert out.dtype == ref.dtype == torch.uint8
+    assert bool(eq.codes_agree(out, ref).all())
+    assert int((out != ref).sum()) <= 1e-3 * ref.numel()
+
+
+def _act_codes(shape, dev, gen, scale=1.0):
+    """Activation codes of a random tensor under its own fit:
+    (codes, lut, qmeta)."""
+    x = torch.randn(shape, generator=gen, device=dev) * scale
+    p = eq.fit(x, 7)
+    return eq.encode(x, p), eq.decode_table(p), eq.pack_qmeta(p)
+
+
+def _out_qmeta(y):
+    """Params fitted on a float result: the out table of a quantize
+    epilogue."""
+    return eq.pack_qmeta(eq.fit(y, 7))
 
 
 @pytest.mark.parametrize("m,k,n,trans,mode,epi,bias,xdt", [
@@ -182,6 +212,142 @@ def test_small_engine_on_the_card_matches_the_cpu(dev):
     rng = np.random.default_rng(0)
     reqs = lambda: [Request(i, rng_p, 10) for i, rng_p in enumerate(prompts)]
     prompts = [rng.integers(0, 1024, n).astype(np.int32) for n in (5, 40, 70, 17)]
+    a, b = card.generate(reqs()), cpu.generate(reqs())
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x.tokens, y.tokens)
+
+
+@pytest.mark.parametrize("m,k,n,mode,epi,bias,quant", [
+    (1, 40, 1024, "gather", None, False, True),
+    (5, 2048, 256, "alu", "gelu", True, True),       # split-K + encode
+    (8, 520, 777, "gather", "silu", True, False),
+    (33, 100, 48, "alu", "relu", False, True),       # tiled, ragged K
+    (130, 600, 150, "gather", None, True, True),
+    (200, 2048, 64, "gather", "gelu", False, False),  # tiled split-K
+])
+def test_lut_dequant_matmul_dual_kernel(dev, m, k, n, mode, epi, bias, quant):
+    gen = _gen(dev, 7 * m + n)
+    xc, lx, qx = _act_codes((m, k), dev, gen)
+    codes, lut, qmeta = _qweight((k, n), dev, gen)
+    b = torch.randn(n, generator=gen, device=dev) if bias else None
+    args = (xc, codes, lx, lut, qx, qmeta)
+    kw = dict(decode_mode=mode, epilogue=epi, bias=b)
+    ref_f = lut_dequant_matmul_dual_ref(*args, **kw)
+    qo = _out_qmeta(ref_f) if quant else None
+    out = lut_dequant_matmul_dual(*args, out_qmeta=qo, **kw)
+    if quant:
+        _codes_close(out, lut_dequant_matmul_dual_ref(*args, out_qmeta=qo, **kw))
+    else:
+        _close(out, ref_f)
+
+
+def test_dual_split_k_encodes_once_after_the_reduce(dev):
+    """Split-K with an out qmeta: the encode runs in the reduce pass on
+    the summed partials (an encode per split would disagree)."""
+    m, k, n = 5, 2048, 256
+    assert split_k(m, k, n, False, torch.cuda.get_device_properties(0)
+                   .multi_processor_count)[0] > 1
+    gen = _gen(dev, 11)
+    xc, lx, qx = _act_codes((m, k), dev, gen)
+    codes, lut, qmeta = _qweight((k, n), dev, gen)
+    ref_f = lut_dequant_matmul_dual_ref(xc, codes, lx, lut, qx, qmeta)
+    qo = _out_qmeta(ref_f)
+    out = lut_dequant_matmul_dual(xc, codes, lx, lut, qx, qmeta, out_qmeta=qo)
+    _codes_close(out, eq.encode_meta(ref_f, qo))
+
+
+@pytest.mark.parametrize("m,k,n,mode,act,quant", [
+    (3, 600, 700, "gather", "silu", True),
+    (8, 2048, 6144, "alu", "gelu", True),
+    (70, 100, 130, "gather", "relu", False),
+    (256, 2048, 200, "alu", "silu", True),
+])
+def test_lut_dequant_matmul_dual_gated_kernel(dev, m, k, n, mode, act, quant):
+    gen = _gen(dev, m + 3)
+    xc, lx, qx = _act_codes((m, k), dev, gen)
+    cg, lg, qg = _qweight((k, n), dev, gen)
+    cu, lu, qu = _qweight((k, n), dev, gen)
+    args = (xc, cg, cu, lx, lg, lu, qx, qg, qu)
+    kw = dict(activation=act, decode_mode=mode)
+    ref_f = lut_dequant_matmul_dual_gated_ref(*args, **kw)
+    qo = _out_qmeta(ref_f) if quant else None
+    out = lut_dequant_matmul_dual_gated(*args, out_qmeta=qo, **kw)
+    if quant:
+        _codes_close(out, lut_dequant_matmul_dual_gated_ref(
+            *args, out_qmeta=qo, **kw))
+    else:
+        _close(out, ref_f)
+
+
+def _code_pages(dev, gen, b, n_kv, bs, max_blk):
+    """uint8 code pages with per-head tables: (kp, vp, bt, k_lut, v_lut)."""
+    kp, vp, bt = _pages(dev, gen, b, n_kv, bs, max_blk, torch.float32)
+    out = [bt]
+    for p in (kp, vp):
+        rows = p.permute(2, 0, 1, 3).reshape(n_kv, -1)
+        fit = eq.fit(rows, 7, stacked=True)
+        qm = eq.pack_qmeta(fit)
+        out += [eq.encode_meta(p, qm[:, None, :]), eq.decode_table(fit)]
+    bt, kc, kl, vc, vl = out
+    return kc, vc, bt, kl, vl
+
+
+@pytest.mark.parametrize("g,bs,s", [(1, 8, 5), (2, 16, 37), (4, 32, 64),
+                                    (8, 48, 20)])
+def test_flash_prefill_paged_codes_kernel(dev, g, bs, s):
+    gen = _gen(dev, 300 + g * 10 + bs)
+    b, n_kv, max_blk = 4, 2, 8
+    kc, vc, bt, kl, vl = _code_pages(dev, gen, b, n_kv, bs, max_blk)
+    qc, ql, _ = _act_codes((b, s, n_kv, g, 128), dev, gen)
+    q_start = torch.tensor([0, 3, bs + 1, 0], dtype=torch.int32, device=dev)
+    valid = torch.tensor([s, s // 2, s, 0], dtype=torch.int32, device=dev)
+    kv_lens = torch.where(valid > 0, q_start + valid, 0).to(torch.int32)
+    oq = torch.tensor([0.02, 1e-4, 1.04, 7.0], device=dev)
+    args = (qc, kc, vc, ql, kl, vl, oq, bt, q_start, kv_lens)
+    out = flash_prefill_paged_codes(*args)
+    _codes_close(out, flash_prefill_paged_codes_ref(*args))
+    assert torch.all(out[3] == eq.encode_meta(torch.zeros((), device=dev), oq))
+
+
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("bs", [16, 48])
+def test_decode_gqa_paged_codes_kernel(dev, g, bs):
+    gen = _gen(dev, 500 + g + bs)
+    b, n_kv, max_blk = 5, 2, 6
+    kc, vc, bt, kl, vl = _code_pages(dev, gen, b, n_kv, bs, max_blk)
+    qc, ql, _ = _act_codes((b, n_kv, g, 128), dev, gen)
+    lengths = torch.tensor([1, 0, 17, bs * max_blk, 50], dtype=torch.int32,
+                           device=dev)
+    oq = torch.tensor([0.02, 1e-4, 1.04, 7.0], device=dev)
+    args = (qc, kc, vc, ql, kl, vl, oq, bt, lengths)
+    out = decode_gqa_paged_codes(*args)
+    _codes_close(out, decode_gqa_paged_codes_ref(*args))
+
+
+def test_small_codes_engine_on_the_card_matches_the_cpu(dev, tmp_path,
+                                                        monkeypatch):
+    """Activations and KV pages as codes: a 2-layer, head_dim-128 decoder
+    calibrated on the card, then served on the card and on the CPU from
+    the same weights and tables -- equal token streams."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.engine import Engine, EngineConfig, Request
+
+    monkeypatch.setenv("REPRO_ACT_CALIB_CACHE", str(tmp_path / "calib.json"))
+    cfg = get_config("qwen3-1.7b").replace(
+        num_layers=2, d_model=256, num_heads=2, num_kv_heads=1, head_dim=128,
+        d_ff=512, vocab_size=1024, compute_dtype="float32")
+    ec = EngineConfig(num_slots=3, block_size=16, max_seq_len=96,
+                      prefill_chunk=32)
+    card = Engine(cfg, quant_bits=7, act_quant=7, kv_codes=True, engine=ec,
+                  device="cuda", rng_seed=3)
+    assert card.cache.k_pages.dtype == torch.uint8
+    cpu = Engine(cfg, params=copy.deepcopy(card.params).to("cpu"), engine=ec,
+                 kv_codes=True, device="cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 1024, n).astype(np.int32) for n in (5, 40, 70, 17)]
+    reqs = lambda: [Request(i, p, 10) for i, p in enumerate(prompts)]
     a, b = card.generate(reqs()), cpu.generate(reqs())
     for x, y in zip(a, b):
         np.testing.assert_array_equal(x.tokens, y.tokens)

@@ -288,6 +288,7 @@ def test_bf16_compute_logits_close_to_reference():
 @pytest.mark.parametrize("kw,item", [
     (dict(prefix_cache=True), "item 7"), (dict(spec_k=2), "item 10"),
     (dict(max_queue=4), "item 11"), (dict(role="prefill"), "item 12"),
+    (dict(drift_check_every=4), "item 12"),
 ])
 def test_unported_engine_settings_raise(kw, item):
     _, cfg = _cfgs()
@@ -296,7 +297,6 @@ def test_unported_engine_settings_raise(kw, item):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(kv_codes=True), "item 9"), (dict(act_quant=7), "item 8"),
     (dict(kv_dtype="float8_e4m3fn"), "item 6"), (dict(chaos=object()), "item 11"),
 ])
 def test_unported_serving_options_raise(kw, item):

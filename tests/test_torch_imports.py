@@ -57,12 +57,26 @@ def test_entry_points_default_to_the_card(entry):
     cls(_tiny(), device="cpu")     # the explicit CPU request works
 
 
+REPLACED = {
+    "lut_dequant_matmul.cu": ("lut_dequant_matmul_kernel",
+                              "lut_dequant_matmul_gated_kernel",
+                              "lut_dequant_matmul_dual_kernel",
+                              "lut_dequant_matmul_dual_gated_kernel"),
+    "flash_prefill.cu": ("flash_prefill_paged_kernel",
+                         "flash_prefill_paged_codes_kernel"),
+    "decode_gqa.cu": ("decode_gqa_paged_kernel",
+                      "decode_gqa_paged_codes_kernel"),
+}
+
+
 def test_kernel_sources_carry_their_notes():
-    """Each CUDA source names the TPU kernel it replaces and what bounds
+    """Each CUDA source names the TPU kernels it replaces and what bounds
     it on the card."""
     csrc = ROOT / "src" / "repro_torch" / "csrc"
-    for name in ("lut_dequant_matmul.cu", "flash_prefill.cu", "decode_gqa.cu"):
+    for name, kernels in REPLACED.items():
         text = (csrc / name).read_text()
         assert "Replaces" in text and "src/repro/kernels/" in text, name
+        for k in kernels:
+            assert k in text, (name, k)
     text = (csrc / "paged_attention.cuh").read_text()
-    assert "Bounds on an H100" in text
+    assert "Bounds on an H100" in text and "Codes instantiation" in text
