@@ -15,10 +15,11 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
      quantized weights runs one prefill chunk and a few decode steps on
      the card (kernels) and on the CPU (plain versions), first with
      float activations and float32 pages, then with activations and KV
-     pages as codes (act-quant tables calibrated on the CPU); logits must
-     agree within tolerance (codes: four times the CPU's own spread
-     under a last-bit change of the weight tables) and greedy tokens
-     must be equal where the top-2 gap exceeds twice the tolerance;
+     pages as codes (act-quant tables calibrated on the card and copied
+     to the CPU); logits must agree within tolerance (codes: four times
+     the CPU's own spread under a last-bit change of the weight tables)
+     and greedy tokens must be equal where the top-2 gap exceeds twice
+     the tolerance;
   4. serving: full-width qwen3-1.7b (28 layers), weights random from a
      seed and quantized to 7-bit DNA-TEQ codes on the card, serves 12
      requests through ``InferenceServer.generate`` with every launch
@@ -26,14 +27,27 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
   5. codes serving: the same weights with activations and KV pages as
      codes (``act_quant=7, kv_codes=True``), calibrated afresh on the
      card, serve the same 12 requests, launch counters read around that
-     run.
-The line before the last is a JSON object of per-kernel figures; the
-last line is ``{"ok": true, "device": {...}}``.
+     run;
+  6. contiguous serving: the same weights serve 12 requests in three
+     prompt-length buckets through ``InferenceServer.generate_bucketed``
+     (contiguous cache, flash decode over it), launch counters read
+     around that run; token agreement with ``generate`` is printed;
+  7. the paper's Lama primitives at card size: ``lama_vector_matrix``
+     (Fig. 2, 8-bit v [4096] and M [4096, 8192]) and ``term1_counts``
+     (Eq. 1's T1 counters of a 2048 x 2048 projection at 8 rows), exact
+     against integer arithmetic and their plain versions, counters read
+     around them.
+Phase 3 also checks the contiguous path (``prefill`` and
+``decode_step``) card against CPU, and its dense decode branch against
+the kernel branch on the card.  The line before the last is a JSON
+object of per-kernel figures; the last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
 
 import copy
+import importlib
 import json
 import math
 import os
@@ -74,12 +88,25 @@ KERNELS = {
     "decode_gqa_paged_codes": (
         "src/repro_torch/csrc/decode_gqa.cu",
         "src/repro/kernels/decode_gqa/decode_gqa.py:135"),
+    "decode_gqa": (
+        "src/repro_torch/csrc/decode_gqa.cu",
+        "src/repro/kernels/decode_gqa/decode_gqa.py:256"),
+    "lama_bulk_op": (
+        "src/repro_torch/csrc/lama_bulk_op.cu",
+        "src/repro/kernels/lama_bulk_op/lama_bulk_op.py:39"),
+    "exp_histogram": (
+        "src/repro_torch/csrc/exp_histogram.cu",
+        "src/repro/kernels/exp_histogram/exp_histogram.py:44"),
 }
-# the kernels each serving path must launch
+# the kernels each path must launch
 FLOAT_PATH = ("lut_dequant_matmul", "lut_dequant_matmul_gated",
               "flash_prefill_paged", "decode_gqa_paged")
 CODES_PATH = ("lut_dequant_matmul_dual", "lut_dequant_matmul_dual_gated",
               "flash_prefill_paged_codes", "decode_gqa_paged_codes")
+CONTIG_PATH = ("lut_dequant_matmul", "lut_dequant_matmul_gated", "decode_gqa")
+LAMA_PATH = ("lama_bulk_op", "exp_histogram")
+PAGED_ATTENTION = ("flash_prefill_paged", "decode_gqa_paged",
+                   "flash_prefill_paged_codes", "decode_gqa_paged_codes")
 
 
 class CheckFailed(Exception):
@@ -178,8 +205,9 @@ def check_kernels(tally: Tally) -> None:
     import torch
 
     from repro_torch.core import exponential_quant as eq
-    from repro_torch.kernels.decode_gqa import decode_gqa_paged
-    from repro_torch.kernels.decode_gqa.ref import decode_gqa_paged_ref
+    from repro_torch.kernels.decode_gqa import decode_gqa, decode_gqa_paged
+    from repro_torch.kernels.decode_gqa.ref import (decode_gqa_paged_ref,
+                                                    decode_gqa_ref)
     from repro_torch.kernels.flash_prefill import flash_prefill_paged
     from repro_torch.kernels.flash_prefill.ref import flash_prefill_paged_ref
     from repro_torch.kernels.lut_dequant_matmul import (
@@ -341,6 +369,85 @@ def check_kernels(tally: Tally) -> None:
               + qd.numel() * 4 + bt.numel() * 4,
               4.0 * n_kv * g * hd * int(lengths.sum()),
               f"B={b} lengths<=732 max_blk={max_blk}")
+
+    # contiguous flash decode (#9) at #7's shape: the same rows, lengths
+    # and queries over [B, 768, n_kv, hd] caches, float32 and bfloat16
+    s_max = 768
+    n_read = int(lengths.sum())
+    maskc = (torch.arange(s_max, device=dev)[None] < lengths[:, None].long())
+    maskc = maskc[:, None, None]
+    for cdt in (torch.float32, torch.bfloat16):
+        kc, vc = rnd(b, s_max, n_kv, hd, dtype=cdt), rnd(b, s_max, n_kv, hd, dtype=cdt)
+        out = decode_gqa(qd, kc, vc, lengths)
+        ref = decode_gqa_ref(qd, kc, vc, lengths)
+        tol = 1e-4 * max(1.0, ref.abs().max().item())
+        err = (out - ref).abs().max().item()
+        require(err <= tol, f"decode_gqa {cdt}: max err {err} > {tol}")
+        kk = kc.permute(0, 2, 1, 3).repeat_interleave(g, 1).contiguous()
+        vv = vc.permute(0, 2, 1, 3).repeat_interleave(g, 1).contiguous()
+        qdc = qds.to(cdt)
+        tally.add("decode_gqa", err,
+                  time_ms(lambda: decode_gqa(qd, kc, vc, lengths), flush=flush),
+                  time_ms(lambda: decode_gqa_ref(qd, kc, vc, lengths),
+                          flush=flush),
+                  time_ms(lambda: sdpa(qdc, kk, vv, attn_mask=maskc), flush=flush),
+                  qd.numel() * 2 + n_read * n_kv * hd * kc.element_size() * 2
+                  + qd.numel() * 4 + b * 4,
+                  4.0 * n_kv * g * hd * n_read,
+                  f"B={b} S={s_max} lengths<=732 {str(cdt)[6:]}")
+        del kk, vv
+
+
+def check_lama_kernels(tally: Tally) -> None:
+    """The Lama primitives' kernels (#10, #11) at card size, held to
+    exact equality with their plain versions."""
+    import torch
+
+    from repro_torch.core.lut import mul_lut
+    from repro_torch.kernels.exp_histogram import exp_histogram
+    from repro_torch.kernels.exp_histogram.ref import exp_histogram_ref
+    from repro_torch.kernels.lama_bulk_op import lama_bulk_op
+    from repro_torch.kernels.lama_bulk_op.ref import lama_bulk_op_ref
+
+    # the launch module (the package's ``lama_bulk_op`` is the wrapper,
+    # which waits for the card to read the range flag)
+    bulk = importlib.import_module("repro_torch.kernels.lama_bulk_op.lama_bulk_op")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+
+    # #10: K = 4096 scalar operands, each against an 8192-wide row of
+    # 8-bit codes, through the 8-bit multiplication table
+    g, m = 4096, 8192
+    table = mul_lut(8, device=dev)
+    a = torch.randint(0, 256, (g,), generator=gen, device=dev).to(torch.int32)
+    b8 = torch.randint(0, 256, (g, m), generator=gen, device=dev).to(torch.uint8)
+    out = lama_bulk_op(a, b8, table)
+    require(torch.equal(out, lama_bulk_op_ref(a, b8, table)),
+            "lama_bulk_op differs from its plain version")
+    al, bl = a[:, None].long(), b8.long()
+    tally.add("lama_bulk_op", 0.0,
+              time_ms(lambda: bulk.launch(a, b8, table), flush=flush),
+              time_ms(lambda: lama_bulk_op_ref(a, b8, table), flush=flush),
+              time_ms(lambda: table[al, bl], flush=flush),
+              b8.numel() + out.numel() * 4, 0.0, f"G={g} m={m} uint8 codes")
+    del bl
+
+    # #11: the counters of a 2048 x 2048 projection at 8 rows (G = 16384
+    # dot products of 2048 terms), values in [0, 127)
+    g, m, e = 16384, 2048, 127
+    vals = torch.randint(0, e, (g, m), generator=gen, device=dev).to(torch.int32)
+    signs = torch.randint(0, 2, (g, m), generator=gen, device=dev).float() * 2 - 1
+    out = exp_histogram(vals, signs, e)
+    require(torch.equal(out, exp_histogram_ref(vals, signs, e)),
+            "exp_histogram differs from its plain version")
+    vl = vals.long()
+    tally.add("exp_histogram", 0.0,
+              time_ms(lambda: exp_histogram(vals, signs, e), flush=flush),
+              time_ms(lambda: exp_histogram_ref(vals, signs, e), flush=flush),
+              time_ms(lambda: torch.zeros(g, e, device=dev).scatter_add_(
+                  1, vl, signs), flush=flush),
+              vals.numel() * 8 + g * e * 4, 0.0, f"G={g} M={m} bins={e}")
 
 
 def check_codes_kernels(tally: Tally) -> None:
@@ -537,13 +644,15 @@ def check_codes_kernels(tally: Tally) -> None:
 
 def path_check() -> None:
     """Card against CPU on a 2-layer, full-width model: float activations
-    over float32 pages, then activations and KV pages as codes under
-    act-quant tables calibrated on the CPU."""
+    over float32 pages, the contiguous path (and its dense decode branch
+    against the kernel branch, on the card), then activations and KV
+    pages as codes under the same act-quant tables on both sides."""
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.core import lama_layers as ll
+    from repro_torch.kernels import _build
     from repro_torch.models import api as mapi
     from repro_torch.models.transformer import DecoderLM
     from repro_torch.runtime import calibration as cal
@@ -627,13 +736,54 @@ def path_check() -> None:
     print(f"  float path check ok: card {t1 - t0:.2f} s, cpu {t2 - t1:.2f} s",
           flush=True)
 
+    # the contiguous path: prefill of a 2-row bucket of 100-token prompts
+    # into a 128-position cache, then 4 decode steps feeding the CPU's
+    # greedy tokens on both sides
+    toks = rng.integers(0, cfg.vocab_size, (2, 100)).astype(np.int32)
+
+    def run_contiguous(model, dev, feed=None):
+        logits, cache = api.prefill(model, torch.as_tensor(toks, device=dev),
+                                    cfg, 128, cache_dtype=torch.float32)
+        outs = [logits[:, -1].float().cpu()]
+        nxt = logits[:, -1].argmax(-1)
+        for step in range(4):
+            if feed is not None:
+                nxt = feed[step].to(dev)
+            logits, cache = api.decode_step(model, cache,
+                                            nxt[:, None].to(torch.int32), cfg)
+            outs.append(logits[:, -1].float().cpu())
+            nxt = logits[:, -1].argmax(-1)
+        return outs
+
+    t0 = time.perf_counter()
+    on_cpu = run_contiguous(cpu, torch.device("cpu"))
+    feed = [o.argmax(-1) for o in on_cpu[:-1]]
+    t1 = time.perf_counter()
+    before = _build.launch_counts().get("decode_gqa", 0)
+    on_card = run_contiguous(gpu, torch.device("cuda"), feed)
+    t2 = time.perf_counter()
+    launched = _build.launch_counts().get("decode_gqa", 0) - before
+    require(launched == cfg.num_layers * 4,
+            f"contiguous path check: decode_gqa launched {launched} times")
+    compare("contiguous", on_card, on_cpu, 1e-4)
+    with ll.policy(flash_decode=False):
+        dense = run_contiguous(gpu, torch.device("cuda"), feed)
+    require(_build.launch_counts().get("decode_gqa", 0) - before == launched,
+            "the dense decode branch launched decode_gqa")
+    compare("contiguous dense vs kernel", dense, on_card, 1e-4)
+    print(f"  contiguous path check ok: card {t2 - t1:.2f} s, cpu "
+          f"{t1 - t0:.2f} s", flush=True)
+
     path = os.path.join(ROOT, "build", "chip_smoke_path_calib.json")
     if os.path.exists(path):
         os.unlink(path)
+    # calibrated on the card (the CPU would take five times as long);
+    # both sides then hold the same tables
     t0 = time.perf_counter()
-    cpu, report = cal.calibrate_act_quant(api, cpu, cfg, 7, path=path)
+    gpu, report = cal.calibrate_act_quant(api, gpu, cfg, 7, path=path)
+    torch.cuda.synchronize()
     t_cal = time.perf_counter() - t0
-    gpu = copy.deepcopy(cpu).to("cuda")
+    cpu = copy.deepcopy(gpu).to("cpu")
     t0 = time.perf_counter()
     on_cpu = run(cpu, torch.device("cpu"), torch.uint8)
     t1 = time.perf_counter()
@@ -658,7 +808,7 @@ def path_check() -> None:
           f"differ by {spread:.3e} of their scale", flush=True)
     compare("codes", on_card, on_cpu, max(1e-3, 4 * spread))
     sqnr = cal.report_means(report)
-    print(f"  codes path check ok: calibration on the CPU {t_cal:.2f} s "
+    print(f"  codes path check ok: calibration on the card {t_cal:.2f} s "
           f"(mean SQNR {min(sqnr.values()):.1f}..{max(sqnr.values()):.1f} dB), "
           f"card {t2 - t1:.2f} s, cpu {t1 - t0:.2f} s", flush=True)
 
@@ -714,7 +864,8 @@ def print_rates(eng, peak_gib: float) -> None:
 
 
 def serve(counts_out: dict):
-    """Phase 4; returns the completions and the page-pool bytes."""
+    """Phase 4; returns the completions, the page-pool bytes and the
+    quantized weights (phases 5 and 6 serve the same ones)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -757,13 +908,14 @@ def serve(counts_out: dict):
     print(f"  first completion tokens {outs[0].tokens[:8].tolist()}", flush=True)
     pool = eng.cache.nbytes
     profile_decode(srv, cfg)
-    return outs, pool
+    return outs, pool, srv.params
 
 
-def serve_codes(counts_out: dict, float_outs, float_pool: int) -> None:
-    """Phase 5: the same weights with activations and KV pages as codes,
-    calibrated afresh on the card (a cache file under build/, deleted
-    first, so no stale fit can stand in)."""
+def serve_codes(counts_out: dict, float_outs, float_pool: int,
+                params) -> None:
+    """Phase 5: the same weights (phase 4's ``params``) with activations
+    and KV pages as codes, calibrated afresh on the card (a cache file
+    under build/, deleted first, so no stale fit can stand in)."""
     import numpy as np
     import torch
 
@@ -780,9 +932,8 @@ def serve_codes(counts_out: dict, float_outs, float_pool: int) -> None:
     os.environ["REPRO_ACT_CALIB_CACHE"] = path
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    srv = InferenceServer(cfg, quant_bits=7, act_quant=7, kv_codes=True,
-                          num_slots=8, prefill_chunk=256, device="cuda",
-                          rng_seed=0)
+    srv = InferenceServer(cfg, params=params, act_quant=7, kv_codes=True,
+                          num_slots=8, prefill_chunk=256, device="cuda")
     torch.cuda.synchronize()
     t_setup = time.perf_counter() - t0
     lens, reqs = serving_requests(cfg)
@@ -837,6 +988,140 @@ def serve_codes(counts_out: dict, float_outs, float_pool: int) -> None:
           f"{eng.attn_bytes_read}, activation bytes {eng.attn_act_bytes}, "
           f"dequants {eng.attn_dequants}", flush=True)
     profile_decode(srv, cfg)
+
+
+# ------------------------------------- phase 6: contiguous serving --
+
+def serve_contiguous(counts_out: dict, params) -> None:
+    """Phase 6: phase 4's weights serve 12 requests in three prompt
+    buckets (64, 256 and 700 tokens, four each; 32 new tokens) through
+    ``generate_bucketed`` over float32 contiguous caches of 768
+    positions; then ``generate`` (the Engine) serves the same requests
+    for the token agreement, which is printed, not gated (random
+    weights: near-ties may flip)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.runtime.server import InferenceServer, Request
+
+    cfg = get_config(ARCH)
+    rng = np.random.default_rng(2)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                    max_new_tokens=32)
+            for i, n in enumerate([64] * 4 + [256] * 4 + [700] * 4)]
+    srv = InferenceServer(cfg, params=params, max_len=768, num_slots=8,
+                          prefill_chunk=256, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = srv.generate_bucketed(reqs)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    counts_out.update(counts)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_served(outs, reqs, cfg)
+    buckets: dict = {}
+    for r, c in zip(reqs, outs):
+        buckets.setdefault(len(r.prompt), []).append(c)
+    steps = sum(cs[0].decode_steps for cs in buckets.values())
+    require(counts.get("decode_gqa", 0) == cfg.num_layers * steps,
+            f"decode_gqa launches {counts.get('decode_gqa', 0)} != "
+            f"{cfg.num_layers} x {steps} decode steps")
+    for name in CONTIG_PATH:
+        require(counts.get(name, 0) > 0, f"{name} never launched while "
+                f"serving the contiguous path")
+    for name in PAGED_ATTENTION:
+        require(counts.get(name, 0) == 0, f"{name} launched "
+                f"{counts.get(name)} times on the contiguous path")
+    prefill_s = sum(cs[0].prefill_s for cs in buckets.values())
+    decode_s = sum(cs[0].decode_s for cs in buckets.values())
+    prompt_toks = sum(len(r.prompt) for r in reqs)
+    decode_toks = sum(len(cs) * cs[0].decode_steps for cs in buckets.values())
+    cache_bytes = (2 * cfg.num_layers * 4 * srv.max_len * cfg.num_kv_heads
+                   * cfg.resolved_head_dim * 4)
+    print(f"  served {len(outs)} requests in {t_run:.2f} s: {len(buckets)} "
+          f"buckets, {steps} decode steps, launches {counts}", flush=True)
+    print(f"  prefill {prompt_toks / prefill_s:.1f} tok/s ({prompt_toks} "
+          f"tokens in {prefill_s:.3f} s), decode {decode_toks / decode_s:.1f} "
+          f"tok/s ({decode_toks} tokens in {decode_s:.3f} s, "
+          f"{1e3 * decode_s / steps:.2f} ms/step), peak memory {peak:.2f} "
+          f"GiB, contiguous cache {cache_bytes} B per 4-row bucket "
+          f"(float32, {srv.max_len} positions)", flush=True)
+    t0 = time.perf_counter()
+    engine_outs = srv.generate(reqs)
+    t_eng = time.perf_counter() - t0
+    agree = np.mean([np.mean(a.tokens == b.tokens)
+                     for a, b in zip(engine_outs, outs)])
+    print(f"  greedy-token agreement with generate (the Engine, {t_eng:.2f} "
+          f"s) {agree:.4f} (printed, not gated); first completion tokens "
+          f"{outs[0].tokens[:8].tolist()}", flush=True)
+
+
+# ----------------------------------------- phase 7: Lama primitives --
+
+def lama_primitives(counts_out: dict) -> None:
+    """Phase 7: ``lama_vector_matrix`` (Fig. 2: 8-bit v [4096] against
+    M [4096, 8192]) exact against integer arithmetic, and
+    ``term1_counts`` (Eq. 1's T1 counters of a 2048 x 2048 projection
+    at 8 rows under 7-bit codes: 16384 dot products of 2048 terms)
+    exact against its plain version and the T4 identity; counters read
+    around them, then ms per call and GB/s."""
+    import torch
+
+    from repro_torch.core import exponential_quant as eq
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.exp_histogram import term1_counts
+    from repro_torch.kernels.exp_histogram.ref import exp_histogram_ref
+    from repro_torch.kernels.lama_bulk_op import lama_vector_matrix
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    k, n = 4096, 8192
+    v = torch.randint(0, 256, (k,), generator=gen, device=dev).to(torch.int32)
+    mm = torch.randint(0, 256, (k, n), generator=gen, device=dev).to(torch.uint8)
+    x = torch.randn(8, 2048, generator=gen, device=dev)
+    w = torch.randn(2048, 2048, generator=gen, device=dev) * 0.02
+    ca, pa = eq.quantize(x, 7)
+    fw = eq.fit(w, 7)
+    pw = eq.ExpQuantParams(fw.alpha, fw.beta, pa.base, 7)   # shared base
+    # row r*2048 + j pairs activation row r with weight column j
+    codes_a = ca[:, None, :].expand(8, 2048, 2048).reshape(-1, 2048)
+    codes_w = eq.encode(w, pw).t()[None].expand(8, 2048, 2048).reshape(-1, 2048)
+    torch.cuda.synchronize()
+
+    _build.reset_launch_counts()
+    out = lama_vector_matrix(v, mm, 8)
+    t1 = term1_counts(codes_a, pa, codes_w, pw)
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    counts_out.update(counts)
+    for name in LAMA_PATH:
+        require(counts.get(name, 0) == 1, f"{name} launched "
+                f"{counts.get(name, 0)} times, not once")
+    require(torch.equal(out.long(), (v.long()[:, None] * mm.long()).sum(0)),
+            "lama_vector_matrix is not v @ M")
+    sa, ea = eq.split_code(codes_a, pa)
+    sw, ew = eq.split_code(codes_w, pw)
+    signs = (sa * sw).float()
+    vals = (ea - pa.e_min) + (ew - pw.e_min)
+    require(torch.equal(t1, exp_histogram_ref(vals, signs, t1.shape[1])),
+            "term1_counts differs from its plain version")
+    require(torch.equal(t1.sum(1), signs.sum(1)),
+            "term1_counts: the counts do not sum to the signed count (T4)")
+    ms_vm = time_ms(lambda: lama_vector_matrix(v, mm, 8))
+    ms_t1 = time_ms(lambda: term1_counts(codes_a, pa, codes_w, pw))
+    vm_bytes = mm.numel() + v.numel() * 4 + n * 4
+    t1_bytes = codes_a.numel() * 2 + t1.numel() * 4
+    print(f"  lama_vector_matrix K={k} N={n} 8-bit: exact, {ms_vm:.4f} ms "
+          f"per call ({vm_bytes / ms_vm / 1e6:.1f} GB/s of its {vm_bytes} B "
+          f"of operands and result)", flush=True)
+    print(f"  term1_counts G={codes_a.shape[0]} M=2048 bins={t1.shape[1]}: "
+          f"exact, T4 identity holds, {ms_t1:.4f} ms per call "
+          f"({t1_bytes / ms_t1 / 1e6:.1f} GB/s of its {t1_bytes} B of codes "
+          f"and counters)", flush=True)
 
 
 def profile_decode(srv, cfg) -> None:
@@ -916,24 +1201,36 @@ def main() -> int:
         tally = Tally()
         check_kernels(tally)
         check_codes_kernels(tally)
+        check_lama_kernels(tally)
         phase("phase 3: 2-layer full-width path checks, card vs CPU")
         path_check()
         phase("phase 4: serving full-width qwen3-1.7b, 7-bit codes")
         counts: dict = {}
-        float_outs, float_pool = serve(counts)
+        float_outs, float_pool, params = serve(counts)
         phase("phase 5: serving with activations and KV pages as codes")
         codes_counts: dict = {}
-        serve_codes(codes_counts, float_outs, float_pool)
+        serve_codes(codes_counts, float_outs, float_pool, params)
+        phase("phase 6: contiguous serving (generate_bucketed)")
+        contig_counts: dict = {}
+        serve_contiguous(contig_counts, params)
+        phase("phase 7: the Lama primitives at card size")
+        lama_counts: dict = {}
+        lama_primitives(lama_counts)
         phase("all phases passed")
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
+    # each kernel's launches on the path that first runs it
+    path_counts = {**{k: lama_counts for k in LAMA_PATH},
+                   "decode_gqa": contig_counts,
+                   **{k: codes_counts for k in CODES_PATH},
+                   **{k: counts for k in FLOAT_PATH}}
     rows = []
     for name, (src, replaces) in KERNELS.items():
         r = tally.rows[name]
         _, by = bound_ms(r["nbytes"], r["flops"])
-        launched = (codes_counts if name in CODES_PATH else counts).get(name, 0)
+        launched = path_counts[name].get(name, 0)
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launched,
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],

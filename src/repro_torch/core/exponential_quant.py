@@ -108,6 +108,13 @@ def encode(x: torch.Tensor, params: ExpQuantParams) -> torch.Tensor:
     return (_sign_bit(x) << 7) | biased
 
 
+def split_code(codes: torch.Tensor, params: ExpQuantParams):
+    """codes -> (sign in {+1, -1} int8, exponent int32)."""
+    sign = torch.where((codes >> 7) > 0, -1, 1).to(torch.int8)
+    e = (codes & 0x7F).to(torch.int32) + params.e_min
+    return sign, e
+
+
 def decode_table(params: ExpQuantParams, dtype=F32) -> torch.Tensor:
     """The 256-entry decode table indexed by code (``[..., 256]``)."""
     dev = params.alpha.device

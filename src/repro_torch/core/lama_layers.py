@@ -18,9 +18,11 @@ dual-LUT kernels, and ``out_quant`` returns the result as codes too, so
 consecutive quantized matmuls are code-in/code-out.
 
 Of the reference's ``FusedPolicy``, ``decode_mode`` (``gather``, the
-default, or ``alu``) and ``act_quant`` (the A/B switch for calibrated
-activation tables) are ported; the materialize, unfused-epilogue and
-``flash_decode=False`` A/B modes are later ROADMAP items.
+default, or ``alu``), ``act_quant`` (the A/B switch for calibrated
+activation tables) and ``flash_decode`` (the contiguous decode step
+through the flash-decode kernel, or the dense masked attend) are
+ported; the materialize and unfused-epilogue A/B modes are later
+ROADMAP items.
 """
 
 from __future__ import annotations
@@ -46,6 +48,8 @@ class FusedPolicy:
     act_quant: bool = True          # honor act-quant tables when present
                                     # (False A/B-disables encoding without
                                     # re-calibrating)
+    flash_decode: bool = True       # contiguous decode_step: flash-decode
+                                    # kernel (False: dense masked attend)
 
 
 _POLICY = FusedPolicy()

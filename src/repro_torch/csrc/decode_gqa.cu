@@ -1,10 +1,16 @@
-// Flash decode over a paged KV cache, Hopper (sm_90a).
+// Flash decode over a paged or a contiguous KV cache, Hopper (sm_90a).
 //
 // Replaces src/repro/kernels/decode_gqa/decode_gqa.py:
-//   decode_gqa_paged_kernel (#7) (body _paged_kernel -> _kernel), and
+//   decode_gqa_paged_kernel (#7) (body _paged_kernel -> _kernel),
 //   decode_gqa_paged_codes_kernel (#8): uint8 q and pages decoded through
 //   per-KV-head tables in shared memory, the context encoded to uint8 at
-//   the flush.  Bound by the page bytes, which are 1 B per element there.
+//   the flush.  Bound by the page bytes, which are 1 B per element there;
+//   and decode_gqa_kernel (#9): the contiguous [B, S, n_kv, 128] cache
+//   of the legacy serving path (paged_attention.cuh's CONTIG
+//   instantiation, tiles of 64 positions).  The TPU kernel's block_s=512
+//   grid axis and its padding of S to a multiple of it are TPU tiling:
+//   here a block walks its row's tiles in a loop and masks the tail, so
+//   any S runs as it is.  Bound by the KV bytes up to lengths[b].
 // One query per row, masked by lengths[b]: the shared body of
 // paged_attention.cuh with S = 1 and the query at position len-1.  A
 // block owns one (row, KV head) and its g query heads (R = g), so every
@@ -70,4 +76,33 @@ extern "C" int decode_gqa_paged_codes_launch(
       return (int)cudaErrorInvalidValue;
   }
 #undef REPRO_DECODE_CODES_CASE
+}
+
+// Contiguous caches: q [B, n_kv, g, 128] float32/bfloat16; k_cache and
+// v_cache [B, S, n_kv, 128] float32/bfloat16; lengths [B] in [0, S];
+// out float32 of q's shape.  Zero-length rows get zeros.
+extern "C" int decode_gqa_launch(
+    const void* q, int q_bf16, const void* k_cache, const void* v_cache,
+    int kv_bf16, const void* lengths, void* out, int B, int S, int n_kv,
+    int g, int hd, float scale, void* stream) {
+  constexpr int tile = 64;   // cache positions per shared-memory tile
+  if (hd != paged::HD || S < 1) return (int)cudaErrorInvalidValue;
+  const int* ln = static_cast<const int*>(lengths);
+  const int tiles = (S + tile - 1) / tile;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define REPRO_CONTIG_CASE(G)                                                \
+  case G:                                                                   \
+    return (int)paged::launch_typed<G, true>(q, q_bf16, k_cache, v_cache,   \
+                                             kv_bf16, nullptr, nullptr, ln, \
+                                             out, B, 1, n_kv, g, tile,      \
+                                             tiles, scale, 1, 1, st, S);
+  switch (g) {
+    REPRO_CONTIG_CASE(1)
+    REPRO_CONTIG_CASE(2)
+    REPRO_CONTIG_CASE(4)
+    REPRO_CONTIG_CASE(8)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef REPRO_CONTIG_CASE
 }

@@ -23,6 +23,14 @@
 // per-page scalar dot products at prefill; a tensor-core version is
 // later work.
 //
+// Contiguous instantiation (CONTIG = true): the cache is [B, cache_s,
+// n_kv, HD] per row, with no block table.  A "page" is then a tile of
+// bs consecutive positions, read at ((b*cache_s + t)*n_kv + h)*HD, 16
+// positions' loads in flight at once; positions at or past kv_len (the
+// last tile's tail, or a row shorter than the cache) are stored as 0.0
+// and masked to -1e30 like any other, so the cache needs no padding to
+// a multiple of the tile.
+//
 // Codes instantiation (CODES = true; q and pages uint8 DNA-TEQ codes):
 // the block copies the q table and its own KV head's K and V tables
 // (3 x 256 floats) into shared memory first, decodes q, K and V through
@@ -44,6 +52,7 @@ namespace paged {
 
 constexpr int HD = 128;
 constexpr int THREADS = 128;
+constexpr int CONTIG_BATCH = 16;   // contiguous positions loaded at once
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -79,7 +88,9 @@ __device__ __forceinline__ float operand(T v, const float* lut) {
 // [B, max_blk]; out [B, S, n_kv, g, HD] float32 (uint8 codes when
 // CODES).  decode=1 reads kv_lens as the decode lengths and puts the
 // single query at position len-1 (validity then reduces to kv_pos < len).
-template <int R, typename QT, typename KT, bool CODES>
+// CONTIG: k_pages/v_pages are the [B, cache_s, n_kv, HD] caches,
+// block_tables is unused, and max_blk = ceil(cache_s / bs) tiles.
+template <int R, typename QT, typename KT, bool CODES, bool CONTIG>
 __global__ void __launch_bounds__(THREADS)
 attention_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pages,
                  const KT* __restrict__ v_pages,
@@ -87,7 +98,7 @@ attention_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pages,
                  const int* __restrict__ q_start,
                  const int* __restrict__ kv_lens, void* __restrict__ out,
                  int S, int n_kv, int g, int bs, int max_blk, float scale,
-                 int decode, Codes codes) {
+                 int decode, Codes codes, int cache_s) {
   extern __shared__ float smem[];
   float* s_q = smem;                    // [R][HD]
   float* s_k = s_q + R * HD;            // [bs][HD + 1]
@@ -104,7 +115,7 @@ attention_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pages,
   const int tid = threadIdx.x;
   const int qpb = R / g;
   const int qi0 = blockIdx.z * qpb;
-  const int kvl = kv_lens[b];
+  const int kvl = CONTIG ? min(kv_lens[b], cache_s) : kv_lens[b];
   const int qs = decode ? kvl - 1 : q_start[b];
 
   if constexpr (CODES) {
@@ -139,11 +150,37 @@ attention_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pages,
   __syncthreads();
 
   for (int j = 0; j < n_pages; ++j) {
-    const size_t page = (size_t)block_tables[(size_t)b * max_blk + j];
-    for (int t = 0; t < bs; ++t) {
-      const size_t off = ((page * bs + t) * n_kv + h) * HD + tid;
-      s_k[t * (HD + 1) + tid] = operand<CODES>(k_pages[off], s_kl);
-      s_v[t * HD + tid] = operand<CODES>(v_pages[off], s_vl);
+    if constexpr (CONTIG) {
+      // CONTIG_BATCH positions at a time: every load of a batch is
+      // issued before the first is used (a dead position loads the
+      // row's last live one, in bounds, and is then zeroed), so a
+      // batch costs one memory latency, not one per position
+      for (int t0 = 0; t0 < bs; t0 += CONTIG_BATCH) {
+        float kr[CONTIG_BATCH], vr[CONTIG_BATCH];
+#pragma unroll
+        for (int u = 0; u < CONTIG_BATCH; ++u) {
+          const int pos = min(j * bs + t0 + u, kvl - 1);
+          const size_t off = (((size_t)b * cache_s + pos) * n_kv + h) * HD + tid;
+          kr[u] = operand<CODES>(k_pages[off], s_kl);
+          vr[u] = operand<CODES>(v_pages[off], s_vl);
+        }
+#pragma unroll
+        for (int u = 0; u < CONTIG_BATCH; ++u) {
+          const int t = t0 + u;
+          if (t < bs) {
+            const bool live = j * bs + t < kvl;
+            s_k[t * (HD + 1) + tid] = live ? kr[u] : 0.0f;
+            s_v[t * HD + tid] = live ? vr[u] : 0.0f;
+          }
+        }
+      }
+    } else {
+      const size_t page = (size_t)block_tables[(size_t)b * max_blk + j];
+      for (int t = 0; t < bs; ++t) {
+        const size_t off = ((page * bs + t) * n_kv + h) * HD + tid;
+        s_k[t * (HD + 1) + tid] = operand<CODES>(k_pages[off], s_kl);
+        s_v[t * HD + tid] = operand<CODES>(v_pages[off], s_vl);
+      }
     }
     __syncthreads();
     for (int p = tid; p < R * bs; p += THREADS) {
@@ -202,14 +239,16 @@ attention_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pages,
 }
 
 // Launch one instantiation with dynamic shared memory sized for bs.
-template <int R, typename QT, typename KT, bool CODES = false>
+template <int R, typename QT, typename KT, bool CODES = false,
+          bool CONTIG = false>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* bt, const int* qs, const int* kl, void* out,
                    int B, int S, int n_kv, int g, int bs, int max_blk,
                    float scale, int decode, int tiles, cudaStream_t st,
-                   Codes codes = Codes{nullptr, nullptr, nullptr, nullptr}) {
+                   Codes codes = Codes{nullptr, nullptr, nullptr, nullptr},
+                   int cache_s = 0) {
   const size_t smem = smem_bytes(R, bs, CODES);
-  auto kern = attention_kernel<R, QT, KT, CODES>;
+  auto kern = attention_kernel<R, QT, KT, CODES, CONTIG>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -219,7 +258,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   kern<<<grid, THREADS, smem, st>>>(
       static_cast<const QT*>(q), static_cast<const KT*>(k),
       static_cast<const KT*>(v), bt, qs, kl, out, S, n_kv, g, bs, max_blk,
-      scale, decode, codes);
+      scale, decode, codes, cache_s);
   return cudaGetLastError();
 }
 
@@ -235,24 +274,31 @@ cudaError_t launch_codes(const void* q, const void* k, const void* v,
                                            decode, tiles, st, codes);
 }
 
-// Dispatch on the q and page dtypes (float32 or bfloat16).
-template <int R>
+// Dispatch on the q and page dtypes (float32 or bfloat16); CONTIG with
+// the caches' length cache_s for the contiguous instantiation.
+template <int R, bool CONTIG = false>
 cudaError_t launch_typed(const void* q, int q_bf16, const void* k,
                          const void* v, int kv_bf16, const int* bt,
                          const int* qs, const int* kl, void* out, int B,
                          int S, int n_kv, int g, int bs, int max_blk,
-                         float scale, int decode, int tiles, cudaStream_t st) {
+                         float scale, int decode, int tiles, cudaStream_t st,
+                         int cache_s = 0) {
+  const Codes none{nullptr, nullptr, nullptr, nullptr};
   if (q_bf16 && kv_bf16)
-    return launch<R, __nv_bfloat16, __nv_bfloat16>(
-        q, k, v, bt, qs, kl, out, B, S, n_kv, g, bs, max_blk, scale, decode, tiles, st);
+    return launch<R, __nv_bfloat16, __nv_bfloat16, false, CONTIG>(
+        q, k, v, bt, qs, kl, out, B, S, n_kv, g, bs, max_blk, scale, decode,
+        tiles, st, none, cache_s);
   if (q_bf16)
-    return launch<R, __nv_bfloat16, float>(
-        q, k, v, bt, qs, kl, out, B, S, n_kv, g, bs, max_blk, scale, decode, tiles, st);
+    return launch<R, __nv_bfloat16, float, false, CONTIG>(
+        q, k, v, bt, qs, kl, out, B, S, n_kv, g, bs, max_blk, scale, decode,
+        tiles, st, none, cache_s);
   if (kv_bf16)
-    return launch<R, float, __nv_bfloat16>(
-        q, k, v, bt, qs, kl, out, B, S, n_kv, g, bs, max_blk, scale, decode, tiles, st);
-  return launch<R, float, float>(
-      q, k, v, bt, qs, kl, out, B, S, n_kv, g, bs, max_blk, scale, decode, tiles, st);
+    return launch<R, float, __nv_bfloat16, false, CONTIG>(
+        q, k, v, bt, qs, kl, out, B, S, n_kv, g, bs, max_blk, scale, decode,
+        tiles, st, none, cache_s);
+  return launch<R, float, float, false, CONTIG>(
+      q, k, v, bt, qs, kl, out, B, S, n_kv, g, bs, max_blk, scale, decode,
+      tiles, st, none, cache_s);
 }
 
 }  // namespace paged

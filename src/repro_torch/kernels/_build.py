@@ -27,7 +27,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNEL_SOURCES = ("lut_dequant_matmul", "flash_prefill", "decode_gqa")
+KERNEL_SOURCES = ("lut_dequant_matmul", "flash_prefill", "decode_gqa",
+                  "lama_bulk_op", "exp_histogram")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,5 +1,5 @@
-"""Public wrappers of flash decode over a paged KV cache (float pages,
-and uint8 codes pages).
+"""Public wrappers of flash decode over a contiguous KV cache and over a
+paged one (float pages, and uint8 codes pages).
 
 A CPU tensor goes to the plain page-scan version, a CUDA tensor to the
 kernel (or the call raises)."""
@@ -10,8 +10,23 @@ import torch
 
 from repro_torch.kernels.decode_gqa import decode_gqa as _k
 from repro_torch.kernels.decode_gqa.ref import (decode_gqa_paged_codes_ref,
-                                               decode_gqa_paged_ref)
+                                               decode_gqa_paged_ref,
+                                               decode_gqa_ref)
 from repro_torch.kernels.flash_prefill.ops import row_ints
+
+
+def decode_gqa(q, k_cache, v_cache, lengths, *, out_dtype=None) -> torch.Tensor:
+    """Flash decode over contiguous caches: q [B, n_kv, g, hd]; caches
+    [B, S, n_kv, hd] (float32 or bfloat16 on the card); lengths [B] or a
+    scalar, broadcast and clipped to [0, S].  Any S works: the kernel
+    masks the tail itself (the reference pads S to its block).
+    Zero-length rows return zeros.  Returns [B, n_kv, g, hd]."""
+    out_dtype = out_dtype or torch.float32
+    lengths = row_ints(lengths, q.shape[0], q.device, k_cache.shape[1])
+    if q.device.type == "cpu":
+        return decode_gqa_ref(q, k_cache, v_cache, lengths,
+                              out_dtype=out_dtype)
+    return _k.launch_contiguous(q, k_cache, v_cache, lengths).to(out_dtype)
 
 
 def decode_gqa_paged(q, k_pages, v_pages, block_tables, lengths, *,

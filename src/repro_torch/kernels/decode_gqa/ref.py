@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of flash decode over a paged KV cache.
+"""Plain PyTorch versions of flash decode over a contiguous and over a
+paged KV cache.
 
 Decoding one query at position ``len-1`` against ``len`` cached tokens
 is the chunked prefill of a one-token chunk (validity
@@ -9,10 +10,33 @@ zeros.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.kernels.flash_prefill.ref import (
     flash_prefill_paged_codes_ref, flash_prefill_paged_ref)
+
+
+def decode_gqa_ref(q, k_cache, v_cache, lengths,
+                   out_dtype=torch.float32) -> torch.Tensor:
+    """The contiguous oracle, as the reference's: q [B, n_kv, g, hd];
+    caches [B, S, n_kv, hd]; lengths [B].  Positions at or past
+    ``lengths[b]`` are filled with -1e30 before one softmax.  A
+    zero-length row, which that softmax would average over every
+    position, gets zeros as the kernels give it (the reference's paged
+    wrapper does the same after its oracle)."""
+    qf, kf, vf = q.float(), k_cache.float(), v_cache.float()
+    logit = torch.einsum("bngh,bsnh->bngs", qf, kf) / math.sqrt(q.shape[-1])
+    pos = torch.arange(kf.shape[1], device=q.device)
+    valid = pos[None, :] < lengths.to(q.device)[:, None]            # [B, S]
+    logit = torch.where(valid[:, None, None, :], logit,
+                        torch.tensor(-1e30, dtype=torch.float32,
+                                     device=q.device))
+    out = torch.einsum("bngs,bsnh->bngh", torch.softmax(logit, dim=-1), vf)
+    out = torch.where((lengths > 0).to(q.device)[:, None, None, None], out,
+                      torch.zeros((), device=q.device))
+    return out.to(out_dtype)
 
 
 def decode_gqa_paged_ref(q, k_pages, v_pages, block_tables, lengths,

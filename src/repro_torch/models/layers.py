@@ -1,12 +1,16 @@
 """Decoder building blocks (port of the JAX package's ``models/layers.py``:
-norms, RoPE, the paged attends, the MLP, embeddings and logits).
+norms, RoPE, the contiguous and the paged attends, the MLP, embeddings
+and logits).
 
 Every matmul routes through :mod:`repro_torch.core.lama_layers`, so any
 weight may be a :class:`~repro_torch.core.exponential_quant.QWeight`.
 With a layer's act-quant tables (``act_q``), activations are encoded at
 the calibrated sites and the matmuls run on codes; KV pages are float
 (float32, bfloat16) or uint8 codes (codes mode).  f8 pages are a later
-ROADMAP item.
+ROADMAP item.  The contiguous attends (``mha``: dense or chunked
+online-softmax, both plain PyTorch as the reference's are plain jnp)
+serve ``forward``/``prefill`` and the dense decode branch;
+``mha_decode`` runs the contiguous flash-decode kernel.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import lama_layers as ll
 from repro_torch.core.exponential_quant import QTensor, encode_meta, is_qtensor
-from repro_torch.kernels.decode_gqa import (decode_gqa_paged,
+from repro_torch.kernels.decode_gqa import (decode_gqa, decode_gqa_paged,
                                             decode_gqa_paged_codes)
 from repro_torch.kernels.flash_prefill import (flash_prefill_paged,
                                                flash_prefill_paged_codes)
@@ -173,26 +177,162 @@ def self_kv(p: Params, x: torch.Tensor, cfg: ModelConfig,
     return rope(k, positions, cfg.rope_theta), v
 
 
-def mha_causal(p: Params, x: torch.Tensor, cfg: ModelConfig,
-               positions: torch.Tensor):
-    """Causal self-attention over a whole prompt, for calibration only
-    (the reference's contiguous ``mha`` with a causal mask, in plain
-    PyTorch).  Returns (the ``wo`` projection, the context [B, S, H,
-    hd] before it)."""
+# Above this many score elements, ``mha`` with a mask descriptor takes
+# the chunked online-softmax path, so scores never materialize (the
+# reference's values; its FLASH_UNROLL and CONTEXT_PARALLEL are TPU
+# partitioning switches and are not ported).
+FLASH_THRESHOLD = 32 * 1024 * 1024
+FLASH_Q_CHUNK = 1024
+FLASH_K_CHUNK = 1024
+
+
+def _block_mask(kind: str, arg, qp: torch.Tensor,
+                kp: torch.Tensor) -> torch.Tensor:
+    """[Qc, Kc] bool from absolute positions for one (q, k) chunk."""
+    if kind == "full":
+        return torch.ones((qp.shape[0], kp.shape[0]), dtype=torch.bool,
+                          device=qp.device)
+    causal = kp[None, :] <= qp[:, None]
+    if kind == "causal":
+        return causal
+    if kind == "local":
+        return causal & (kp[None, :] > qp[:, None] - arg)
+    if kind == "prefix":
+        return causal | ((qp[:, None] < arg) & (kp[None, :] < arg))
+    raise ValueError(kind)
+
+
+def _materialize_mask(kind: str, arg, q_len: int, kv_len: int, q_offset,
+                      device) -> torch.Tensor:
+    return _block_mask(kind, arg, torch.arange(q_len, device=device) + q_offset,
+                       torch.arange(kv_len, device=device))
+
+
+def _attend_dense(q, k, v, mask, dt):
+    """q [B, S, n_kv, G, hd]; k/v [B, T, n_kv, hd]; mask [S, T] or
+    [B, S, T] bool.  float32 logits, a -1e30 bias on masked positions,
+    softmax, probabilities in ``dt`` against v."""
+    logits = torch.einsum("bsngh,btnh->bnsgt", q.to(F32),
+                          k.to(F32)) / math.sqrt(q.shape[-1])
+    bias = torch.where(mask, 0.0, -1e30).to(F32)
+    bias = bias[None, None, :, None, :] if mask.ndim == 2 else bias[:, None, :, None, :]
+    probs = torch.softmax(logits + bias, dim=-1).to(dt)
+    rt = torch.promote_types(dt, v.dtype)
+    return torch.einsum("bnsgt,btnh->bsngh", probs.to(rt), v.to(rt))
+
+
+def _attend_flash(q, k, v, kind: str, arg, q_offset, dt,
+                  q_chunk=FLASH_Q_CHUNK, k_chunk=FLASH_K_CHUNK):
+    """Chunked online-softmax attention (the FlashAttention recurrence
+    in plain PyTorch, as the reference's is in plain jnp): a loop over
+    query chunks, an inner loop over KV chunks with running (max,
+    denominator, accumulator).  Never materializes [S, T] scores.
+    Operands stay bf16 when ``dt`` is bf16 (float32 otherwise); the
+    products accumulate in float32.  Both ends are padded to whole
+    chunks and padded keys masked, as in the reference."""
+    b, s, n, g, hd = q.shape
+    t = k.shape[1]
+    q_chunk, k_chunk = min(q_chunk, s), min(k_chunk, t)
+    nq, nk = -(-s // q_chunk), -(-t // k_chunk)
+    op_dt = dt if dt == torch.bfloat16 else F32
+    qf = torch.nn.functional.pad(q.to(op_dt), (0, 0, 0, 0, 0, 0, 0, nq * q_chunk - s))
+    kf = torch.nn.functional.pad(k.to(op_dt), (0, 0, 0, 0, 0, nk * k_chunk - t))
+    vf = torch.nn.functional.pad(v.to(op_dt), (0, 0, 0, 0, 0, nk * k_chunk - t))
+    dev = q.device
+    neg = torch.tensor(-1e30, dtype=F32, device=dev)
+    scale = 1.0 / math.sqrt(hd)
+    outs = []
+    for qi in range(nq):
+        qc = qf[:, qi * q_chunk:(qi + 1) * q_chunk].to(F32)
+        qpos = q_offset + qi * q_chunk + torch.arange(q_chunk, device=dev)
+        m = torch.full((b, n, q_chunk, g), -1e30, dtype=F32, device=dev)
+        l = torch.zeros((b, n, q_chunk, g), dtype=F32, device=dev)
+        acc = torch.zeros((b, n, q_chunk, g, hd), dtype=F32, device=dev)
+        for kj in range(nk):
+            sl = slice(kj * k_chunk, (kj + 1) * k_chunk)
+            kpos = torch.arange(sl.start, sl.stop, device=dev)
+            logit = torch.einsum("bsngh,btnh->bnsgt", qc,
+                                 kf[:, sl].to(F32)) * scale
+            mask = _block_mask(kind, arg, qpos, kpos) & (kpos < t)[None, :]
+            logit = torch.where(mask[None, None, :, None, :], logit, neg)
+            m_new = torch.maximum(m, logit.amax(-1))
+            p = torch.exp(logit - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bnsgt,btnh->bnsgh", p.to(op_dt).to(F32), vf[:, sl].to(F32))
+            m = m_new
+        out = acc / torch.clamp_min(l, 1e-30)[..., None]       # [b,n,qc,g,hd]
+        outs.append(out.permute(0, 2, 1, 3, 4))                # [b,qc,n,g,hd]
+    return torch.cat(outs, 1)[:, :s].to(dt)
+
+
+def mha(p: Params, x: torch.Tensor, cfg: ModelConfig, positions, mask,
+        kv=None, use_rope: bool = True, q_offset=0,
+        act_q: dict | None = None, return_ctx: bool = False):
+    """Grouped-query attention over a contiguous sequence; ``kv``
+    ([B, T, n_kv, hd] each, already normed and roped) overrides the
+    self-derived keys/values (the dense decode branch attends the
+    cache this way).  ``mask`` is a bool array ([S, T] or [B, S, T]) or
+    a ``(kind, arg)`` descriptor (``full``, ``causal``, ``local``,
+    ``prefix``); a descriptor above :data:`FLASH_THRESHOLD` score
+    elements takes the chunked path.  ``act_q`` encodes x at attn_in
+    (once, for q, k and v) and the context at attn_out; ``return_ctx``
+    also returns the context before ``wo`` (the attn_out calibration
+    sample)."""
     dt = x.dtype
-    q = roped_q(p, x, cfg, positions)
-    k, v = self_kv(p, x, cfg, positions)
+    xq = _q(x, act_q, "attn_in")
+    q = ll.dense_general(xq, p["wq"], "bsd,dnh->bsnh", dtype=dt)
+    if kv is None:
+        k = ll.dense_general(xq, p["wk"], "bsd,dnh->bsnh", dtype=dt)
+        v = ll.dense_general(xq, p["wv"], "bsd,dnh->bsnh", dtype=dt)
+    else:
+        k, v = kv
+    if cfg.qk_norm:
+        q = apply_head_rms(p["q_norm"], q)
+        if kv is None:
+            k = apply_head_rms(p["k_norm"], k)
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        if kv is None:
+            k = rope(k, positions, cfg.rope_theta)
     b, s, h, hd = q.shape
-    groups = cfg.num_heads // cfg.num_kv_heads
-    qg = q.reshape(b, s, cfg.num_kv_heads, groups, hd).to(F32)
-    logits = torch.einsum("bsngh,btnh->bnsgt", qg, k.to(F32)) / math.sqrt(hd)
-    causal = torch.ones(s, s, dtype=torch.bool, device=x.device).tril()
-    logits = torch.where(causal[None, None, :, None, :], logits,
-                         torch.tensor(-1e30, dtype=F32, device=x.device))
-    probs = torch.softmax(logits, dim=-1)
-    ctx = torch.einsum("bnsgt,btnh->bsngh", probs, v.to(F32))
-    ctx = ctx.reshape(b, s, h, hd).to(dt)
-    return ll.dense_general(ctx, p["wo"], "bsnh,nhd->bsd", dtype=dt), ctx
+    t = k.shape[1]
+    qg = q.reshape(b, s, cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, hd)
+    if isinstance(mask, tuple):
+        kind, arg = mask[0], (mask[1] if len(mask) > 1 else None)
+        if b * h * s * t > FLASH_THRESHOLD:
+            out = _attend_flash(qg, k, v, kind, arg, q_offset, dt)
+        else:
+            out = _attend_dense(qg, k, v, _materialize_mask(
+                kind, arg, s, t, q_offset, x.device), dt)
+    else:
+        out = _attend_dense(qg, k, v, mask, dt)
+    out = out.reshape(b, s, h, hd)
+    proj = ll.dense_general(_q(out, act_q, "attn_out"), p["wo"],
+                            "bsnh,nhd->bsd", dtype=dt)
+    return (proj, out) if return_ctx else proj
+
+
+def mha_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, positions,
+               k_cache, v_cache, lengths, use_rope: bool = True,
+               act_q: dict | None = None) -> torch.Tensor:
+    """Decode-step GQA over contiguous caches ([B, T, n_kv, hd]) through
+    the flash-decode kernel, masked by ``lengths`` [B]; numerically
+    :func:`mha` with a causal-by-length mask."""
+    dt = x.dtype
+    q = ll.dense_general(_q(x, act_q, "attn_in"), p["wq"], "bsd,dnh->bsnh",
+                         dtype=dt)
+    if cfg.qk_norm:
+        q = apply_head_rms(p["q_norm"], q)
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+    b, s, h, hd = q.shape
+    qg = q[:, 0].reshape(b, cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, hd)
+    out = decode_gqa(qg, k_cache, v_cache, lengths)
+    out = out.reshape(b, 1, h, hd).to(dt)
+    return ll.dense_general(_q(out, act_q, "attn_out"), p["wo"],
+                            "bsnh,nhd->bsd", dtype=dt)
 
 
 def _attend_out(p: Params, out: torch.Tensor, k_pages, act_q, dt):

@@ -1,14 +1,19 @@
-"""Decoder-only transformer LM: the paged serving entry points (port of
-the JAX package's ``models/transformer.py``, dense decoder family).
+"""Decoder-only transformer LM (port of the JAX package's
+``models/transformer.py``, dense decoder family): the contiguous-cache
+entry points and the paged serving entry points.
 
+``forward``, ``prefill`` and ``decode_step`` are the legacy contiguous
+path (``InferenceServer.generate_bucketed``): one ``[L, B, max_len,
+n_kv, hd]`` cache per batch, written *in place* at ``pos`` (the
+reference returns a new cache from ``dynamic_update_slice``).
 ``prefill_into_cache`` and ``decode_step_paged`` take a
 :class:`~repro_torch.runtime.paged_cache.PagedView` and update its page
-pools *in place* (``index_put_``); the reference returns a new view
-instead, because JAX arrays are immutable.  The loop over the layer
-index takes the place of the reference's ``scan_blocks``.  A layer's
-act-quant tables (``blocks.act_q``, attached by calibration) switch its
-activations to codes; uint8 pages store K/V as codes, encoded at the
-write.  ``collect_act_calibration`` is the calibration hook.
+pools in place too (``index_put_``); the reference returns a new view.
+The loop over the layer index takes the place of the reference's
+``scan_blocks``.  A layer's act-quant tables (``blocks.act_q``, attached
+by calibration) switch its activations to codes; uint8 pages store K/V
+as codes, encoded at the write.  ``collect_act_calibration`` is the
+calibration hook.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import lama_layers as ll
 from repro_torch.core.exponential_quant import QWeight
 from repro_torch.models import layers as L
 from repro_torch.models.params import (ParamTree, init_params, layer_slice,
@@ -104,10 +110,124 @@ def _rewrap(tree: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------- contiguous cache --
+
+def _check_dense(cfg: ModelConfig, prefix_embeds) -> None:
+    if cfg.is_moe:
+        raise NotImplementedError("MoE blocks are not ported yet "
+                                  "(ROADMAP Queue 1 item 13)")
+    if prefix_embeds is not None:
+        raise NotImplementedError("prefix embeddings (the vlm stub "
+                                  "frontend) are not ported yet (ROADMAP "
+                                  "Queue 1 item 13)")
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device=None) -> dict:
+    """A zeroed contiguous cache: ``k``/``v`` [L, batch, max_len, n_kv,
+    hd] of ``dtype`` on ``device`` (the card unless ``"cpu"``) and the
+    next write position ``pos`` (an int)."""
+    dev = resolve_device(device)
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev), "pos": 0}
+
+
+def _block(lp: dict, x, cfg: ModelConfig, positions, mask):
+    """One block over a contiguous sequence; returns (y, (k, v)) with
+    this sequence's K (normed, roped) and V for the cache.  The
+    attention takes those same K/V (the reference's ``mha`` derives them
+    again from the same inputs: equal values)."""
+    aq = lp.get("act_q")
+    h = L.apply_norm(lp["ln1"], x, cfg)
+    kv = L.self_kv(lp["attn"], h, cfg, positions, act_q=aq)
+    x = x + L.mha(lp["attn"], h, cfg, positions, mask, kv=kv, act_q=aq)
+    h = L.apply_norm(lp["ln2"], x, cfg)
+    return x + L.apply_mlp(lp["mlp"], h, cfg, act_q=aq), kv
+
+
+def forward(params: DecoderLM, tokens: torch.Tensor, cfg: ModelConfig,
+            prefix_embeds=None):
+    """Full-sequence causal forward.  Returns (logits [B, S, V], the
+    auxiliary loss: 0.0, as for every dense block)."""
+    _check_dense(cfg, prefix_embeds)
+    x = L.embed_tokens(params["embed"], tokens, cfg)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    for i in range(cfg.num_layers):
+        x, _ = _block(params.layer(i), x, cfg, positions, ("causal", None))
+    x = L.apply_norm(params["ln_f"], x, cfg)
+    return L.logits_fn(params, x, cfg), torch.zeros((), device=x.device)
+
+
+def prefill(params: DecoderLM, tokens: torch.Tensor, cfg: ModelConfig,
+            max_len: int, prefix_embeds=None, cache_dtype=torch.bfloat16):
+    """Run the prompts ``tokens`` [B, S] and build a contiguous cache of
+    ``max_len`` positions holding their K/V.  Returns (logits [B, 1, V]
+    at the last position, the cache with ``pos = S``)."""
+    _check_dense(cfg, prefix_embeds)
+    x = L.embed_tokens(params["embed"], tokens, cfg)
+    b, s, _ = x.shape
+    if s > max_len:
+        raise ValueError(f"prompt length {s} exceeds the cache's {max_len}")
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    cache = init_cache(cfg, b, max_len, cache_dtype, device=x.device)
+    for i in range(cfg.num_layers):
+        x, (k, v) = _block(params.layer(i), x, cfg, positions,
+                           ("causal", None))
+        cache["k"][i, :, :s] = k.to(cache_dtype)
+        cache["v"][i, :, :s] = v.to(cache_dtype)
+    x = L.apply_norm(params["ln_f"], x, cfg)
+    cache["pos"] = s
+    return L.logits_fn(params, x[:, -1:], cfg), cache
+
+
+def decode_step(params: DecoderLM, cache: dict, tokens: torch.Tensor,
+                cfg: ModelConfig):
+    """One step of every row: tokens [B, S] (S = 1 on the serving path)
+    at position ``cache["pos"]``, their K/V written into the cache in
+    place.  Attention goes through the flash-decode kernel (policy
+    ``flash_decode``, S = 1), else the dense masked attend over the
+    cache upcast to the compute dtype.  Returns (logits [B, S, V], the
+    cache with ``pos`` advanced by one, as the reference's)."""
+    _check_dense(cfg, None)
+    x = L.embed_tokens(params["embed"], tokens, cfg)
+    b, s, _ = x.shape
+    pos = int(cache["pos"])
+    max_len = cache["k"].shape[2]
+    if pos + s > max_len:
+        raise ValueError(f"cache full: position {pos} + {s} > {max_len}")
+    dev = x.device
+    positions = torch.full((b, s), pos, device=dev)
+    mask = (torch.arange(max_len, device=dev)[None, :] <= pos).expand(s, max_len)
+    flash = ll.get_policy().flash_decode and s == 1
+    lengths = torch.full((b,), pos + 1, dtype=torch.int32, device=dev)
+    for i in range(cfg.num_layers):
+        lp = params.layer(i)
+        aq = lp.get("act_q")
+        kc, vc = cache["k"][i], cache["v"][i]
+        h = L.apply_norm(lp["ln1"], x, cfg)
+        k_new, v_new = L.self_kv(lp["attn"], h, cfg, positions, act_q=aq)
+        kc[:, pos:pos + s] = k_new.to(kc.dtype)
+        vc[:, pos:pos + s] = v_new.to(vc.dtype)
+        if flash:
+            attn = L.mha_decode(lp["attn"], h, cfg, positions, kc, vc,
+                                lengths, act_q=aq)
+        else:
+            attn = L.mha(lp["attn"], h, cfg, positions, mask,
+                         kv=(kc.to(x.dtype), vc.to(x.dtype)), act_q=aq)
+        x = x + attn
+        h = L.apply_norm(lp["ln2"], x, cfg)
+        x = x + L.apply_mlp(lp["mlp"], h, cfg, act_q=aq)
+    x = L.apply_norm(params["ln_f"], x, cfg)
+    return L.logits_fn(params, x, cfg), {**cache, "pos": pos + 1}
+
+
 # ------------------------------------------------------- paged serving --
 
-def _block(lp: dict, x, cfg: ModelConfig, positions, k_pages, v_pages,
-           page, off, attend):
+def _paged_block(lp: dict, x, cfg: ModelConfig, positions, k_pages, v_pages,
+                 page, off, attend):
     """One block: scatter this step's K/V into the pages (encoded to
     codes first when the pages are uint8), then attend through
     ``attend``, then the MLP."""
@@ -160,8 +280,8 @@ def prefill_into_cache(params: DecoderLM, tokens: torch.Tensor, view,
                                    act_q=aq)
 
     for i in range(cfg.num_layers):
-        x = _block(params.layer(i), x, cfg, positions, view.k_pages[i],
-                   view.v_pages[i], page, off, attend)
+        x = _paged_block(params.layer(i), x, cfg, positions,
+                         view.k_pages[i], view.v_pages[i], page, off, attend)
     x = L.apply_norm(params["ln_f"], x, cfg)
     idx = torch.clamp(view.lengths - 1 - start, 0, s - 1).long()
     x_last = torch.gather(x, 1, idx[:, None, None].expand(b, 1, x.shape[-1]))
@@ -195,8 +315,8 @@ def decode_step_paged(params: DecoderLM, view, tokens: torch.Tensor,
                                   view.block_tables, attn_lengths, act_q=aq)
 
     for i in range(cfg.num_layers):
-        x = _block(params.layer(i), x, cfg, positions, view.k_pages[i],
-                   view.v_pages[i], blk, off, attend)
+        x = _paged_block(params.layer(i), x, cfg, positions,
+                         view.k_pages[i], view.v_pages[i], blk, off, attend)
     x = L.apply_norm(params["ln_f"], x, cfg)
     logits = L.logits_fn(params, x, cfg)
     new_lengths = torch.where(active, pos + 1, pos).to(torch.int32)
@@ -213,9 +333,10 @@ def collect_act_calibration(params: DecoderLM, tokens: torch.Tensor,
     attn_out (the attention context before ``wo``), mlp_in (ln2 output),
     mlp_mid (the MLP intermediate), attn_q (the roped query), attn_k /
     attn_v (the roped keys and the values a page stores).  Attention is
-    causal over the prompt, computed in plain PyTorch
-    (:func:`~repro_torch.models.layers.mha_causal`); the projections go
-    through the usual dispatch.  No act-quant table is consulted.
+    causal over the prompt, through the contiguous
+    :func:`~repro_torch.models.layers.mha` as in the reference; the
+    projections go through the usual dispatch.  No act-quant table is
+    consulted.
     Returns ``{site: [L, B, S, ...]}``."""
     x = L.embed_tokens(params["embed"], tokens, cfg)
     b, s, _ = x.shape
@@ -224,7 +345,8 @@ def collect_act_calibration(params: DecoderLM, tokens: torch.Tensor,
     for i in range(cfg.num_layers):
         lp = params.layer(i)
         h1 = L.apply_norm(lp["ln1"], x, cfg)
-        attn, ctx = L.mha_causal(lp["attn"], h1, cfg, positions)
+        attn, ctx = L.mha(lp["attn"], h1, cfg, positions, ("causal", None),
+                          return_ctx=True)
         x = x + attn
         h2 = L.apply_norm(lp["ln2"], x, cfg)
         k_cal, v_cal = L.self_kv(lp["attn"], h1, cfg, positions)

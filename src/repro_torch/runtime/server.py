@@ -1,5 +1,5 @@
-"""Batched inference server over the Engine (port of the JAX package's
-``runtime/server.py``, engine path only).
+"""Batched inference server (port of the JAX package's
+``runtime/server.py``).
 
 ``InferenceServer.generate`` keeps the reference's synchronous
 signature: requests go to an :class:`~repro_torch.runtime.engine.Engine`
@@ -8,11 +8,25 @@ codes (``quant_bits``): the port fits and encodes them itself, on the
 device, and every matmul then runs the fused LUT-dequant kernel.  With
 ``act_quant`` the activations are codes too (the Engine calibrates its
 tables), and with ``kv_codes`` the KV pages.
+
+:meth:`InferenceServer.generate_bucketed` is the legacy path kept by the
+reference as the engine's measured baseline and numerical reference:
+requests bucketed by prompt length, each bucket prefilled in one batch
+into a contiguous cache of ``max_len`` positions and decoded in
+lockstep through the contiguous flash-decode kernel.  It serves float
+activations (``act_quant`` and ``kv_codes`` apply to the Engine only,
+as in the reference).  The decoder family is the only one ported, so
+``generate`` never falls back to it.
 """
 
 from __future__ import annotations
 
+import time
+from collections import defaultdict
 from typing import Sequence
+
+import numpy as np
+import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -37,7 +51,8 @@ class InferenceServer:
                  device=None):
         """As the reference's server, on the card unless
         ``device="cpu"`` is passed.  ``kv_dtype`` is ``"float32"`` or
-        ``"bfloat16"``.  ``prefix_cache`` defaults to False (the
+        ``"bfloat16"``, for the Engine's pages and for the contiguous
+        cache of :meth:`generate_bucketed` (``max_len`` positions).  ``prefix_cache`` defaults to False (the
         reference's default is True) until the prefix cache is ported
         (ROADMAP Queue 1 item 7); ``max_queue`` and ``spec_k`` are
         refused by the Engine until their ROADMAP items land.  With
@@ -100,3 +115,55 @@ class InferenceServer:
         if not requests:
             return []
         return self.make_engine(requests).generate(requests)
+
+    # ------------------------------------------- legacy bucketed path --
+    def generate_bucketed(self, requests: Sequence[Request]) -> list[Completion]:
+        """Length-bucketed batched prefill and lockstep batched greedy
+        decode over a contiguous cache.  Every request of a bucket
+        decodes ``max(max_new_tokens)`` steps and shares one prefill
+        and decode stamp; a stop token trims the stream after it.
+        Completions come back sorted by uid."""
+        buckets: dict[int, list[Request]] = defaultdict(list)
+        for r in requests:
+            buckets[len(r.prompt)].append(r)
+        out: list[Completion] = []
+        for plen, group in sorted(buckets.items()):
+            out.extend(self._run_bucket(group))
+        return sorted(out, key=lambda c: c.uid)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _run_bucket(self, group: list[Request]) -> list[Completion]:
+        toks = torch.as_tensor(np.stack([r.prompt for r in group]),
+                               dtype=torch.int32, device=self.device)
+        t0 = time.perf_counter()
+        logits, cache = self.api.prefill(self.params, toks, self.cfg,
+                                         self.max_len,
+                                         cache_dtype=self.kv_dtype)
+        cur = logits[:, -1, :].argmax(-1)[:, None].to(torch.int32)
+        self._sync()
+        t_prefill = time.perf_counter() - t0
+
+        max_new = max(r.max_new_tokens for r in group)
+        generated = [cur]
+        t0 = time.perf_counter()
+        for _ in range(max_new - 1):
+            logits, cache = self.api.decode_step(self.params, cache, cur,
+                                                 self.cfg)
+            cur = logits[:, -1, :].argmax(-1)[:, None].to(torch.int32)
+            generated.append(cur)
+        gen = torch.cat(generated, dim=1).cpu().numpy()   # waits for the card
+        t_decode = time.perf_counter() - t0
+
+        outs = []
+        for i, r in enumerate(group):
+            seq = gen[i, :r.max_new_tokens]
+            if r.stop_token is not None:
+                hits = np.where(seq == r.stop_token)[0]
+                if hits.size:
+                    seq = seq[:hits[0] + 1]
+            outs.append(Completion(r.uid, seq, t_prefill, t_decode,
+                                   decode_steps=max(max_new - 1, 0)))
+        return outs

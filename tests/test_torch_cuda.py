@@ -8,8 +8,13 @@ H100:
 Covers what ``chip_smoke.py`` does not: ragged M/K/N, split-K, ALU
 decode, bias and every epilogue, float32 and bfloat16 activations,
 other group sizes and block sizes (one above 48 KB of shared memory),
-zero-length rows, the wrappers' refusals, and small engines (float and
-codes mode) served on the card against the same engine on the CPU.
+zero-length rows, the wrappers' refusals, small engines (float and
+codes mode) served on the card against the same engine on the CPU, the
+contiguous decode at every group size and a cache length that is no
+multiple of its tile, and the Lama primitives (bulk LUT op, signed
+histogram) on their vector and scalar paths, with out-of-range codes.
+The Lama primitives and the histogram are held to exact equality
+(integers, and sums of +-1 in float32).
 Tolerance: 1e-4 of the reference's largest magnitude for float outputs
 -- float32 on both sides, only the summation order and the library's
 exp differ.  uint8 code outputs: at most 1e-3 of the codes may differ,
@@ -351,3 +356,102 @@ def test_small_codes_engine_on_the_card_matches_the_cpu(dev, tmp_path,
     a, b = card.generate(reqs()), cpu.generate(reqs())
     for x, y in zip(a, b):
         np.testing.assert_array_equal(x.tokens, y.tokens)
+
+
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("kdt", [torch.float32, torch.bfloat16])
+def test_decode_gqa_contiguous_kernel(dev, g, kdt):
+    from repro_torch.kernels.decode_gqa import decode_gqa
+    from repro_torch.kernels.decode_gqa.ref import decode_gqa_ref
+
+    gen = _gen(dev, 700 + g)
+    b, s, n_kv = 5, 200, 2          # 200 = 3 tiles of 64 and a tail of 8
+    q = torch.randn(b, n_kv, g, 128, generator=gen, device=dev)
+    q = q.to(torch.bfloat16) if g % 2 else q
+    k = torch.randn(b, s, n_kv, 128, generator=gen, device=dev).to(kdt)
+    v = torch.randn(b, s, n_kv, 128, generator=gen, device=dev).to(kdt)
+    lengths = torch.tensor([1, 0, 64, 200, 131], dtype=torch.int32, device=dev)
+    out = decode_gqa(q, k, v, lengths)
+    ref = decode_gqa_ref(q, k, v, lengths)
+    _close(out, ref)
+    assert torch.all(out[1] == 0)
+    k2, v2 = k.clone(), v.clone()               # past lengths: no effect
+    k2[0, 1:], v2[0, 1:] = 1e4, -1e4
+    assert torch.equal(decode_gqa(q, k2, v2, lengths)[0], out[0])
+
+
+@pytest.mark.parametrize("g,m,bdt,bits,tdt", [
+    (4, 8192 + 16, torch.uint8, 8, torch.int32),    # vector path, 3 spans
+    (3, 37, torch.uint8, 8, torch.int32),           # scalar path
+    (5, 4100, torch.int32, 6, torch.int32),         # int32 codes, vector
+    (2, 33, torch.int32, 5, torch.float32),         # float table, scalar
+])
+def test_lama_bulk_op_kernel(dev, g, m, bdt, bits, tdt):
+    from repro_torch.core.lut import mul_lut
+    from repro_torch.kernels.lama_bulk_op import lama_bulk_op
+    from repro_torch.kernels.lama_bulk_op.ref import lama_bulk_op_ref
+
+    gen = _gen(dev, g * m)
+    a = torch.randint(0, 2 ** bits, (g,), generator=gen, device=dev)
+    b = torch.randint(0, 2 ** bits, (g, m), generator=gen, device=dev).to(bdt)
+    table = mul_lut(bits, device=dev).to(tdt)
+    out = lama_bulk_op(a, b, table)
+    assert out.dtype == tdt
+    assert torch.equal(out, lama_bulk_op_ref(a, b, table))
+
+
+def test_lama_bulk_op_kernel_raises_on_codes_outside_the_table(dev):
+    from repro_torch.core.lut import mul_lut
+    from repro_torch.kernels.lama_bulk_op import lama_bulk_op
+
+    table = mul_lut(4, device=dev)
+    a = torch.tensor([1, 2], dtype=torch.int32, device=dev)
+    b = torch.ones(2, 64, dtype=torch.uint8, device=dev)
+    lama_bulk_op(a, b, table)
+    for a_bad, b_bad in ((a + 15, b), (a, b * 16), (a - 2, b)):
+        with pytest.raises(ValueError, match="outside the table"):
+            lama_bulk_op(a_bad, b_bad, table)
+
+
+@pytest.mark.parametrize("g,m,bins", [(3, 2048, 127), (5, 37, 16),
+                                      (2, 1000, 512), (64, 96, 255)])
+def test_exp_histogram_kernel(dev, g, m, bins):
+    from repro_torch.kernels.exp_histogram import exp_histogram
+    from repro_torch.kernels.exp_histogram.ref import exp_histogram_ref
+
+    gen = _gen(dev, g + m)
+    # a few values outside [0, bins) count nowhere, as in the one-hot
+    vals = torch.randint(-2, bins + 2, (g, m), generator=gen, device=dev,
+                         dtype=torch.int32)
+    signs = torch.randint(0, 2, (g, m), generator=gen, device=dev) * 2.0 - 1.0
+    out = exp_histogram(vals, signs, bins)
+    assert torch.equal(out, exp_histogram_ref(vals, signs, bins))
+    with pytest.raises(ValueError):
+        exp_histogram(vals, signs, 513)
+
+
+def test_lama_primitives_on_the_card_match_the_cpu(dev):
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.exp_histogram import term1_counts
+    from repro_torch.kernels.lama_bulk_op import lama_vector_matrix
+
+    gen = _gen(dev, 9)
+    v = torch.randint(0, 256, (300,), generator=gen, device=dev)
+    m = torch.randint(0, 256, (300, 500), generator=gen, device=dev,
+                      dtype=torch.int32)
+    before = _build.launch_counts()
+    out = lama_vector_matrix(v, m, 8)
+    assert torch.equal(out.cpu(), lama_vector_matrix(v.cpu(), m.cpu(), 8))
+    assert torch.equal(out.long(), (v.long()[:, None] * m.long()).sum(0))
+    x = torch.randn(16, 512, generator=gen, device=dev)
+    (ca, pa), (cw, pw) = eq.quantize(x * 0.1, 7), eq.quantize(x * 0.02, 7)
+    pw = eq.ExpQuantParams(pw.alpha, pw.beta, pa.base, 7)
+    cw = eq.encode(x * 0.02, pw)
+    t1 = term1_counts(ca, pa, cw, pw)
+    cpu = lambda p: eq.ExpQuantParams(p.alpha.cpu(), p.beta.cpu(),
+                                      p.base.cpu(), p.bits)
+    assert torch.equal(t1.cpu(), term1_counts(ca.cpu(), cpu(pa), cw.cpu(),
+                                              cpu(pw)))
+    after = _build.launch_counts()
+    for name in ("lama_bulk_op", "exp_histogram"):
+        assert after.get(name, 0) == before.get(name, 0) + 1

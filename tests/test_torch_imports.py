@@ -7,6 +7,8 @@ import pathlib
 import pytest
 import torch
 
+from repro_torch.kernels import _build
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
@@ -65,7 +67,9 @@ REPLACED = {
     "flash_prefill.cu": ("flash_prefill_paged_kernel",
                          "flash_prefill_paged_codes_kernel"),
     "decode_gqa.cu": ("decode_gqa_paged_kernel",
-                      "decode_gqa_paged_codes_kernel"),
+                      "decode_gqa_paged_codes_kernel", "decode_gqa_kernel"),
+    "lama_bulk_op.cu": ("lama_bulk_op_kernel",),
+    "exp_histogram.cu": ("exp_histogram_kernel",),
 }
 
 
@@ -80,3 +84,17 @@ def test_kernel_sources_carry_their_notes():
             assert k in text, (name, k)
     text = (csrc / "paged_attention.cuh").read_text()
     assert "Bounds on an H100" in text and "Codes instantiation" in text
+    assert "Contiguous instantiation" in text
+    assert sorted(p.stem for p in csrc.glob("*.cu")) == sorted(
+        _build.KERNEL_SOURCES)
+
+
+def test_every_kernel_source_has_a_plain_version_and_a_counter():
+    """Each kernel package of the port holds its launch, its plain
+    version (``ref.py``) and its public wrapper (``ops.py``)."""
+    kernels = ROOT / "src" / "repro_torch" / "kernels"
+    for name in ("decode_gqa", "flash_prefill", "lut_dequant_matmul",
+                 "lama_bulk_op", "exp_histogram"):
+        for part in (f"{name}.py", "ref.py", "ops.py"):
+            assert (kernels / name / part).exists(), (name, part)
+        assert "count_launch" in (kernels / name / f"{name}.py").read_text()
