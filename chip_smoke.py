@@ -10,7 +10,9 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
      shapes the serving paths give it, with times: kernel, plain version,
      one PyTorch library call computing the same function (a yardstick
      the port never calls), and the bound (the larger of bytes over the
-     memory rate and operations over the float32 rate);
+     memory rate and operations over the float32 rate; for the prefill
+     kernels the TF32 tensor-core products they compute over the TF32
+     rate, with the float32 bound printed beside it);
   3. path checks: a 2-layer, full-width qwen3-1.7b with the same random
      quantized weights runs one prefill chunk and a few decode steps on
      the card (kernels) and on the CPU (plain versions), first with
@@ -60,6 +62,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 F32_FLOPS = 67e12               # H100 SXM float32 outside the tensor cores
+TF32_FLOPS = 495e12             # H100 SXM TF32 on the tensor cores, dense
 ARCH = "qwen3-1.7b"
 
 # name -> (source, TPU kernel it replaces)
@@ -170,9 +173,10 @@ def time_ms(fn, iters: int = 10, flush=None) -> float:
     return total / iters
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float,
+             rate: float = F32_FLOPS) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
+    t_ops = flops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -182,11 +186,21 @@ class Tally:
     def __init__(self):
         self.rows = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
                              bound_ms=0.0, library_ms=0.0, nbytes=0.0,
-                             flops=0.0) for k in KERNELS}
+                             flops=0.0, tc_flops=0.0) for k in KERNELS}
 
-    def add(self, name, err, ms, plain_ms, lib_ms, nbytes, flops, label):
+    def add(self, name, err, ms, plain_ms, lib_ms, nbytes, flops, label,
+            tc_flops=None):
+        """``flops``: the function's float32 operations; ``tc_flops``,
+        for a kernel on the TF32 tensor cores, the TF32 operations it
+        computes (its bound), with the float32 bound printed beside it."""
         r = self.rows[name]
         b, by = bound_ms(nbytes, flops)
+        f32 = ""
+        if tc_flops is not None:
+            f32 = f", float32 bound {b:.4f} ms ({by})"
+            r["tc_flops"] += tc_flops
+            b, by = bound_ms(nbytes, tc_flops, TF32_FLOPS)
+            by = "TF32 " + by if by == "operations" else by
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r["ms"] += ms
         r["plain_ms"] += plain_ms
@@ -196,7 +210,108 @@ class Tally:
         r["flops"] += flops
         print(f"  {name:26s} {label:34s} err {err:.3e}  kernel {ms:9.4f} ms"
               f"  plain {plain_ms:9.4f} ms  library {lib_ms:9.4f} ms"
-              f"  bound {b:8.4f} ms ({by})", flush=True)
+              f"  bound {b:8.4f} ms ({by}{f32})", flush=True)
+
+
+# ----------------------------------------------- prefill attention --
+
+def prefill_shapes(dev, gen, n_pages: int, bs: int):
+    """The phase-2 shapes of the prefill kernels over a pool of
+    ``n_pages`` pages: (label, S, q_start, kv_lens, block table).  The
+    serving chunk (8 rows x 256 queries at mixed offsets; row 6 a cold
+    start, row 7 nothing to do), the short end of the engine's chunk
+    ladder (S = 16, the same rows), and a long context (one row, its
+    256-query chunk at 3840 over 4096 positions)."""
+    import torch
+
+    i32 = dict(dtype=torch.int32, device=dev)
+    perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
+    bt = perm[: 8 * 64].reshape(8, 64).to(torch.int32).contiguous()
+    bt_long = perm[: 4096 // bs].reshape(1, -1).to(torch.int32).contiguous()
+    starts = torch.tensor([0, 256, 512, 768, 128, 384, 0, 300], **i32)
+    out = []
+    for label, s, valid, q_start, table in (
+            ("8 rows x 256 queries, 64 pages", 256,
+             [256, 256, 256, 200, 256, 17, 256, 0], starts, bt),
+            ("8 rows x 16 queries, 64 pages", 16,
+             [16, 16, 16, 16, 16, 9, 16, 0], starts, bt),
+            ("1 row x 256 queries at 3840", 256, [256],
+             torch.tensor([3840], **i32), bt_long)):
+        valid = torch.tensor(valid, **i32)
+        kv_lens = torch.where(valid > 0, q_start + valid, 0).to(torch.int32)
+        out.append((label, s, q_start, kv_lens, table))
+    return out
+
+
+def prefill_work(q_start, kv_lens, s: int, n_kv: int, g: int, bs: int,
+                 passes):
+    """(pages read, float32 operations, TF32 operations computed, block-
+    tiles) of one prefill call: each query attends min(q_pos + 1,
+    kv_len) positions, 4 * hd operations each (QK and PV); the kernel
+    computes ``passes`` = (QK, PV) TF32 products per multiply-add, and a
+    block of ROWS_PER_BLOCK query rows folds KV_TILE positions at a time
+    up to the last position one of its rows may see."""
+    from repro_torch.kernels.flash_prefill import flash_prefill as fp
+
+    rows = list(zip(q_start.tolist(), kv_lens.tolist()))
+    seen = sum(min(qs + i + 1, kl) for qs, kl in rows for i in range(s))
+    pages = sum(-(-kl // bs) for _, kl in rows)
+    qpb = fp.ROWS_PER_BLOCK // g
+    tiles = n_kv * sum(-(-min(kl, qs + min(s, z + qpb)) // fp.KV_TILE)
+                       for qs, kl in rows if kl > 0 for z in range(0, s, qpb))
+    unit = n_kv * g * 128 * seen
+    return pages, 4.0 * unit, 2.0 * unit * sum(passes), tiles
+
+
+def sdpa_prefill(qf, kd, vd, table, q_start, kv_lens, bs: int):
+    """The yardstick: one SDPA call over the gathered float32 pages of
+    ``table`` with the prefill mask; returns it as a closure."""
+    import torch
+
+    b, s, n_kv, g, hd = qf.shape
+    t = table.shape[1] * bs
+    kk = kd[table.long()].reshape(b, t, n_kv, hd).permute(0, 2, 1, 3)
+    vv = vd[table.long()].reshape(b, t, n_kv, hd).permute(0, 2, 1, 3)
+    kk = kk.repeat_interleave(g, 1).contiguous()
+    vv = vv.repeat_interleave(g, 1).contiguous()
+    qpos = q_start[:, None].long() + torch.arange(s, device=qf.device)[None]
+    kvpos = torch.arange(t, device=qf.device)
+    mask = ((kvpos[None, None] <= qpos[:, :, None])
+            & (kvpos[None, None] < kv_lens[:, None, None].long()))[:, None]
+    qs = qf.reshape(b, s, n_kv * g, hd).permute(0, 2, 1, 3).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return lambda: sdpa(qs, kk, vv, attn_mask=mask)
+
+
+def prefill_build_report(log: str) -> None:
+    """Registers and spills of each prefill instantiation from nvcc's
+    ``-Xptxas -v`` output, and its dynamic shared memory per block."""
+    import re
+
+    import torch
+
+    from repro_torch.kernels.flash_prefill import flash_prefill as fp
+
+    kinds = {"hh": ("uint8", torch.uint8), "ff": ("float32", torch.float32),
+             "f13__nv_bfloat16": ("float32", torch.bfloat16),
+             "13__nv_bfloat16f": ("bfloat16", torch.float32),
+             "13__nv_bfloat16S1_": ("bfloat16", torch.bfloat16)}
+    fn, spill = None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\w*prefill_kernelI(\w+?)EEv", line)
+        if m:
+            fn, spill = m.group(1), ""
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and fn:
+            spill = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn in kinds:
+            q_name, page = kinds[fn]
+            print(f"    prefill_kernel q {q_name}, pages {str(page)[6:]}: "
+                  f"{m.group(1)} registers, {spill}, dynamic shared memory "
+                  f"{fp.smem_bytes(page)} B per block", flush=True)
+            fn = None
 
 
 # --------------------------------------------------- phase 2: kernels --
@@ -208,6 +323,7 @@ def check_kernels(tally: Tally) -> None:
     from repro_torch.kernels.decode_gqa import decode_gqa, decode_gqa_paged
     from repro_torch.kernels.decode_gqa.ref import (decode_gqa_paged_ref,
                                                     decode_gqa_ref)
+    from repro_torch.kernels.flash_prefill import flash_prefill as fp
     from repro_torch.kernels.flash_prefill import flash_prefill_paged
     from repro_torch.kernels.flash_prefill.ref import flash_prefill_paged_ref
     from repro_torch.kernels.lut_dequant_matmul import (
@@ -312,42 +428,31 @@ def check_kernels(tally: Tally) -> None:
         return (kk.repeat_interleave(g, 1).contiguous(),
                 vv.repeat_interleave(g, 1).contiguous(), t)
 
-    # prefill chunk of 256 at mixed offsets (rows 6, 7 are a cold start
-    # and a row with nothing to do)
-    s = 256
-    q_start = torch.tensor([0, 256, 512, 768, 128, 384, 0, 300],
-                           dtype=torch.int32, device=dev)
-    valid = torch.tensor([256, 256, 256, 200, 256, 17, 256, 0],
-                         dtype=torch.int32, device=dev)
-    kv_lens = torch.where(valid > 0, q_start + valid, 0).to(torch.int32)
-    q = rnd(b, s, n_kv, g, hd, dtype=x_dt)
-    out = flash_prefill_paged(q, kp, vp, bt, q_start, kv_lens)
-    ref = flash_prefill_paged_ref(q, kp, vp, bt, q_start, kv_lens)
-    err = (out - ref).abs().max().item()
-    # softmax-weighted averages of O(1) values: float32 exp and sums in
-    # another order
-    require(err <= 1e-4, f"flash_prefill_paged: max err {err} > 1e-4")
-    kk, vv, t = gather_kv(kv_lens)
-    qpos = q_start[:, None].long() + torch.arange(s, device=dev)[None]
-    kvpos = torch.arange(t, device=dev)
-    mask = ((kvpos[None, None] <= qpos[:, :, None])
-            & (kvpos[None, None] < kv_lens[:, None, None].long()))[:, None]
-    qs = q.float().reshape(b, s, n_kv * g, hd).permute(0, 2, 1, 3).contiguous()
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    seen = [min(int(qp) + 1, int(kl)) for row_qp, kl in
-            zip(qpos.tolist(), kv_lens.tolist()) for qp in row_qp]
-    pages_read = sum(-(-int(kl) // bs) for kl in kv_lens.tolist())
-    kv_bytes = pages_read * bs * n_kv * hd * 4 * 2
-    tally.add("flash_prefill_paged", err,
-              time_ms(lambda: flash_prefill_paged(q, kp, vp, bt, q_start, kv_lens),
-                      flush=flush),
-              time_ms(lambda: flash_prefill_paged_ref(q, kp, vp, bt, q_start,
-                                                      kv_lens), flush=flush),
-              time_ms(lambda: sdpa(qs, kk, vv, attn_mask=mask), flush=flush),
-              q.numel() * 2 + kv_bytes + q.numel() * 4 + bt.numel() * 4,
-              4.0 * n_kv * g * hd * sum(max(v, 0) for v in seen),
-              f"B={b} S={s} max_blk={max_blk}")
+    # prefill: the serving chunk, a short chunk and a long context;
+    # softmax-weighted averages of O(1) values, float32 exp and sums in
+    # another order, the products split TF32 (~2^-20 of float32)
+    passes = fp.passes(x_dt, kp.dtype)
+    for label, s, q_start, kv_lens, table in prefill_shapes(
+            dev, gen, n_pages, bs):
+        q = rnd(len(q_start), s, n_kv, g, hd, dtype=x_dt)
+        args = (q, kp, vp, table, q_start, kv_lens)
+        out = flash_prefill_paged(*args)
+        ref = flash_prefill_paged_ref(*args)
+        err = (out - ref).abs().max().item()
+        require(err <= 1e-4, f"flash_prefill_paged {label}: max err {err} "
+                f"> 1e-4")
+        pages, flops, tc_flops, tiles = prefill_work(
+            q_start, kv_lens, s, n_kv, g, bs, passes)
+        tally.add("flash_prefill_paged", err,
+                  time_ms(lambda: flash_prefill_paged(*args), flush=flush),
+                  time_ms(lambda: flash_prefill_paged_ref(*args), flush=flush),
+                  time_ms(sdpa_prefill(q.float(), kp, vp, table, q_start,
+                                       kv_lens, bs), flush=flush),
+                  q.numel() * 2 + pages * bs * n_kv * hd * 4 * 2
+                  + q.numel() * 4 + table.numel() * 4, flops,
+                  f"{label}, {tiles} block-tiles", tc_flops=tc_flops)
 
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     lengths = torch.tensor([17, 732, 400, 0, 256, 33, 600, 129],
                            dtype=torch.int32, device=dev)
     qd = rnd(b, n_kv, g, hd, dtype=x_dt)
@@ -459,6 +564,7 @@ def check_codes_kernels(tally: Tally) -> None:
     from repro_torch.core import exponential_quant as eq
     from repro_torch.kernels.decode_gqa import decode_gqa_paged_codes
     from repro_torch.kernels.decode_gqa.ref import decode_gqa_paged_codes_ref
+    from repro_torch.kernels.flash_prefill import flash_prefill as fp
     from repro_torch.kernels.flash_prefill import flash_prefill_paged_codes
     from repro_torch.kernels.flash_prefill.ref import (
         flash_prefill_paged_codes_ref)
@@ -589,35 +695,30 @@ def check_codes_kernels(tally: Tally) -> None:
         return (kk.repeat_interleave(g, 1).contiguous(),
                 vv.repeat_interleave(g, 1).contiguous(), t)
 
+    # prefill: the three shapes of check_kernels over the code pages
+    passes = fp.passes(torch.uint8, torch.uint8)
+    for label, s, q_start, kv_lens, table in prefill_shapes(
+            dev, gen, n_pages, bs):
+        qc, ql, _ = act_codes(len(q_start), s, n_kv, g, hd)
+        args = (qc, kc, vc, ql, kl, vl, oq, table, q_start, kv_lens)
+        out = flash_prefill_paged_codes(*args)
+        ref = flash_prefill_paged_codes_ref(*args)
+        frac = codes_err(out, ref, f"flash_prefill_paged_codes {label}")
+        pages, flops, tc_flops, tiles = prefill_work(
+            q_start, kv_lens, s, n_kv, g, bs, passes)
+        tally.add("flash_prefill_paged_codes", value_err(out, ref, oq),
+                  time_ms(lambda: flash_prefill_paged_codes(*args), flush=flush),
+                  time_ms(lambda: flash_prefill_paged_codes_ref(*args),
+                          flush=flush),
+                  time_ms(sdpa_prefill(ql[qc.long()], kd, vd, table, q_start,
+                                       kv_lens, bs), flush=flush),
+                  qc.numel() + pages * bs * n_kv * hd * 2 + qc.numel()
+                  + table.numel() * 4 + (1 + 2 * n_kv) * 1024 + 16, flops,
+                  f"{label}, {tiles} block-tiles, {frac:.1e} flipped",
+                  tc_flops=tc_flops)
+
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    s = 256
-    q_start = torch.tensor([0, 256, 512, 768, 128, 384, 0, 300],
-                           dtype=torch.int32, device=dev)
-    valid = torch.tensor([256, 256, 256, 200, 256, 17, 256, 0],
-                         dtype=torch.int32, device=dev)
-    kv_lens = torch.where(valid > 0, q_start + valid, 0).to(torch.int32)
-    qc, ql, _ = act_codes(b, s, n_kv, g, hd)
-    args = (qc, kc, vc, ql, kl, vl, oq, bt, q_start, kv_lens)
-    out = flash_prefill_paged_codes(*args)
-    ref = flash_prefill_paged_codes_ref(*args)
-    frac = codes_err(out, ref, "flash_prefill_paged_codes")
     kk, vv, t = gathered()
-    qpos = q_start[:, None].long() + torch.arange(s, device=dev)[None]
-    kvpos = torch.arange(t, device=dev)
-    mask = ((kvpos[None, None] <= qpos[:, :, None])
-            & (kvpos[None, None] < kv_lens[:, None, None].long()))[:, None]
-    qs = ql[qc.long()].reshape(b, s, n_kv * g, hd).permute(0, 2, 1, 3).contiguous()
-    seen = [min(int(qp) + 1, int(kl_)) for row_qp, kl_ in
-            zip(qpos.tolist(), kv_lens.tolist()) for qp in row_qp]
-    pages_read = sum(-(-int(x) // bs) for x in kv_lens.tolist())
-    tally.add("flash_prefill_paged_codes", value_err(out, ref, oq),
-              time_ms(lambda: flash_prefill_paged_codes(*args), flush=flush),
-              time_ms(lambda: flash_prefill_paged_codes_ref(*args), flush=flush),
-              time_ms(lambda: sdpa(qs, kk, vv, attn_mask=mask), flush=flush),
-              qc.numel() + pages_read * bs * n_kv * hd * 2 + qc.numel()
-              + bt.numel() * 4 + (1 + 2 * n_kv) * 1024 + 16,
-              4.0 * n_kv * g * hd * sum(max(v, 0) for v in seen),
-              f"B={b} S={s} max_blk={max_blk}, {frac:.1e} flipped")
 
     lengths = torch.tensor([17, 732, 400, 0, 256, 33, 600, 129],
                            dtype=torch.int32, device=dev)
@@ -1195,6 +1296,8 @@ def main() -> int:
                   if "spill" in line and " 0 bytes spill stores" not in line]
         print(f"  {name}: {len(regs)} kernels, registers {min(regs)}..{max(regs)}"
               f" per thread, {'spills: ' + '; '.join(spills) if spills else 'no spills'}")
+        if name == "flash_prefill":
+            prefill_build_report(log)
 
     try:
         phase("phase 2: kernels vs plain versions on the card")
@@ -1229,7 +1332,8 @@ def main() -> int:
     rows = []
     for name, (src, replaces) in KERNELS.items():
         r = tally.rows[name]
-        _, by = bound_ms(r["nbytes"], r["flops"])
+        _, by = (bound_ms(r["nbytes"], r["tc_flops"], TF32_FLOPS)
+                 if r["tc_flops"] else bound_ms(r["nbytes"], r["flops"]))
         launched = path_counts[name].get(name, 0)
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launched,

@@ -1,6 +1,7 @@
-// Paged online-softmax attention body shared by the chunked prefill and
-// the decode kernels (the reference shares one body the same way:
-// decode_gqa.py's _paged_kernel -> _kernel).
+// Paged online-softmax attention body of the decode kernels (the
+// reference shares one body the same way: decode_gqa.py's _paged_kernel
+// -> _kernel).  Chunked prefill has its own tensor-core kernel,
+// flash_prefill.cu.
 //
 // One block = one (row b, KV head h, query tile).  It holds R query rows
 // of that KV head -- R/g query positions times the g query heads that
@@ -19,9 +20,8 @@
 // m is finite), so such a page would only add exp(-1e30 - m) = 0.
 //
 // Thread d (of HD = 128) owns output dimension d for all R rows.
-// Bounds on an H100: KV bytes at decode (one page read per block), the
-// per-page scalar dot products at prefill; a tensor-core version is
-// later work.
+// Bounds on an H100: KV bytes (one page read per block); the paged walk
+// still waits on one load per position (the CONTIG branch batches them).
 //
 // Contiguous instantiation (CONTIG = true): the cache is [B, cache_s,
 // n_kv, HD] per row, with no block table.  A "page" is then a tile of

@@ -1,5 +1,6 @@
 """CUDA launch of chunked flash prefill over a paged KV cache
-(``csrc/flash_prefill.cu``); counterpart of the JAX package's
+(``csrc/flash_prefill.cu``: split-TF32 tensor-core tiles fed by
+``cp.async`` page staging); counterpart of the JAX package's
 ``flash_prefill_paged_kernel`` and ``flash_prefill_paged_codes_kernel``."""
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ from repro_torch.kernels import _build
 NAME = "flash_prefill_paged"
 CODES_NAME = NAME + "_codes"
 HEAD_DIM = 128
-ROWS_PER_BLOCK = 32
+ROWS_PER_BLOCK = 64     # query rows of a block: 64 / g positions x g heads
+KV_TILE = 32            # KV positions a block stages and folds at a time
 PAGE_DTYPES = (torch.float32, torch.bfloat16)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -30,7 +32,38 @@ def _lib():
     lib.flash_prefill_paged_codes_launch.argtypes = (
         [_P] * 11 + [_I] * 7 + [ctypes.c_float, _P])
     lib.flash_prefill_paged_codes_launch.restype = _I
+    lib.flash_prefill_smem_bytes.argtypes = [_I]
+    lib.flash_prefill_smem_bytes.restype = _I
     return lib
+
+
+def passes(q_dtype, page_dtype) -> tuple[int, int]:
+    """The TF32 passes the kernel computes per multiply-add of QK^T and of
+    PV: hi*hi, plus hi*lo for a non-bfloat16 second operand, plus lo*hi
+    for a non-bfloat16 first one (bfloat16 is exact in TF32; P, the
+    softmax weights, never is; codes decode to arbitrary float32)."""
+    q_exact = q_dtype == torch.bfloat16
+    kv_exact = page_dtype == torch.bfloat16
+    return 1 + (not q_exact) + (not kv_exact), 2 + (not kv_exact)
+
+
+def smem_bytes(page_dtype) -> int:
+    """Dynamic shared memory of one block for ``page_dtype`` (float32,
+    bfloat16 or uint8 codes), as the kernel is built."""
+    kind = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}[page_dtype]
+    return int(_lib().flash_prefill_smem_bytes(kind))
+
+
+def _check_launch(q, k_pages, v_pages, block_tables) -> None:
+    """What the kernel itself needs: 16-byte aligned q and pages (it
+    stages pages with 16-byte ``cp.async`` copies and reads q in 16-byte
+    vectors), and fewer than 2^26 positions a row (its division of a
+    position by the block size is exact below that)."""
+    for t in (q, k_pages, v_pages):
+        if t.data_ptr() % 16:
+            raise ValueError("q and pages must start on a 16-byte boundary")
+    if block_tables.shape[1] * k_pages.shape[1] >= 1 << 26:
+        raise ValueError("block tables address 2^26 positions or more")
 
 
 def check_paged(q, k_pages, v_pages, block_tables, rows,
@@ -69,6 +102,7 @@ def launch(q, k_pages, v_pages, block_tables, q_start, kv_lens) -> torch.Tensor:
     b, s, n_kv, g, hd = q.shape
     if ROWS_PER_BLOCK % g or k_pages.shape[2] != n_kv:
         raise ValueError(f"unsupported head layout n_kv={n_kv}, g={g}")
+    _check_launch(q, k_pages, v_pages, block_tables)
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     err = _lib().flash_prefill_paged_launch(
         q.data_ptr(), int(q.dtype == torch.bfloat16), k_pages.data_ptr(),
@@ -107,6 +141,7 @@ def launch_codes(q_codes, k_pages, v_pages, q_lut, k_lut, v_lut, out_qmeta,
     b, s, n_kv, g, hd = q_codes.shape
     if ROWS_PER_BLOCK % g or k_pages.shape[2] != n_kv:
         raise ValueError(f"unsupported head layout n_kv={n_kv}, g={g}")
+    _check_launch(q_codes, k_pages, v_pages, block_tables)
     q_lut, k_lut, v_lut, out_qmeta = check_tables(
         q_codes, n_kv, q_lut, k_lut, v_lut, out_qmeta)
     out = torch.empty(q_codes.shape, dtype=torch.uint8, device=q_codes.device)

@@ -135,20 +135,41 @@ def _pages(dev, gen, b, n_kv, bs, max_blk, dtype):
     return kp, vp, perm.reshape(b, max_blk).to(torch.int32).contiguous()
 
 
-@pytest.mark.parametrize("g,bs,s,pdt", [
-    (2, 16, 37, torch.float32),
-    (1, 8, 5, torch.bfloat16),
-    (4, 32, 64, torch.float32),
-    (2, 48, 20, torch.bfloat16),     # > 48 KB of dynamic shared memory
-])
-def test_flash_prefill_paged_kernel(dev, g, bs, s, pdt):
-    gen = _gen(dev, g * 100 + bs)
-    b, n_kv, max_blk = 4, 2, 8
-    kp, vp, bt = _pages(dev, gen, b, n_kv, bs, max_blk, pdt)
-    q = torch.randn(b, s, n_kv, g, 128, generator=gen, device=dev)
-    q_start = torch.tensor([0, 3, bs + 1, 0], dtype=torch.int32, device=dev)
+def _prefill_rows(dev, bs, s, long):
+    """(max_blk, q_start, kv_lens) of the prefill tests' four rows: row 0
+    a cold start, or with ``long`` the last chunk of a 4096-position row
+    (max_blk 256); rows 1 and 2 start off a page boundary (row 1 ends
+    mid-chunk); row 3 has nothing to do."""
+    max_blk = 4096 // bs if long else max(8, -(-(bs + 1 + s) // bs))
+    q_start = torch.tensor([max_blk * bs - s if long else 0, 3, bs + 1, 0],
+                           dtype=torch.int32, device=dev)
     valid = torch.tensor([s, s // 2, s, 0], dtype=torch.int32, device=dev)
     kv_lens = torch.where(valid > 0, q_start + valid, 0).to(torch.int32)
+    return max_blk, q_start, kv_lens
+
+
+# S below one query tile (64 rows) and not a multiple of it; KV tiles of
+# 32 positions spanning pages and ending mid-page; every q/page dtype
+# pair; one 4096-position row
+@pytest.mark.parametrize("g,bs,s,qdt,pdt,long", [
+    (2, 16, 37, torch.float32, torch.float32, False),
+    (1, 8, 5, torch.float32, torch.bfloat16, False),
+    (4, 32, 64, torch.float32, torch.float32, False),
+    (2, 48, 20, torch.float32, torch.bfloat16, False),
+    (1, 64, 1, torch.bfloat16, torch.float32, False),
+    (8, 8, 16, torch.bfloat16, torch.bfloat16, False),
+    (2, 64, 256, torch.bfloat16, torch.float32, False),
+    (4, 16, 256, torch.bfloat16, torch.bfloat16, False),
+    (8, 48, 37, torch.float32, torch.float32, False),
+    (2, 16, 64, torch.float32, torch.bfloat16, False),
+    (2, 16, 256, torch.bfloat16, torch.float32, True),
+])
+def test_flash_prefill_paged_kernel(dev, g, bs, s, qdt, pdt, long):
+    gen = _gen(dev, g * 100 + bs)
+    b, n_kv = 4, 2
+    max_blk, q_start, kv_lens = _prefill_rows(dev, bs, s, long)
+    kp, vp, bt = _pages(dev, gen, b, n_kv, bs, max_blk, pdt)
+    q = torch.randn(b, s, n_kv, g, 128, generator=gen, device=dev).to(qdt)
     out = flash_prefill_paged(q, kp, vp, bt, q_start, kv_lens)
     ref = flash_prefill_paged_ref(q, kp, vp, bt, q_start, kv_lens)
     _close(out, ref)
@@ -184,6 +205,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):           # head_dim 64
         decode_gqa_paged(q, kp[..., :64].contiguous(), vp[..., :64].contiguous(),
                          bt, torch.tensor([3, 4], device=dev))
+    qp = torch.randn(2 * 3 * 2 * 2 * 128 + 1, generator=gen, device=dev)
+    qp = qp[1:].view(2, 3, 2, 2, 128)         # 4 bytes off a 16-byte boundary
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_prefill_paged(qp, kp, vp, bt, 0, 3)
 
 
 def test_launch_counters_count_kernel_launches(dev):
@@ -297,16 +322,17 @@ def _code_pages(dev, gen, b, n_kv, bs, max_blk):
     return kc, vc, bt, kl, vl
 
 
-@pytest.mark.parametrize("g,bs,s", [(1, 8, 5), (2, 16, 37), (4, 32, 64),
-                                    (8, 48, 20)])
-def test_flash_prefill_paged_codes_kernel(dev, g, bs, s):
+@pytest.mark.parametrize("g,bs,s,long", [
+    (1, 8, 5, False), (2, 16, 37, False), (4, 32, 64, False),
+    (8, 48, 20, False), (1, 64, 1, False), (8, 8, 16, False),
+    (2, 64, 256, False), (4, 16, 256, False), (2, 16, 256, True),
+])
+def test_flash_prefill_paged_codes_kernel(dev, g, bs, s, long):
     gen = _gen(dev, 300 + g * 10 + bs)
-    b, n_kv, max_blk = 4, 2, 8
+    b, n_kv = 4, 2
+    max_blk, q_start, kv_lens = _prefill_rows(dev, bs, s, long)
     kc, vc, bt, kl, vl = _code_pages(dev, gen, b, n_kv, bs, max_blk)
     qc, ql, _ = _act_codes((b, s, n_kv, g, 128), dev, gen)
-    q_start = torch.tensor([0, 3, bs + 1, 0], dtype=torch.int32, device=dev)
-    valid = torch.tensor([s, s // 2, s, 0], dtype=torch.int32, device=dev)
-    kv_lens = torch.where(valid > 0, q_start + valid, 0).to(torch.int32)
     oq = torch.tensor([0.02, 1e-4, 1.04, 7.0], device=dev)
     args = (qc, kc, vc, ql, kl, vl, oq, bt, q_start, kv_lens)
     out = flash_prefill_paged_codes(*args)
