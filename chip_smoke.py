@@ -12,7 +12,10 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
      the port never calls), and the bound (the larger of bytes over the
      memory rate and operations over the float32 rate; for the prefill
      kernels the TF32 tensor-core products they compute over the TF32
-     rate, with the float32 bound printed beside it);
+     rate, with the float32 bound printed beside it); the paged decode
+     kernels at three shapes (the serving rows, short rows, 8 rows at
+     4096 positions) with their split-KV grid and, at the serving grid,
+     the fixed cost of a call whose lengths are all 0;
   3. path checks: a 2-layer, full-width qwen3-1.7b with the same random
      quantized weights runs one prefill chunk and a few decode steps on
      the card (kernels) and on the CPU (plain versions), first with
@@ -51,7 +54,6 @@ from __future__ import annotations
 import copy
 import importlib
 import json
-import math
 import os
 import subprocess
 import sys
@@ -314,6 +316,120 @@ def prefill_build_report(log: str) -> None:
             fn = None
 
 
+# --------------------------------------------------- paged decode --
+
+def decode_shapes(dev, gen, n_pages: int):
+    """The phase-2 shapes of the paged decode kernels over a pool of
+    ``n_pages`` pages of 16: (label, block table, lengths).  The serving
+    rows (8 rows, lengths up to 732 over 64-page tables), short rows
+    (lengths up to 64 over 8-page tables, the width the engine's pow2
+    ladder gives them) and a long context (8 rows at 4096 positions,
+    256 pages each)."""
+    import torch
+
+    i32 = dict(dtype=torch.int32, device=dev)
+    perm = (torch.randperm(n_pages - 1, generator=gen, device=dev) + 1).to(torch.int32)
+    out = []
+    for label, width, lengths in (
+            ("8 rows, lengths <= 732, 64 pages", 64,
+             [17, 732, 400, 0, 256, 33, 600, 129]),
+            ("8 rows, lengths <= 64, 8 pages", 8,
+             [1, 17, 64, 0, 33, 48, 5, 64]),
+            ("8 rows at 4096, 256 pages", 256, [4096] * 8)):
+        table = perm[: 8 * width].reshape(8, width).contiguous()
+        out.append((label, table, torch.tensor(lengths, **i32)))
+    return out
+
+
+def decode_split(table, lengths, n_kv: int, bs: int) -> str:
+    """The split-KV grid the wrapper launches for these shapes, and how
+    many of its blocks have work (their partition starts before the
+    row's length)."""
+    # the launch module (the package's ``decode_gqa`` is the wrapper)
+    dk = importlib.import_module("repro_torch.kernels.decode_gqa.decode_gqa")
+    b, max_blk = table.shape
+    pages, n_split = dk.split_plan(b, n_kv, max_blk, bs,
+                                   dk.sm_count(table.device))
+    working = n_kv * sum(-(-int(n) // (pages * bs)) for n in lengths.tolist())
+    merge = "merge pass" if n_split > 1 else "no merge pass"
+    return (f"{pages} pages x {n_split} partitions, grid ({b}, {n_kv}, "
+            f"{n_split}), {working} working blocks, {merge}")
+
+
+def decode_work(lengths, bs: int, n_kv: int, g: int):
+    """(pages read, float32 operations) of one decode call: the pages up
+    to each row's length, 4 * hd operations per position and query head
+    (QK and PV)."""
+    pages = sum(-(-int(n) // bs) for n in lengths.tolist())
+    return pages, 4.0 * n_kv * g * 128 * int(lengths.sum())
+
+
+def decode_floor(name: str, fn, args, flush) -> None:
+    """The fixed cost of a paged decode call at the serving grid: every
+    length 0, so every split block returns at once and the merge pass
+    writes zeros; beside it the wrapper's clamp of the lengths alone
+    (``row_ints``, one small kernel)."""
+    import torch
+
+    from repro_torch.kernels.flash_prefill.ops import row_ints
+
+    b = args[0].shape[0]
+    zeros = torch.zeros(b, dtype=torch.int32, device=args[0].device)
+    t = time_ms(lambda: fn(*args, zeros), flush=flush)
+    t_clamp = time_ms(lambda: row_ints(zeros, b, zeros.device, 1024),
+                      flush=flush)
+    print(f"  {name} fixed cost (serving grid, every length 0): {t:.4f} ms, "
+          f"of which the wrapper's lengths clamp alone {t_clamp:.4f} ms",
+          flush=True)
+
+
+def sdpa_decode(qf, kd, vd, table, lengths):
+    """The yardstick: one SDPA call over the gathered float32 pages of
+    ``table`` with the length mask; returns it as a closure."""
+    import torch
+
+    b, n_kv, g, hd = qf.shape
+    t = table.shape[1] * kd.shape[1]
+    kk = kd[table.long()].reshape(b, t, n_kv, hd).permute(0, 2, 1, 3)
+    vv = vd[table.long()].reshape(b, t, n_kv, hd).permute(0, 2, 1, 3)
+    kk = kk.repeat_interleave(g, 1).contiguous()
+    vv = vv.repeat_interleave(g, 1).contiguous()
+    mask = (torch.arange(t, device=qf.device)[None]
+            < lengths[:, None].long())[:, None, None]
+    qs = qf.reshape(b, n_kv * g, 1, hd)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return lambda: sdpa(qs, kk, vv, attn_mask=mask)
+
+
+def decode_build_report(log: str) -> None:
+    """Registers, spills and static shared memory of each split-KV decode
+    instantiation and merge pass, from nvcc's ``-Xptxas -v`` output."""
+    import re
+
+    kinds = {"ff": "q float32, pages float32",
+             "13__nv_bfloat16f": "q bfloat16, pages float32",
+             "f13__nv_bfloat16": "q float32, pages bfloat16",
+             "13__nv_bfloat16S1_": "q bfloat16, pages bfloat16",
+             "hh": "codes", "Lb0": "float32 out", "Lb1": "codes out"}
+    fn, spill = None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '_ZN5split12(split|merge)"
+                      r"_kernelILi(\d)E(\w+?)EE+v", line)
+        if m:
+            fn, spill = m.groups(), "no spills"
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and fn and m.groups() != ("0", "0"):
+            spill = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            smem = re.search(r"(\d+) bytes smem", line)
+            print(f"    {fn[0]}_kernel g={fn[1]} {kinds.get(fn[2], fn[2])}: "
+                  f"{m.group(1)} registers, {spill}, static shared memory "
+                  f"{smem.group(1) if smem else 0} B per block", flush=True)
+            fn = None
+
+
 # --------------------------------------------------- phase 2: kernels --
 
 def check_kernels(tally: Tally) -> None:
@@ -411,22 +527,12 @@ def check_kernels(tally: Tally) -> None:
                   f"M={m} K={k} N={n}")
         del wgu
 
-    # paged attention at the serving shapes: 8 rows, n_kv 8, g 2, hd 128,
+    # paged attention at the serving width: 8 rows, n_kv 8, g 2, hd 128,
     # block 16, float32 pages, bf16 queries
     b, n_kv, g, hd, bs = 8, 8, 2, 128, 16
     max_blk = 64
     n_pages = 1 + b * max_blk
     kp, vp = rnd(n_pages, bs, n_kv, hd), rnd(n_pages, bs, n_kv, hd)
-    perm = torch.randperm(n_pages - 1, generator=gen, device=dev)[: b * max_blk] + 1
-    bt = perm.reshape(b, max_blk).to(torch.int32).contiguous()
-    scale = 1.0 / math.sqrt(hd)
-
-    def gather_kv(lens):
-        t = max_blk * bs
-        kk = kp[bt.long()].reshape(b, t, n_kv, hd).permute(0, 2, 1, 3)
-        vv = vp[bt.long()].reshape(b, t, n_kv, hd).permute(0, 2, 1, 3)
-        return (kk.repeat_interleave(g, 1).contiguous(),
-                vv.repeat_interleave(g, 1).contiguous(), t)
 
     # prefill: the serving chunk, a short chunk and a long context;
     # softmax-weighted averages of O(1) values, float32 exp and sums in
@@ -452,28 +558,36 @@ def check_kernels(tally: Tally) -> None:
                   + q.numel() * 4 + table.numel() * 4, flops,
                   f"{label}, {tiles} block-tiles", tc_flops=tc_flops)
 
+    # paged decode: the serving rows, short rows and a long context over
+    # a pool of 1 + 8 x 256 pages; #9 below reuses the serving rows
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lengths = torch.tensor([17, 732, 400, 0, 256, 33, 600, 129],
-                           dtype=torch.int32, device=dev)
-    qd = rnd(b, n_kv, g, hd, dtype=x_dt)
-    out = decode_gqa_paged(qd, kp, vp, bt, lengths)
-    ref = decode_gqa_paged_ref(qd, kp, vp, bt, lengths)
-    err = (out - ref).abs().max().item()
-    require(err <= 1e-4, f"decode_gqa_paged: max err {err} > 1e-4")
-    kk, vv, t = gather_kv(lengths)
-    maskd = (torch.arange(t, device=dev)[None] < lengths[:, None].long())
-    maskd = maskd[:, None, None]
+    n_dec = 1 + b * 4096 // bs
+    kpd, vpd = rnd(n_dec, bs, n_kv, hd), rnd(n_dec, bs, n_kv, hd)
+    serving = None
+    for label, table, lens in decode_shapes(dev, gen, n_dec):
+        q = rnd(b, n_kv, g, hd, dtype=x_dt)
+        serving = serving or (q, lens, table)
+        args = (q, kpd, vpd, table, lens)
+        out = decode_gqa_paged(*args)
+        ref = decode_gqa_paged_ref(*args)
+        err = (out - ref).abs().max().item()
+        require(err <= 1e-4, f"decode_gqa_paged {label}: max err {err} > 1e-4")
+        require(bool(torch.all(out[lens == 0] == 0)),
+                f"decode_gqa_paged {label}: a zero-length row is not zeros")
+        pages, flops = decode_work(lens, bs, n_kv, g)
+        tally.add("decode_gqa_paged", err,
+                  time_ms(lambda: decode_gqa_paged(*args), flush=flush),
+                  time_ms(lambda: decode_gqa_paged_ref(*args), flush=flush),
+                  time_ms(sdpa_decode(q.float(), kpd, vpd, table, lens),
+                          flush=flush),
+                  q.numel() * 2 + pages * bs * n_kv * hd * 4 * 2
+                  + q.numel() * 4 + pages * 4 + b * 4, flops,
+                  f"{label}, {decode_split(table, lens, n_kv, bs)}")
+    qd, lengths, table = serving
+    decode_floor("decode_gqa_paged", decode_gqa_paged, (qd, kpd, vpd, table),
+                 flush)
+    del kpd, vpd
     qds = qd.float().reshape(b, n_kv * g, 1, hd)
-    pages_read = sum(-(-int(n) // bs) for n in lengths.tolist())
-    tally.add("decode_gqa_paged", err,
-              time_ms(lambda: decode_gqa_paged(qd, kp, vp, bt, lengths), flush=flush),
-              time_ms(lambda: decode_gqa_paged_ref(qd, kp, vp, bt, lengths),
-                      flush=flush),
-              time_ms(lambda: sdpa(qds, kk, vv, attn_mask=maskd), flush=flush),
-              qd.numel() * 2 + pages_read * bs * n_kv * hd * 8
-              + qd.numel() * 4 + bt.numel() * 4,
-              4.0 * n_kv * g * hd * int(lengths.sum()),
-              f"B={b} lengths<=732 max_blk={max_blk}")
 
     # contiguous flash decode (#9) at #7's shape: the same rows, lengths
     # and queries over [B, 768, n_kv, hd] caches, float32 and bfloat16
@@ -669,31 +783,28 @@ def check_codes_kernels(tally: Tally) -> None:
                   f"M={m} K={k} N={n} u8 out, {frac:.1e} flipped")
         del wgu
 
-    # codes attention at the serving shapes: 8 rows, n_kv 8, g 2, hd 128,
+    # codes attention at the serving width: 8 rows, n_kv 8, g 2, hd 128,
     # block 16; uint8 pages under per-head tables
     b, n_kv, g, hd, bs = 8, 8, 2, 128, 16
     max_blk = 64
     n_pages = 1 + b * max_blk
-    tabs = []
-    for _ in range(2):
-        x = rnd(n_pages, bs, n_kv, hd)
-        fit = eq.fit(x.permute(2, 0, 1, 3).reshape(n_kv, -1), 7,
-                     bases=ACT_BASES, stacked=True)
-        tabs += [eq.encode_meta(x, eq.pack_qmeta(fit)[:, None, :]),
-                 eq.decode_table(fit)]
-    kc, kl, vc, vl = tabs
-    perm = torch.randperm(n_pages - 1, generator=gen, device=dev)[: b * max_blk] + 1
-    bt = perm.reshape(b, max_blk).to(torch.int32).contiguous()
-    oq = out_table(rnd(1 << 16, scale=0.5))
-    kd = kl[torch.arange(n_kv, device=dev)[:, None], kc.long()]
-    vd = vl[torch.arange(n_kv, device=dev)[:, None], vc.long()]
+    heads = torch.arange(n_kv, device=dev)[:, None]
 
-    def gathered():
-        t = max_blk * bs
-        kk = kd[bt.long()].reshape(b, t, n_kv, hd).permute(0, 2, 1, 3)
-        vv = vd[bt.long()].reshape(b, t, n_kv, hd).permute(0, 2, 1, 3)
-        return (kk.repeat_interleave(g, 1).contiguous(),
-                vv.repeat_interleave(g, 1).contiguous(), t)
+    def code_pool(n):
+        """K and V pools of n pages as codes under per-head tables fitted
+        on them, and their decoded values: (kc, kl, vc, vl, kd, vd)."""
+        tabs = []
+        for _ in range(2):
+            x = rnd(n, bs, n_kv, hd)
+            fit = eq.fit(x.permute(2, 0, 1, 3).reshape(n_kv, -1), 7,
+                         bases=ACT_BASES, stacked=True)
+            tabs += [eq.encode_meta(x, eq.pack_qmeta(fit)[:, None, :]),
+                     eq.decode_table(fit)]
+        kc, kl, vc, vl = tabs
+        return kc, kl, vc, vl, kl[heads, kc.long()], vl[heads, vc.long()]
+
+    kc, kl, vc, vl, kd, vd = code_pool(n_pages)
+    oq = out_table(rnd(1 << 16, scale=0.5))
 
     # prefill: the three shapes of check_kernels over the code pages
     passes = fp.passes(torch.uint8, torch.uint8)
@@ -717,28 +828,36 @@ def check_codes_kernels(tally: Tally) -> None:
                   f"{label}, {tiles} block-tiles, {frac:.1e} flipped",
                   tc_flops=tc_flops)
 
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    kk, vv, t = gathered()
-
-    lengths = torch.tensor([17, 732, 400, 0, 256, 33, 600, 129],
-                           dtype=torch.int32, device=dev)
-    qc, ql, _ = act_codes(b, n_kv, g, hd)
-    args = (qc, kc, vc, ql, kl, vl, oq, bt, lengths)
-    out = decode_gqa_paged_codes(*args)
-    ref = decode_gqa_paged_codes_ref(*args)
-    frac = codes_err(out, ref, "decode_gqa_paged_codes")
-    maskd = (torch.arange(t, device=dev)[None] < lengths[:, None].long())
-    maskd = maskd[:, None, None]
-    qds = ql[qc.long()].reshape(b, n_kv * g, 1, hd)
-    pages_read = sum(-(-int(x) // bs) for x in lengths.tolist())
-    tally.add("decode_gqa_paged_codes", value_err(out, ref, oq),
-              time_ms(lambda: decode_gqa_paged_codes(*args), flush=flush),
-              time_ms(lambda: decode_gqa_paged_codes_ref(*args), flush=flush),
-              time_ms(lambda: sdpa(qds, kk, vv, attn_mask=maskd), flush=flush),
-              qc.numel() + pages_read * bs * n_kv * hd * 2 + qc.numel()
-              + bt.numel() * 4 + (1 + 2 * n_kv) * 1024 + 16,
-              4.0 * n_kv * g * hd * int(lengths.sum()),
-              f"B={b} lengths<=732 max_blk={max_blk}, {frac:.1e} flipped")
+    # decode: check_kernels' three shapes over a pool of 1 + 8 x 256
+    # code pages
+    del kc, vc, kd, vd
+    n_dec = 1 + b * 4096 // bs
+    kc, kl, vc, vl, kd, vd = code_pool(n_dec)
+    zero = eq.encode_meta(torch.zeros((), device=dev), oq)
+    serving = None
+    for label, table, lens in decode_shapes(dev, gen, n_dec):
+        qc, ql, _ = act_codes(b, n_kv, g, hd)
+        args = (qc, kc, vc, ql, kl, vl, oq, table, lens)
+        out = decode_gqa_paged_codes(*args)
+        ref = decode_gqa_paged_codes_ref(*args)
+        frac = codes_err(out, ref, f"decode_gqa_paged_codes {label}")
+        require(bool(torch.all(out[lens == 0] == zero)),
+                f"decode_gqa_paged_codes {label}: a zero-length row is not "
+                f"the code of 0.0")
+        pages, flops = decode_work(lens, bs, n_kv, g)
+        tally.add("decode_gqa_paged_codes", value_err(out, ref, oq),
+                  time_ms(lambda: decode_gqa_paged_codes(*args), flush=flush),
+                  time_ms(lambda: decode_gqa_paged_codes_ref(*args),
+                          flush=flush),
+                  time_ms(sdpa_decode(ql[qc.long()], kd, vd, table, lens),
+                          flush=flush),
+                  qc.numel() + pages * bs * n_kv * hd * 2 + qc.numel()
+                  + pages * 4 + b * 4 + (1 + 2 * n_kv) * 1024 + 16, flops,
+                  f"{label}, {decode_split(table, lens, n_kv, bs)}, "
+                  f"{frac:.1e} flipped")
+        serving = serving or args[:-1]
+    decode_floor("decode_gqa_paged_codes", decode_gqa_paged_codes, serving,
+                 flush)
 
 
 # ------------------------------------------------ phase 3: path check --
@@ -1298,6 +1417,8 @@ def main() -> int:
               f" per thread, {'spills: ' + '; '.join(spills) if spills else 'no spills'}")
         if name == "flash_prefill":
             prefill_build_report(log)
+        if name == "decode_gqa":
+            decode_build_report(log)
 
     try:
         phase("phase 2: kernels vs plain versions on the card")

@@ -1,7 +1,11 @@
 """CUDA launch of flash decode over a paged or a contiguous KV cache
 (``csrc/decode_gqa.cu``); counterpart of the JAX package's
 ``decode_gqa_paged_kernel``, ``decode_gqa_paged_codes_kernel`` and
-``decode_gqa_kernel``."""
+``decode_gqa_kernel``.
+
+The paged kernels split each row's pages into partitions, one block
+each, and merge the partials in a second pass (flash-decoding);
+:func:`split_plan` sizes the partitions from static shapes only."""
 
 from __future__ import annotations
 
@@ -19,17 +23,46 @@ NAME = "decode_gqa_paged"
 CODES_NAME = NAME + "_codes"
 CONTIG_NAME = "decode_gqa"
 GROUPS = (1, 2, 4, 8)
+PART_POSITIONS = 64     # a partition's positions before the grid is thinned
+BLOCKS_PER_SM = 8       # the grid is thinned down to this many blocks an SM
+WARPS = 4               # warps of a split block (csrc/decode_gqa.cu WARPS)
+BATCH = 8               # positions a warp loads at once (csrc BATCH)
 _P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def split_plan(b: int, n_kv: int, max_blk: int, bs: int,
+               sms: int) -> tuple[int, int]:
+    """(pages per partition, partitions per row) of the paged kernels'
+    grid ``(b, n_kv, partitions)``, from static shapes only: never the
+    row lengths, which stay on the device (no sync, and a captured CUDA
+    graph replays right for any lengths).  A partition starts at about
+    PART_POSITIONS positions; while the grid would hold more than
+    BLOCKS_PER_SM blocks an SM, partitions double.  Blocks past a row's
+    length return at once, so the working blocks are the live
+    partitions: at the serving shape (8 rows, 8 KV heads, 64 pages of
+    16, lengths up to 732) 4 pages, 16 partitions, 304 working blocks."""
+    pages = max(1, PART_POSITIONS // bs)
+    while (pages < max_blk
+           and b * n_kv * -(-max_blk // pages) > BLOCKS_PER_SM * sms):
+        pages *= 2
+    pages = min(pages, max_blk)
+    return pages, -(-max_blk // pages)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = _build.load("decode_gqa")
     lib.decode_gqa_paged_launch.argtypes = (
-        [_P, _I, _P, _P, _I, _P, _P, _P] + [_I] * 6 + [ctypes.c_float, _P])
+        [_P, _I, _P, _P, _I, _P, _P, _P, _P] + [_I] * 7
+        + [ctypes.c_float, _P])
     lib.decode_gqa_paged_launch.restype = _I
     lib.decode_gqa_paged_codes_launch.argtypes = (
-        [_P] * 10 + [_I] * 6 + [ctypes.c_float, _P])
+        [_P] * 11 + [_I] * 7 + [ctypes.c_float, _P])
     lib.decode_gqa_paged_codes_launch.restype = _I
     lib.decode_gqa_launch.argtypes = (
         [_P, _I, _P, _P, _I, _P, _P] + [_I] * 5 + [ctypes.c_float, _P])
@@ -37,19 +70,43 @@ def _lib():
     return lib
 
 
+def _check_split(q, k_pages, v_pages, block_tables):
+    """What the split kernels need beyond :func:`check_paged`: their head
+    layout, and 16-byte aligned q and pages (a lane loads 4 consecutive
+    elements of a row as one vector).  Returns (pages per partition, the
+    workspace of the partials, or None when one partition covers a
+    row)."""
+    b, n_kv, g, _ = q.shape
+    if g not in GROUPS or k_pages.shape[2] != n_kv:
+        raise ValueError(f"unsupported head layout n_kv={n_kv}, g={g}")
+    for t in (q, k_pages, v_pages):
+        if t.data_ptr() % 16:
+            raise ValueError("q and pages must start on a 16-byte boundary")
+    max_blk = block_tables.shape[1]
+    if max_blk < 1:
+        raise ValueError("block_tables has no columns")
+    pages, n_split = split_plan(b, n_kv, max_blk, k_pages.shape[1],
+                                sm_count(q.device))
+    work = None
+    if n_split > 1:
+        work = torch.empty((b, n_kv, n_split, g, HEAD_DIM + 2),
+                           dtype=torch.float32, device=q.device)
+    return pages, work
+
+
 def launch(q, k_pages, v_pages, block_tables, lengths) -> torch.Tensor:
     """q [B, n_kv, g, 128]; returns float32 of q's shape."""
     check_paged(q, k_pages, v_pages, block_tables, ((lengths, "lengths"),))
+    pages, work = _check_split(q, k_pages, v_pages, block_tables)
     b, n_kv, g, hd = q.shape
-    if g not in GROUPS or k_pages.shape[2] != n_kv:
-        raise ValueError(f"unsupported head layout n_kv={n_kv}, g={g}")
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     err = _lib().decode_gqa_paged_launch(
         q.data_ptr(), int(q.dtype == torch.bfloat16), k_pages.data_ptr(),
         v_pages.data_ptr(), int(k_pages.dtype == torch.bfloat16),
-        block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, n_kv,
-        g, hd, k_pages.shape[1], block_tables.shape[1], 1.0 / math.sqrt(hd),
-        _build.stream_ptr(q))
+        block_tables.data_ptr(), lengths.data_ptr(),
+        None if work is None else work.data_ptr(), out.data_ptr(), b, n_kv,
+        g, hd, k_pages.shape[1], block_tables.shape[1], pages,
+        1.0 / math.sqrt(hd), _build.stream_ptr(q))
     _build.check(err, NAME)
     _build.count_launch(NAME)
     return out
@@ -61,9 +118,8 @@ def launch_codes(q_codes, k_pages, v_pages, q_lut, k_lut, v_lut, out_qmeta,
     q's shape."""
     check_paged(q_codes, k_pages, v_pages, block_tables,
                 ((lengths, "lengths"),), dtypes=(torch.uint8,))
+    pages, work = _check_split(q_codes, k_pages, v_pages, block_tables)
     b, n_kv, g, hd = q_codes.shape
-    if g not in GROUPS or k_pages.shape[2] != n_kv:
-        raise ValueError(f"unsupported head layout n_kv={n_kv}, g={g}")
     q_lut, k_lut, v_lut, out_qmeta = check_tables(
         q_codes, n_kv, q_lut, k_lut, v_lut, out_qmeta)
     out = torch.empty(q_codes.shape, dtype=torch.uint8, device=q_codes.device)
@@ -71,8 +127,9 @@ def launch_codes(q_codes, k_pages, v_pages, q_lut, k_lut, v_lut, out_qmeta,
         q_codes.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         q_lut.data_ptr(), k_lut.data_ptr(), v_lut.data_ptr(),
         out_qmeta.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), b, n_kv, g, hd, k_pages.shape[1],
-        block_tables.shape[1], 1.0 / math.sqrt(hd), _build.stream_ptr(q_codes))
+        None if work is None else work.data_ptr(), out.data_ptr(), b, n_kv,
+        g, hd, k_pages.shape[1], block_tables.shape[1], pages,
+        1.0 / math.sqrt(hd), _build.stream_ptr(q_codes))
     _build.check(err, CODES_NAME)
     _build.count_launch(CODES_NAME)
     return out

@@ -176,18 +176,55 @@ def test_flash_prefill_paged_kernel(dev, g, bs, s, qdt, pdt, long):
     assert torch.all(out[3] == 0)
 
 
+def _decode_rows(dev, bs, long):
+    """(max_blk, lengths) of the paged decode tests' five rows: lengths
+    1 and 0, one ending mid-page, one filling the table and one at 50;
+    with ``long`` a 4096-position table (max_blk 4096 / bs: many
+    partitions, the fourth row filling it, the fifth at 2000)."""
+    max_blk = 4096 // bs if long else 6
+    lengths = torch.tensor([1, 0, 17, max_blk * bs, 2000 if long else 50],
+                           dtype=torch.int32, device=dev)
+    return max_blk, lengths
+
+
 @pytest.mark.parametrize("g", [1, 2, 4, 8])
 @pytest.mark.parametrize("pdt", [torch.float32, torch.bfloat16])
-def test_decode_gqa_paged_kernel(dev, g, pdt):
-    gen = _gen(dev, g)
-    b, n_kv, bs, max_blk = 5, 2, 16, 6
+@pytest.mark.parametrize("bs,long", [(16, False), (64, False), (16, True)])
+def test_decode_gqa_paged_kernel(dev, g, pdt, bs, long):
+    gen = _gen(dev, g + bs - 16 + 1000 * long)
+    b, n_kv = 5, 2
+    max_blk, lengths = _decode_rows(dev, bs, long)
     kp, vp, bt = _pages(dev, gen, b, n_kv, bs, max_blk, pdt)
     q = torch.randn(b, n_kv, g, 128, generator=gen, device=dev).to(torch.bfloat16)
-    lengths = torch.tensor([1, 0, 17, 96, 50], dtype=torch.int32, device=dev)
     out = decode_gqa_paged(q, kp, vp, bt, lengths)
     ref = decode_gqa_paged_ref(q, kp, vp, bt, lengths)
     _close(out, ref)
     assert torch.all(out[1] == 0)
+
+
+def test_decode_gqa_paged_replays_in_a_cuda_graph(dev):
+    """The split grid is sized from shapes alone: a step captured in a
+    CUDA graph and replayed after new lengths are written into the
+    captured tensor equals the plain version on those lengths."""
+    gen = _gen(dev, 77)
+    b, n_kv, g, bs, max_blk = 4, 2, 2, 16, 64
+    kp, vp, bt = _pages(dev, gen, b, n_kv, bs, max_blk, torch.float32)
+    q = torch.randn(b, n_kv, g, 128, generator=gen, device=dev).to(torch.bfloat16)
+    lengths = torch.tensor([5, 0, 300, 1024], dtype=torch.int32, device=dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                  # build, load, warm up
+        decode_gqa_paged(q, kp, vp, bt, lengths)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = decode_gqa_paged(q, kp, vp, bt, lengths)
+    for new in ([1024, 7, 0, 65], [0, 0, 0, 0], [17, 732, 400, 1]):
+        lengths.copy_(torch.tensor(new, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        _close(out, decode_gqa_paged_ref(q, kp, vp, bt, lengths))
+        assert torch.all(out[lengths == 0] == 0)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -341,18 +378,19 @@ def test_flash_prefill_paged_codes_kernel(dev, g, bs, s, long):
 
 
 @pytest.mark.parametrize("g", [1, 2, 4, 8])
-@pytest.mark.parametrize("bs", [16, 48])
-def test_decode_gqa_paged_codes_kernel(dev, g, bs):
-    gen = _gen(dev, 500 + g + bs)
-    b, n_kv, max_blk = 5, 2, 6
+@pytest.mark.parametrize("bs,long", [(16, False), (48, False), (64, False),
+                                     (16, True)])
+def test_decode_gqa_paged_codes_kernel(dev, g, bs, long):
+    gen = _gen(dev, 500 + g + bs + 1000 * long)
+    b, n_kv = 5, 2
+    max_blk, lengths = _decode_rows(dev, bs, long)
     kc, vc, bt, kl, vl = _code_pages(dev, gen, b, n_kv, bs, max_blk)
     qc, ql, _ = _act_codes((b, n_kv, g, 128), dev, gen)
-    lengths = torch.tensor([1, 0, 17, bs * max_blk, 50], dtype=torch.int32,
-                           device=dev)
     oq = torch.tensor([0.02, 1e-4, 1.04, 7.0], device=dev)
     args = (qc, kc, vc, ql, kl, vl, oq, bt, lengths)
     out = decode_gqa_paged_codes(*args)
     _codes_close(out, decode_gqa_paged_codes_ref(*args))
+    assert torch.all(out[1] == eq.encode_meta(torch.zeros((), device=dev), oq))
 
 
 def test_small_codes_engine_on_the_card_matches_the_cpu(dev, tmp_path,

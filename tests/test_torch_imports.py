@@ -82,9 +82,11 @@ def test_kernel_sources_carry_their_notes():
         assert "Replaces" in text and "src/repro/kernels/" in text, name
         for k in kernels:
             assert k in text, (name, k)
-    text = (csrc / "paged_attention.cuh").read_text()
+    text = (csrc / "decode_gqa.cu").read_text()
     assert "Bounds on an H100" in text and "Codes instantiation" in text
-    assert "Contiguous instantiation" in text
+    assert "split-KV" in text and "Merge pass" in text
+    text = (csrc / "paged_attention.cuh").read_text()
+    assert "Bounds on an H100" in text and "Contiguous instantiation" in text
     assert sorted(p.stem for p in csrc.glob("*.cu")) == sorted(
         _build.KERNEL_SOURCES)
 
