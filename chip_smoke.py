@@ -357,29 +357,25 @@ def decode_split(table, lengths, n_kv: int, bs: int) -> str:
 
 
 def decode_work(lengths, bs: int, n_kv: int, g: int):
-    """(pages read, float32 operations) of one decode call: the pages up
-    to each row's length, 4 * hd operations per position and query head
-    (QK and PV)."""
-    pages = sum(-(-int(n) // bs) for n in lengths.tolist())
-    return pages, 4.0 * n_kv * g * 128 * int(lengths.sum())
+    """(positions read, page ids read, float32 operations) of one decode
+    call: the positions below each row's length (a page past it, or its
+    tail, is never needed), the ids of the pages that hold them, and
+    4 * hd operations per position and query head (QK and PV)."""
+    n = int(lengths.sum())
+    pages = sum(-(-int(t) // bs) for t in lengths.tolist())
+    return n, pages, 4.0 * n_kv * g * 128 * n
 
 
 def decode_floor(name: str, fn, args, flush) -> None:
     """The fixed cost of a paged decode call at the serving grid: every
     length 0, so every split block returns at once and the merge pass
-    writes zeros; beside it the wrapper's clamp of the lengths alone
-    (``row_ints``, one small kernel)."""
+    writes zeros."""
     import torch
-
-    from repro_torch.kernels.flash_prefill.ops import row_ints
 
     b = args[0].shape[0]
     zeros = torch.zeros(b, dtype=torch.int32, device=args[0].device)
     t = time_ms(lambda: fn(*args, zeros), flush=flush)
-    t_clamp = time_ms(lambda: row_ints(zeros, b, zeros.device, 1024),
-                      flush=flush)
-    print(f"  {name} fixed cost (serving grid, every length 0): {t:.4f} ms, "
-          f"of which the wrapper's lengths clamp alone {t_clamp:.4f} ms",
+    print(f"  {name} fixed cost (serving grid, every length 0): {t:.4f} ms",
           flush=True)
 
 
@@ -574,13 +570,13 @@ def check_kernels(tally: Tally) -> None:
         require(err <= 1e-4, f"decode_gqa_paged {label}: max err {err} > 1e-4")
         require(bool(torch.all(out[lens == 0] == 0)),
                 f"decode_gqa_paged {label}: a zero-length row is not zeros")
-        pages, flops = decode_work(lens, bs, n_kv, g)
+        n_pos, pages, flops = decode_work(lens, bs, n_kv, g)
         tally.add("decode_gqa_paged", err,
                   time_ms(lambda: decode_gqa_paged(*args), flush=flush),
                   time_ms(lambda: decode_gqa_paged_ref(*args), flush=flush),
                   time_ms(sdpa_decode(q.float(), kpd, vpd, table, lens),
                           flush=flush),
-                  q.numel() * 2 + pages * bs * n_kv * hd * 4 * 2
+                  q.numel() * 2 + n_pos * n_kv * hd * 4 * 2
                   + q.numel() * 4 + pages * 4 + b * 4, flops,
                   f"{label}, {decode_split(table, lens, n_kv, bs)}")
     qd, lengths, table = serving
@@ -844,14 +840,14 @@ def check_codes_kernels(tally: Tally) -> None:
         require(bool(torch.all(out[lens == 0] == zero)),
                 f"decode_gqa_paged_codes {label}: a zero-length row is not "
                 f"the code of 0.0")
-        pages, flops = decode_work(lens, bs, n_kv, g)
+        n_pos, pages, flops = decode_work(lens, bs, n_kv, g)
         tally.add("decode_gqa_paged_codes", value_err(out, ref, oq),
                   time_ms(lambda: decode_gqa_paged_codes(*args), flush=flush),
                   time_ms(lambda: decode_gqa_paged_codes_ref(*args),
                           flush=flush),
                   time_ms(sdpa_decode(ql[qc.long()], kd, vd, table, lens),
                           flush=flush),
-                  qc.numel() + pages * bs * n_kv * hd * 2 + qc.numel()
+                  qc.numel() + n_pos * n_kv * hd * 2 + qc.numel()
                   + pages * 4 + b * 4 + (1 + 2 * n_kv) * 1024 + 16, flops,
                   f"{label}, {decode_split(table, lens, n_kv, bs)}, "
                   f"{frac:.1e} flipped")

@@ -6,7 +6,7 @@
 //   decode_gqa_paged_codes_kernel (#8) (_paged_codes_kernel): the Codes
 //     instantiation below;
 //   decode_gqa_kernel (#9): the contiguous [B, S, n_kv, 128] cache of the
-//     legacy serving path, paged_attention.cuh's body (tiles of 64
+//     legacy serving path, decode_contig.cuh's body (tiles of 64
 //     positions).  The TPU kernel's block_s=512 grid axis and its padding
 //     of S are TPU tiling: the block walks its row's tiles in a loop and
 //     masks the tail, so any S runs as it is.
@@ -71,7 +71,7 @@
 #include <type_traits>
 
 #include "dnateq.cuh"
-#include "paged_attention.cuh"
+#include "decode_contig.cuh"
 
 namespace split {
 
@@ -149,7 +149,8 @@ split_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pages,
   const int b = blockIdx.x, h = blockIdx.y, z = blockIdx.z;
   const int n_kv = gridDim.y, n_split = gridDim.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int kvl = min(lengths[b], max_blk * bs);
+  // the lengths' one clamp, here and in the merge: the wrapper has none
+  const int kvl = max(0, min(lengths[b], max_blk * bs));
   const int t_begin = z * part_pages * bs;
   if (n_split > 1 && t_begin >= kvl) return;   // the merge skips it
   const int t_end = min(t_begin + part_pages * bs, kvl);
@@ -285,7 +286,7 @@ merge_kernel(const float* __restrict__ work, const int* __restrict__ lengths,
   const int b = blockIdx.x, h = blockIdx.y, n_kv = gridDim.y;
   const int tid = threadIdx.x;
   const int part = part_pages * bs;
-  const int kvl = min(lengths[b], max_blk * bs);
+  const int kvl = max(0, min(lengths[b], max_blk * bs));
   const int n_live = min((kvl + part - 1) / part, n_split);
   const float* w0 = work + ((size_t)b * n_kv + h) * n_split * G * WS;
 #pragma unroll
@@ -354,7 +355,8 @@ inline bool valid_shape(int hd, int bs, int max_blk, int part_pages) {
 }  // namespace split
 
 // q [B, n_kv, g, 128] float32/bfloat16; pages [N, bs, n_kv, 128]
-// float32/bfloat16; block_tables [B, max_blk] and lengths [B] int32;
+// float32/bfloat16; block_tables [B, max_blk] and lengths [B] int32
+// (any values: the kernels clamp them to [0, max_blk * bs]);
 // work float32 [B, n_kv, n_split, g, 130] with n_split =
 // ceil(max_blk / part_pages) (may be null when that is 1); out float32
 // of q's shape.  Zero-length rows get zeros.

@@ -25,8 +25,6 @@ CONTIG_NAME = "decode_gqa"
 GROUPS = (1, 2, 4, 8)
 PART_POSITIONS = 64     # a partition's positions before the grid is thinned
 BLOCKS_PER_SM = 8       # the grid is thinned down to this many blocks an SM
-WARPS = 4               # warps of a split block (csrc/decode_gqa.cu WARPS)
-BATCH = 8               # positions a warp loads at once (csrc BATCH)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 

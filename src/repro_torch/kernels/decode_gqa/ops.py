@@ -29,6 +29,17 @@ def decode_gqa(q, k_cache, v_cache, lengths, *, out_dtype=None) -> torch.Tensor:
     return _k.launch_contiguous(q, k_cache, v_cache, lengths).to(out_dtype)
 
 
+def _lengths(lengths, q, block_tables, k_pages) -> torch.Tensor:
+    """The paged kernels' int32 [B] lengths.  The plain versions get
+    them clipped to [0, max_blk * bs]; the kernels clip them on the card
+    themselves, so a card call launches nothing here for an int32 [B]
+    tensor."""
+    hi = None
+    if q.device.type == "cpu":
+        hi = block_tables.shape[1] * k_pages.shape[1]
+    return row_ints(lengths, q.shape[0], q.device, hi)
+
+
 def decode_gqa_paged(q, k_pages, v_pages, block_tables, lengths, *,
                      out_dtype=None) -> torch.Tensor:
     """q [B, n_kv, g, hd]; pages [N, bs, n_kv, hd]; block_tables
@@ -36,9 +47,7 @@ def decode_gqa_paged(q, k_pages, v_pages, block_tables, lengths, *,
     ids, e.g. the trash page); lengths [B] or scalar.  Zero-length rows
     return zeros.  Returns [B, n_kv, g, hd]."""
     out_dtype = out_dtype or torch.float32
-    b = q.shape[0]
-    max_tokens = block_tables.shape[1] * k_pages.shape[1]
-    lengths = row_ints(lengths, b, q.device, max_tokens)
+    lengths = _lengths(lengths, q, block_tables, k_pages)
     if q.device.type == "cpu":
         return decode_gqa_paged_ref(q, k_pages, v_pages, block_tables,
                                     lengths, out_dtype=out_dtype)
@@ -51,9 +60,7 @@ def decode_gqa_paged_codes(q_codes, k_pages, v_pages, q_lut, k_lut, v_lut,
     ``q_lut`` [256]; uint8 pages under the per-head ``k_lut``/``v_lut``
     [n_kv, 256]; the context encoded under ``out_qmeta`` [4].  Same
     paging and masking contract as :func:`decode_gqa_paged`."""
-    b = q_codes.shape[0]
-    max_tokens = block_tables.shape[1] * k_pages.shape[1]
-    lengths = row_ints(lengths, b, q_codes.device, max_tokens)
+    lengths = _lengths(lengths, q_codes, block_tables, k_pages)
     if q_codes.device.type == "cpu":
         return decode_gqa_paged_codes_ref(q_codes, k_pages, v_pages, q_lut,
                                           k_lut, v_lut, out_qmeta,

@@ -227,6 +227,30 @@ def test_decode_gqa_paged_replays_in_a_cuda_graph(dev):
         assert torch.all(out[lengths == 0] == 0)
 
 
+@pytest.mark.parametrize("bs,max_blk", [(64, 1), (16, 64)])  # 1 and 16 partitions
+def test_decode_gqa_paged_kernels_clip_the_lengths(dev, bs, max_blk):
+    """The wrappers hand the card's lengths to the kernels as they are:
+    lengths below 0 or past max_blk * bs give what the plain versions
+    give on lengths clipped to [0, max_blk * bs]."""
+    gen = _gen(dev, 90 + max_blk)
+    b, n_kv, g = 4, 2, 2
+    top = max_blk * bs
+    lengths = torch.tensor([-3, top + 5, 1 << 30, 17], dtype=torch.int32,
+                           device=dev)
+    clipped = lengths.clamp(0, top)
+    kp, vp, bt = _pages(dev, gen, b, n_kv, bs, max_blk, torch.float32)
+    q = torch.randn(b, n_kv, g, 128, generator=gen, device=dev)
+    out = decode_gqa_paged(q, kp, vp, bt, lengths)
+    _close(out, decode_gqa_paged_ref(q, kp, vp, bt, clipped))
+    assert torch.all(out[0] == 0)
+    kc, vc, bt, kl, vl = _code_pages(dev, gen, b, n_kv, bs, max_blk)
+    qc, ql, _ = _act_codes((b, n_kv, g, 128), dev, gen)
+    oq = torch.tensor([0.02, 1e-4, 1.04, 7.0], device=dev)
+    args = (qc, kc, vc, ql, kl, vl, oq, bt)
+    _codes_close(decode_gqa_paged_codes(*args, lengths),
+                 decode_gqa_paged_codes_ref(*args, clipped))
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     gen = _gen(dev, 0)
     codes, lut, _ = _qweight((64, 32), dev, gen)

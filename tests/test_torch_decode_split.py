@@ -17,6 +17,7 @@ for uint8 ones (``chip_smoke.py``'s gates for the two kernels).
 """
 
 import math
+import re
 
 import numpy as np
 import pytest
@@ -26,8 +27,8 @@ import jax.numpy as jnp
 
 from repro.kernels.decode_gqa import ops as jdec
 from repro_torch.core import exponential_quant as eq
-from repro_torch.kernels.decode_gqa.decode_gqa import (BATCH, WARPS,
-                                                       split_plan)
+from repro_torch.kernels import _build
+from repro_torch.kernels.decode_gqa.decode_gqa import split_plan
 from repro_torch.kernels.decode_gqa.ref import (decode_gqa_paged_codes_ref,
                                                 decode_gqa_paged_ref)
 
@@ -37,6 +38,18 @@ GATE = 1e-4                 # the float kernel's bound, of the output scale
 N_KV, HD = 2, 128
 SMS = 132                   # an H100's SMs, for split_plan
 MAX_BLK = 6                 # not a multiple of 4 pages (bs 16) a partition
+
+
+def _split_constant(name):
+    """An integer constant of the kernel's ``namespace split``, read from
+    its source so that the emulation follows the kernel as it is built."""
+    src = (_build.CSRC / "decode_gqa.cu").read_text()
+    body = src[src.index("namespace split {"):]
+    return int(re.search(rf"constexpr int {name} = (\d+);", body).group(1))
+
+
+WARPS = _split_constant("THREADS") // 32    # warps of a split block
+BATCH = _split_constant("BATCH")            # positions a warp loads at once
 
 
 def fold(state, logit, v):

@@ -85,7 +85,7 @@ def test_kernel_sources_carry_their_notes():
     text = (csrc / "decode_gqa.cu").read_text()
     assert "Bounds on an H100" in text and "Codes instantiation" in text
     assert "split-KV" in text and "Merge pass" in text
-    text = (csrc / "paged_attention.cuh").read_text()
+    text = (csrc / "decode_contig.cuh").read_text()
     assert "Bounds on an H100" in text and "Contiguous instantiation" in text
     assert sorted(p.stem for p in csrc.glob("*.cu")) == sorted(
         _build.KERNEL_SOURCES)
