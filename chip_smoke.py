@@ -11,8 +11,10 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
      one PyTorch library call computing the same function (a yardstick
      the port never calls), and the bound (the larger of bytes over the
      memory rate and operations over the float32 rate; for the prefill
-     kernels the TF32 tensor-core products they compute over the TF32
-     rate, with the float32 bound printed beside it); the paged decode
+     kernels and the gated GEMMs at M > 8 the TF32 tensor-core products
+     they compute over the TF32 rate, with the float32 bound printed
+     beside it); the gated GEMMs (#2, #4) at M = 8, 256 and 2048 with
+     their split plan; the paged decode
      kernels at three shapes (the serving rows, short rows, 8 rows at
      4096 positions) with their split-KV grid and, at the serving grid,
      the fixed cost of a call whose lengths are all 0;
@@ -285,6 +287,59 @@ def sdpa_prefill(qf, kd, vd, table, q_start, kv_lens, bs: int):
     return lambda: sdpa(qs, kk, vv, attn_mask=mask)
 
 
+def gated_plan_label(m: int, k: int, n: int) -> str:
+    """The split plan the gated wrappers launch for these shapes."""
+    import torch
+
+    # the launch module (the package's ``lut_dequant_matmul`` is the wrapper)
+    lk = importlib.import_module(
+        "repro_torch.kernels.lut_dequant_matmul.lut_dequant_matmul")
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    splits, kps = lk.gated_plan(m, k, n, sms)
+    if m <= 8:
+        return (f"{-(-n // lk.GATED_COLS)} slabs x cluster of {splits} "
+                f"({kps} rows of K each)")
+    tiles = -(-n // lk.GATED_TILE) * -(-m // lk.GATED_TILE)
+    return f"{tiles} tiles x {splits} split{'s' if splits > 1 else ''}"
+
+
+def gated_build_report(log: str) -> None:
+    """Registers, spills and dynamic shared memory of each gated GEMM
+    instantiation (#2/#4: decode and prefill paths), from nvcc's
+    ``-Xptxas -v`` output."""
+    import re
+
+    import torch
+
+    # the launch module (the package's ``lut_dequant_matmul`` is the wrapper)
+    lk = importlib.import_module(
+        "repro_torch.kernels.lut_dequant_matmul.lut_dequant_matmul")
+
+    kinds = {"f": ("float32", torch.float32),
+             "13__nv_bfloat16": ("bfloat16", torch.bfloat16),
+             "h": ("uint8 codes", torch.uint8)}
+    fn, spill = None, "no spills"
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\w*(gated_skinny|gated_tiled)"
+                      r"I(\w+?)Li(\d)E", line)
+        if m:
+            fn, spill = m.groups(), "no spills"
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and fn and m.groups() != ("0", "0"):
+            spill = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            x_name, x_dt = kinds.get(fn[1], (fn[1], None))
+            tiled = fn[0] == "gated_tiled"
+            smem = lk.gated_smem_bytes(tiled, x_dt) if x_dt is not None else "?"
+            print(f"    {fn[0]} x {x_name}, NW={fn[2]}: {m.group(1)} registers, "
+                  f"{spill}, dynamic shared memory {smem} B per block",
+                  flush=True)
+            fn = None
+
+
 def prefill_build_report(log: str) -> None:
     """Registers and spills of each prefill instantiation from nvcc's
     ``-Xptxas -v`` output, and its dynamic shared memory per block."""
@@ -440,6 +495,8 @@ def check_kernels(tally: Tally) -> None:
     from repro_torch.kernels.flash_prefill.ref import flash_prefill_paged_ref
     from repro_torch.kernels.lut_dequant_matmul import (
         lut_dequant_matmul, lut_dequant_matmul_gated)
+    from repro_torch.kernels.lut_dequant_matmul.lut_dequant_matmul import (
+        passes as gated_passes)
     from repro_torch.kernels.lut_dequant_matmul.ref import (
         decode_weight, lut_dequant_matmul_gated_ref, lut_dequant_matmul_ref)
 
@@ -500,7 +557,9 @@ def check_kernels(tally: Tally) -> None:
               f"M={m} K={k} N={n} transposed")
     del wt, w
 
-    for m in (8, 2048):
+    # the gated GEMM (#2): a decode step, an engine tail chunk (8 slots x
+    # 32 tokens) and a full chunk; M > 8 on the TF32 tensor cores
+    for m in (8, 256, 2048):
         k, n = 2048, 6144
         x = rnd(m, k, dtype=x_dt)
         (cg, lg), (cu, lu) = qweight(k, n), qweight(k, n)
@@ -520,7 +579,9 @@ def check_kernels(tally: Tally) -> None:
                           flush=flush),
                   time_ms(lambda: torch.matmul(xf, wgu), flush=flush),
                   m * k * 2 + 2 * k * n + 2048 + m * n * 4, 4.0 * m * k * n,
-                  f"M={m} K={k} N={n}")
+                  f"M={m} K={k} N={n}, {gated_plan_label(m, k, n)}",
+                  tc_flops=(gated_passes(x_dt) * 4.0 * m * k * n
+                            if m > 8 else None))
         del wgu
 
     # paged attention at the serving width: 8 rows, n_kv 8, g 2, hd 128,
@@ -681,7 +742,7 @@ def check_codes_kernels(tally: Tally) -> None:
     from repro_torch.kernels.lut_dequant_matmul import (
         lut_dequant_matmul_dual, lut_dequant_matmul_dual_gated)
     from repro_torch.kernels.lut_dequant_matmul.lut_dequant_matmul import (
-        split_k)
+        passes as gated_passes, split_k)
     from repro_torch.kernels.lut_dequant_matmul.ref import (
         decode_weight, lut_dequant_matmul_dual_gated_ref,
         lut_dequant_matmul_dual_ref)
@@ -757,7 +818,7 @@ def check_codes_kernels(tally: Tally) -> None:
                   f"M={m} K={k} N={n} u8 out, {splits} splits, "
                   f"{frac:.1e} flipped")
 
-    for m in (8, 2048):
+    for m in (8, 256, 2048):
         k, n = 2048, 6144
         xc, lx, qx = act_codes(m, k)
         (cg, lg, qg), (cu, lu, qu) = qweight(k, n), qweight(k, n)
@@ -776,7 +837,10 @@ def check_codes_kernels(tally: Tally) -> None:
                       *args, out_qmeta=qo), flush=flush),
                   time_ms(lambda: torch.matmul(xf, wgu), flush=flush),
                   m * k + 2 * k * n + 3072 + 16 + m * n, 4.0 * m * k * n,
-                  f"M={m} K={k} N={n} u8 out, {frac:.1e} flipped")
+                  f"M={m} K={k} N={n} u8 out, {gated_plan_label(m, k, n)}, "
+                  f"{frac:.1e} flipped",
+                  tc_flops=(gated_passes(torch.uint8) * 4.0 * m * k * n
+                            if m > 8 else None))
         del wgu
 
     # codes attention at the serving width: 8 rows, n_kv 8, g 2, hd 128,
@@ -1413,6 +1477,8 @@ def main() -> int:
               f" per thread, {'spills: ' + '; '.join(spills) if spills else 'no spills'}")
         if name == "flash_prefill":
             prefill_build_report(log)
+        if name == "lut_dequant_matmul":
+            gated_build_report(log)
         if name == "decode_gqa":
             decode_build_report(log)
 

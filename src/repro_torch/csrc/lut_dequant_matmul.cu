@@ -14,33 +14,65 @@
 // sign*(alpha*exp(e*log(base))+beta) ("alu" mode) -- the same values the
 // reference's per-element ALU decode gives for each code.  Codes cross
 // device memory as 1 byte per weight; the decoded weight tile exists
-// only in shared memory.  Accumulation is float32 FMA (no TF32, no
-// tensor cores), so the result is a float32 matmul up to summation order.
-//
-// What bounds it on an H100: at decode (M <= 8) the code bytes -- about
-// 1.72 GB per qwen3-1.7b decode step -- so the "skinny" path streams
-// codes with every SM busy (split-K over a deterministic second pass
-// when the N tiles alone cannot fill the card).  At prefill (M = 64 ...
-// 2048) float32 FMA throughput (67 TFLOP/s peak outside the tensor
-// cores), so the "tiled" path keeps a 128x128 output tile in registers
-// (8x8 per thread) and reuses every decoded tile across 128 rows.
-// Layouts: codes [K, N], or [N, K] (transposed: the tied unembedding),
-// where the transpose happens while a decoded tile is stored to shared
-// memory, never on the table in device memory.
+// only in shared memory or registers.
+// Layouts: codes [K, N], or [N, K] (transposed: the tied unembedding, #1
+// only), where the transpose happens while a decoded tile is stored to
+// shared memory, never on the table in device memory.
 //
 // Dual variants (#3, #4; XT = uint8_t): x arrives as uint8 activation
 // codes and decodes through its own table in shared memory (gather or
-// ALU form) while the x tile is staged, so activations cross device
-// memory at 1 B/element too.  The ragged K edge stores 0.0 *after*
-// decode: code 0 is a live code (it decodes to +-(alpha*base^e_min +
-// beta)), so a past-K element must never be "load code 0".  With an out
-// qmeta the epilogue is bias, activation (gated: act(g)*u), then the
-// DNA-TEQ encode (dnateq.cuh), writing uint8; under split-K it runs only
-// in the reduce pass, after the partials are summed, never per split.
-// At decode the dual GEMMs are bound by the weight-code bytes like #1/#2
-// (the activation codes are a quarter of the float32 x bytes); at
-// prefill by the float32 FMAs.
+// ALU form), so activations cross device memory at 1 B/element too.  The
+// ragged K edge is 0.0 *after* decode: code 0 is a live code (it decodes
+// to +-(alpha*base^e_min + beta)), so a past-K element must never be
+// "load code 0".  With an out qmeta the epilogue is bias, activation
+// (gated: act(g)*u), then the DNA-TEQ encode (dnateq.cuh), writing
+// uint8, once per element after the whole K sum, never per split.
+//
+// #1 and #3 (lut_mm_skinny, lut_mm_skinny_t, lut_mm_tiled): float32 FMA
+// on the CUDA cores.  At decode (M <= 8) the code bytes bound them, and
+// the skinny bodies stream codes with every SM busy (split-K over a
+// deterministic second pass when the N tiles alone cannot fill the
+// card); at prefill a 128x128 output tile in registers (8x8 a thread)
+// reuses each decoded tile across 128 rows.
+//
+// #2 and #4, the gated GEMMs (gated_skinny, gated_tiled; templates over
+// the number of weights NW, instantiated for NW = 2):
+// - Decode (M <= 8), gated_skinny: bound by the 2*K*N code bytes (25 MB,
+//   0.0075 ms at 3.35 TB/s, at d_model 2048 x d_ff 6144).  A block owns
+//   64 columns of both weights and a range of K.  Codes reach shared
+//   memory by 16-byte cp.async copies into an 8-stage ring of 32 k rows,
+//   so 28 KB of codes are in flight a block before any is used; the
+//   thread that computes 4 columns reads them from the ring, not from
+//   device memory.  x is staged as float32 [k][8] (decoded once, for
+//   #4).  When the column slabs alone give fewer than two blocks an SM,
+//   the blocks of a slab split K as one thread-block cluster (at most 8
+//   blocks): each sums its rows, then rank 0 adds the partials of ranks
+//   0, 1, ... from their shared memory (distributed shared memory, fixed
+//   order: deterministic, one launch, no workspace) and runs the
+//   epilogue.  Float32 FMA: at M = 8 the lookups and FMAs of the codes
+//   are far below the tensor cores' worth of work.
+// - Prefill (M > 8), gated_tiled: bound by 4*M*K*N multiply-adds.  They
+//   run on the tensor cores as mma.sync.m16n8k8 TF32 in split form
+//   (v = hi + lo, hi = v cut to TF32, lo = v - hi; one TF32 pass misses
+//   the 1e-4 gate): x_hi.W_hi + x_hi.W_lo, plus x_lo.W_hi unless x is
+//   bfloat16 (exact in TF32).  The split of a decoded value is done once
+//   a block, when its 256-entry table is loaded: the tables hold (hi, lo)
+//   pairs, so a decoded, split weight is one 8-byte shared-memory lookup;
+//   #4's activations decode through a split table the same way.  A block
+//   owns 128 x 128 outputs of both weights (8 warps of 64 x 32, 128
+//   accumulators a thread); x and both code tiles of 32 k rows arrive by
+//   16-byte cp.async in a 3-stage ring.  A lane reads a 4-byte word of
+//   codes (4 columns) from k rows 2t and 2t+1 and uses its bytes as the
+//   B fragments of 4 n8 tiles, the columns of tile j being 4g + j: so
+//   the fragment k order is (2t, 2t+1) for both operands, and the x
+//   fragment is one 8-byte (float), 4-byte (bf16) or 2-byte (codes) load
+//   per row.  Gate and up take the same x fragments.  Split-K (a
+//   workspace and the reduce pass) only when the tiles fill under half
+//   the SMs.
+// Rows whose stride is not a multiple of 16 bytes (ragged K or N) are
+// staged element by element instead of by cp.async.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -68,22 +100,22 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
+// Entry c of a decode table: the gathered value, or the closed form.
+__device__ __forceinline__ float table_value(int c, const float* lut,
+                                             const float* qmeta, int alu) {
+  if (!alu) return lut[c];
+  const float alpha = qmeta[0], beta = qmeta[1], base = qmeta[2];
+  const float e_min = -exp2f(qmeta[3] - 1.0f);
+  const float sign = 1.0f - 2.0f * (float)(c >> 7);
+  const float e = (float)(c & 0x7F) + e_min;
+  return sign * (alpha * expf(e * logf(base)) + beta);
+}
+
 // One 256-entry decode table into shared memory (gather or closed form).
 __device__ __forceinline__ void fill_table(float* s_lut, const float* lut,
                                            const float* qmeta, int alu) {
-  for (int c = threadIdx.x; c < 256; c += blockDim.x) {
-    float v;
-    if (alu) {
-      const float alpha = qmeta[0], beta = qmeta[1], base = qmeta[2];
-      const float e_min = -exp2f(qmeta[3] - 1.0f);
-      const float sign = 1.0f - 2.0f * (float)(c >> 7);
-      const float e = (float)(c & 0x7F) + e_min;
-      v = sign * (alpha * expf(e * logf(base)) + beta);
-    } else {
-      v = lut[c];
-    }
-    s_lut[c] = v;
-  }
+  for (int c = threadIdx.x; c < 256; c += blockDim.x)
+    s_lut[c] = table_value(c, lut, qmeta, alu);
 }
 
 struct Args {
@@ -101,6 +133,7 @@ struct Args {
   void* out;            // [M, N] float32, or uint8 when qmo is set
   float* ws;  // [NW, splits, M, N] partial sums when splits > 1
   int M, K, N, k_per_split, alu, act;
+  int vec;    // gated kernels: 1 = x rows, 2 = code rows 16-byte aligned
 };
 
 // One element of x as float32: a float operand converted, or an
@@ -115,19 +148,22 @@ __device__ __forceinline__ float load_x(const XT* x, size_t i,
   }
 }
 
-// The epilogue of one output element: bias and activation (gated:
-// act(g) * u), then either a float32 store or the DNA-TEQ encode.
+// The epilogue's value of one output element: bias and activation
+// (gated: act(g) * u).
+template <bool GATED>
+__device__ __forceinline__ float epilogue(const Args& a, int n, float v0,
+                                          float v1) {
+  if (GATED) return act_fn(v0, a.act) * v1;
+  if (a.bias) v0 += a.bias[n];
+  return act_fn(v0, a.act);
+}
+
+// The epilogue of one output element, then either a float32 store or
+// the DNA-TEQ encode.
 template <bool GATED>
 __device__ __forceinline__ void finish(const Args& a, size_t i, int n,
                                        float v0, float v1) {
-  float v;
-  if (GATED) {
-    v = act_fn(v0, a.act) * v1;
-  } else {
-    v = v0;
-    if (a.bias) v += a.bias[n];
-    v = act_fn(v, a.act);
-  }
+  const float v = epilogue<GATED>(a, n, v0, v1);
   if (a.qmo) {
     static_cast<uint8_t*>(a.out)[i] = dnateq::encode(v, a.qmo);
   } else {
@@ -155,9 +191,9 @@ __device__ __forceinline__ void emit(const Args& a, int m, int n, float v0,
 // the shared tiles without bank conflicts).
 constexpr int TM = 128, TN = 128, TK = 16;
 
-template <typename XT, bool TRANS, bool GATED>
+template <typename XT, bool TRANS>
 __global__ void __launch_bounds__(256) lut_mm_tiled(Args a) {
-  constexpr int NW = GATED ? 2 : 1;
+  constexpr int NW = 1;
   constexpr bool XC = std::is_same<XT, uint8_t>::value;
   __shared__ float s_lut[NW][256];
   __shared__ float s_xlut[XC ? 256 : 1];
@@ -170,7 +206,6 @@ __global__ void __launch_bounds__(256) lut_mm_tiled(Args a) {
   const int kb = blockIdx.z * a.k_per_split;
   const int ke = min(a.K, kb + a.k_per_split);
   fill_table(s_lut[0], a.lut0, a.qm0, a.alu);
-  if (GATED) fill_table(s_lut[1], a.lut1, a.qm1, a.alu);
   if constexpr (XC) fill_table(s_xlut, a.lutx, a.qmx, a.alu);
   const int tr = tid >> 4, tc = tid & 15;
 
@@ -245,7 +280,7 @@ __global__ void __launch_bounds__(256) lut_mm_tiled(Args a) {
     for (int j = 0; j < 8; ++j) {
       const int n = n0 + (j < 4 ? tc * 4 + j : 64 + tc * 4 + j - 4);
       if (n >= a.N) continue;
-      emit<GATED>(a, m, n, acc[0][i][j], acc[NW - 1][i][j]);
+      emit<false>(a, m, n, acc[0][i][j], 0.0f);
     }
   }
 }
@@ -258,9 +293,9 @@ __global__ void __launch_bounds__(256) lut_mm_tiled(Args a) {
 // memory at the end.
 constexpr int SM = 8, SN = 64, SKC = 256;
 
-template <typename XT, bool GATED>
+template <typename XT>
 __global__ void __launch_bounds__(256) lut_mm_skinny(Args a) {
-  constexpr int NW = GATED ? 2 : 1;
+  constexpr int NW = 1;
   constexpr bool XC = std::is_same<XT, uint8_t>::value;
   __shared__ float s_lut[NW][256];
   __shared__ float s_xlut[XC ? 256 : 1];
@@ -274,7 +309,6 @@ __global__ void __launch_bounds__(256) lut_mm_skinny(Args a) {
   const int kb = blockIdx.z * a.k_per_split;
   const int ke = min(a.K, kb + a.k_per_split);
   fill_table(s_lut[0], a.lut0, a.qm0, a.alu);
-  if (GATED) fill_table(s_lut[1], a.lut1, a.qm1, a.alu);
   if constexpr (XC) fill_table(s_xlut, a.lutx, a.qmx, a.alu);
 
   float acc[NW][SM][4];
@@ -341,7 +375,7 @@ __global__ void __launch_bounds__(256) lut_mm_skinny(Args a) {
       for (int q = 0; q < 8; ++q) s += s_red[w][q][m][cc];
       v[w] = s;
     }
-    emit<GATED>(a, m, n, v[0], v[NW - 1]);
+    emit<false>(a, m, n, v[0], 0.0f);
   }
 }
 
@@ -429,7 +463,752 @@ __global__ void lut_mm_reduce(Args a, int splits) {
   finish<GATED>(a, i, (int)(i % a.N), s0, s1);
 }
 
-template <typename XT, bool TRANS, bool GATED>
+// ============================================ gated kernels (#2, #4) ==
+
+// 16 bytes global -> shared by cp.async.cg; the bytes past src_bytes are
+// zero-filled (src_bytes 0: nothing is read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// One 16-byte chunk of a row into shared memory, its first ``nbytes``
+// from src and zeros after: by cp.async when the rows are 16-byte
+// aligned in device memory (``vec``), else byte by byte (ragged K or N).
+__device__ __forceinline__ void copy16(void* dst, const void* src, int nbytes,
+                                       bool vec) {
+  if (vec) {
+    cp_async16(dst, src, nbytes);
+    return;
+  }
+  const uint8_t* p = static_cast<const uint8_t*>(src);
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    uint32_t v = 0;
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      if (4 * i + b < nbytes) v |= (uint32_t)p[4 * i + b] << (8 * b);
+    w[i] = v;
+  }
+  *static_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// Raise a kernel's dynamic shared-memory limit, once per device: the
+// attribute is a property of the function, and setting it on every call
+// costs host time.  ``done`` is the calling instantiation's own flag set.
+template <typename Kern>
+cudaError_t smem_limit(Kern kern, int bytes, bool (&done)[16]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 16 && done[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes);
+  if (e == cudaSuccess && dev < 16) done[dev] = true;
+  return e;
+}
+
+// --------------------------------------------------- gated: decode --
+// M <= 8.  A block (256 threads) owns GS_N columns of each weight and the
+// rows [kb, ke) of K; thread (warp w, lane l) owns columns 4*(l % 16) ..
+// +3 and k-lane 2w + l / 16, i.e. rows kb + k-lane + 16 t.
+constexpr int GS_N = 64;       // columns of a block
+constexpr int GS_K = 32;       // k rows of a ring stage
+constexpr int GS_STAGES = 8;   // ring depth: 7 stages in flight
+constexpr int GS_XK = 512;     // k rows of x staged at a time
+
+template <int NW>
+struct SkinnySmem {
+  float lut[NW][256];
+  float xlut[256];
+  float part[NW][SM][GS_N];    // the block's sums, read by rank 0
+  union {
+    struct {
+      uint8_t ring[GS_STAGES][NW][GS_K][GS_N];
+      float x[GS_XK][SM];      // x as float32, [k][m]
+    } s;
+    float red[NW][8][SM][GS_N];  // per-warp sums (after the ring is done)
+  } u;
+};
+
+template <typename XT, int NW>
+__global__ void __launch_bounds__(256, 2) gated_skinny(Args a) {
+  namespace cg = cooperative_groups;
+  constexpr bool XC = std::is_same<XT, uint8_t>::value;
+  constexpr int CPR = GS_N / 16;   // 16-byte chunks a code row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  SkinnySmem<NW>& sm = *reinterpret_cast<SkinnySmem<NW>*>(smem_raw);
+  cg::cluster_group cluster = cg::this_cluster();
+
+  const XT* x = static_cast<const XT*>(a.x);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int cgp = lane & 15, kl = warp * 2 + (lane >> 4);
+  const int n0 = blockIdx.x * GS_N;
+  // blockIdx.z is the block's rank in its cluster: cluster dims (1, 1, z)
+  const int kb = blockIdx.z * a.k_per_split;
+  const int ke = min(a.K, kb + a.k_per_split);
+  const int n_st = ke > kb ? (ke - kb + GS_K - 1) / GS_K : 0;
+  const bool cvec = a.vec & 2;
+
+  auto load = [&](int s) {
+    if (s < n_st) {
+      const int k0 = kb + s * GS_K;
+      for (int c = tid; c < NW * GS_K * CPR; c += 256) {
+        const int w = c / (GS_K * CPR), r = (c / CPR) % GS_K, ch = c % CPR;
+        const int gk = k0 + r, gn = n0 + ch * 16;
+        const uint8_t* cw = w ? a.c1 : a.c0;
+        const int nb = gk < ke ? max(0, min(16, a.N - gn)) : 0;
+        copy16(&sm.u.s.ring[s % GS_STAGES][w][r][ch * 16],
+               nb ? cw + (size_t)gk * a.N + gn : cw, nb, cvec);
+      }
+    }
+    cp_async_commit();
+  };
+  // x rows [k0, k0 + GS_XK) of the block's range as float32, zeros past
+  // ke and past M; all loads of a thread issued before its stores
+  auto stage_x = [&](int k0) {
+    constexpr int PER = GS_XK * SM / 256;
+    float v[PER];
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int e = tid + i * 256, kk = e / SM, m = e % SM, gk = k0 + kk;
+      v[i] = (m < a.M && gk < ke) ? load_x(x, (size_t)m * a.K + gk, sm.xlut)
+                                  : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < PER; ++i) (&sm.u.s.x[0][0])[tid + i * 256] = v[i];
+  };
+
+#pragma unroll
+  for (int s = 0; s < GS_STAGES - 1; ++s) load(s);
+  fill_table(sm.lut[0], a.lut0, a.qm0, a.alu);
+  if (NW == 2) fill_table(sm.lut[NW - 1], a.lut1, a.qm1, a.alu);
+  if constexpr (XC) fill_table(sm.xlut, a.lutx, a.qmx, a.alu);
+  __syncthreads();
+  stage_x(kb);
+
+  float acc[NW][SM][4];
+#pragma unroll
+  for (int w = 0; w < NW; ++w)
+#pragma unroll
+    for (int m = 0; m < SM; ++m)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[w][m][j] = 0.0f;
+
+  for (int s = 0; s < n_st; ++s) {
+    cp_async_wait<GS_STAGES - 2>();
+    __syncthreads();   // stage s landed; every thread is done with s - 1
+    load(s + GS_STAGES - 1);
+    const int kk0 = s * GS_K;
+    if (kk0 > 0 && kk0 % GS_XK == 0) {
+      stage_x(kb + kk0);
+      __syncthreads();
+    }
+    const int rows = min(GS_K, ke - kb - kk0);
+    const uint8_t* st = &sm.u.s.ring[s % GS_STAGES][0][0][0];
+    const float* xs = &sm.u.s.x[kk0 % GS_XK][0];
+#pragma unroll
+    for (int i = 0; i < GS_K / 16; ++i) {
+      const int r = kl + 16 * i;
+      if (r >= rows) break;
+      uint32_t cw[NW];
+#pragma unroll
+      for (int w = 0; w < NW; ++w)
+        cw[w] = *reinterpret_cast<const uint32_t*>(st + (w * GS_K + r) * GS_N +
+                                                   cgp * 4);
+      const float4 x0 = *reinterpret_cast<const float4*>(xs + r * SM);
+      const float4 x1 = *reinterpret_cast<const float4*>(xs + r * SM + 4);
+      const float xv[SM] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+      float wv[NW][4];
+#pragma unroll
+      for (int w = 0; w < NW; ++w)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) wv[w][j] = sm.lut[w][(cw[w] >> (8 * j)) & 255u];
+#pragma unroll
+      for (int m = 0; m < SM; ++m)
+#pragma unroll
+        for (int w = 0; w < NW; ++w)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[w][m][j] = fmaf(xv[m], wv[w][j], acc[w][m][j]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();     // the ring and x are dead: red takes their place
+
+  // k-lanes 2w and 2w + 1 by shuffle, then the 8 warps in order
+#pragma unroll
+  for (int w = 0; w < NW; ++w)
+#pragma unroll
+    for (int m = 0; m < SM; ++m)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        acc[w][m][j] += __shfl_xor_sync(0xffffffffu, acc[w][m][j], 16);
+  if (lane < 16) {
+#pragma unroll
+    for (int w = 0; w < NW; ++w)
+#pragma unroll
+      for (int m = 0; m < SM; ++m)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sm.u.red[w][warp][m][cgp * 4 + j] = acc[w][m][j];
+  }
+  __syncthreads();
+  for (int p = tid; p < NW * SM * GS_N; p += 256) {
+    const int w = p / (SM * GS_N), mc = p % (SM * GS_N);
+    float v = 0.0f;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) v += (&sm.u.red[w][q][0][0])[mc];
+    (&sm.part[w][0][0])[mc] = v;
+  }
+
+  // the cluster's partials in rank order, finished once, by rank 0
+  cluster.sync();
+  if (cluster.block_rank() == 0) {
+    const int ranks = (int)cluster.num_blocks();
+    for (int p = tid; p < SM * GS_N; p += 256) {
+      const int m = p / GS_N, n = n0 + p % GS_N;
+      if (m >= a.M || n >= a.N) continue;
+      float v[NW];
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        float t = 0.0f;
+        for (int r = 0; r < ranks; ++r)
+          t += cluster.map_shared_rank(&sm.part[w][0][0], r)[p];
+        v[w] = t;
+      }
+      finish<NW == 2>(a, (size_t)m * a.N + n, n, v[0], v[NW - 1]);
+    }
+  }
+  cluster.sync();      // no block leaves while rank 0 reads its partials
+}
+
+// -------------------------------------------------- gated: prefill --
+// M > 8.  A block (8 warps, 2 along M x 4 along N) owns GT_M x GT_N
+// outputs of each weight; warp (wm, wn) owns rows 64 wm .. +63 (4 m16
+// tiles) and columns 32 wn .. +31 (4 n8 tiles) of each weight.  Lane
+// (g = lane / 4, t = lane % 4) holds, for n8 tile j, the columns
+// 32 wn + 4 g + j as the tile's column g (B) and 32 wn + 8 t + j,
+// 32 wn + 8 t + 4 + j as its columns 2t, 2t + 1 (C).
+constexpr int GT_M = 128, GT_N = 128, GT_K = 32, GT_STAGES = 3;
+constexpr int GT_CS = GT_N + 16;     // staged code row, bytes
+constexpr bool GT_PAIRS = true;      // weight tables as (hi, lo) pairs
+constexpr bool GT_XDEC = false;      // codes x decoded once a tile
+constexpr int GT_XD = 80;            // decoded x row, floats: 16 (hi, lo) pairs of k
+
+// Staged x row, bytes: padded so each warp's fragment loads hit
+// distinct banks (row stride = 8, 20 or 12 words mod 32).
+template <typename XT>
+__host__ __device__ constexpr int gt_xs() {
+  return GT_K * (int)sizeof(XT) + (sizeof(XT) == 4 ? 32 : 16);
+}
+template <typename XT, int NW>
+__host__ __device__ constexpr int gt_stage() {
+  return GT_M * gt_xs<XT>() + NW * GT_K * GT_CS;
+}
+template <typename XT, int NW>
+__host__ __device__ constexpr int gt_smem() {
+  return (NW + 1) * 256 * (int)sizeof(float2) + GT_STAGES * gt_stage<XT, NW>() +
+         (GT_XDEC && sizeof(XT) == 1 ? GT_M * GT_XD * 4 : 0);
+}
+
+// v = hi + lo: hi = v cut to TF32 (its upper 19 bits), lo = v - hi,
+// exact in float32, of which the tensor core reads the upper 19 bits.
+__device__ __forceinline__ float2 tf32_split(float v) {
+  const float hi = __uint_as_float(__float_as_uint(v) & 0xffffe000u);
+  return make_float2(hi, v - hi);
+}
+
+// A decode table split into (hi, lo) pairs in shared memory.
+__device__ __forceinline__ void fill_split(float2* s, const float* lut,
+                                           const float* qmeta, int alu) {
+  for (int c = threadIdx.x; c < 256; c += blockDim.x) {
+    if (GT_PAIRS) s[c] = tf32_split(table_value(c, lut, qmeta, alu));
+    else reinterpret_cast<float*>(s)[c] = table_value(c, lut, qmeta, alu);
+  }
+}
+
+// c += a . b on one m16n8k8 TF32 tile, float32 accumulate.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x at (row, k) and (row, k + 1) of a staged row as TF32 hi (and lo):
+// float32 split here, bfloat16 exact (no lo), codes through the split
+// activation table.
+__device__ __forceinline__ void load_a(const float* row, int k, const float2*,
+                                       uint32_t& h0, uint32_t& h1,
+                                       uint32_t& l0, uint32_t& l1) {
+  const float2 v = *reinterpret_cast<const float2*>(row + k);
+  const float2 s0 = tf32_split(v.x), s1 = tf32_split(v.y);
+  h0 = __float_as_uint(s0.x); l0 = __float_as_uint(s0.y);
+  h1 = __float_as_uint(s1.x); l1 = __float_as_uint(s1.y);
+}
+__device__ __forceinline__ void load_a(const __nv_bfloat16* row, int k,
+                                       const float2*, uint32_t& h0,
+                                       uint32_t& h1, uint32_t&, uint32_t&) {
+  const uint32_t raw = *reinterpret_cast<const uint32_t*>(row + k);
+  h0 = raw << 16;
+  h1 = raw & 0xffff0000u;
+}
+__device__ __forceinline__ void load_a(const uint8_t* row, int k,
+                                       const float2* s_xt, uint32_t& h0,
+                                       uint32_t& h1, uint32_t& l0,
+                                       uint32_t& l1) {
+  const uint32_t raw = *reinterpret_cast<const uint16_t*>(row + k);
+  const float2 t0 = s_xt[raw & 255u], t1 = s_xt[raw >> 8];
+  h0 = __float_as_uint(t0.x); l0 = __float_as_uint(t0.y);
+  h1 = __float_as_uint(t1.x); l1 = __float_as_uint(t1.y);
+}
+
+// Eight consecutive outputs n .. n + 7 of row m: parked for the reduce
+// pass under split-K, else finished and stored, 16 (float32) or 4 (u8)
+// bytes at a time where the row allows it.
+template <int NW>
+__device__ __forceinline__ void store8(const Args& a, int m, int n,
+                                       const float (&v0)[8],
+                                       const float (&v1)[8]) {
+  constexpr bool GATED = NW == 2;
+  if (gridDim.z > 1) {
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      if (n + q < a.N) emit<GATED>(a, m, n + q, v0[q], v1[q]);
+    return;
+  }
+  float y[8];
+#pragma unroll
+  for (int q = 0; q < 8; ++q) y[q] = epilogue<GATED>(a, min(n + q, a.N - 1), v0[q], v1[q]);
+  const size_t i = (size_t)m * a.N + n;
+  const bool whole = n + 8 <= a.N && a.N % 4 == 0;
+  if (a.qmo) {
+    uint8_t* o = static_cast<uint8_t*>(a.out) + i;
+    uint8_t c[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) c[q] = dnateq::encode(y[q], a.qmo);
+    if (whole) {
+      reinterpret_cast<uchar4*>(o)[0] = make_uchar4(c[0], c[1], c[2], c[3]);
+      reinterpret_cast<uchar4*>(o)[1] = make_uchar4(c[4], c[5], c[6], c[7]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        if (n + q < a.N) o[q] = c[q];
+    }
+  } else {
+    float* o = static_cast<float*>(a.out) + i;
+    if (whole) {
+      reinterpret_cast<float4*>(o)[0] = make_float4(y[0], y[1], y[2], y[3]);
+      reinterpret_cast<float4*>(o)[1] = make_float4(y[4], y[5], y[6], y[7]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        if (n + q < a.N) o[q] = y[q];
+    }
+  }
+}
+
+// The decode path on the tensor cores (GS_TC).  Same block, ring and
+// reduce as gated_skinny, but a stage holds 64 k rows (one k8 step a
+// warp) in rows of 80 bytes, and warp w multiplies x (rows 0-7 of an
+// m16n8k8 A fragment) by its k8 step of all 64 columns of both weights:
+// 8 n8 tiles a weight.  Rows 8-15 of A carry x_lo, so one mma adds
+// x_hi.W_hi (rows 0-7) and x_lo.W_hi (rows 8-15) and a second x_hi.W_lo:
+// the three split-TF32 passes in two mma, summed at the end.
+constexpr bool GS_TC = false;
+constexpr int GT_SK = 64, GT_SSTAGES = 4, GT_SRS = 80, GT_SXS = GS_XK + 8;
+
+template <int NW>
+struct SkinnyTcSmem {
+  float lut[NW][256];
+  float xlut[256];
+  float part[NW][SM][GS_N];
+  union {
+    struct {
+      uint8_t ring[GT_SSTAGES][NW][GT_SK][GT_SRS];
+      float x[SM][GT_SXS];     // x as float32, [m][k]
+    } s;
+    float red[NW][8][SM][GS_N];
+  } u;
+};
+
+template <typename XT, int NW>
+__global__ void __launch_bounds__(256, 2) gated_skinny_tc(Args a) {
+  namespace cg = cooperative_groups;
+  constexpr bool XC = std::is_same<XT, uint8_t>::value;
+  constexpr bool X_EXACT = std::is_same<XT, __nv_bfloat16>::value;
+  constexpr int CPR = GS_N / 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  SkinnyTcSmem<NW>& sm = *reinterpret_cast<SkinnyTcSmem<NW>*>(smem_raw);
+  cg::cluster_group cluster = cg::this_cluster();
+
+  const XT* x = static_cast<const XT*>(a.x);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lg = lane >> 2, lt = lane & 3;
+  const int n0 = blockIdx.x * GS_N;
+  const int kb = blockIdx.z * a.k_per_split;
+  const int ke = min(a.K, kb + a.k_per_split);
+  const int n_st = ke > kb ? (ke - kb + GT_SK - 1) / GT_SK : 0;
+  const bool cvec = a.vec & 2;
+
+  auto load = [&](int s) {
+    if (s < n_st) {
+      const int k0 = kb + s * GT_SK;
+      for (int c = tid; c < NW * GT_SK * CPR; c += 256) {
+        const int w = c / (GT_SK * CPR), r = (c / CPR) % GT_SK, ch = c % CPR;
+        const int gk = k0 + r, gn = n0 + ch * 16;
+        const uint8_t* cw = w ? a.c1 : a.c0;
+        const int nb = gk < ke ? max(0, min(16, a.N - gn)) : 0;
+        copy16(&sm.u.s.ring[s % GT_SSTAGES][w][r][ch * 16],
+               nb ? cw + (size_t)gk * a.N + gn : cw, nb, cvec);
+      }
+    }
+    cp_async_commit();
+  };
+  auto stage_x = [&](int k0) {
+    constexpr int PER = GS_XK * SM / 256;
+    float v[PER];
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int e = tid + i * 256, m = e / GS_XK, kk = e % GS_XK, gk = k0 + kk;
+      v[i] = (m < a.M && gk < ke) ? load_x(x, (size_t)m * a.K + gk, sm.xlut)
+                                  : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int e = tid + i * 256;
+      sm.u.s.x[e / GS_XK][e % GS_XK] = v[i];
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < GT_SSTAGES - 1; ++s) load(s);
+  fill_table(sm.lut[0], a.lut0, a.qm0, a.alu);
+  if (NW == 2) fill_table(sm.lut[NW - 1], a.lut1, a.qm1, a.alu);
+  if constexpr (XC) fill_table(sm.xlut, a.lutx, a.qmx, a.alu);
+  __syncthreads();
+  stage_x(kb);
+
+  float acc[NW][8][4];
+#pragma unroll
+  for (int w = 0; w < NW; ++w)
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[w][t][e] = 0.0f;
+
+  for (int s = 0; s < n_st; ++s) {
+    cp_async_wait<GT_SSTAGES - 2>();
+    __syncthreads();
+    load(s + GT_SSTAGES - 1);
+    const int kk0 = s * GT_SK;
+    if (kk0 > 0 && kk0 % GS_XK == 0) {
+      stage_x(kb + kk0);
+      __syncthreads();
+    }
+    // warp w: rows 8w + 2lt, +1 of the stage; x past ke is staged as 0
+    if (8 * warp < ke - kb - kk0) {
+      const int r0 = 8 * warp + 2 * lt;
+      const float2 xv =
+          *reinterpret_cast<const float2*>(&sm.u.s.x[lg][kk0 % GS_XK + r0]);
+      const float2 s0 = tf32_split(xv.x), s1 = tf32_split(xv.y);
+      const uint32_t lo0 = X_EXACT ? 0u : __float_as_uint(s0.y);
+      const uint32_t lo1 = X_EXACT ? 0u : __float_as_uint(s1.y);
+      const uint32_t a_hl[4] = {__float_as_uint(s0.x), lo0, __float_as_uint(s1.x), lo1};
+      const uint32_t a_h[4] = {__float_as_uint(s0.x), 0u, __float_as_uint(s1.x), 0u};
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        const uint8_t* rw = &sm.u.s.ring[s % GT_SSTAGES][w][r0][4 * lg];
+#pragma unroll
+        for (int g = 0; g < 2; ++g) {
+          const uint32_t c0 = *reinterpret_cast<const uint32_t*>(rw + 32 * g);
+          const uint32_t c1 =
+              *reinterpret_cast<const uint32_t*>(rw + GT_SRS + 32 * g);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float2 b0 = tf32_split(sm.lut[w][(c0 >> (8 * j)) & 255u]);
+            const float2 b1 = tf32_split(sm.lut[w][(c1 >> (8 * j)) & 255u]);
+            mma_tf32(acc[w][4 * g + j], a_hl, __float_as_uint(b0.x),
+                     __float_as_uint(b1.x));
+            mma_tf32(acc[w][4 * g + j], a_h, __float_as_uint(b0.y),
+                     __float_as_uint(b1.y));
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // rows 0-7 and 8-15 summed; tile 4g + j holds columns 32g + 8lt + j
+  // (e = 0) and 32g + 8lt + 4 + j (e = 1) of row lg
+#pragma unroll
+  for (int w = 0; w < NW; ++w)
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      const int col = 32 * (t >> 2) + 8 * lt + (t & 3);
+      sm.u.red[w][warp][lg][col] = acc[w][t][0] + acc[w][t][2];
+      sm.u.red[w][warp][lg][col + 4] = acc[w][t][1] + acc[w][t][3];
+    }
+  __syncthreads();
+  for (int p = tid; p < NW * SM * GS_N; p += 256) {
+    const int w = p / (SM * GS_N), mc = p % (SM * GS_N);
+    float v = 0.0f;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) v += (&sm.u.red[w][q][0][0])[mc];
+    (&sm.part[w][0][0])[mc] = v;
+  }
+  cluster.sync();
+  if (cluster.block_rank() == 0) {
+    const int ranks = (int)cluster.num_blocks();
+    for (int p = tid; p < SM * GS_N; p += 256) {
+      const int m = p / GS_N, n = n0 + p % GS_N;
+      if (m >= a.M || n >= a.N) continue;
+      float v[NW];
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        float t = 0.0f;
+        for (int r = 0; r < ranks; ++r)
+          t += cluster.map_shared_rank(&sm.part[w][0][0], r)[p];
+        v[w] = t;
+      }
+      finish<NW == 2>(a, (size_t)m * a.N + n, n, v[0], v[NW - 1]);
+    }
+  }
+  cluster.sync();
+}
+
+template <typename XT, int NW>
+__global__ void __launch_bounds__(256, 1) gated_tiled(Args a) {
+  constexpr bool XC = std::is_same<XT, uint8_t>::value;
+  constexpr bool X_EXACT = std::is_same<XT, __nv_bfloat16>::value;
+  constexpr int XS = gt_xs<XT>();
+  constexpr int EPC = 16 / (int)sizeof(XT);     // x elements a chunk
+  constexpr int CPR = GT_K / EPC;               // x chunks a row
+  constexpr int STAGE = gt_stage<XT, NW>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float2* s_wt = reinterpret_cast<float2*>(smem_raw);   // [NW][256] (hi, lo)
+  float2* s_xt = s_wt + NW * 256;                       // [256] codes x
+  unsigned char* ring = reinterpret_cast<unsigned char*>(s_xt + 256);
+  float* s_xd = reinterpret_cast<float*>(ring + GT_STAGES * STAGE);  // GT_XDEC
+
+  const XT* x = static_cast<const XT*>(a.x);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lg = lane >> 2, lt = lane & 3;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int m0 = blockIdx.y * GT_M, n0 = blockIdx.x * GT_N;
+  const int kb = blockIdx.z * a.k_per_split;
+  const int ke = min(a.K, kb + a.k_per_split);
+  const int n_t = ke > kb ? (ke - kb + GT_K - 1) / GT_K : 0;
+  const bool xvec = a.vec & 1, cvec = a.vec & 2;
+
+  auto x_tile = [&](int t) { return ring + (t % GT_STAGES) * STAGE; };
+  auto c_tile = [&](int t, int w) {
+    return x_tile(t) + GT_M * XS + w * GT_K * GT_CS;
+  };
+  auto load = [&](int t) {
+    if (t < n_t) {
+      const int k0 = kb + t * GT_K;
+      unsigned char* xs = x_tile(t);
+      for (int c = tid; c < GT_M * CPR; c += 256) {
+        const int r = c / CPR, gm = m0 + r, gk = k0 + (c % CPR) * EPC;
+        const int ne = gm < a.M ? max(0, min(EPC, ke - gk)) : 0;
+        copy16(xs + r * XS + (c % CPR) * 16,
+               ne ? x + (size_t)gm * a.K + gk : x, ne * (int)sizeof(XT), xvec);
+      }
+      for (int c = tid; c < NW * GT_K * (GT_N / 16); c += 256) {
+        const int w = c / (GT_K * GT_N / 16), r = (c / (GT_N / 16)) % GT_K;
+        const int ch = c % (GT_N / 16), gk = k0 + r, gn = n0 + ch * 16;
+        const uint8_t* cw = w ? a.c1 : a.c0;
+        const int nb = gk < ke ? max(0, min(16, a.N - gn)) : 0;
+        copy16(c_tile(t, w) + r * GT_CS + ch * 16,
+               nb ? cw + (size_t)gk * a.N + gn : cw, nb, cvec);
+      }
+    }
+    cp_async_commit();
+  };
+
+#pragma unroll
+  for (int s = 0; s < GT_STAGES - 1; ++s) load(s);
+  fill_split(s_wt, a.lut0, a.qm0, a.alu);
+  if (NW == 2) fill_split(s_wt + 256, a.lut1, a.qm1, a.alu);
+  if constexpr (XC) {   // the activation table always as pairs
+    for (int c = tid; c < 256; c += 256)
+      s_xt[c] = tf32_split(table_value(c, a.lutx, a.qmx, a.alu));
+  }
+
+  float acc[NW][4][4][4];
+#pragma unroll
+  for (int w = 0; w < NW; ++w)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[w][i][j][e] = 0.0f;
+
+  for (int t = 0; t < n_t; ++t) {
+    cp_async_wait<GT_STAGES - 2>();
+    __syncthreads();   // tile t landed; every warp is done with t - 1
+    load(t + GT_STAGES - 1);
+    const XT* xs = reinterpret_cast<const XT*>(x_tile(t));
+    if constexpr (XC && GT_XDEC) {
+      // the tile's activation codes decoded once, as (hi, hi, lo, lo) of
+      // k pairs, for all warps
+#pragma unroll
+      for (int i = 0; i < GT_M * GT_K / 2 / 256; ++i) {
+        const int p = tid + i * 256, r = p / (GT_K / 2), pp = p % (GT_K / 2);
+        const uint32_t raw = *reinterpret_cast<const uint16_t*>(
+            reinterpret_cast<const uint8_t*>(xs) + r * XS + 2 * pp);
+        const float2 t0 = s_xt[raw & 255u], t1 = s_xt[raw >> 8];
+        *reinterpret_cast<float4*>(s_xd + r * GT_XD + 4 * pp) =
+            make_float4(t0.x, t1.x, t0.y, t1.y);
+      }
+      __syncthreads();
+    }
+    // rows of the tile inside [kb, ke): past them the staged codes are
+    // zeros, which decode to a live value, so B is zeroed there
+    const int kvalid = ke - kb - t * GT_K;
+#pragma unroll
+    for (int ks = 0; ks < GT_K / 8; ++ks) {
+      const int kk = ks * 8 + 2 * lt;   // this lane's k rows: kk, kk + 1
+      uint32_t ah[4][4], al[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = wm * 64 + i * 16 + lg;
+        if constexpr (XC && GT_XDEC) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float4 v = *reinterpret_cast<const float4*>(
+                s_xd + (r + 8 * h) * GT_XD + 4 * (ks * 4 + lt));
+            ah[i][h] = __float_as_uint(v.x);
+            ah[i][2 + h] = __float_as_uint(v.y);
+            al[i][h] = __float_as_uint(v.z);
+            al[i][2 + h] = __float_as_uint(v.w);
+          }
+        } else {
+          load_a(xs + r * (XS / (int)sizeof(XT)), kk, s_xt, ah[i][0], ah[i][2],
+                 al[i][0], al[i][2]);
+          load_a(xs + (r + 8) * (XS / (int)sizeof(XT)), kk, s_xt, ah[i][1],
+                 ah[i][3], al[i][1], al[i][3]);
+        }
+      }
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        const unsigned char* cs = c_tile(t, w) + wn * 32 + 4 * lg;
+        const uint32_t c0 = *reinterpret_cast<const uint32_t*>(cs + kk * GT_CS);
+        const uint32_t c1 =
+            *reinterpret_cast<const uint32_t*>(cs + (kk + 1) * GT_CS);
+        const bool v0 = kk < kvalid, v1 = kk + 1 < kvalid;
+        const float2* tab = s_wt + w * 256;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float2 z = make_float2(0.0f, 0.0f);
+          float2 b0, b1;
+          if constexpr (GT_PAIRS) {
+            b0 = v0 ? tab[(c0 >> (8 * j)) & 255u] : z;
+            b1 = v1 ? tab[(c1 >> (8 * j)) & 255u] : z;
+          } else {
+            const float* tf = reinterpret_cast<const float*>(tab);
+            b0 = tf32_split(v0 ? tf[(c0 >> (8 * j)) & 255u] : 0.0f);
+            b1 = tf32_split(v1 ? tf[(c1 >> (8 * j)) & 255u] : 0.0f);
+          }
+          const uint32_t bh0 = __float_as_uint(b0.x), bl0 = __float_as_uint(b0.y);
+          const uint32_t bh1 = __float_as_uint(b1.x), bl1 = __float_as_uint(b1.y);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            mma_tf32(acc[w][i][j], ah[i], bh0, bh1);
+            mma_tf32(acc[w][i][j], ah[i], bl0, bl1);
+            if constexpr (!X_EXACT) mma_tf32(acc[w][i][j], al[i], bh0, bh1);
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // acc[w][i][j][e]: row 16 i + lg (+8 for e >= 2), column 8 lt + j
+  // (+4 for odd e) of the warp's tile
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm * 64 + i * 16 + lg + 8 * h;
+      if (m >= a.M) continue;
+      float v[NW][8];
+#pragma unroll
+      for (int w = 0; w < NW; ++w)
+#pragma unroll
+        for (int q = 0; q < 8; ++q) v[w][q] = acc[w][i][q & 3][2 * h + (q >> 2)];
+      store8<NW>(a, m, n0 + wn * 32 + 8 * lt, v[0], v[NW - 1]);
+    }
+}
+
+template <typename XT, int NW>
+cudaError_t launch_gated_skinny(const Args& a, int splits, cudaStream_t st) {
+  constexpr int smem = GS_TC ? (int)sizeof(SkinnyTcSmem<NW>)
+                             : (int)sizeof(SkinnySmem<NW>);
+  static bool done[16] = {};
+  auto kern = GS_TC ? gated_skinny_tc<XT, NW> : gated_skinny<XT, NW>;
+  cudaError_t e = smem_limit(kern, smem, done);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((a.N + GS_N - 1) / GS_N, 1, splits);
+  cfg.blockDim = dim3(256);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = splits;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kern, a);
+}
+
+template <typename XT, int NW>
+cudaError_t launch_gated_tiled(const Args& a, int splits, cudaStream_t st) {
+  constexpr int smem = gt_smem<XT, NW>();
+  static bool done[16] = {};
+  auto kern = gated_tiled<XT, NW>;
+  cudaError_t e = smem_limit(kern, smem, done);
+  if (e != cudaSuccess) return e;
+  dim3 grid((a.N + GT_N - 1) / GT_N, (a.M + GT_M - 1) / GT_M, splits);
+  kern<<<grid, 256, smem, st>>>(a);
+  if (splits > 1) {
+    const size_t mn = (size_t)a.M * a.N;
+    lut_mm_reduce<NW == 2><<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(a, splits);
+  }
+  return cudaGetLastError();
+}
+
+// The gated GEMM on either path; a.vec is set here from the pointers'
+// and rows' alignment.
+template <typename XT>
+int launch_gated(Args a, int splits, cudaStream_t st) {
+  const bool xv = (uintptr_t)a.x % 16 == 0 && ((size_t)a.K * sizeof(XT)) % 16 == 0;
+  const bool cv = (uintptr_t)a.c0 % 16 == 0 && (uintptr_t)a.c1 % 16 == 0 &&
+                  a.N % 16 == 0;
+  a.vec = (xv ? 1 : 0) | (cv ? 2 : 0);
+  if (splits < 1 || (a.M <= SM && splits > 8)) return (int)cudaErrorInvalidValue;
+  const cudaError_t e = a.M <= SM ? launch_gated_skinny<XT, 2>(a, splits, st)
+                                  : launch_gated_tiled<XT, 2>(a, splits, st);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+template <typename XT, bool TRANS>
 void launch(const Args& a, int splits, cudaStream_t st) {
   if (a.M <= SM) {
     if constexpr (TRANS) {
@@ -437,15 +1216,15 @@ void launch(const Args& a, int splits, cudaStream_t st) {
       lut_mm_skinny_t<XT><<<grid, 256, 0, st>>>(a);
     } else {
       dim3 grid((a.N + SN - 1) / SN, 1, splits);
-      lut_mm_skinny<XT, GATED><<<grid, 256, 0, st>>>(a);
+      lut_mm_skinny<XT><<<grid, 256, 0, st>>>(a);
     }
   } else {
     dim3 grid((a.N + TN - 1) / TN, (a.M + TM - 1) / TM, splits);
-    lut_mm_tiled<XT, TRANS, GATED><<<grid, 256, 0, st>>>(a);
+    lut_mm_tiled<XT, TRANS><<<grid, 256, 0, st>>>(a);
   }
   if (splits > 1) {
     const size_t mn = (size_t)a.M * a.N;
-    lut_mm_reduce<GATED><<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(a, splits);
+    lut_mm_reduce<false><<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(a, splits);
   }
 }
 
@@ -475,6 +1254,7 @@ Args make_args(const void* x, const void* c0, const void* c1,
   a.k_per_split = k_per_split;
   a.alu = alu;
   a.act = act;
+  a.vec = 0;
   return a;
 }
 
@@ -496,17 +1276,18 @@ int lut_dequant_matmul_launch(const void* x, int x_bf16, const void* codes,
                            k_per_split, alu, act);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (x_bf16) {
-    if (transposed) launch<__nv_bfloat16, true, false>(a, splits, st);
-    else launch<__nv_bfloat16, false, false>(a, splits, st);
+    if (transposed) launch<__nv_bfloat16, true>(a, splits, st);
+    else launch<__nv_bfloat16, false>(a, splits, st);
   } else {
-    if (transposed) launch<float, true, false>(a, splits, st);
-    else launch<float, false, false>(a, splits, st);
+    if (transposed) launch<float, true>(a, splits, st);
+    else launch<float, false>(a, splits, st);
   }
   return (int)cudaGetLastError();
 }
 
-// y[M, N] = act(x @ dec_g(codes_g)) * (x @ dec_u(codes_u)), codes [K, N];
-// ws holds 2*splits*M*N floats when splits > 1.
+// y[M, N] = act(x @ dec_g(codes_g)) * (x @ dec_u(codes_u)), codes [K, N].
+// M <= 8: splits is the cluster size (1..8) and ws is unused; M > 8: ws
+// holds 2*splits*M*N floats when splits > 1.
 int lut_dequant_matmul_gated_launch(const void* x, int x_bf16,
                                     const void* codes_g, const void* codes_u,
                                     const void* lut_g, const void* lut_u,
@@ -518,9 +1299,8 @@ int lut_dequant_matmul_gated_launch(const void* x, int x_bf16,
                            qmeta_u, nullptr, nullptr, nullptr, nullptr, out,
                            ws, M, K, N, k_per_split, alu, act);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_bf16) launch<__nv_bfloat16, false, true>(a, splits, st);
-  else launch<float, false, true>(a, splits, st);
-  return (int)cudaGetLastError();
+  return x_bf16 ? launch_gated<__nv_bfloat16>(a, splits, st)
+                : launch_gated<float>(a, splits, st);
 }
 
 // y[M, N] = act(dec_x(x_codes) @ dec_w(codes) + bias): x_codes [M, K] and
@@ -537,13 +1317,13 @@ int lut_dequant_matmul_dual_launch(const void* x_codes, const void* codes,
   const Args a = make_args(x_codes, codes, nullptr, lut_w, nullptr, qmeta_w,
                            nullptr, lut_x, qmeta_x, qmeta_out, bias, out, ws,
                            M, K, N, k_per_split, alu, act);
-  launch<uint8_t, false, false>(a, splits, static_cast<cudaStream_t>(stream));
+  launch<uint8_t, false>(a, splits, static_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
 }
 
 // y[M, N] = act(dec_x(x_codes) @ dec_g(codes_g)) * (dec_x(x_codes) @
 // dec_u(codes_u)), one shared activation decode; qmeta_out and out as
-// for the dual variant; ws holds 2*splits*M*N floats when splits > 1.
+// for the dual variant; splits and ws as for the gated variant.
 int lut_dequant_matmul_dual_gated_launch(
     const void* x_codes, const void* codes_g, const void* codes_u,
     const void* lut_x, const void* lut_g, const void* lut_u,
@@ -553,8 +1333,17 @@ int lut_dequant_matmul_dual_gated_launch(
   const Args a = make_args(x_codes, codes_g, codes_u, lut_g, lut_u, qmeta_g,
                            qmeta_u, lut_x, qmeta_x, qmeta_out, nullptr, out,
                            ws, M, K, N, k_per_split, alu, act);
-  launch<uint8_t, false, true>(a, splits, static_cast<cudaStream_t>(stream));
-  return (int)cudaGetLastError();
+  return launch_gated<uint8_t>(a, splits, static_cast<cudaStream_t>(stream));
+}
+
+// Dynamic shared memory of one block of the gated kernels (NW = 2):
+// tiled = 0 the decode path, else the prefill path for x_kind 0 float32,
+// 1 bfloat16, 2 uint8 codes.
+int lut_dequant_matmul_gated_smem_bytes(int tiled, int x_kind) {
+  if (!tiled) return (int)sizeof(SkinnySmem<2>);
+  if (x_kind == 1) return gt_smem<__nv_bfloat16, 2>();
+  if (x_kind == 2) return gt_smem<uint8_t, 2>();
+  return gt_smem<float, 2>();
 }
 
 }  // extern "C"

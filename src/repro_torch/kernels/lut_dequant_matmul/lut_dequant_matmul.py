@@ -6,8 +6,12 @@ Counterpart of the JAX package's ``lut_dequant_matmul_kernel``,
 uint8 activation codes, optionally uint8 codes out).  There is no M-bucketing ladder and
 no autotuner here: the kernel masks its own ragged edges, so any M, K, N
 runs without padding or a rebuild.  The launch chooses the skinny path
-for M <= 8 and splits K across blocks (a deterministic second pass sums
-the partials) when the output tiles alone cannot fill the card.
+for M <= 8.  The plain and dual variants split K across blocks (a
+deterministic second pass sums the partials) when the output tiles alone
+cannot fill the card (:func:`split_k`).  The gated variants follow
+:func:`gated_plan`: at M <= 8 the blocks of a column slab split K as one
+thread-block cluster and sum their partials in shared memory, at M > 8
+the tensor-core tiles split K only when they fill under half the SMs.
 """
 
 from __future__ import annotations
@@ -23,6 +27,10 @@ from repro_torch.kernels import _build
 NAME = "lut_dequant_matmul"
 ACTS = {None: 0, "gelu": 1, "silu": 2, "relu": 3}
 _SKINNY_M = 8
+GATED_COLS = 64      # columns of a gated decode block
+GATED_TILE = 128     # gated prefill block: 128 x 128 outputs a weight
+K_STEP = 32          # k rows a pipeline stage of the gated kernels holds
+MAX_CLUSTER = 8      # the portable thread-block cluster size
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -40,6 +48,8 @@ def _lib():
     lib.lut_dequant_matmul_dual_gated_launch.argtypes = (
         [_P] * 12 + [_I] * 7 + [_P])
     lib.lut_dequant_matmul_dual_gated_launch.restype = _I
+    lib.lut_dequant_matmul_gated_smem_bytes.argtypes = [_I, _I]
+    lib.lut_dequant_matmul_gated_smem_bytes.restype = _I
     return lib
 
 
@@ -61,6 +71,42 @@ def split_k(m: int, k: int, n: int, transposed: bool, sms: int):
     splits = min(math.ceil(2 * sms / blocks), k // 256)
     kps = math.ceil(math.ceil(k / splits) / 16) * 16
     return math.ceil(k / kps), kps
+
+
+def gated_plan(m: int, k: int, n: int, sms: int):
+    """(splits, k_per_split) of the gated kernels, from shapes alone (so a
+    captured call replays right).  M <= 8: the blocks of a 64-column slab
+    split K as one cluster of ``splits`` blocks, doubled while the grid
+    stays within two blocks an SM and each split keeps 256 rows of K, at
+    most 8.  M > 8: split K only when the 128 x 128 tiles fill under half
+    the SMs, to one wave and 512 rows a split at least; a reduce pass
+    sums.  k_per_split is a multiple of the pipeline stage (32 rows)."""
+    splits = 1
+    if m <= _SKINNY_M:
+        blocks = math.ceil(n / GATED_COLS)
+        while (splits < MAX_CLUSTER and 2 * blocks * splits <= 2 * sms
+               and k >= 2 * splits * 256):
+            splits *= 2
+    else:
+        blocks = math.ceil(n / GATED_TILE) * math.ceil(m / GATED_TILE)
+        if 2 * blocks <= sms:
+            splits = max(1, min(sms // blocks, k // 512))
+    kps = math.ceil(math.ceil(k / splits) / K_STEP) * K_STEP
+    return math.ceil(k / kps), kps
+
+
+def passes(x_dtype) -> int:
+    """The TF32 passes the gated prefill kernel computes per multiply-add:
+    x_hi*W_hi and x_hi*W_lo, plus x_lo*W_hi unless x is bfloat16 (exact
+    in TF32); activation codes (uint8 x) decode to arbitrary float32."""
+    return 2 if x_dtype == torch.bfloat16 else 3
+
+
+def gated_smem_bytes(tiled: bool, x_dtype) -> int:
+    """Dynamic shared memory of one gated block: the decode path, or the
+    prefill path for x float32, bfloat16 or uint8 codes."""
+    kind = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}[x_dtype]
+    return int(_lib().lut_dequant_matmul_gated_smem_bytes(int(tiled), kind))
 
 
 def _check(t: torch.Tensor, name: str, dtypes, shape=None) -> None:
@@ -138,10 +184,8 @@ def launch_gated(x, codes_g, codes_u, lut_g, lut_u, qmeta_g, qmeta_u, *,
         raise ValueError(decode_mode)
     lut_g, qmeta_g = _tables(lut_g, qmeta_g, alu, x.device)
     lut_u, qmeta_u = _tables(lut_u, qmeta_u, alu, x.device)
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    splits, kps = split_k(m, k, n, False, _num_sms(x.device.index or 0))
-    ws = (torch.empty(2 * splits * m * n, dtype=torch.float32, device=x.device)
-          if splits > 1 else None)
+    splits, kps = gated_plan(m, k, n, _num_sms(x.device.index or 0))
+    out, ws = _gated_out_and_ws(m, n, splits, None, x.device)
     err = _lib().lut_dequant_matmul_gated_launch(
         x.data_ptr(), int(x.dtype == torch.bfloat16), codes_g.data_ptr(),
         codes_u.data_ptr(), lut_g.data_ptr(), lut_u.data_ptr(),
@@ -161,6 +205,14 @@ def _out_and_ws(m, n, nw, splits, qmeta_out, dev):
     ws = (torch.empty(nw * splits * m * n, dtype=torch.float32, device=dev)
           if splits > 1 else None)
     return out, ws
+
+
+def _gated_out_and_ws(m, n, splits, qmeta_out, dev):
+    """As :func:`_out_and_ws` for the gated kernels: the decode path sums
+    its splits inside the cluster, so only the prefill path's split-K
+    takes a workspace."""
+    return _out_and_ws(m, n, 2, splits if m > _SKINNY_M else 1, qmeta_out,
+                       dev)
 
 
 def _out_qmeta(qmeta_out):
@@ -229,8 +281,8 @@ def launch_dual_gated(x_codes, codes_g, codes_u, lut_x, lut_g, lut_u,
     lut_g, qmeta_g = _tables(lut_g, qmeta_g, alu, dev)
     lut_u, qmeta_u = _tables(lut_u, qmeta_u, alu, dev)
     out_qmeta = _out_qmeta(out_qmeta)
-    splits, kps = split_k(m, k, n, False, _num_sms(dev.index or 0))
-    out, ws = _out_and_ws(m, n, 2, splits, out_qmeta, dev)
+    splits, kps = gated_plan(m, k, n, _num_sms(dev.index or 0))
+    out, ws = _gated_out_and_ws(m, n, splits, out_qmeta, dev)
     err = _lib().lut_dequant_matmul_dual_gated_launch(
         x_codes.data_ptr(), codes_g.data_ptr(), codes_u.data_ptr(),
         lut_x.data_ptr(), lut_g.data_ptr(), lut_u.data_ptr(),

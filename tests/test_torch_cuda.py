@@ -38,7 +38,8 @@ from repro_torch.kernels.flash_prefill.ref import (
 from repro_torch.kernels.lut_dequant_matmul import (
     lut_dequant_matmul, lut_dequant_matmul_dual, lut_dequant_matmul_dual_gated,
     lut_dequant_matmul_gated)
-from repro_torch.kernels.lut_dequant_matmul.lut_dequant_matmul import split_k
+from repro_torch.kernels.lut_dequant_matmul.lut_dequant_matmul import (
+    gated_plan, split_k)
 from repro_torch.kernels.lut_dequant_matmul.ref import (
     lut_dequant_matmul_dual_gated_ref, lut_dequant_matmul_dual_ref,
     lut_dequant_matmul_gated_ref, lut_dequant_matmul_ref)
@@ -125,6 +126,136 @@ def test_lut_dequant_matmul_gated_kernel(dev, m, k, n, mode, act):
     ref = lut_dequant_matmul_gated_ref(x, cg, cu, lg, lu, qg, qu,
                                        activation=act, decode_mode=mode)
     _close(out, ref)
+
+
+def _sms():
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def _gated_call(kind, m, k, n, mode, xdt, dev, gen, quant=False):
+    """Inputs of #2 (``kind`` "gated": x float32 or bfloat16) or #4
+    ("dual_gated": activation codes, u8 out with ``quant``) and
+    (kernel call, plain call, float32 plain call) on them."""
+    cg, lg, qg = _qweight((k, n), dev, gen)
+    cu, lu, qu = _qweight((k, n), dev, gen)
+    if kind == "gated":
+        x = torch.randn(m, k, generator=gen, device=dev).to(xdt)
+        args = (x, cg, cu, lg, lu, qg, qu)
+        call = lambda: lut_dequant_matmul_gated(
+            *args, decode_mode=mode, out_dtype=torch.float32)
+        ref = lambda: lut_dequant_matmul_gated_ref(*args, decode_mode=mode)
+        return x, call, ref, ref
+    xc, lx, qx = _act_codes((m, k), dev, gen)
+    args = (xc, cg, cu, lx, lg, lu, qx, qg, qu)
+    ref_f = lambda: lut_dequant_matmul_dual_gated_ref(*args, decode_mode=mode)
+    qo = _out_qmeta(ref_f()) if quant else None
+    call = lambda: lut_dequant_matmul_dual_gated(*args, out_qmeta=qo,
+                                                 decode_mode=mode)
+    ref = lambda: lut_dequant_matmul_dual_gated_ref(*args, out_qmeta=qo,
+                                                    decode_mode=mode)
+    return xc, call, ref, ref_f
+
+
+# the redesigned gated paths' edges: M at and around the decode limit
+# (8) and the 128-row tile, K off the 32-row stage, N off the 16-byte
+# row and the 64- and 128-column blocks (rows staged byte by byte), both
+# decode modes, float32 and bfloat16 x (#2), float and u8 out (#4)
+GATED_EDGES = [
+    (1, 600, 70, "gather", torch.float32),
+    (8, 100, 130, "alu", torch.bfloat16),
+    (8, 2048, 256, "alu", torch.float32),        # a cluster of 8
+    (9, 600, 200, "gather", torch.bfloat16),
+    (127, 100, 70, "alu", torch.float32),
+    (129, 600, 130, "gather", torch.float32),
+    (256, 100, 200, "alu", torch.bfloat16),
+    (256, 2048, 6144, "gather", torch.bfloat16),  # an engine tail chunk
+]
+
+
+@pytest.mark.parametrize("kind", ["gated", "dual_gated"])
+@pytest.mark.parametrize("m,k,n,mode,xdt", GATED_EDGES)
+def test_gated_kernels_at_the_path_edges(dev, kind, m, k, n, mode, xdt):
+    quant = (m + k) % 2 == 1
+    gen = _gen(dev, m * 3 + k + n)
+    _, call, ref, _ = _gated_call(kind, m, k, n, mode, xdt, dev, gen, quant)
+    out = call()
+    if kind == "dual_gated" and quant:
+        _codes_close(out, ref())
+    else:
+        _close(out, ref())
+
+
+@pytest.mark.parametrize("kind", ["gated", "dual_gated"])
+@pytest.mark.parametrize("m", [8, 200])
+def test_gated_kernels_take_rows_off_16_byte_boundaries(dev, kind, m):
+    """x and the codes starting 4 and 1 bytes past an alignment (views
+    into larger tensors): staged byte by byte, same result."""
+    gen = _gen(dev, 90 + m)
+    k, n = 512, 192
+    cg, lg, qg = _qweight((k, n), dev, gen)
+    cu, lu, qu = _qweight((k, n), dev, gen)
+    shift = lambda t: torch.cat([t.new_zeros(1), t.flatten()])[1:].view(t.shape)
+    cg2, cu2 = shift(cg), shift(cu)
+    assert cg2.data_ptr() % 16 and cg2.is_contiguous()
+    if kind == "gated":
+        x = shift(torch.randn(m, k, generator=gen, device=dev))
+        assert x.data_ptr() % 16
+        out = lut_dequant_matmul_gated(x, cg2, cu2, lg, lu, qg, qu,
+                                       out_dtype=torch.float32)
+        _close(out, lut_dequant_matmul_gated_ref(x, cg, cu, lg, lu, qg, qu))
+    else:
+        xc, lx, qx = _act_codes((m, k), dev, gen)
+        xc2 = shift(xc)
+        out = lut_dequant_matmul_dual_gated(xc2, cg2, cu2, lx, lg, lu, qx, qg, qu)
+        _close(out, lut_dequant_matmul_dual_gated_ref(xc, cg, cu, lx, lg, lu,
+                                                      qx, qg, qu))
+
+
+@pytest.mark.parametrize("m,k,n", [(5, 2048, 256), (129, 2048, 200)])
+def test_gated_split_encodes_once_after_the_reduce(dev, m, k, n):
+    """#4 with an out qmeta where K is split: over a cluster at M <= 8
+    (rank 0 encodes the ranks' summed partials) and over blocks with a
+    reduce pass at M > 8; an encode per split would disagree."""
+    assert gated_plan(m, k, n, _sms())[0] > 1
+    gen = _gen(dev, 13 + m)
+    _, call, ref, ref_f = _gated_call("dual_gated", m, k, n, "gather", None,
+                                      dev, gen, quant=True)
+    out = call()
+    _codes_close(out, ref())
+    qo = _out_qmeta(ref_f())
+    assert bool((eq.codes_agree(out, eq.encode_meta(ref_f(), qo))).all())
+
+
+@pytest.mark.parametrize("kind", ["gated", "dual_gated"])
+def test_gated_decode_replays_in_a_cuda_graph(dev, kind):
+    """The cluster plan is sized from shapes alone: a decode-shaped call
+    captured in a CUDA graph and replayed after new x is written into
+    the captured tensor equals the plain version on that x."""
+    gen = _gen(dev, 55)
+    m, k, n = 8, 1024, 512
+    assert gated_plan(m, k, n, _sms())[0] > 1
+    x, call, ref, _ = _gated_call(kind, m, k, n, "gather", torch.bfloat16,
+                                  dev, gen, quant=True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                  # build, load, warm up
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for seed in (1, 2, 3):
+        g2 = _gen(dev, seed)
+        if kind == "gated":
+            x.copy_(torch.randn(m, k, generator=g2, device=dev))
+        else:
+            x.copy_(torch.randint(0, 256, (m, k), generator=g2, device=dev))
+        graph.replay()
+        torch.cuda.synchronize()
+        if kind == "gated":
+            _close(out, ref())
+        else:
+            _codes_close(out, ref())
 
 
 def _pages(dev, gen, b, n_kv, bs, max_blk, dtype):
