@@ -39,36 +39,37 @@
 // the number of weights NW, instantiated for NW = 2):
 // - Decode (M <= 8), gated_skinny: bound by the 2*K*N code bytes (25 MB,
 //   0.0075 ms at 3.35 TB/s, at d_model 2048 x d_ff 6144).  A block owns
-//   64 columns of both weights and a range of K.  Codes reach shared
-//   memory by 16-byte cp.async copies into an 8-stage ring of 32 k rows,
-//   so 28 KB of codes are in flight a block before any is used; the
-//   thread that computes 4 columns reads them from the ring, not from
-//   device memory.  x is staged as float32 [k][8] (decoded once, for
-//   #4).  When the column slabs alone give fewer than two blocks an SM,
-//   the blocks of a slab split K as one thread-block cluster (at most 8
-//   blocks): each sums its rows, then rank 0 adds the partials of ranks
-//   0, 1, ... from their shared memory (distributed shared memory, fixed
-//   order: deterministic, one launch, no workspace) and runs the
-//   epilogue.  Float32 FMA: at M = 8 the lookups and FMAs of the codes
-//   are far below the tensor cores' worth of work.
+//   64 columns of both weights and a range of K.  Codes and the same k
+//   rows of x reach shared memory by 16-byte cp.async copies into an
+//   8-stage ring of 32 k rows (24 KB of codes in flight a block before
+//   any is used); the thread that computes 4 columns reads them from the
+//   ring, not from device memory, and x is converted to float32 (decoded,
+//   for #4) one stage ahead of its use.  When the column slabs alone give
+//   fewer than two blocks an SM, the blocks of a slab split K as one
+//   thread-block cluster (at most 8 blocks): each sums its rows, then
+//   rank 0 adds the partials of ranks 0, 1, ... from their shared memory
+//   (distributed shared memory, fixed order: deterministic, one launch,
+//   no workspace) and runs the epilogue.  Float32 FMA: a tensor-core body
+//   of the same ring (rows 8-15 of A carrying x_lo) measured no faster,
+//   since the ring's stream, not the arithmetic, sets the pace.
 // - Prefill (M > 8), gated_tiled: bound by 4*M*K*N multiply-adds.  They
 //   run on the tensor cores as mma.sync.m16n8k8 TF32 in split form
 //   (v = hi + lo, hi = v cut to TF32, lo = v - hi; one TF32 pass misses
 //   the 1e-4 gate): x_hi.W_hi + x_hi.W_lo, plus x_lo.W_hi unless x is
-//   bfloat16 (exact in TF32).  The split of a decoded value is done once
-//   a block, when its 256-entry table is loaded: the tables hold (hi, lo)
-//   pairs, so a decoded, split weight is one 8-byte shared-memory lookup;
-//   #4's activations decode through a split table the same way.  A block
-//   owns 128 x 128 outputs of both weights (8 warps of 64 x 32, 128
-//   accumulators a thread); x and both code tiles of 32 k rows arrive by
-//   16-byte cp.async in a 3-stage ring.  A lane reads a 4-byte word of
-//   codes (4 columns) from k rows 2t and 2t+1 and uses its bytes as the
-//   B fragments of 4 n8 tiles, the columns of tile j being 4g + j: so
-//   the fragment k order is (2t, 2t+1) for both operands, and the x
-//   fragment is one 8-byte (float), 4-byte (bf16) or 2-byte (codes) load
-//   per row.  Gate and up take the same x fragments.  Split-K (a
-//   workspace and the reduce pass) only when the tiles fill under half
-//   the SMs.
+//   bfloat16 (exact in TF32).  A decoded weight is split as it is looked
+//   up (one 4-byte table read and two ALU operations: measured faster
+//   than a table of (hi, lo) pairs, whose 8-byte reads cost twice the
+//   shared-memory wavefronts).  A block owns 128 x 128 outputs of both
+//   weights (8 warps of 64 x 32, 128 accumulators a thread); x and both
+//   code tiles of 32 k rows arrive by 16-byte cp.async in a 3-stage ring.
+//   A lane reads a 4-byte word of codes (4 columns) from k rows 2t and
+//   2t+1 and uses its bytes as the B fragments of 4 n8 tiles, the columns
+//   of tile j being 4g + j: so the fragment k order is (2t, 2t+1) for both
+//   operands, and the x fragment is one 8-byte (float32) or 4-byte (bf16)
+//   load per row.  #4's activation codes are decoded once a tile into a
+//   float32 tile that all warps read.  Gate and up take the same x
+//   fragments.  Split-K (a workspace and the reduce pass) only when the
+//   tiles fill under half the SMs.
 // Rows whose stride is not a multiple of 16 bytes (ragged K or N) are
 // staged element by element instead of by cp.async.
 
@@ -100,22 +101,22 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// Entry c of a decode table: the gathered value, or the closed form.
-__device__ __forceinline__ float table_value(int c, const float* lut,
-                                             const float* qmeta, int alu) {
-  if (!alu) return lut[c];
-  const float alpha = qmeta[0], beta = qmeta[1], base = qmeta[2];
-  const float e_min = -exp2f(qmeta[3] - 1.0f);
-  const float sign = 1.0f - 2.0f * (float)(c >> 7);
-  const float e = (float)(c & 0x7F) + e_min;
-  return sign * (alpha * expf(e * logf(base)) + beta);
-}
-
 // One 256-entry decode table into shared memory (gather or closed form).
 __device__ __forceinline__ void fill_table(float* s_lut, const float* lut,
                                            const float* qmeta, int alu) {
-  for (int c = threadIdx.x; c < 256; c += blockDim.x)
-    s_lut[c] = table_value(c, lut, qmeta, alu);
+  for (int c = threadIdx.x; c < 256; c += blockDim.x) {
+    float v;
+    if (alu) {
+      const float alpha = qmeta[0], beta = qmeta[1], base = qmeta[2];
+      const float e_min = -exp2f(qmeta[3] - 1.0f);
+      const float sign = 1.0f - 2.0f * (float)(c >> 7);
+      const float e = (float)(c & 0x7F) + e_min;
+      v = sign * (alpha * expf(e * logf(base)) + beta);
+    } else {
+      v = lut[c];
+    }
+    s_lut[c] = v;
+  }
 }
 
 struct Args {
@@ -133,7 +134,6 @@ struct Args {
   void* out;            // [M, N] float32, or uint8 when qmo is set
   float* ws;  // [NW, splits, M, N] partial sums when splits > 1
   int M, K, N, k_per_split, alu, act;
-  int vec;    // gated kernels: 1 = x rows, 2 = code rows 16-byte aligned
 };
 
 // One element of x as float32: a float operand converted, or an
@@ -148,27 +148,34 @@ __device__ __forceinline__ float load_x(const XT* x, size_t i,
   }
 }
 
-// The epilogue's value of one output element: bias and activation
-// (gated: act(g) * u).
+// The epilogue of one output element: bias and activation (gated:
+// act(g) * u), then either a float32 store or the DNA-TEQ encode.
+template <bool GATED>
+__device__ __forceinline__ void finish(const Args& a, size_t i, int n,
+                                       float v0, float v1) {
+  float v;
+  if (GATED) {
+    v = act_fn(v0, a.act) * v1;
+  } else {
+    v = v0;
+    if (a.bias) v += a.bias[n];
+    v = act_fn(v, a.act);
+  }
+  if (a.qmo) {
+    static_cast<uint8_t*>(a.out)[i] = dnateq::encode(v, a.qmo);
+  } else {
+    static_cast<float*>(a.out)[i] = v;
+  }
+}
+
+// The epilogue's value of one output element (the gated kernels' store8;
+// the same arithmetic as finish).
 template <bool GATED>
 __device__ __forceinline__ float epilogue(const Args& a, int n, float v0,
                                           float v1) {
   if (GATED) return act_fn(v0, a.act) * v1;
   if (a.bias) v0 += a.bias[n];
   return act_fn(v0, a.act);
-}
-
-// The epilogue of one output element, then either a float32 store or
-// the DNA-TEQ encode.
-template <bool GATED>
-__device__ __forceinline__ void finish(const Args& a, size_t i, int n,
-                                       float v0, float v1) {
-  const float v = epilogue<GATED>(a, n, v0, v1);
-  if (a.qmo) {
-    static_cast<uint8_t*>(a.out)[i] = dnateq::encode(v, a.qmo);
-  } else {
-    static_cast<float*>(a.out)[i] = v;
-  }
 }
 
 // Flush one output element, or park its partial sum for the reduce pass.
@@ -191,9 +198,9 @@ __device__ __forceinline__ void emit(const Args& a, int m, int n, float v0,
 // the shared tiles without bank conflicts).
 constexpr int TM = 128, TN = 128, TK = 16;
 
-template <typename XT, bool TRANS>
+template <typename XT, bool TRANS, bool GATED>
 __global__ void __launch_bounds__(256) lut_mm_tiled(Args a) {
-  constexpr int NW = 1;
+  constexpr int NW = GATED ? 2 : 1;
   constexpr bool XC = std::is_same<XT, uint8_t>::value;
   __shared__ float s_lut[NW][256];
   __shared__ float s_xlut[XC ? 256 : 1];
@@ -206,6 +213,7 @@ __global__ void __launch_bounds__(256) lut_mm_tiled(Args a) {
   const int kb = blockIdx.z * a.k_per_split;
   const int ke = min(a.K, kb + a.k_per_split);
   fill_table(s_lut[0], a.lut0, a.qm0, a.alu);
+  if (GATED) fill_table(s_lut[1], a.lut1, a.qm1, a.alu);
   if constexpr (XC) fill_table(s_xlut, a.lutx, a.qmx, a.alu);
   const int tr = tid >> 4, tc = tid & 15;
 
@@ -280,7 +288,7 @@ __global__ void __launch_bounds__(256) lut_mm_tiled(Args a) {
     for (int j = 0; j < 8; ++j) {
       const int n = n0 + (j < 4 ? tc * 4 + j : 64 + tc * 4 + j - 4);
       if (n >= a.N) continue;
-      emit<false>(a, m, n, acc[0][i][j], 0.0f);
+      emit<GATED>(a, m, n, acc[0][i][j], acc[NW - 1][i][j]);
     }
   }
 }
@@ -293,9 +301,9 @@ __global__ void __launch_bounds__(256) lut_mm_tiled(Args a) {
 // memory at the end.
 constexpr int SM = 8, SN = 64, SKC = 256;
 
-template <typename XT>
+template <typename XT, bool GATED>
 __global__ void __launch_bounds__(256) lut_mm_skinny(Args a) {
-  constexpr int NW = 1;
+  constexpr int NW = GATED ? 2 : 1;
   constexpr bool XC = std::is_same<XT, uint8_t>::value;
   __shared__ float s_lut[NW][256];
   __shared__ float s_xlut[XC ? 256 : 1];
@@ -309,6 +317,7 @@ __global__ void __launch_bounds__(256) lut_mm_skinny(Args a) {
   const int kb = blockIdx.z * a.k_per_split;
   const int ke = min(a.K, kb + a.k_per_split);
   fill_table(s_lut[0], a.lut0, a.qm0, a.alu);
+  if (GATED) fill_table(s_lut[1], a.lut1, a.qm1, a.alu);
   if constexpr (XC) fill_table(s_xlut, a.lutx, a.qmx, a.alu);
 
   float acc[NW][SM][4];
@@ -375,7 +384,7 @@ __global__ void __launch_bounds__(256) lut_mm_skinny(Args a) {
       for (int q = 0; q < 8; ++q) s += s_red[w][q][m][cc];
       v[w] = s;
     }
-    emit<false>(a, m, n, v[0], 0.0f);
+    emit<GATED>(a, m, n, v[0], v[NW - 1]);
   }
 }
 
@@ -504,9 +513,21 @@ __device__ __forceinline__ void copy16(void* dst, const void* src, int nbytes,
   *static_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
 }
 
+// Whether x's rows (XT elements) and the codes' rows start on 16-byte
+// boundaries in device memory, so that cp.async can copy them.  Worked
+// out in the kernel: a field for it in Args, read by every kernel of
+// this file, slowed the #1/#3 split-K tiles by a quarter.
+template <typename XT>
+__device__ __forceinline__ void rows_aligned(const Args& a, bool& xvec,
+                                             bool& cvec) {
+  xvec = (uintptr_t)a.x % 16 == 0 && ((size_t)a.K * sizeof(XT)) % 16 == 0;
+  cvec = (uintptr_t)a.c0 % 16 == 0 && (uintptr_t)a.c1 % 16 == 0 &&
+         a.N % 16 == 0;
+}
+
 // Raise a kernel's dynamic shared-memory limit, once per device: the
 // attribute is a property of the function, and setting it on every call
-// costs host time.  ``done`` is the calling instantiation's own flag set.
+// costs host time.  ``done`` is the calling instantiation's own flags.
 template <typename Kern>
 cudaError_t smem_limit(Kern kern, int bytes, bool (&done)[16]) {
   int dev = 0;
@@ -522,31 +543,35 @@ cudaError_t smem_limit(Kern kern, int bytes, bool (&done)[16]) {
 // --------------------------------------------------- gated: decode --
 // M <= 8.  A block (256 threads) owns GS_N columns of each weight and the
 // rows [kb, ke) of K; thread (warp w, lane l) owns columns 4*(l % 16) ..
-// +3 and k-lane 2w + l / 16, i.e. rows kb + k-lane + 16 t.
+// +3 and k-lane 2w + l / 16, i.e. rows kb + k-lane + 16 t.  A ring stage
+// holds GS_K rows of both weights' codes and the same rows of x as
+// they are in device memory; x is converted to float32 [k][m] one stage
+// ahead of its use, into one of two small buffers.
 constexpr int GS_N = 64;       // columns of a block
 constexpr int GS_K = 32;       // k rows of a ring stage
-constexpr int GS_STAGES = 8;   // ring depth: 7 stages in flight
-constexpr int GS_XK = 512;     // k rows of x staged at a time
+constexpr int GS_STAGES = 8;   // ring depth
 
 template <int NW>
 struct SkinnySmem {
   float lut[NW][256];
   float xlut[256];
   float part[NW][SM][GS_N];    // the block's sums, read by rank 0
+  float xf[2][GS_K][SM];       // x of two stages as float32, [k][m]
   union {
     struct {
-      uint8_t ring[GS_STAGES][NW][GS_K][GS_N];
-      float x[GS_XK][SM];      // x as float32, [k][m]
-    } s;
-    float red[NW][8][SM][GS_N];  // per-warp sums (after the ring is done)
+      uint8_t codes[NW][GS_K][GS_N];
+      uint8_t x[SM][GS_K * 4];   // x rows [m][k] as stored: float, bf16 or u8
+    } ring[GS_STAGES];
+    float red[NW][8][SM][GS_N];  // per-warp sums, once the ring is done
   } u;
 };
 
 template <typename XT, int NW>
 __global__ void __launch_bounds__(256, 2) gated_skinny(Args a) {
   namespace cg = cooperative_groups;
-  constexpr bool XC = std::is_same<XT, uint8_t>::value;
-  constexpr int CPR = GS_N / 16;   // 16-byte chunks a code row
+  constexpr int CPR = GS_N / 16;                  // chunks a code row
+  constexpr int EPC = 16 / (int)sizeof(XT);       // x elements a chunk
+  constexpr int XCH = GS_K / EPC;                 // chunks an x row
   extern __shared__ __align__(16) unsigned char smem_raw[];
   SkinnySmem<NW>& sm = *reinterpret_cast<SkinnySmem<NW>*>(smem_raw);
   cg::cluster_group cluster = cg::this_cluster();
@@ -559,44 +584,49 @@ __global__ void __launch_bounds__(256, 2) gated_skinny(Args a) {
   const int kb = blockIdx.z * a.k_per_split;
   const int ke = min(a.K, kb + a.k_per_split);
   const int n_st = ke > kb ? (ke - kb + GS_K - 1) / GS_K : 0;
-  const bool cvec = a.vec & 2;
+  bool xvec, cvec;
+  rows_aligned<XT>(a, xvec, cvec);
 
   auto load = [&](int s) {
     if (s < n_st) {
       const int k0 = kb + s * GS_K;
+      auto& st = sm.u.ring[s % GS_STAGES];
       for (int c = tid; c < NW * GS_K * CPR; c += 256) {
         const int w = c / (GS_K * CPR), r = (c / CPR) % GS_K, ch = c % CPR;
         const int gk = k0 + r, gn = n0 + ch * 16;
         const uint8_t* cw = w ? a.c1 : a.c0;
         const int nb = gk < ke ? max(0, min(16, a.N - gn)) : 0;
-        copy16(&sm.u.s.ring[s % GS_STAGES][w][r][ch * 16],
-               nb ? cw + (size_t)gk * a.N + gn : cw, nb, cvec);
+        copy16(&st.codes[w][r][ch * 16], nb ? cw + (size_t)gk * a.N + gn : cw,
+               nb, cvec);
+      }
+      if (tid < SM * XCH) {
+        const int m = tid / XCH, ch = tid % XCH, gk = k0 + ch * EPC;
+        const int ne = m < a.M ? max(0, min(EPC, ke - gk)) : 0;
+        copy16(&st.x[m][ch * 16], ne ? x + (size_t)m * a.K + gk : x,
+               ne * (int)sizeof(XT), xvec);
       }
     }
     cp_async_commit();
   };
-  // x rows [k0, k0 + GS_XK) of the block's range as float32, zeros past
-  // ke and past M; all loads of a thread issued before its stores
-  auto stage_x = [&](int k0) {
-    constexpr int PER = GS_XK * SM / 256;
-    float v[PER];
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int e = tid + i * 256, kk = e / SM, m = e % SM, gk = k0 + kk;
-      v[i] = (m < a.M && gk < ke) ? load_x(x, (size_t)m * a.K + gk, sm.xlut)
-                                  : 0.0f;
-    }
-#pragma unroll
-    for (int i = 0; i < PER; ++i) (&sm.u.s.x[0][0])[tid + i * 256] = v[i];
+  // x of stage s as float32 into xf[s & 1]: one element a thread, zeros
+  // past ke and past M (a zero-filled code would decode to a live value)
+  auto convert = [&](int s) {
+    const int m = tid / GS_K, r = tid % GS_K, k0 = kb + s * GS_K;
+    const XT* row = reinterpret_cast<const XT*>(sm.u.ring[s % GS_STAGES].x[m]);
+    sm.xf[s & 1][r][m] =
+        (m < a.M && k0 + r < ke) ? load_x(row, r, sm.xlut) : 0.0f;
   };
+  static_assert(SM * GS_K == 256, "one x element a thread a stage");
 
 #pragma unroll
   for (int s = 0; s < GS_STAGES - 1; ++s) load(s);
   fill_table(sm.lut[0], a.lut0, a.qm0, a.alu);
   if (NW == 2) fill_table(sm.lut[NW - 1], a.lut1, a.qm1, a.alu);
-  if constexpr (XC) fill_table(sm.xlut, a.lutx, a.qmx, a.alu);
-  __syncthreads();
-  stage_x(kb);
+  if constexpr (std::is_same<XT, uint8_t>::value)
+    fill_table(sm.xlut, a.lutx, a.qmx, a.alu);
+  cp_async_wait<GS_STAGES - 2>();
+  __syncthreads();     // the tables and stage 0 are in
+  if (n_st > 0) convert(0);
 
   float acc[NW][SM][4];
 #pragma unroll
@@ -607,17 +637,12 @@ __global__ void __launch_bounds__(256, 2) gated_skinny(Args a) {
       for (int j = 0; j < 4; ++j) acc[w][m][j] = 0.0f;
 
   for (int s = 0; s < n_st; ++s) {
-    cp_async_wait<GS_STAGES - 2>();
-    __syncthreads();   // stage s landed; every thread is done with s - 1
+    cp_async_wait<GS_STAGES - 3>();
+    __syncthreads();   // stages s, s + 1 landed, x of s converted; s - 1 done
     load(s + GS_STAGES - 1);
-    const int kk0 = s * GS_K;
-    if (kk0 > 0 && kk0 % GS_XK == 0) {
-      stage_x(kb + kk0);
-      __syncthreads();
-    }
-    const int rows = min(GS_K, ke - kb - kk0);
-    const uint8_t* st = &sm.u.s.ring[s % GS_STAGES][0][0][0];
-    const float* xs = &sm.u.s.x[kk0 % GS_XK][0];
+    if (s + 1 < n_st) convert(s + 1);
+    const int rows = min(GS_K, ke - kb - s * GS_K);
+    const auto& st = sm.u.ring[s % GS_STAGES];
 #pragma unroll
     for (int i = 0; i < GS_K / 16; ++i) {
       const int r = kl + 16 * i;
@@ -625,10 +650,9 @@ __global__ void __launch_bounds__(256, 2) gated_skinny(Args a) {
       uint32_t cw[NW];
 #pragma unroll
       for (int w = 0; w < NW; ++w)
-        cw[w] = *reinterpret_cast<const uint32_t*>(st + (w * GS_K + r) * GS_N +
-                                                   cgp * 4);
-      const float4 x0 = *reinterpret_cast<const float4*>(xs + r * SM);
-      const float4 x1 = *reinterpret_cast<const float4*>(xs + r * SM + 4);
+        cw[w] = *reinterpret_cast<const uint32_t*>(&st.codes[w][r][cgp * 4]);
+      const float4 x0 = *reinterpret_cast<const float4*>(&sm.xf[s & 1][r][0]);
+      const float4 x1 = *reinterpret_cast<const float4*>(&sm.xf[s & 1][r][4]);
       const float xv[SM] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
       float wv[NW][4];
 #pragma unroll
@@ -644,7 +668,7 @@ __global__ void __launch_bounds__(256, 2) gated_skinny(Args a) {
     }
   }
   cp_async_wait<0>();
-  __syncthreads();     // the ring and x are dead: red takes their place
+  __syncthreads();     // the ring is dead: red takes its place
 
   // k-lanes 2w and 2w + 1 by shuffle, then the 8 warps in order
 #pragma unroll
@@ -692,6 +716,28 @@ __global__ void __launch_bounds__(256, 2) gated_skinny(Args a) {
   cluster.sync();      // no block leaves while rank 0 reads its partials
 }
 
+template <typename XT, int NW>
+cudaError_t launch_gated_skinny(const Args& a, int splits, cudaStream_t st) {
+  constexpr int smem = (int)sizeof(SkinnySmem<NW>);
+  static bool done[16] = {};
+  auto kern = gated_skinny<XT, NW>;
+  cudaError_t e = smem_limit(kern, smem, done);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((a.N + GS_N - 1) / GS_N, 1, splits);
+  cfg.blockDim = dim3(256);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = splits;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kern, a);
+}
+
 // -------------------------------------------------- gated: prefill --
 // M > 8.  A block (8 warps, 2 along M x 4 along N) owns GT_M x GT_N
 // outputs of each weight; warp (wm, wn) owns rows 64 wm .. +63 (4 m16
@@ -701,9 +747,7 @@ __global__ void __launch_bounds__(256, 2) gated_skinny(Args a) {
 // 32 wn + 8 t + 4 + j as its columns 2t, 2t + 1 (C).
 constexpr int GT_M = 128, GT_N = 128, GT_K = 32, GT_STAGES = 3;
 constexpr int GT_CS = GT_N + 16;     // staged code row, bytes
-constexpr bool GT_PAIRS = true;      // weight tables as (hi, lo) pairs
-constexpr bool GT_XDEC = false;      // codes x decoded once a tile
-constexpr int GT_XD = 80;            // decoded x row, floats: 16 (hi, lo) pairs of k
+constexpr int GT_FS = GT_K + 8;      // float32 x row, floats
 
 // Staged x row, bytes: padded so each warp's fragment loads hit
 // distinct banks (row stride = 8, 20 or 12 words mod 32).
@@ -715,10 +759,11 @@ template <typename XT, int NW>
 __host__ __device__ constexpr int gt_stage() {
   return GT_M * gt_xs<XT>() + NW * GT_K * GT_CS;
 }
+// tables, the ring, and for codes x the decoded float32 x tile
 template <typename XT, int NW>
 __host__ __device__ constexpr int gt_smem() {
-  return (NW + 1) * 256 * (int)sizeof(float2) + GT_STAGES * gt_stage<XT, NW>() +
-         (GT_XDEC && sizeof(XT) == 1 ? GT_M * GT_XD * 4 : 0);
+  return (NW + 1) * 256 * 4 + GT_STAGES * gt_stage<XT, NW>() +
+         (sizeof(XT) == 1 ? GT_M * GT_FS * 4 : 0);
 }
 
 // v = hi + lo: hi = v cut to TF32 (its upper 19 bits), lo = v - hi,
@@ -726,15 +771,6 @@ __host__ __device__ constexpr int gt_smem() {
 __device__ __forceinline__ float2 tf32_split(float v) {
   const float hi = __uint_as_float(__float_as_uint(v) & 0xffffe000u);
   return make_float2(hi, v - hi);
-}
-
-// A decode table split into (hi, lo) pairs in shared memory.
-__device__ __forceinline__ void fill_split(float2* s, const float* lut,
-                                           const float* qmeta, int alu) {
-  for (int c = threadIdx.x; c < 256; c += blockDim.x) {
-    if (GT_PAIRS) s[c] = tf32_split(table_value(c, lut, qmeta, alu));
-    else reinterpret_cast<float*>(s)[c] = table_value(c, lut, qmeta, alu);
-  }
 }
 
 // c += a . b on one m16n8k8 TF32 tile, float32 accumulate.
@@ -746,32 +782,22 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// x at (row, k) and (row, k + 1) of a staged row as TF32 hi (and lo):
-// float32 split here, bfloat16 exact (no lo), codes through the split
-// activation table.
-__device__ __forceinline__ void load_a(const float* row, int k, const float2*,
-                                       uint32_t& h0, uint32_t& h1,
-                                       uint32_t& l0, uint32_t& l1) {
+// x at (row, k) and (row, k + 1) of a staged float32 or bfloat16 row as
+// TF32 hi (and lo): float32 split here, bfloat16 exact (no lo).
+__device__ __forceinline__ void load_a(const float* row, int k, uint32_t& h0,
+                                       uint32_t& h1, uint32_t& l0,
+                                       uint32_t& l1) {
   const float2 v = *reinterpret_cast<const float2*>(row + k);
   const float2 s0 = tf32_split(v.x), s1 = tf32_split(v.y);
   h0 = __float_as_uint(s0.x); l0 = __float_as_uint(s0.y);
   h1 = __float_as_uint(s1.x); l1 = __float_as_uint(s1.y);
 }
 __device__ __forceinline__ void load_a(const __nv_bfloat16* row, int k,
-                                       const float2*, uint32_t& h0,
-                                       uint32_t& h1, uint32_t&, uint32_t&) {
+                                       uint32_t& h0, uint32_t& h1, uint32_t&,
+                                       uint32_t&) {
   const uint32_t raw = *reinterpret_cast<const uint32_t*>(row + k);
   h0 = raw << 16;
   h1 = raw & 0xffff0000u;
-}
-__device__ __forceinline__ void load_a(const uint8_t* row, int k,
-                                       const float2* s_xt, uint32_t& h0,
-                                       uint32_t& h1, uint32_t& l0,
-                                       uint32_t& l1) {
-  const uint32_t raw = *reinterpret_cast<const uint16_t*>(row + k);
-  const float2 t0 = s_xt[raw & 255u], t1 = s_xt[raw >> 8];
-  h0 = __float_as_uint(t0.x); l0 = __float_as_uint(t0.y);
-  h1 = __float_as_uint(t1.x); l1 = __float_as_uint(t1.y);
 }
 
 // Eight consecutive outputs n .. n + 7 of row m: parked for the reduce
@@ -819,189 +845,22 @@ __device__ __forceinline__ void store8(const Args& a, int m, int n,
   }
 }
 
-// The decode path on the tensor cores (GS_TC).  Same block, ring and
-// reduce as gated_skinny, but a stage holds 64 k rows (one k8 step a
-// warp) in rows of 80 bytes, and warp w multiplies x (rows 0-7 of an
-// m16n8k8 A fragment) by its k8 step of all 64 columns of both weights:
-// 8 n8 tiles a weight.  Rows 8-15 of A carry x_lo, so one mma adds
-// x_hi.W_hi (rows 0-7) and x_lo.W_hi (rows 8-15) and a second x_hi.W_lo:
-// the three split-TF32 passes in two mma, summed at the end.
-constexpr bool GS_TC = false;
-constexpr int GT_SK = 64, GT_SSTAGES = 4, GT_SRS = 80, GT_SXS = GS_XK + 8;
-
-template <int NW>
-struct SkinnyTcSmem {
-  float lut[NW][256];
-  float xlut[256];
-  float part[NW][SM][GS_N];
-  union {
-    struct {
-      uint8_t ring[GT_SSTAGES][NW][GT_SK][GT_SRS];
-      float x[SM][GT_SXS];     // x as float32, [m][k]
-    } s;
-    float red[NW][8][SM][GS_N];
-  } u;
-};
-
-template <typename XT, int NW>
-__global__ void __launch_bounds__(256, 2) gated_skinny_tc(Args a) {
-  namespace cg = cooperative_groups;
-  constexpr bool XC = std::is_same<XT, uint8_t>::value;
-  constexpr bool X_EXACT = std::is_same<XT, __nv_bfloat16>::value;
-  constexpr int CPR = GS_N / 16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  SkinnyTcSmem<NW>& sm = *reinterpret_cast<SkinnyTcSmem<NW>*>(smem_raw);
-  cg::cluster_group cluster = cg::this_cluster();
-
-  const XT* x = static_cast<const XT*>(a.x);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int lg = lane >> 2, lt = lane & 3;
-  const int n0 = blockIdx.x * GS_N;
-  const int kb = blockIdx.z * a.k_per_split;
-  const int ke = min(a.K, kb + a.k_per_split);
-  const int n_st = ke > kb ? (ke - kb + GT_SK - 1) / GT_SK : 0;
-  const bool cvec = a.vec & 2;
-
-  auto load = [&](int s) {
-    if (s < n_st) {
-      const int k0 = kb + s * GT_SK;
-      for (int c = tid; c < NW * GT_SK * CPR; c += 256) {
-        const int w = c / (GT_SK * CPR), r = (c / CPR) % GT_SK, ch = c % CPR;
-        const int gk = k0 + r, gn = n0 + ch * 16;
-        const uint8_t* cw = w ? a.c1 : a.c0;
-        const int nb = gk < ke ? max(0, min(16, a.N - gn)) : 0;
-        copy16(&sm.u.s.ring[s % GT_SSTAGES][w][r][ch * 16],
-               nb ? cw + (size_t)gk * a.N + gn : cw, nb, cvec);
-      }
-    }
-    cp_async_commit();
-  };
-  auto stage_x = [&](int k0) {
-    constexpr int PER = GS_XK * SM / 256;
-    float v[PER];
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int e = tid + i * 256, m = e / GS_XK, kk = e % GS_XK, gk = k0 + kk;
-      v[i] = (m < a.M && gk < ke) ? load_x(x, (size_t)m * a.K + gk, sm.xlut)
-                                  : 0.0f;
-    }
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int e = tid + i * 256;
-      sm.u.s.x[e / GS_XK][e % GS_XK] = v[i];
-    }
-  };
-
-#pragma unroll
-  for (int s = 0; s < GT_SSTAGES - 1; ++s) load(s);
-  fill_table(sm.lut[0], a.lut0, a.qm0, a.alu);
-  if (NW == 2) fill_table(sm.lut[NW - 1], a.lut1, a.qm1, a.alu);
-  if constexpr (XC) fill_table(sm.xlut, a.lutx, a.qmx, a.alu);
-  __syncthreads();
-  stage_x(kb);
-
-  float acc[NW][8][4];
-#pragma unroll
-  for (int w = 0; w < NW; ++w)
-#pragma unroll
-    for (int t = 0; t < 8; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[w][t][e] = 0.0f;
-
-  for (int s = 0; s < n_st; ++s) {
-    cp_async_wait<GT_SSTAGES - 2>();
-    __syncthreads();
-    load(s + GT_SSTAGES - 1);
-    const int kk0 = s * GT_SK;
-    if (kk0 > 0 && kk0 % GS_XK == 0) {
-      stage_x(kb + kk0);
-      __syncthreads();
-    }
-    // warp w: rows 8w + 2lt, +1 of the stage; x past ke is staged as 0
-    if (8 * warp < ke - kb - kk0) {
-      const int r0 = 8 * warp + 2 * lt;
-      const float2 xv =
-          *reinterpret_cast<const float2*>(&sm.u.s.x[lg][kk0 % GS_XK + r0]);
-      const float2 s0 = tf32_split(xv.x), s1 = tf32_split(xv.y);
-      const uint32_t lo0 = X_EXACT ? 0u : __float_as_uint(s0.y);
-      const uint32_t lo1 = X_EXACT ? 0u : __float_as_uint(s1.y);
-      const uint32_t a_hl[4] = {__float_as_uint(s0.x), lo0, __float_as_uint(s1.x), lo1};
-      const uint32_t a_h[4] = {__float_as_uint(s0.x), 0u, __float_as_uint(s1.x), 0u};
-#pragma unroll
-      for (int w = 0; w < NW; ++w) {
-        const uint8_t* rw = &sm.u.s.ring[s % GT_SSTAGES][w][r0][4 * lg];
-#pragma unroll
-        for (int g = 0; g < 2; ++g) {
-          const uint32_t c0 = *reinterpret_cast<const uint32_t*>(rw + 32 * g);
-          const uint32_t c1 =
-              *reinterpret_cast<const uint32_t*>(rw + GT_SRS + 32 * g);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float2 b0 = tf32_split(sm.lut[w][(c0 >> (8 * j)) & 255u]);
-            const float2 b1 = tf32_split(sm.lut[w][(c1 >> (8 * j)) & 255u]);
-            mma_tf32(acc[w][4 * g + j], a_hl, __float_as_uint(b0.x),
-                     __float_as_uint(b1.x));
-            mma_tf32(acc[w][4 * g + j], a_h, __float_as_uint(b0.y),
-                     __float_as_uint(b1.y));
-          }
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-
-  // rows 0-7 and 8-15 summed; tile 4g + j holds columns 32g + 8lt + j
-  // (e = 0) and 32g + 8lt + 4 + j (e = 1) of row lg
-#pragma unroll
-  for (int w = 0; w < NW; ++w)
-#pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      const int col = 32 * (t >> 2) + 8 * lt + (t & 3);
-      sm.u.red[w][warp][lg][col] = acc[w][t][0] + acc[w][t][2];
-      sm.u.red[w][warp][lg][col + 4] = acc[w][t][1] + acc[w][t][3];
-    }
-  __syncthreads();
-  for (int p = tid; p < NW * SM * GS_N; p += 256) {
-    const int w = p / (SM * GS_N), mc = p % (SM * GS_N);
-    float v = 0.0f;
-#pragma unroll
-    for (int q = 0; q < 8; ++q) v += (&sm.u.red[w][q][0][0])[mc];
-    (&sm.part[w][0][0])[mc] = v;
-  }
-  cluster.sync();
-  if (cluster.block_rank() == 0) {
-    const int ranks = (int)cluster.num_blocks();
-    for (int p = tid; p < SM * GS_N; p += 256) {
-      const int m = p / GS_N, n = n0 + p % GS_N;
-      if (m >= a.M || n >= a.N) continue;
-      float v[NW];
-#pragma unroll
-      for (int w = 0; w < NW; ++w) {
-        float t = 0.0f;
-        for (int r = 0; r < ranks; ++r)
-          t += cluster.map_shared_rank(&sm.part[w][0][0], r)[p];
-        v[w] = t;
-      }
-      finish<NW == 2>(a, (size_t)m * a.N + n, n, v[0], v[NW - 1]);
-    }
-  }
-  cluster.sync();
-}
-
 template <typename XT, int NW>
 __global__ void __launch_bounds__(256, 1) gated_tiled(Args a) {
   constexpr bool XC = std::is_same<XT, uint8_t>::value;
   constexpr bool X_EXACT = std::is_same<XT, __nv_bfloat16>::value;
+  // the element type of the x tile the fragments read, and its stride
+  using FT = std::conditional_t<XC, float, XT>;
   constexpr int XS = gt_xs<XT>();
+  constexpr int FS = XC ? GT_FS : XS / (int)sizeof(XT);
   constexpr int EPC = 16 / (int)sizeof(XT);     // x elements a chunk
   constexpr int CPR = GT_K / EPC;               // x chunks a row
   constexpr int STAGE = gt_stage<XT, NW>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float2* s_wt = reinterpret_cast<float2*>(smem_raw);   // [NW][256] (hi, lo)
-  float2* s_xt = s_wt + NW * 256;                       // [256] codes x
+  float* s_wt = reinterpret_cast<float*>(smem_raw);     // [NW][256]
+  float* s_xt = s_wt + NW * 256;                        // [256] codes x
   unsigned char* ring = reinterpret_cast<unsigned char*>(s_xt + 256);
-  float* s_xd = reinterpret_cast<float*>(ring + GT_STAGES * STAGE);  // GT_XDEC
+  float* s_xf = reinterpret_cast<float*>(ring + GT_STAGES * STAGE);  // codes x
 
   const XT* x = static_cast<const XT*>(a.x);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -1011,7 +870,8 @@ __global__ void __launch_bounds__(256, 1) gated_tiled(Args a) {
   const int kb = blockIdx.z * a.k_per_split;
   const int ke = min(a.K, kb + a.k_per_split);
   const int n_t = ke > kb ? (ke - kb + GT_K - 1) / GT_K : 0;
-  const bool xvec = a.vec & 1, cvec = a.vec & 2;
+  bool xvec, cvec;
+  rows_aligned<XT>(a, xvec, cvec);
 
   auto x_tile = [&](int t) { return ring + (t % GT_STAGES) * STAGE; };
   auto c_tile = [&](int t, int w) {
@@ -1041,12 +901,9 @@ __global__ void __launch_bounds__(256, 1) gated_tiled(Args a) {
 
 #pragma unroll
   for (int s = 0; s < GT_STAGES - 1; ++s) load(s);
-  fill_split(s_wt, a.lut0, a.qm0, a.alu);
-  if (NW == 2) fill_split(s_wt + 256, a.lut1, a.qm1, a.alu);
-  if constexpr (XC) {   // the activation table always as pairs
-    for (int c = tid; c < 256; c += 256)
-      s_xt[c] = tf32_split(table_value(c, a.lutx, a.qmx, a.alu));
-  }
+  fill_table(s_wt, a.lut0, a.qm0, a.alu);
+  if (NW == 2) fill_table(s_wt + 256, a.lut1, a.qm1, a.alu);
+  if constexpr (XC) fill_table(s_xt, a.lutx, a.qmx, a.alu);
 
   float acc[NW][4][4][4];
 #pragma unroll
@@ -1062,20 +919,24 @@ __global__ void __launch_bounds__(256, 1) gated_tiled(Args a) {
     cp_async_wait<GT_STAGES - 2>();
     __syncthreads();   // tile t landed; every warp is done with t - 1
     load(t + GT_STAGES - 1);
-    const XT* xs = reinterpret_cast<const XT*>(x_tile(t));
-    if constexpr (XC && GT_XDEC) {
-      // the tile's activation codes decoded once, as (hi, hi, lo, lo) of
-      // k pairs, for all warps
+    const FT* xs;
+    if constexpr (XC) {
+      // the tile's activation codes decoded once, for all warps, into
+      // the float32 tile the fragments read (past-K x codes decode to a
+      // live value; B is zeroed there)
+      const uint8_t* xc = x_tile(t);
 #pragma unroll
-      for (int i = 0; i < GT_M * GT_K / 2 / 256; ++i) {
-        const int p = tid + i * 256, r = p / (GT_K / 2), pp = p % (GT_K / 2);
-        const uint32_t raw = *reinterpret_cast<const uint16_t*>(
-            reinterpret_cast<const uint8_t*>(xs) + r * XS + 2 * pp);
-        const float2 t0 = s_xt[raw & 255u], t1 = s_xt[raw >> 8];
-        *reinterpret_cast<float4*>(s_xd + r * GT_XD + 4 * pp) =
-            make_float4(t0.x, t1.x, t0.y, t1.y);
+      for (int i = 0; i < GT_M * GT_K / 4 / 256; ++i) {
+        const int q = tid + i * 256, r = q / (GT_K / 4), k = 4 * (q % (GT_K / 4));
+        const uint32_t raw = *reinterpret_cast<const uint32_t*>(xc + r * XS + k);
+        *reinterpret_cast<float4*>(s_xf + r * GT_FS + k) =
+            make_float4(s_xt[raw & 255u], s_xt[(raw >> 8) & 255u],
+                        s_xt[(raw >> 16) & 255u], s_xt[raw >> 24]);
       }
       __syncthreads();
+      xs = s_xf;
+    } else {
+      xs = reinterpret_cast<const FT*>(x_tile(t));
     }
     // rows of the tile inside [kb, ke): past them the staged codes are
     // zeros, which decode to a live value, so B is zeroed there
@@ -1087,22 +948,8 @@ __global__ void __launch_bounds__(256, 1) gated_tiled(Args a) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int r = wm * 64 + i * 16 + lg;
-        if constexpr (XC && GT_XDEC) {
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const float4 v = *reinterpret_cast<const float4*>(
-                s_xd + (r + 8 * h) * GT_XD + 4 * (ks * 4 + lt));
-            ah[i][h] = __float_as_uint(v.x);
-            ah[i][2 + h] = __float_as_uint(v.y);
-            al[i][h] = __float_as_uint(v.z);
-            al[i][2 + h] = __float_as_uint(v.w);
-          }
-        } else {
-          load_a(xs + r * (XS / (int)sizeof(XT)), kk, s_xt, ah[i][0], ah[i][2],
-                 al[i][0], al[i][2]);
-          load_a(xs + (r + 8) * (XS / (int)sizeof(XT)), kk, s_xt, ah[i][1],
-                 ah[i][3], al[i][1], al[i][3]);
-        }
+        load_a(xs + r * FS, kk, ah[i][0], ah[i][2], al[i][0], al[i][2]);
+        load_a(xs + (r + 8) * FS, kk, ah[i][1], ah[i][3], al[i][1], al[i][3]);
       }
 #pragma unroll
       for (int w = 0; w < NW; ++w) {
@@ -1111,19 +958,11 @@ __global__ void __launch_bounds__(256, 1) gated_tiled(Args a) {
         const uint32_t c1 =
             *reinterpret_cast<const uint32_t*>(cs + (kk + 1) * GT_CS);
         const bool v0 = kk < kvalid, v1 = kk + 1 < kvalid;
-        const float2* tab = s_wt + w * 256;
+        const float* tab = s_wt + w * 256;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const float2 z = make_float2(0.0f, 0.0f);
-          float2 b0, b1;
-          if constexpr (GT_PAIRS) {
-            b0 = v0 ? tab[(c0 >> (8 * j)) & 255u] : z;
-            b1 = v1 ? tab[(c1 >> (8 * j)) & 255u] : z;
-          } else {
-            const float* tf = reinterpret_cast<const float*>(tab);
-            b0 = tf32_split(v0 ? tf[(c0 >> (8 * j)) & 255u] : 0.0f);
-            b1 = tf32_split(v1 ? tf[(c1 >> (8 * j)) & 255u] : 0.0f);
-          }
+          const float2 b0 = tf32_split(v0 ? tab[(c0 >> (8 * j)) & 255u] : 0.0f);
+          const float2 b1 = tf32_split(v1 ? tab[(c1 >> (8 * j)) & 255u] : 0.0f);
           const uint32_t bh0 = __float_as_uint(b0.x), bl0 = __float_as_uint(b0.y);
           const uint32_t bh1 = __float_as_uint(b1.x), bl1 = __float_as_uint(b1.y);
 #pragma unroll
@@ -1156,29 +995,6 @@ __global__ void __launch_bounds__(256, 1) gated_tiled(Args a) {
 }
 
 template <typename XT, int NW>
-cudaError_t launch_gated_skinny(const Args& a, int splits, cudaStream_t st) {
-  constexpr int smem = GS_TC ? (int)sizeof(SkinnyTcSmem<NW>)
-                             : (int)sizeof(SkinnySmem<NW>);
-  static bool done[16] = {};
-  auto kern = GS_TC ? gated_skinny_tc<XT, NW> : gated_skinny<XT, NW>;
-  cudaError_t e = smem_limit(kern, smem, done);
-  if (e != cudaSuccess) return e;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((a.N + GS_N - 1) / GS_N, 1, splits);
-  cfg.blockDim = dim3(256);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = splits;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kern, a);
-}
-
-template <typename XT, int NW>
 cudaError_t launch_gated_tiled(const Args& a, int splits, cudaStream_t st) {
   constexpr int smem = gt_smem<XT, NW>();
   static bool done[16] = {};
@@ -1194,21 +1010,16 @@ cudaError_t launch_gated_tiled(const Args& a, int splits, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-// The gated GEMM on either path; a.vec is set here from the pointers'
-// and rows' alignment.
+// The gated GEMM on either path.
 template <typename XT>
-int launch_gated(Args a, int splits, cudaStream_t st) {
-  const bool xv = (uintptr_t)a.x % 16 == 0 && ((size_t)a.K * sizeof(XT)) % 16 == 0;
-  const bool cv = (uintptr_t)a.c0 % 16 == 0 && (uintptr_t)a.c1 % 16 == 0 &&
-                  a.N % 16 == 0;
-  a.vec = (xv ? 1 : 0) | (cv ? 2 : 0);
+int launch_gated(const Args& a, int splits, cudaStream_t st) {
   if (splits < 1 || (a.M <= SM && splits > 8)) return (int)cudaErrorInvalidValue;
   const cudaError_t e = a.M <= SM ? launch_gated_skinny<XT, 2>(a, splits, st)
                                   : launch_gated_tiled<XT, 2>(a, splits, st);
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
-template <typename XT, bool TRANS>
+template <typename XT, bool TRANS, bool GATED>
 void launch(const Args& a, int splits, cudaStream_t st) {
   if (a.M <= SM) {
     if constexpr (TRANS) {
@@ -1216,15 +1027,15 @@ void launch(const Args& a, int splits, cudaStream_t st) {
       lut_mm_skinny_t<XT><<<grid, 256, 0, st>>>(a);
     } else {
       dim3 grid((a.N + SN - 1) / SN, 1, splits);
-      lut_mm_skinny<XT><<<grid, 256, 0, st>>>(a);
+      lut_mm_skinny<XT, GATED><<<grid, 256, 0, st>>>(a);
     }
   } else {
     dim3 grid((a.N + TN - 1) / TN, (a.M + TM - 1) / TM, splits);
-    lut_mm_tiled<XT, TRANS><<<grid, 256, 0, st>>>(a);
+    lut_mm_tiled<XT, TRANS, GATED><<<grid, 256, 0, st>>>(a);
   }
   if (splits > 1) {
     const size_t mn = (size_t)a.M * a.N;
-    lut_mm_reduce<false><<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(a, splits);
+    lut_mm_reduce<GATED><<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(a, splits);
   }
 }
 
@@ -1254,7 +1065,6 @@ Args make_args(const void* x, const void* c0, const void* c1,
   a.k_per_split = k_per_split;
   a.alu = alu;
   a.act = act;
-  a.vec = 0;
   return a;
 }
 
@@ -1276,11 +1086,11 @@ int lut_dequant_matmul_launch(const void* x, int x_bf16, const void* codes,
                            k_per_split, alu, act);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (x_bf16) {
-    if (transposed) launch<__nv_bfloat16, true>(a, splits, st);
-    else launch<__nv_bfloat16, false>(a, splits, st);
+    if (transposed) launch<__nv_bfloat16, true, false>(a, splits, st);
+    else launch<__nv_bfloat16, false, false>(a, splits, st);
   } else {
-    if (transposed) launch<float, true>(a, splits, st);
-    else launch<float, false>(a, splits, st);
+    if (transposed) launch<float, true, false>(a, splits, st);
+    else launch<float, false, false>(a, splits, st);
   }
   return (int)cudaGetLastError();
 }
@@ -1317,7 +1127,7 @@ int lut_dequant_matmul_dual_launch(const void* x_codes, const void* codes,
   const Args a = make_args(x_codes, codes, nullptr, lut_w, nullptr, qmeta_w,
                            nullptr, lut_x, qmeta_x, qmeta_out, bias, out, ws,
                            M, K, N, k_per_split, alu, act);
-  launch<uint8_t, false>(a, splits, static_cast<cudaStream_t>(stream));
+  launch<uint8_t, false, false>(a, splits, static_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
 }
 

@@ -2,9 +2,9 @@
 in ``csrc/lut_dequant_matmul.cu``), emulated on the CPU.
 
 Prefill (M > 8, ``gated_tiled``): the products run on TF32 tensor cores,
-which read an operand's upper 19 bits.  Each 256-entry table is split
-once into (hi, lo) = (v cut to TF32, v - hi), so a decoded weight (and
-#4's decoded activation) arrives split; float32 x is split the same way,
+which read an operand's upper 19 bits.  A decoded weight (and #4's
+decoded activation, and float32 x) is split as (hi, lo) = (v cut to
+TF32, v - hi), which for a code is the split of its table entry;
 bfloat16 x is exact in TF32.  Per 8-row k step, in k-tile order, the
 kernel adds x_hi*W_hi, x_hi*W_lo and, unless x is bfloat16, x_lo*W_hi
 (``lut_dequant_matmul.passes``); split-K partials are summed in split
@@ -212,8 +212,9 @@ def _codes_within_gate(out, ref):
 # --------------------------------------------------------------- tests --
 
 def test_split_tables_are_exact_tf32_pairs():
-    """hi and lo of every table entry are TF32 values and sum back to
-    the entry within 2^-20 of it; bfloat16 x needs no split."""
+    """hi and lo of every table entry (the split of every decoded value)
+    are TF32 values and sum back to the entry within 2^-20 of it;
+    bfloat16 x needs no split."""
     rng = np.random.default_rng(0)
     _, lut, qmeta = _quant(rng, (64, 64), 7, 0.05)
     for mode in ("gather", "alu"):
