@@ -548,6 +548,8 @@ cudaError_t smem_limit(Kern kern, int bytes, bool (&done)[16]) {
 // they are in device memory; x is converted to float32 [k][m] one stage
 // ahead of its use, into one of two small buffers.
 constexpr int GS_N = 64;       // columns of a block
+constexpr int GS_CG = GS_N / 4;      // column groups of 4: threads along N
+constexpr int GS_KL = 256 / GS_CG;   // k-lanes: threads along K
 constexpr int GS_K = 32;       // k rows of a ring stage
 constexpr int GS_STAGES = 8;   // ring depth
 
@@ -578,7 +580,7 @@ __global__ void __launch_bounds__(256, 2) gated_skinny(Args a) {
 
   const XT* x = static_cast<const XT*>(a.x);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int cgp = lane & 15, kl = warp * 2 + (lane >> 4);
+  const int cgp = tid % GS_CG, kl = tid / GS_CG;
   const int n0 = blockIdx.x * GS_N;
   // blockIdx.z is the block's rank in its cluster: cluster dims (1, 1, z)
   const int kb = blockIdx.z * a.k_per_split;
@@ -644,8 +646,8 @@ __global__ void __launch_bounds__(256, 2) gated_skinny(Args a) {
     const int rows = min(GS_K, ke - kb - s * GS_K);
     const auto& st = sm.u.ring[s % GS_STAGES];
 #pragma unroll
-    for (int i = 0; i < GS_K / 16; ++i) {
-      const int r = kl + 16 * i;
+    for (int i = 0; i < GS_K / GS_KL; ++i) {
+      const int r = kl + GS_KL * i;
       if (r >= rows) break;
       uint32_t cw[NW];
 #pragma unroll
@@ -670,15 +672,17 @@ __global__ void __launch_bounds__(256, 2) gated_skinny(Args a) {
   cp_async_wait<0>();
   __syncthreads();     // the ring is dead: red takes its place
 
-  // k-lanes 2w and 2w + 1 by shuffle, then the 8 warps in order
+  // (16 k-lanes: lanes 2w and 2w + 1 by shuffle) then the 8 warps in order
+  if constexpr (GS_KL == 16) {
 #pragma unroll
-  for (int w = 0; w < NW; ++w)
+    for (int w = 0; w < NW; ++w)
 #pragma unroll
-    for (int m = 0; m < SM; ++m)
+      for (int m = 0; m < SM; ++m)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        acc[w][m][j] += __shfl_xor_sync(0xffffffffu, acc[w][m][j], 16);
-  if (lane < 16) {
+        for (int j = 0; j < 4; ++j)
+          acc[w][m][j] += __shfl_xor_sync(0xffffffffu, acc[w][m][j], 16);
+  }
+  if (lane < GS_CG) {
 #pragma unroll
     for (int w = 0; w < NW; ++w)
 #pragma unroll
