@@ -39,9 +39,9 @@
 // the number of weights NW, instantiated for NW = 2):
 // - Decode (M <= 8), gated_skinny: bound by the 2*K*N code bytes (25 MB,
 //   0.0075 ms at 3.35 TB/s, at d_model 2048 x d_ff 6144).  A block owns
-//   64 columns of both weights and a range of K.  Codes and the same k
+//   128 columns of both weights and a range of K.  Codes and the same k
 //   rows of x reach shared memory by 16-byte cp.async copies into an
-//   8-stage ring of 32 k rows (24 KB of codes in flight a block before
+//   8-stage ring of 32 k rows (48 KB of codes in flight a block before
 //   any is used); the thread that computes 4 columns reads them from the
 //   ring, not from device memory, and x is converted to float32 (decoded,
 //   for #4) one stage ahead of its use.  When the column slabs alone give
@@ -542,12 +542,14 @@ cudaError_t smem_limit(Kern kern, int bytes, bool (&done)[16]) {
 
 // --------------------------------------------------- gated: decode --
 // M <= 8.  A block (256 threads) owns GS_N columns of each weight and the
-// rows [kb, ke) of K; thread (warp w, lane l) owns columns 4*(l % 16) ..
-// +3 and k-lane 2w + l / 16, i.e. rows kb + k-lane + 16 t.  A ring stage
+// rows [kb, ke) of K; thread t owns columns 4 (t % GS_CG) .. +3 and k-lane
+// t / GS_CG, i.e. rows kb + k-lane + GS_KL i (GS_N = 128: lane l of warp
+// w owns columns 4l .. 4l + 3 and k-lane w, so a warp's code read and
+// each 16-byte copy of a row fill whole 128-byte lines).  A ring stage
 // holds GS_K rows of both weights' codes and the same rows of x as
 // they are in device memory; x is converted to float32 [k][m] one stage
 // ahead of its use, into one of two small buffers.
-constexpr int GS_N = 64;       // columns of a block
+constexpr int GS_N = 128;      // columns of a block
 constexpr int GS_CG = GS_N / 4;      // column groups of 4: threads along N
 constexpr int GS_KL = 256 / GS_CG;   // k-lanes: threads along K
 constexpr int GS_K = 32;       // k rows of a ring stage

@@ -27,7 +27,7 @@ from repro_torch.kernels import _build
 NAME = "lut_dequant_matmul"
 ACTS = {None: 0, "gelu": 1, "silu": 2, "relu": 3}
 _SKINNY_M = 8
-GATED_COLS = 64      # columns of a gated decode block
+GATED_COLS = 128     # columns of a gated decode block
 GATED_TILE = 128     # gated prefill block: 128 x 128 outputs a weight
 K_STEP = 32          # k rows a pipeline stage of the gated kernels holds
 MAX_CLUSTER = 8      # the portable thread-block cluster size
@@ -75,7 +75,7 @@ def split_k(m: int, k: int, n: int, transposed: bool, sms: int):
 
 def gated_plan(m: int, k: int, n: int, sms: int):
     """(splits, k_per_split) of the gated kernels, from shapes alone (so a
-    captured call replays right).  M <= 8: the blocks of a 64-column slab
+    captured call replays right).  M <= 8: the blocks of a 128-column slab
     split K as one cluster of ``splits`` blocks, doubled while the grid
     stays within two blocks an SM and each split keeps 256 rows of K, at
     most 8.  M > 8: split K only when the 128 x 128 tiles fill under half

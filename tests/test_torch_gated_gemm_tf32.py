@@ -9,9 +9,10 @@ bfloat16 x is exact in TF32.  Per 8-row k step, in k-tile order, the
 kernel adds x_hi*W_hi, x_hi*W_lo and, unless x is bfloat16, x_lo*W_hi
 (``lut_dequant_matmul.passes``); split-K partials are summed in split
 order.  Decode (M <= 8, ``gated_skinny``): float32 FMA; k-lane l of a
-block sums rows kb + l + 16 t in order, lanes 2w and 2w + 1 are added,
-then the 8 warps in order, then the blocks of a cluster in rank order
-(``gated_plan``'s splits), and the epilogue runs once on the full sum.
+block (one a warp for a 128-column block) sums rows kb + l + 8 t in
+order, then the 8 warps are added in order, then the blocks of a
+cluster in rank order (``gated_plan``'s splits), and the epilogue runs
+once on the full sum.
 
 Held within 1e-4 of the largest magnitude (the kernels' gate on the
 card) of the plain versions (``lut_dequant_matmul_gated_ref``,
@@ -39,6 +40,7 @@ from repro_torch.kernels.lut_dequant_matmul.ref import (
 F32 = torch.float32
 GATE = 1e-4          # chip_smoke.py's bound for float outputs
 SMS = 132            # an H100's SMs, for the split plans
+KLANES = 256 // (GATED_COLS // 4)   # decode block: threads along K
 ALL_CODES = torch.arange(256, dtype=torch.uint8)
 
 
@@ -123,27 +125,28 @@ def emulate_tiled(xv, x_exact, wg, wu, kps, act):
 
 
 def emulate_skinny(xv, wg, wu, kps, act):
-    """The decode path on decoded float32 operands: 16 k-lanes a block,
-    each summing its rows in order (x * w, then +), lanes 2w and 2w + 1
-    added, the 8 warps in order, the cluster's blocks in rank order."""
+    """The decode path on decoded float32 operands: ``KLANES`` k-lanes a
+    block, each summing its rows in order (x * w, then +); with 16 of
+    them lanes 2w and 2w + 1 added first; the 8 warps in order, then the
+    cluster's blocks in rank order."""
     m, k = xv.shape
-    lanes = torch.arange(16)
+    lanes = torch.arange(KLANES)
     outs = []
     for w in (wg, wu):
         total = torch.zeros(m, w.shape[1])
         for kb in range(0, k, kps):
             ke = min(k, kb + kps)
-            acc = torch.zeros(16, m, w.shape[1])
-            for r0 in range(kb, ke, 16):
+            acc = torch.zeros(KLANES, m, w.shape[1])
+            for r0 in range(kb, ke, KLANES):
                 rows = r0 + lanes
                 live = rows < ke
                 rows = torch.where(live, rows, 0)
-                xs = torch.where(live[None], xv[:, rows], 0.0)      # [m, 16]
+                xs = torch.where(live[None], xv[:, rows], 0.0)  # [m, lanes]
                 acc = acc + xs.t()[:, :, None] * w[rows][:, None, :]
-            pairs = acc[0::2] + acc[1::2]
+            warps = acc[0::2] + acc[1::2] if KLANES == 16 else acc
             block = torch.zeros_like(total)
             for q in range(8):
-                block = block + pairs[q]
+                block = block + warps[q]
             total = total + block
         outs.append(total)
     return apply_activation(outs[0], act) * outs[1]
@@ -237,8 +240,8 @@ def test_passes_skip_only_the_exact_x_lo():
 
 
 @pytest.mark.parametrize("m,k,n,want", [
-    (8, 2048, 6144, (2, 1024)),      # the serving decode shape
-    (1, 2048, 6144, (2, 1024)),
+    (8, 2048, 6144, (4, 512)),       # the serving decode shape
+    (1, 2048, 6144, (4, 512)),
     (8, 600, 70, (2, 320)),
     (3, 100, 130, (1, 128)),         # too short to split
     (8, 4096, 64, (8, 512)),         # one slab: the largest cluster
