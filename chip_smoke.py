@@ -287,13 +287,18 @@ def sdpa_prefill(qf, kd, vd, table, q_start, kv_lens, bs: int):
     return lambda: sdpa(qs, kk, vv, attn_mask=mask)
 
 
+def lut_launch_module():
+    """The LUT GEMMs' launch module (the package's ``lut_dequant_matmul``
+    is the wrapper function)."""
+    return importlib.import_module(
+        "repro_torch.kernels.lut_dequant_matmul.lut_dequant_matmul")
+
+
 def gated_plan_label(m: int, k: int, n: int) -> str:
     """The split plan the gated wrappers launch for these shapes."""
     import torch
 
-    # the launch module (the package's ``lut_dequant_matmul`` is the wrapper)
-    lk = importlib.import_module(
-        "repro_torch.kernels.lut_dequant_matmul.lut_dequant_matmul")
+    lk = lut_launch_module()
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     splits, kps = lk.gated_plan(m, k, n, sms)
@@ -312,9 +317,7 @@ def gated_build_report(log: str) -> None:
 
     import torch
 
-    # the launch module (the package's ``lut_dequant_matmul`` is the wrapper)
-    lk = importlib.import_module(
-        "repro_torch.kernels.lut_dequant_matmul.lut_dequant_matmul")
+    lk = lut_launch_module()
 
     kinds = {"f": ("float32", torch.float32),
              "13__nv_bfloat16": ("bfloat16", torch.bfloat16),

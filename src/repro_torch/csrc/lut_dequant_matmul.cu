@@ -71,7 +71,7 @@
 //   fragments.  Split-K (a workspace and the reduce pass) only when the
 //   tiles fill under half the SMs.
 // Rows whose stride is not a multiple of 16 bytes (ragged K or N) are
-// staged element by element instead of by cp.async.
+// staged byte by byte instead of by cp.async.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -541,17 +541,14 @@ cudaError_t smem_limit(Kern kern, int bytes, bool (&done)[16]) {
 }
 
 // --------------------------------------------------- gated: decode --
-// M <= 8.  A block (256 threads) owns GS_N columns of each weight and the
-// rows [kb, ke) of K; thread t owns columns 4 (t % GS_CG) .. +3 and k-lane
-// t / GS_CG, i.e. rows kb + k-lane + GS_KL i (GS_N = 128: lane l of warp
-// w owns columns 4l .. 4l + 3 and k-lane w, so a warp's code read and
-// each 16-byte copy of a row fill whole 128-byte lines).  A ring stage
+// M <= 8.  A block (8 warps) owns GS_N = 128 columns of each weight and
+// the rows [kb, ke) of K; lane l of warp w owns columns 4l .. 4l + 3 and
+// k-lane w, i.e. rows kb + w + 8 i, so a warp's code read and each
+// 16-byte copy of a row fill whole 128-byte lines.  A ring stage
 // holds GS_K rows of both weights' codes and the same rows of x as
 // they are in device memory; x is converted to float32 [k][m] one stage
 // ahead of its use, into one of two small buffers.
-constexpr int GS_N = 128;      // columns of a block
-constexpr int GS_CG = GS_N / 4;      // column groups of 4: threads along N
-constexpr int GS_KL = 256 / GS_CG;   // k-lanes: threads along K
+constexpr int GS_N = 128;      // columns of a block: 4 a lane
 constexpr int GS_K = 32;       // k rows of a ring stage
 constexpr int GS_STAGES = 8;   // ring depth
 
@@ -582,7 +579,6 @@ __global__ void __launch_bounds__(256, 2) gated_skinny(Args a) {
 
   const XT* x = static_cast<const XT*>(a.x);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int cgp = tid % GS_CG, kl = tid / GS_CG;
   const int n0 = blockIdx.x * GS_N;
   // blockIdx.z is the block's rank in its cluster: cluster dims (1, 1, z)
   const int kb = blockIdx.z * a.k_per_split;
@@ -620,7 +616,7 @@ __global__ void __launch_bounds__(256, 2) gated_skinny(Args a) {
     sm.xf[s & 1][r][m] =
         (m < a.M && k0 + r < ke) ? load_x(row, r, sm.xlut) : 0.0f;
   };
-  static_assert(SM * GS_K == 256, "one x element a thread a stage");
+  static_assert(SM * GS_K == 256 && GS_N == 128, "the thread layout above");
 
 #pragma unroll
   for (int s = 0; s < GS_STAGES - 1; ++s) load(s);
@@ -648,13 +644,13 @@ __global__ void __launch_bounds__(256, 2) gated_skinny(Args a) {
     const int rows = min(GS_K, ke - kb - s * GS_K);
     const auto& st = sm.u.ring[s % GS_STAGES];
 #pragma unroll
-    for (int i = 0; i < GS_K / GS_KL; ++i) {
-      const int r = kl + GS_KL * i;
+    for (int i = 0; i < GS_K / 8; ++i) {
+      const int r = warp + 8 * i;
       if (r >= rows) break;
       uint32_t cw[NW];
 #pragma unroll
       for (int w = 0; w < NW; ++w)
-        cw[w] = *reinterpret_cast<const uint32_t*>(&st.codes[w][r][cgp * 4]);
+        cw[w] = *reinterpret_cast<const uint32_t*>(&st.codes[w][r][lane * 4]);
       const float4 x0 = *reinterpret_cast<const float4*>(&sm.xf[s & 1][r][0]);
       const float4 x1 = *reinterpret_cast<const float4*>(&sm.xf[s & 1][r][4]);
       const float xv[SM] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
@@ -674,24 +670,13 @@ __global__ void __launch_bounds__(256, 2) gated_skinny(Args a) {
   cp_async_wait<0>();
   __syncthreads();     // the ring is dead: red takes its place
 
-  // (16 k-lanes: lanes 2w and 2w + 1 by shuffle) then the 8 warps in order
-  if constexpr (GS_KL == 16) {
+  // the 8 warps' (k-lanes') sums, added in order
 #pragma unroll
-    for (int w = 0; w < NW; ++w)
+  for (int w = 0; w < NW; ++w)
 #pragma unroll
-      for (int m = 0; m < SM; ++m)
+    for (int m = 0; m < SM; ++m)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          acc[w][m][j] += __shfl_xor_sync(0xffffffffu, acc[w][m][j], 16);
-  }
-  if (lane < GS_CG) {
-#pragma unroll
-    for (int w = 0; w < NW; ++w)
-#pragma unroll
-      for (int m = 0; m < SM; ++m)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sm.u.red[w][warp][m][cgp * 4 + j] = acc[w][m][j];
-  }
+      for (int j = 0; j < 4; ++j) sm.u.red[w][warp][m][lane * 4 + j] = acc[w][m][j];
   __syncthreads();
   for (int p = tid; p < NW * SM * GS_N; p += 256) {
     const int w = p / (SM * GS_N), mc = p % (SM * GS_N);

@@ -8,11 +8,10 @@ TF32, v - hi), which for a code is the split of its table entry;
 bfloat16 x is exact in TF32.  Per 8-row k step, in k-tile order, the
 kernel adds x_hi*W_hi, x_hi*W_lo and, unless x is bfloat16, x_lo*W_hi
 (``lut_dequant_matmul.passes``); split-K partials are summed in split
-order.  Decode (M <= 8, ``gated_skinny``): float32 FMA; k-lane l of a
-block (one a warp for a 128-column block) sums rows kb + l + 8 t in
-order, then the 8 warps are added in order, then the blocks of a
-cluster in rank order (``gated_plan``'s splits), and the epilogue runs
-once on the full sum.
+order.  Decode (M <= 8, ``gated_skinny``): float32 FMA; warp l of a
+128-column block sums rows kb + l + 8 t in order, then the 8 warps are
+added in order, then the blocks of a cluster in rank order
+(``gated_plan``'s splits), and the epilogue runs once on the full sum.
 
 Held within 1e-4 of the largest magnitude (the kernels' gate on the
 card) of the plain versions (``lut_dequant_matmul_gated_ref``,
@@ -40,7 +39,7 @@ from repro_torch.kernels.lut_dequant_matmul.ref import (
 F32 = torch.float32
 GATE = 1e-4          # chip_smoke.py's bound for float outputs
 SMS = 132            # an H100's SMs, for the split plans
-KLANES = 256 // (GATED_COLS // 4)   # decode block: threads along K
+KLANES = 8           # decode block: one k-lane a warp (128 columns)
 ALL_CODES = torch.arange(256, dtype=torch.uint8)
 
 
@@ -125,10 +124,9 @@ def emulate_tiled(xv, x_exact, wg, wu, kps, act):
 
 
 def emulate_skinny(xv, wg, wu, kps, act):
-    """The decode path on decoded float32 operands: ``KLANES`` k-lanes a
-    block, each summing its rows in order (x * w, then +); with 16 of
-    them lanes 2w and 2w + 1 added first; the 8 warps in order, then the
-    cluster's blocks in rank order."""
+    """The decode path on decoded float32 operands: 8 k-lanes (warps) a
+    block, each summing its rows in order (x * w, then +), then added in
+    order, then the cluster's blocks in rank order."""
     m, k = xv.shape
     lanes = torch.arange(KLANES)
     outs = []
@@ -143,10 +141,9 @@ def emulate_skinny(xv, wg, wu, kps, act):
                 rows = torch.where(live, rows, 0)
                 xs = torch.where(live[None], xv[:, rows], 0.0)  # [m, lanes]
                 acc = acc + xs.t()[:, :, None] * w[rows][:, None, :]
-            warps = acc[0::2] + acc[1::2] if KLANES == 16 else acc
             block = torch.zeros_like(total)
-            for q in range(8):
-                block = block + warps[q]
+            for q in range(KLANES):
+                block = block + acc[q]
             total = total + block
         outs.append(total)
     return apply_activation(outs[0], act) * outs[1]
