@@ -50,8 +50,8 @@
 //   rank 0 adds the partials of ranks 0, 1, ... from their shared memory
 //   (distributed shared memory, fixed order: deterministic, one launch,
 //   no workspace) and runs the epilogue.  Float32 FMA: a tensor-core body
-//   of the same ring (rows 8-15 of A carrying x_lo) measured no faster,
-//   since the ring's stream, not the arithmetic, sets the pace.
+//   of the same ring (rows 8-15 of A carrying x_lo) measured barely
+//   faster, since the ring's stream, not the arithmetic, sets the pace.
 // - Prefill (M > 8), gated_tiled: bound by 4*M*K*N multiply-adds.  They
 //   run on the tensor cores as mma.sync.m16n8k8 TF32 in split form
 //   (v = hi + lo, hi = v cut to TF32, lo = v - hi; one TF32 pass misses
