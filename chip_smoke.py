@@ -11,10 +11,11 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
      one PyTorch library call computing the same function (a yardstick
      the port never calls), and the bound (the larger of bytes over the
      memory rate and operations over the float32 rate; for the prefill
-     kernels and the gated GEMMs at M > 8 the TF32 tensor-core products
+     kernels and the LUT GEMMs at M > 8 the TF32 tensor-core products
      they compute over the TF32 rate, with the float32 bound printed
-     beside it); the gated GEMMs (#2, #4) at M = 8, 256 and 2048 with
-     their split plan; the paged decode
+     beside it; bf16 for #3/#4's codes-x passes); the four LUT GEMMs
+     (#1-#4) at M = 8, 256 and 2048 with their split plan and the sum of
+     x lib over PR 15's shapes (M = 8 and 2048); the paged decode
      kernels at three shapes (the serving rows, short rows, 8 rows at
      4096 positions) with their split-KV grid and, at the serving grid,
      the fixed cost of a call whose lengths are all 0;
@@ -67,6 +68,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 F32_FLOPS = 67e12               # H100 SXM float32 outside the tensor cores
 TF32_FLOPS = 495e12             # H100 SXM TF32 on the tensor cores, dense
+BF16_FLOPS = 989e12             # H100 SXM bf16 on the tensor cores, dense
+RATES = {"tf32": TF32_FLOPS, "bf16": BF16_FLOPS}
 ARCH = "qwen3-1.7b"
 
 # name -> (source, TPU kernel it replaces)
@@ -185,36 +188,51 @@ def bound_ms(nbytes: float, flops: float,
 
 
 class Tally:
-    """Per-kernel sums over the shapes tested."""
+    """Per-kernel sums over the shapes tested, and for the LUT GEMMs the
+    sums over PR 15's phase-2 shapes (``core``), which compare with the
+    x lib recorded before M = 256 was added."""
 
     def __init__(self):
         self.rows = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
-                             bound_ms=0.0, library_ms=0.0, nbytes=0.0,
-                             flops=0.0, tc_flops=0.0) for k in KERNELS}
+                             bound_ms=0.0, library_ms=0.0, bytes_ms=0.0,
+                             ops_ms=0.0) for k in KERNELS}
+        self.core = {k: [0.0, 0.0] for k in KERNELS}
 
     def add(self, name, err, ms, plain_ms, lib_ms, nbytes, flops, label,
-            tc_flops=None):
+            tc_flops=None, tc_rate=TF32_FLOPS, core=False):
         """``flops``: the function's float32 operations; ``tc_flops``,
-        for a kernel on the TF32 tensor cores, the TF32 operations it
-        computes (its bound), with the float32 bound printed beside it."""
+        for a kernel on the tensor cores, the operations it computes
+        there at ``tc_rate`` (its bound), with the float32 bound printed
+        beside it."""
         r = self.rows[name]
         b, by = bound_ms(nbytes, flops)
         f32 = ""
+        ops = flops / F32_FLOPS * 1e3
         if tc_flops is not None:
             f32 = f", float32 bound {b:.4f} ms ({by})"
-            r["tc_flops"] += tc_flops
-            b, by = bound_ms(nbytes, tc_flops, TF32_FLOPS)
-            by = "TF32 " + by if by == "operations" else by
+            ops = tc_flops / tc_rate * 1e3
+            b, by = bound_ms(nbytes, tc_flops, tc_rate)
+            kind = "TF32" if tc_rate == TF32_FLOPS else "bf16"
+            by = f"{kind} {by}" if by == "operations" else by
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r["ms"] += ms
         r["plain_ms"] += plain_ms
         r["library_ms"] += lib_ms
         r["bound_ms"] += b
-        r["nbytes"] += nbytes
-        r["flops"] += flops
+        r["bytes_ms"] += nbytes / HBM_BYTES_PER_S * 1e3
+        r["ops_ms"] += ops
+        if core:
+            self.core[name][0] += ms
+            self.core[name][1] += lib_ms
         print(f"  {name:26s} {label:34s} err {err:.3e}  kernel {ms:9.4f} ms"
               f"  plain {plain_ms:9.4f} ms  library {lib_ms:9.4f} ms"
               f"  bound {b:8.4f} ms ({by}{f32})", flush=True)
+
+    def print_core(self, names) -> None:
+        for name in names:
+            ms, lib = self.core[name]
+            print(f"  {name}: {ms:.4f} ms over PR 15's shapes, library "
+                  f"{lib:.4f} ms, x lib {ms / lib:.2f}", flush=True)
 
 
 # ----------------------------------------------- prefill attention --
@@ -294,25 +312,28 @@ def lut_launch_module():
         "repro_torch.kernels.lut_dequant_matmul.lut_dequant_matmul")
 
 
-def gated_plan_label(m: int, k: int, n: int) -> str:
-    """The split plan the gated wrappers launch for these shapes."""
+def plan_label(m: int, k: int, n: int, nw: int, transposed=False) -> str:
+    """The split plan the LUT GEMM wrappers launch for these shapes."""
     import torch
 
     lk = lut_launch_module()
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    splits, kps = lk.gated_plan(m, k, n, sms)
+    splits, kps = lk.gemm_plan(m, k, n, sms, nw, transposed)
+    if m <= 8 and transposed:
+        return f"{-(-n // lk.STREAM_COLS)} blocks of 8 x 16 columns"
     if m <= 8:
-        return (f"{-(-n // lk.GATED_COLS)} slabs x cluster of {splits} "
+        return (f"{-(-n // lk.SLAB_COLS)} slabs x cluster of {splits} "
                 f"({kps} rows of K each)")
-    tiles = -(-n // lk.GATED_TILE) * -(-m // lk.GATED_TILE)
+    tiles = -(-n // lk.TILE) * -(-m // lk.TILE)
     return f"{tiles} tiles x {splits} split{'s' if splits > 1 else ''}"
 
 
-def gated_build_report(log: str) -> None:
-    """Registers, spills and dynamic shared memory of each gated GEMM
-    instantiation (#2/#4: decode and prefill paths), from nvcc's
-    ``-Xptxas -v`` output."""
+def gemm_build_report(log: str) -> None:
+    """Registers, spills and dynamic shared memory of each LUT GEMM
+    instantiation (``mm_skinny`` / ``mm_tiled`` over x type and weights,
+    ``mm_tiled`` on codes [N, K] and ``mm_stream_t`` over x type), from
+    nvcc's ``-Xptxas -v`` output."""
     import re
 
     import torch
@@ -322,10 +343,12 @@ def gated_build_report(log: str) -> None:
     kinds = {"f": ("float32", torch.float32),
              "13__nv_bfloat16": ("bfloat16", torch.bfloat16),
              "h": ("uint8 codes", torch.uint8)}
+    paths = {"mm_skinny": "skinny", "mm_tiled": "tiled",
+             "mm_stream_t": "stream_t"}
     fn, spill = None, "no spills"
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\w*(gated_skinny|gated_tiled)"
-                      r"I(\w+?)Li(\d)E", line)
+        m = re.search(r"Compiling entry function '\w*?\d(mm_skinny|mm_tiled|"
+                      r"mm_stream_t)I(\w+?)(?:Li(\d)E)?(?:Lb(\d)E)?EEv", line)
         if m:
             fn, spill = m.groups(), "no spills"
             continue
@@ -334,12 +357,15 @@ def gated_build_report(log: str) -> None:
             spill = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
         m = re.search(r"Used (\d+) registers", line)
         if m and fn:
-            x_name, x_dt = kinds.get(fn[1], (fn[1], None))
-            tiled = fn[0] == "gated_tiled"
-            smem = lk.gated_smem_bytes(tiled, x_dt) if x_dt is not None else "?"
-            print(f"    {fn[0]} x {x_name}, NW={fn[2]}: {m.group(1)} registers, "
-                  f"{spill}, dynamic shared memory {smem} B per block",
-                  flush=True)
+            name, xt, nw, trans = fn
+            x_name, x_dt = kinds.get(xt, (xt, None))
+            nw = int(nw or 1)
+            path = "tiled_t" if trans == "1" else paths[name]
+            layout = ", codes [N, K]" if trans == "1" else ""
+            smem = lk.smem_bytes(path, x_dt, nw) if x_dt is not None else "?"
+            print(f"    {name} x {x_name}, NW={nw}{layout}: {m.group(1)} "
+                  f"registers, {spill}, dynamic shared memory {smem} B per "
+                  f"block", flush=True)
             fn = None
 
 
@@ -499,7 +525,7 @@ def check_kernels(tally: Tally) -> None:
     from repro_torch.kernels.lut_dequant_matmul import (
         lut_dequant_matmul, lut_dequant_matmul_gated)
     from repro_torch.kernels.lut_dequant_matmul.lut_dequant_matmul import (
-        passes as gated_passes)
+        passes)
     from repro_torch.kernels.lut_dequant_matmul.ref import (
         decode_weight, lut_dequant_matmul_gated_ref, lut_dequant_matmul_ref)
 
@@ -517,13 +543,16 @@ def check_kernels(tally: Tally) -> None:
         codes, p = eq.quantize(rnd(*shape, scale=0.02), 7)
         return codes, eq.decode_table(p)
 
-    # float32 FMA in the kernels vs float32 matmul in the plain version:
-    # only the summation order differs, K <= 6144 terms
+    # float32 FMA (M <= 8) or split tensor-core passes (M > 8; bf16 for
+    # the tied unembedding) vs float32 matmul in the plain version, K <=
+    # 6144 terms
     def mm_tol(ref):
         return 1e-4 * max(1.0, ref.abs().max().item())
 
+    # the plain GEMM (#1): a decode step, an engine tail chunk (8 slots x
+    # 32 tokens) and a full chunk, at the q, k/v and down projections
     x_dt = torch.bfloat16     # the full config's compute dtype
-    for m in (8, 2048):
+    for m in (8, 256, 2048):
         for k, n in ((2048, 2048), (2048, 1024), (6144, 2048)):
             x = rnd(m, k, dtype=x_dt)
             c, lut = qweight(k, n)
@@ -539,7 +568,9 @@ def check_kernels(tally: Tally) -> None:
                       time_ms(lambda: lut_dequant_matmul_ref(x, c, lut), flush=flush),
                       time_ms(lambda: torch.matmul(xf, w), flush=flush),
                       m * k * 2 + k * n + 1024 + m * n * 4, 2.0 * m * k * n,
-                      f"M={m} K={k} N={n}")
+                      f"M={m} K={k} N={n}, {plan_label(m, k, n, 1)}",
+                      tc_flops=passes(x_dt) * 2.0 * m * k * n if m > 8 else None,
+                      core=m != 256)
     # tied unembedding: codes [V, D], M = slots
     m, k, n = 8, 2048, 151936
     x = rnd(m, k, dtype=x_dt)
@@ -557,7 +588,8 @@ def check_kernels(tally: Tally) -> None:
               time_ms(lambda: lut_dequant_matmul_ref(x, c, lut, transpose_codes=True)),
               time_ms(lambda: torch.matmul(xf, wt)),
               m * k * 2 + k * n + 1024 + m * n * 4, 2.0 * m * k * n,
-              f"M={m} K={k} N={n} transposed")
+              f"M={m} K={k} N={n} transposed, {plan_label(m, k, n, 1, True)}",
+              core=True)
     del wt, w
 
     # the gated GEMM (#2): a decode step, an engine tail chunk (8 slots x
@@ -582,9 +614,8 @@ def check_kernels(tally: Tally) -> None:
                           flush=flush),
                   time_ms(lambda: torch.matmul(xf, wgu), flush=flush),
                   m * k * 2 + 2 * k * n + 2048 + m * n * 4, 4.0 * m * k * n,
-                  f"M={m} K={k} N={n}, {gated_plan_label(m, k, n)}",
-                  tc_flops=(gated_passes(x_dt) * 4.0 * m * k * n
-                            if m > 8 else None))
+                  f"M={m} K={k} N={n}, {plan_label(m, k, n, 2)}",
+                  tc_flops=passes(x_dt) * 4.0 * m * k * n if m > 8 else None)
         del wgu
 
     # paged attention at the serving width: 8 rows, n_kv 8, g 2, hd 128,
@@ -745,7 +776,7 @@ def check_codes_kernels(tally: Tally) -> None:
     from repro_torch.kernels.lut_dequant_matmul import (
         lut_dequant_matmul_dual, lut_dequant_matmul_dual_gated)
     from repro_torch.kernels.lut_dequant_matmul.lut_dequant_matmul import (
-        passes as gated_passes, split_k)
+        gemm_plan, pass_kind, passes)
     from repro_torch.kernels.lut_dequant_matmul.ref import (
         decode_weight, lut_dequant_matmul_dual_gated_ref,
         lut_dequant_matmul_dual_ref)
@@ -779,8 +810,11 @@ def check_codes_kernels(tally: Tally) -> None:
         """max |decode(out) - decode(ref)| of two code tensors."""
         return (eq.decode_meta(out, qo) - eq.decode_meta(ref, qo)).abs().max().item()
 
-    for m in (8, 2048):
+    # bf16 tensor-core passes at M > 8: both decoded operands split hi + lo
+    codes_tc = dict(tc_rate=RATES[pass_kind(torch.uint8)])
+    for m in (8, 256, 2048):
         xs = {k: act_codes(m, k) for k in (2048, 6144)}
+        tc = passes(torch.uint8) * 2.0 * m if m > 8 else None
         for k, n in ((2048, 2048), (2048, 1024), (6144, 2048)):
             xc, lx, qx = xs[k]
             c, lw, qw = qweight(k, n)
@@ -797,15 +831,16 @@ def check_codes_kernels(tally: Tally) -> None:
                               flush=flush),
                       time_ms(lambda: torch.matmul(xf, wf), flush=flush),
                       m * k + k * n + 2048 + m * n * 4, 2.0 * m * k * n,
-                      f"M={m} K={k} N={n}")
-        # code out (the quantize epilogue); at M = 8 under split-K, so
-        # the encode runs in the reduce pass
+                      f"M={m} K={k} N={n}, {plan_label(m, k, n, 1)}",
+                      tc_flops=tc and tc * k * n, core=m != 256, **codes_tc)
+        # code out (the quantize epilogue); at M = 8 split over a
+        # cluster, so the encode runs on the ranks' summed partials
         k, n = 2048, 2048
         xc, lx, qx = xs[k]
         c, lw, qw = qweight(k, n)
         qo = out_table(lut_dequant_matmul_dual_ref(xc, c, lx, lw))
         args = (xc, c, lx, lw, qx, qw)
-        splits = split_k(m, k, n, False, sms)[0]
+        splits = gemm_plan(m, k, n, sms, 1)[0]
         require(m > 8 or splits > 1, f"M={m}: split-K expected, got {splits}")
         out = lut_dequant_matmul_dual(*args, out_qmeta=qo)
         ref = lut_dequant_matmul_dual_ref(*args, out_qmeta=qo)
@@ -818,8 +853,9 @@ def check_codes_kernels(tally: Tally) -> None:
                           flush=flush),
                   time_ms(lambda: torch.matmul(xf, wf), flush=flush),
                   m * k + k * n + 2048 + 16 + m * n, 2.0 * m * k * n,
-                  f"M={m} K={k} N={n} u8 out, {splits} splits, "
-                  f"{frac:.1e} flipped")
+                  f"M={m} K={k} N={n} u8 out, {plan_label(m, k, n, 1)}, "
+                  f"{frac:.1e} flipped",
+                  tc_flops=tc and tc * k * n, core=m != 256, **codes_tc)
 
     for m in (8, 256, 2048):
         k, n = 2048, 6144
@@ -840,10 +876,10 @@ def check_codes_kernels(tally: Tally) -> None:
                       *args, out_qmeta=qo), flush=flush),
                   time_ms(lambda: torch.matmul(xf, wgu), flush=flush),
                   m * k + 2 * k * n + 3072 + 16 + m * n, 4.0 * m * k * n,
-                  f"M={m} K={k} N={n} u8 out, {gated_plan_label(m, k, n)}, "
+                  f"M={m} K={k} N={n} u8 out, {plan_label(m, k, n, 2)}, "
                   f"{frac:.1e} flipped",
-                  tc_flops=(gated_passes(torch.uint8) * 4.0 * m * k * n
-                            if m > 8 else None))
+                  tc_flops=(passes(torch.uint8) * 4.0 * m * k * n
+                            if m > 8 else None), **codes_tc)
         del wgu
 
     # codes attention at the serving width: 8 rows, n_kv 8, g 2, hd 128,
@@ -1481,7 +1517,7 @@ def main() -> int:
         if name == "flash_prefill":
             prefill_build_report(log)
         if name == "lut_dequant_matmul":
-            gated_build_report(log)
+            gemm_build_report(log)
         if name == "decode_gqa":
             decode_build_report(log)
 
@@ -1491,6 +1527,7 @@ def main() -> int:
         check_kernels(tally)
         check_codes_kernels(tally)
         check_lama_kernels(tally)
+        tally.print_core(("lut_dequant_matmul", "lut_dequant_matmul_dual"))
         phase("phase 3: 2-layer full-width path checks, card vs CPU")
         path_check()
         phase("phase 4: serving full-width qwen3-1.7b, 7-bit codes")
@@ -1518,8 +1555,7 @@ def main() -> int:
     rows = []
     for name, (src, replaces) in KERNELS.items():
         r = tally.rows[name]
-        _, by = (bound_ms(r["nbytes"], r["tc_flops"], TF32_FLOPS)
-                 if r["tc_flops"] else bound_ms(r["nbytes"], r["flops"]))
+        by = "operations" if r["ops_ms"] > r["bytes_ms"] else "bytes"
         launched = path_counts[name].get(name, 0)
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launched,

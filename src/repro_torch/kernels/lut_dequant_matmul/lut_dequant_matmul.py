@@ -3,15 +3,17 @@
 Counterpart of the JAX package's ``lut_dequant_matmul_kernel``,
 ``lut_dequant_matmul_gated_kernel`` and their dual-operand variants
 (``lut_dequant_matmul_dual_kernel``, ``..._dual_gated_kernel``: x as
-uint8 activation codes, optionally uint8 codes out).  There is no M-bucketing ladder and
-no autotuner here: the kernel masks its own ragged edges, so any M, K, N
-runs without padding or a rebuild.  The launch chooses the skinny path
-for M <= 8.  The plain and dual variants split K across blocks (a
-deterministic second pass sums the partials) when the output tiles alone
-cannot fill the card (:func:`split_k`).  The gated variants follow
-:func:`gated_plan`: at M <= 8 the blocks of a column slab split K as one
-thread-block cluster and sum their partials in shared memory, at M > 8
-the tensor-core tiles split K only when they fill under half the SMs.
+uint8 activation codes, optionally uint8 codes out).  There is no
+M-bucketing ladder and no autotuner here: the kernels mask their own
+ragged edges, so any M, K, N runs without padding or a rebuild.  All four
+variants on codes [K, N] run one pair of bodies over their number of
+weights (1: plain and dual, 2: gated), sized by :func:`gemm_plan` from
+shapes alone (so a captured call replays right): at M <= 8 the blocks of
+a column slab split K as one thread-block cluster and sum their partials
+in shared memory, at M > 8 the tensor-core tiles split K, with a reduce
+pass, only when they fill under half the SMs.  The tied
+unembedding (codes [N, K]) streams its code rows at M <= 8 and runs the
+one-weight prefill tiles at M > 8, its code tile staged transposed.
 """
 
 from __future__ import annotations
@@ -27,10 +29,15 @@ from repro_torch.kernels import _build
 NAME = "lut_dequant_matmul"
 ACTS = {None: 0, "gelu": 1, "silu": 2, "relu": 3}
 _SKINNY_M = 8
-GATED_COLS = 128     # columns of a gated decode block
-GATED_TILE = 128     # gated prefill block: 128 x 128 outputs a weight
-K_STEP = 32          # k rows a pipeline stage of the gated kernels holds
+SLAB_COLS = 128      # columns of a decode block, codes [K, N]
+TILE = 128           # prefill block: 128 x 128 outputs a weight
+K_STEP = 32          # k rows a pipeline stage holds
 MAX_CLUSTER = 8      # the portable thread-block cluster size
+STREAM_COLS = 128    # columns of a decode block, codes [N, K]
+# prefill blocks an SM holds: the registers and shared memory of one
+# weight's tile leave room for two
+TILED_BLOCKS_PER_SM = {1: 2, 2: 1}
+PATHS = {"skinny": 0, "tiled": 1, "stream_t": 2, "tiled_t": 3}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -48,8 +55,8 @@ def _lib():
     lib.lut_dequant_matmul_dual_gated_launch.argtypes = (
         [_P] * 12 + [_I] * 7 + [_P])
     lib.lut_dequant_matmul_dual_gated_launch.restype = _I
-    lib.lut_dequant_matmul_gated_smem_bytes.argtypes = [_I, _I]
-    lib.lut_dequant_matmul_gated_smem_bytes.restype = _I
+    lib.lut_dequant_matmul_smem_bytes.argtypes = [_I, _I, _I]
+    lib.lut_dequant_matmul_smem_bytes.restype = _I
     return lib
 
 
@@ -58,55 +65,57 @@ def _num_sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def split_k(m: int, k: int, n: int, transposed: bool, sms: int):
-    """(splits, k_per_split): split K only when the output tiles give
-    fewer blocks than SMs, aiming at two blocks per SM and at least 256
-    of K per split."""
-    if m <= _SKINNY_M:
-        blocks = math.ceil(n / (32 if transposed else 64))
-    else:
-        blocks = math.ceil(n / 128) * math.ceil(m / 128)
-    if blocks >= sms or k < 512:
-        return 1, k
-    splits = min(math.ceil(2 * sms / blocks), k // 256)
-    kps = math.ceil(math.ceil(k / splits) / 16) * 16
-    return math.ceil(k / kps), kps
+def gemm_plan(m: int, k: int, n: int, sms: int, nw: int,
+              transposed: bool = False):
+    """(splits, k_per_split) of ``nw`` weights' GEMM, from shapes alone.
 
-
-def gated_plan(m: int, k: int, n: int, sms: int):
-    """(splits, k_per_split) of the gated kernels, from shapes alone (so a
-    captured call replays right).  M <= 8: the blocks of a 128-column slab
-    split K as one cluster of ``splits`` blocks, doubled while the grid
-    stays within two blocks an SM and each split keeps 256 rows of K, at
-    most 8.  M > 8: split K only when the 128 x 128 tiles fill under half
-    the SMs, to one wave and 512 rows a split at least; a reduce pass
-    sums.  k_per_split is a multiple of the pipeline stage (32 rows)."""
+    M <= 8, codes [K, N]: the blocks of a 128-column slab split K as one
+    cluster of ``splits`` blocks, doubled while the grid stays within two
+    blocks an SM (the decode body's launch bounds, at either ``nw``) and
+    each split keeps 256 rows of K, at most 8.  M <= 8, codes [N, K]: no
+    split (the code rows stream over N).  M > 8: split K only when the
+    128 x 128 tiles fill under half the SMs, to one wave of the blocks
+    the SMs hold (``TILED_BLOCKS_PER_SM``: two of one weight's tiles an
+    SM, one of two weights') with 256 rows of each weight a split at
+    least; a reduce pass sums.  k_per_split is a multiple of the
+    pipeline stage (32 rows)."""
     splits = 1
     if m <= _SKINNY_M:
-        blocks = math.ceil(n / GATED_COLS)
+        if transposed:
+            return 1, k
+        blocks = math.ceil(n / SLAB_COLS)
         while (splits < MAX_CLUSTER and 2 * blocks * splits <= 2 * sms
                and k >= 2 * splits * 256):
             splits *= 2
     else:
-        blocks = math.ceil(n / GATED_TILE) * math.ceil(m / GATED_TILE)
+        blocks = math.ceil(n / TILE) * math.ceil(m / TILE)
         if 2 * blocks <= sms:
-            splits = max(1, min(sms // blocks, k // 512))
+            splits = max(1, min(TILED_BLOCKS_PER_SM[nw] * sms // blocks,
+                                k // (256 * nw)))
     kps = math.ceil(math.ceil(k / splits) / K_STEP) * K_STEP
     return math.ceil(k / kps), kps
 
 
 def passes(x_dtype) -> int:
-    """The TF32 passes the gated prefill kernel computes per multiply-add:
+    """The tensor-core passes the prefill body computes per multiply-add:
     x_hi*W_hi and x_hi*W_lo, plus x_lo*W_hi unless x is bfloat16 (exact
-    in TF32); activation codes (uint8 x) decode to arbitrary float32."""
+    in TF32).  TF32 m16n8k8 for float x; bf16 m16n8k16 for activation
+    codes (uint8 x), both decoded operands split into bf16 hi + lo
+    (:func:`pass_kind`)."""
     return 2 if x_dtype == torch.bfloat16 else 3
 
 
-def gated_smem_bytes(tiled: bool, x_dtype) -> int:
-    """Dynamic shared memory of one gated block: the decode path, or the
-    prefill path for x float32, bfloat16 or uint8 codes."""
+def pass_kind(x_dtype) -> str:
+    """The tensor-core type of the prefill body's passes for this x."""
+    return "bf16" if x_dtype == torch.uint8 else "tf32"
+
+
+def smem_bytes(path: str, x_dtype, nw: int = 1) -> int:
+    """Dynamic shared memory of one block of ``path`` ("skinny",
+    "tiled"; "stream_t", "tiled_t": codes [N, K]) for x float32,
+    bfloat16 or uint8 codes."""
     kind = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}[x_dtype]
-    return int(_lib().lut_dequant_matmul_gated_smem_bytes(int(tiled), kind))
+    return int(_lib().lut_dequant_matmul_smem_bytes(PATHS[path], kind, nw))
 
 
 def _check(t: torch.Tensor, name: str, dtypes, shape=None) -> None:
@@ -153,10 +162,8 @@ def launch(x, codes, lut, qmeta, bias, *, transpose_codes: bool,
     if bias is not None:
         bias = bias.to(torch.float32).contiguous()
         _check(bias, "bias", (torch.float32,), (n,))
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    splits, kps = split_k(m, k, n, transpose_codes, _num_sms(x.device.index or 0))
-    ws = (torch.empty(splits * m * n, dtype=torch.float32, device=x.device)
-          if splits > 1 else None)
+    splits, kps = _plan(m, k, n, 1, x.device, transpose_codes)
+    out, ws = _out_and_ws(m, n, 1, splits, None, x.device)
     err = _lib().lut_dequant_matmul_launch(
         x.data_ptr(), int(x.dtype == torch.bfloat16), codes.data_ptr(),
         lut.data_ptr(), qmeta.data_ptr(),
@@ -184,8 +191,8 @@ def launch_gated(x, codes_g, codes_u, lut_g, lut_u, qmeta_g, qmeta_u, *,
         raise ValueError(decode_mode)
     lut_g, qmeta_g = _tables(lut_g, qmeta_g, alu, x.device)
     lut_u, qmeta_u = _tables(lut_u, qmeta_u, alu, x.device)
-    splits, kps = gated_plan(m, k, n, _num_sms(x.device.index or 0))
-    out, ws = _gated_out_and_ws(m, n, splits, None, x.device)
+    splits, kps = _plan(m, k, n, 2, x.device)
+    out, ws = _out_and_ws(m, n, 2, splits, None, x.device)
     err = _lib().lut_dequant_matmul_gated_launch(
         x.data_ptr(), int(x.dtype == torch.bfloat16), codes_g.data_ptr(),
         codes_u.data_ptr(), lut_g.data_ptr(), lut_u.data_ptr(),
@@ -197,22 +204,19 @@ def launch_gated(x, codes_g, codes_u, lut_g, lut_u, qmeta_g, qmeta_u, *,
     return out
 
 
+def _plan(m, k, n, nw, dev, transposed=False):
+    return gemm_plan(m, k, n, _num_sms(dev.index or 0), nw, transposed)
+
+
 def _out_and_ws(m, n, nw, splits, qmeta_out, dev):
     """The output (uint8 codes with an out qmeta, else float32) and the
-    split-K partial sums."""
+    split-K partial sums of the prefill path; the decode path sums its
+    splits inside the cluster and takes none."""
     out = torch.empty((m, n), device=dev, dtype=(
         torch.uint8 if qmeta_out is not None else torch.float32))
     ws = (torch.empty(nw * splits * m * n, dtype=torch.float32, device=dev)
-          if splits > 1 else None)
+          if splits > 1 and m > _SKINNY_M else None)
     return out, ws
-
-
-def _gated_out_and_ws(m, n, splits, qmeta_out, dev):
-    """As :func:`_out_and_ws` for the gated kernels: the decode path sums
-    its splits inside the cluster, so only the prefill path's split-K
-    takes a workspace."""
-    return _out_and_ws(m, n, 2, splits if m > _SKINNY_M else 1, qmeta_out,
-                       dev)
 
 
 def _out_qmeta(qmeta_out):
@@ -248,7 +252,7 @@ def launch_dual(x_codes, codes, lut_x, lut_w, qmeta_x, qmeta_w, *,
     if bias is not None:
         bias = bias.to(torch.float32).contiguous()
         _check(bias, "bias", (torch.float32,), (n,))
-    splits, kps = split_k(m, k, n, False, _num_sms(x_codes.device.index or 0))
+    splits, kps = _plan(m, k, n, 1, x_codes.device)
     out, ws = _out_and_ws(m, n, 1, splits, out_qmeta, x_codes.device)
     err = _lib().lut_dequant_matmul_dual_launch(
         x_codes.data_ptr(), codes.data_ptr(), lut_x.data_ptr(),
@@ -281,8 +285,8 @@ def launch_dual_gated(x_codes, codes_g, codes_u, lut_x, lut_g, lut_u,
     lut_g, qmeta_g = _tables(lut_g, qmeta_g, alu, dev)
     lut_u, qmeta_u = _tables(lut_u, qmeta_u, alu, dev)
     out_qmeta = _out_qmeta(out_qmeta)
-    splits, kps = gated_plan(m, k, n, _num_sms(dev.index or 0))
-    out, ws = _gated_out_and_ws(m, n, splits, out_qmeta, dev)
+    splits, kps = _plan(m, k, n, 2, dev)
+    out, ws = _out_and_ws(m, n, 2, splits, out_qmeta, dev)
     err = _lib().lut_dequant_matmul_dual_gated_launch(
         x_codes.data_ptr(), codes_g.data_ptr(), codes_u.data_ptr(),
         lut_x.data_ptr(), lut_g.data_ptr(), lut_u.data_ptr(),

@@ -39,7 +39,7 @@ from repro_torch.kernels.lut_dequant_matmul import (
     lut_dequant_matmul, lut_dequant_matmul_dual, lut_dequant_matmul_dual_gated,
     lut_dequant_matmul_gated)
 from repro_torch.kernels.lut_dequant_matmul.lut_dequant_matmul import (
-    gated_plan, split_k)
+    gemm_plan)
 from repro_torch.kernels.lut_dequant_matmul.ref import (
     lut_dequant_matmul_dual_gated_ref, lut_dequant_matmul_dual_ref,
     lut_dequant_matmul_gated_ref, lut_dequant_matmul_ref)
@@ -214,9 +214,9 @@ def test_gated_kernels_take_rows_off_16_byte_boundaries(dev, kind, m):
 @pytest.mark.parametrize("m,k,n", [(5, 2048, 256), (129, 2048, 200)])
 def test_gated_split_encodes_once_after_the_reduce(dev, m, k, n):
     """#4 with an out qmeta where K is split: over a cluster at M <= 8
-    (rank 0 encodes the ranks' summed partials) and over blocks with a
+    (each rank encodes its columns' summed partials) and over blocks with a
     reduce pass at M > 8; an encode per split would disagree."""
-    assert gated_plan(m, k, n, _sms())[0] > 1
+    assert gemm_plan(m, k, n, _sms(), 2)[0] > 1
     gen = _gen(dev, 13 + m)
     _, call, ref, ref_f = _gated_call("dual_gated", m, k, n, "gather", None,
                                       dev, gen, quant=True)
@@ -233,7 +233,7 @@ def test_gated_decode_replays_in_a_cuda_graph(dev, kind):
     the captured tensor equals the plain version on that x."""
     gen = _gen(dev, 55)
     m, k, n = 8, 1024, 512
-    assert gated_plan(m, k, n, _sms())[0] > 1
+    assert gemm_plan(m, k, n, _sms(), 2)[0] > 1
     x, call, ref, _ = _gated_call(kind, m, k, n, "gather", torch.bfloat16,
                                   dev, gen, quant=True)
     side = torch.cuda.Stream()
@@ -253,6 +253,168 @@ def test_gated_decode_replays_in_a_cuda_graph(dev, kind):
         graph.replay()
         torch.cuda.synchronize()
         if kind == "gated":
+            _close(out, ref())
+        else:
+            _codes_close(out, ref())
+
+
+def _plain_call(kind, m, k, n, mode, xdt, dev, gen, quant=False,
+                transposed=False):
+    """Inputs of #1 (``kind`` "plain": x float32 or bfloat16, bias,
+    gelu; codes [N, K] when ``transposed``) or #3 ("dual": activation
+    codes, bias, silu, u8 out with ``quant``) and (x, kernel call, plain
+    call) on them."""
+    codes, lut, qmeta = _qweight((n, k) if transposed else (k, n), dev, gen)
+    b = torch.randn(n, generator=gen, device=dev)
+    if kind == "plain":
+        x = torch.randn(m, k, generator=gen, device=dev).to(xdt)
+        kw = dict(decode_mode=mode, epilogue="gelu", bias=b,
+                  transpose_codes=transposed)
+        call = lambda: lut_dequant_matmul(x, codes, lut, qmeta,
+                                          out_dtype=torch.float32, **kw)
+        ref = lambda: lut_dequant_matmul_ref(x, codes, lut, qmeta, **kw)
+        return x, call, ref
+    xc, lx, qx = _act_codes((m, k), dev, gen)
+    args = (xc, codes, lx, lut, qx, qmeta)
+    kw = dict(decode_mode=mode, epilogue="silu", bias=b)
+    qo = _out_qmeta(lut_dequant_matmul_dual_ref(*args, **kw)) if quant else None
+    call = lambda: lut_dequant_matmul_dual(*args, out_qmeta=qo, **kw)
+    ref = lambda: lut_dequant_matmul_dual_ref(*args, out_qmeta=qo, **kw)
+    return xc, call, ref
+
+
+# the redesigned plain and dual paths' edges (#1/#3 on the one-weight
+# bodies): M at the decode limit (8) and past it (9, 256), K off the
+# 32-row stage, N off the 16-byte row and the 128-column blocks (rows
+# staged byte by byte), both decode modes, float32 and bfloat16 x (#1),
+# float and u8 out (#3)
+PLAIN_EDGES = [
+    (8, 100, 70, "gather", torch.float32),
+    (8, 600, 130, "alu", torch.bfloat16),
+    (8, 2048, 200, "gather", torch.bfloat16),     # a cluster of 8
+    (9, 600, 200, "alu", torch.float32),
+    (9, 100, 130, "gather", torch.bfloat16),
+    (256, 100, 70, "gather", torch.bfloat16),
+    (256, 600, 130, "alu", torch.float32),
+    (256, 2048, 2048, "gather", torch.bfloat16),  # an engine tail chunk
+]
+
+
+@pytest.mark.parametrize("kind", ["plain", "dual"])
+@pytest.mark.parametrize("m,k,n,mode,xdt", PLAIN_EDGES)
+def test_plain_and_dual_kernels_at_the_path_edges(dev, kind, m, k, n, mode,
+                                                  xdt):
+    quant = (m + k) % 2 == 0
+    gen = _gen(dev, m * 5 + k + n)
+    _, call, ref = _plain_call(kind, m, k, n, mode, xdt, dev, gen, quant)
+    out = call()
+    if kind == "dual" and quant:
+        _codes_close(out, ref())
+    else:
+        _close(out, ref())
+
+
+@pytest.mark.parametrize("kind", ["plain", "dual"])
+@pytest.mark.parametrize("m", [8, 200])
+def test_plain_and_dual_kernels_take_rows_off_16_byte_boundaries(dev, kind, m):
+    """x and the codes starting 4 and 1 bytes past an alignment (views
+    into larger tensors): staged byte by byte, same result."""
+    gen = _gen(dev, 70 + m)
+    k, n = 512, 192
+    codes, lut, qmeta = _qweight((k, n), dev, gen)
+    shift = lambda t: torch.cat([t.new_zeros(1), t.flatten()])[1:].view(t.shape)
+    codes2 = shift(codes)
+    assert codes2.data_ptr() % 16 and codes2.is_contiguous()
+    if kind == "plain":
+        x = shift(torch.randn(m, k, generator=gen, device=dev))
+        assert x.data_ptr() % 16
+        out = lut_dequant_matmul(x, codes2, lut, qmeta, epilogue="relu")
+        _close(out, lut_dequant_matmul_ref(x, codes, lut, qmeta,
+                                           epilogue="relu"))
+    else:
+        xc, lx, qx = _act_codes((m, k), dev, gen)
+        out = lut_dequant_matmul_dual(shift(xc), codes2, lx, lut, qx, qmeta)
+        _close(out, lut_dequant_matmul_dual_ref(xc, codes, lx, lut, qx, qmeta))
+
+
+@pytest.mark.parametrize("m,k,n,mode,xdt,off", [
+    (8, 2048, 151936, "gather", torch.bfloat16, False),  # the unembedding
+    (1, 2048, 200, "alu", torch.float32, False),         # N off the block
+    (5, 600, 77, "gather", torch.bfloat16, False),       # K off the step
+    (8, 100, 130, "alu", torch.float32, False),          # K off 16 bytes
+    (8, 512, 300, "gather", torch.bfloat16, True),       # rows off 16 B
+    (3, 4100, 64, "gather", torch.float32, False),       # three x chunks
+])
+def test_transposed_decode_kernel(dev, m, k, n, mode, xdt, off):
+    """The tied unembedding at M <= 8 (codes [N, K], streamed): N ragged
+    to the 128-column block, K ragged to the 64-k step and to 16 bytes,
+    more than one staged x chunk, codes and x off their alignment, and
+    the full vocabulary."""
+    gen = _gen(dev, 31 + n)
+    codes, lut, qmeta = _qweight((n, k), dev, gen)
+    x = torch.randn(m, k, generator=gen, device=dev).to(xdt)
+    b = torch.randn(n, generator=gen, device=dev)
+    if off:
+        shift = lambda t: torch.cat([t.new_zeros(1), t.flatten()])[1:].view(t.shape)
+        codes, x = shift(codes), shift(x)
+        assert codes.data_ptr() % 16 and x.data_ptr() % 16
+    kw = dict(decode_mode=mode, epilogue="silu", bias=b, transpose_codes=True)
+    out = lut_dequant_matmul(x, codes, lut, qmeta, out_dtype=torch.float32, **kw)
+    _close(out, lut_dequant_matmul_ref(x, codes, lut, qmeta, **kw))
+
+
+@pytest.mark.parametrize("m,k,n,mode,xdt,off", [
+    (9, 600, 200, "gather", torch.bfloat16, False),
+    (256, 100, 70, "alu", torch.float32, False),       # K off 16 bytes
+    (200, 2048, 64, "gather", torch.bfloat16, False),  # split-K
+    (130, 512, 130, "alu", torch.bfloat16, True),      # rows off 16 B
+])
+def test_transposed_prefill_kernel(dev, m, k, n, mode, xdt, off):
+    """The tied unembedding at M > 8 (codes [N, K] staged transposed in
+    the one-weight prefill tile): ragged M, K and N, split-K, codes and x
+    off their alignment."""
+    gen = _gen(dev, 41 + m)
+    codes, lut, qmeta = _qweight((n, k), dev, gen)
+    x = torch.randn(m, k, generator=gen, device=dev).to(xdt)
+    b = torch.randn(n, generator=gen, device=dev)
+    if off:
+        shift = lambda t: torch.cat([t.new_zeros(1), t.flatten()])[1:].view(t.shape)
+        codes, x = shift(codes), shift(x)
+        assert codes.data_ptr() % 16 and x.data_ptr() % 16
+    kw = dict(decode_mode=mode, epilogue="gelu", bias=b, transpose_codes=True)
+    out = lut_dequant_matmul(x, codes, lut, qmeta, out_dtype=torch.float32, **kw)
+    _close(out, lut_dequant_matmul_ref(x, codes, lut, qmeta, **kw))
+
+
+@pytest.mark.parametrize("kind,transposed", [("plain", False), ("dual", False),
+                                             ("plain", True)])
+def test_plain_decode_replays_in_a_cuda_graph(dev, kind, transposed):
+    """#1 and #3 at decode (a cluster plan) and the tied unembedding are
+    sized from shapes alone: a call captured in a CUDA graph and replayed
+    after new x is written into the captured tensor equals the plain
+    version on that x."""
+    gen = _gen(dev, 57)
+    m, k, n = 8, 1024, 512
+    assert transposed or gemm_plan(m, k, n, _sms(), 1)[0] > 1
+    x, call, ref = _plain_call(kind, m, k, n, "gather", torch.bfloat16, dev,
+                               gen, quant=True, transposed=transposed)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                  # build, load, warm up
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for seed in (1, 2, 3):
+        g2 = _gen(dev, seed)
+        if kind == "plain":
+            x.copy_(torch.randn(m, k, generator=g2, device=dev))
+        else:
+            x.copy_(torch.randint(0, 256, (m, k), generator=g2, device=dev))
+        graph.replay()
+        torch.cuda.synchronize()
+        if kind == "plain":
             _close(out, ref())
         else:
             _codes_close(out, ref())
@@ -464,11 +626,11 @@ def test_lut_dequant_matmul_dual_kernel(dev, m, k, n, mode, epi, bias, quant):
 
 
 def test_dual_split_k_encodes_once_after_the_reduce(dev):
-    """Split-K with an out qmeta: the encode runs in the reduce pass on
-    the summed partials (an encode per split would disagree)."""
+    """Split-K with an out qmeta: each rank of the cluster encodes, for
+    its columns, the ranks' summed partials (an encode per split would
+    disagree)."""
     m, k, n = 5, 2048, 256
-    assert split_k(m, k, n, False, torch.cuda.get_device_properties(0)
-                   .multi_processor_count)[0] > 1
+    assert gemm_plan(m, k, n, _sms(), 1)[0] > 1
     gen = _gen(dev, 11)
     xc, lx, qx = _act_codes((m, k), dev, gen)
     codes, lut, qmeta = _qweight((k, n), dev, gen)

@@ -5,7 +5,8 @@
 
 Times ``lut_dequant_matmul`` (#1), ``..._gated`` (#2), ``..._dual`` (#3)
 and ``..._dual_gated`` (#4) at ``chip_smoke.py``'s phase-2 shapes of
-qwen3-1.7b (bf16 x; #3/#4 on activation codes, #4 with u8 out), each
+qwen3-1.7b (M = 8, 256 and 2048; bf16 x, and #1 once with float32 x;
+#3/#4 on activation codes, #4 with u8 out), each
 call between CUDA events after the stream slept while the host enqueued
 it, a 64 MiB buffer overwritten first so the codes come from device
 memory.  Prints the card's name and power limit, then one JSON line:
@@ -87,7 +88,7 @@ def main() -> int:
     def run(name, label, fn):
         out[f"{name} {label}"] = time_ms(fn, args.iters, flush)
 
-    for m in (8, 2048):
+    for m in (8, 256, 2048):
         x = rnd(m, 6144).to(torch.bfloat16)
         xcs = act(m, 6144)
         for k, n in DENSE:
@@ -103,6 +104,11 @@ def main() -> int:
         run("#3", f"M={m} K=2048 N=2048 u8 out",
             lambda: lut_dequant_matmul_dual(xc, c, xcs[1], lut, xcs[2], qm,
                                             out_qmeta=xcs[2]))
+        # float32 x: three TF32 passes on the one-weight prefill body,
+        # beside #3's three bf16 passes on the same shape
+        xf = x[:, :2048].float()
+        run("#1", f"M={m} K=2048 N=2048 f32 x",
+            lambda: lut_dequant_matmul(xf, c, lut, out_dtype=f32))
     c, lut, _ = weight(151936, K)
     x8 = rnd(8, K).to(torch.bfloat16)
     run("#1", f"M=8 K={K} N=151936 transposed",
