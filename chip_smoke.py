@@ -5,7 +5,8 @@
 
 Phases (any failed check exits non-zero; nothing is caught and passed):
   1. the card's name and power limit; build every CUDA kernel from
-     ``src/repro_torch/csrc`` (one nvcc per source, in parallel);
+     ``src/repro_torch/csrc`` (one nvcc per source, in parallel), with
+     each source's nvcc seconds;
   2. each kernel against its plain PyTorch version on the card, at the
      shapes the serving paths give it, with times: kernel, plain version,
      one PyTorch library call computing the same function (a yardstick
@@ -18,7 +19,13 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
      x lib over PR 15's shapes (M = 8 and 2048); the paged decode
      kernels at three shapes (the serving rows, short rows, 8 rows at
      4096 positions) with their split-KV grid and, at the serving grid,
-     the fixed cost of a call whose lengths are all 0;
+     the fixed cost of a call whose lengths are all 0; the contiguous
+     decode (#9, on the same split-KV body) at the serving rows over a
+     768-position cache with its split grid and x lib; then #5-#9 at two
+     more head layouts (qwen3-14b: n_kv 8, g 5, head_dim 128;
+     minicpm-2b: n_kv 36, g 1, head_dim 64) at the serving chunk and the
+     serving rows, gated and timed like the rest but kept out of the
+     ``kernels`` line, which stays at qwen3-1.7b's shapes;
   3. path checks: a 2-layer, full-width qwen3-1.7b with the same random
      quantized weights runs one prefill chunk and a few decode steps on
      the card (kernels) and on the CPU (plain versions), first with
@@ -39,7 +46,8 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
   6. contiguous serving: the same weights serve 12 requests in three
      prompt-length buckets through ``InferenceServer.generate_bucketed``
      (contiguous cache, flash decode over it), launch counters read
-     around that run; token agreement with ``generate`` is printed;
+     around that run; token agreement with ``generate`` is printed, and
+     a profile gives #9's device time a decode step;
   7. the paper's Lama primitives at card size: ``lama_vector_matrix``
      (Fig. 2, 8-bit v [4096] and M [4096, 8192]) and ``term1_counts``
      (Eq. 1's T1 counters of a 2048 x 2048 projection at 8 rows), exact
@@ -266,7 +274,7 @@ def prefill_shapes(dev, gen, n_pages: int, bs: int):
 
 
 def prefill_work(q_start, kv_lens, s: int, n_kv: int, g: int, bs: int,
-                 passes):
+                 passes, hd: int = 128):
     """(pages read, float32 operations, TF32 operations computed, block-
     tiles) of one prefill call: each query attends min(q_pos + 1,
     kv_len) positions, 4 * hd operations each (QK and PV); the kernel
@@ -281,7 +289,7 @@ def prefill_work(q_start, kv_lens, s: int, n_kv: int, g: int, bs: int,
     qpb = fp.ROWS_PER_BLOCK // g
     tiles = n_kv * sum(-(-min(kl, qs + min(s, z + qpb)) // fp.KV_TILE)
                        for qs, kl in rows if kl > 0 for z in range(0, s, qpb))
-    unit = n_kv * g * 128 * seen
+    unit = n_kv * g * hd * seen
     return pages, 4.0 * unit, 2.0 * unit * sum(passes), tiles
 
 
@@ -370,8 +378,9 @@ def gemm_build_report(log: str) -> None:
 
 
 def prefill_build_report(log: str) -> None:
-    """Registers and spills of each prefill instantiation from nvcc's
-    ``-Xptxas -v`` output, and its dynamic shared memory per block."""
+    """Registers and spills of each prefill instantiation (head_dim, q
+    and page types) from nvcc's ``-Xptxas -v`` output, and its dynamic
+    shared memory per block."""
     import re
 
     import torch
@@ -384,19 +393,21 @@ def prefill_build_report(log: str) -> None:
              "13__nv_bfloat16S1_": ("bfloat16", torch.bfloat16)}
     fn, spill = None, ""
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\w*prefill_kernelI(\w+?)EEv", line)
+        m = re.search(r"Compiling entry function '\w*prefill_kernelILi(\d+)E"
+                      r"(\w+?)EEv", line)
         if m:
-            fn, spill = m.group(1), ""
+            hd, fn, spill = int(m.group(1)), m.group(2), "no spills"
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if m and fn:
+        if m and fn and m.groups() != ("0", "0"):
             spill = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
         m = re.search(r"Used (\d+) registers", line)
         if m and fn in kinds:
             q_name, page = kinds[fn]
-            print(f"    prefill_kernel q {q_name}, pages {str(page)[6:]}: "
-                  f"{m.group(1)} registers, {spill}, dynamic shared memory "
-                  f"{fp.smem_bytes(page)} B per block", flush=True)
+            print(f"    prefill_kernel hd {hd}, q {q_name}, pages "
+                  f"{str(page)[6:]}: {m.group(1)} registers, {spill}, dynamic "
+                  f"shared memory {fp.smem_bytes(page, hd)} B per block",
+                  flush=True)
             fn = None
 
 
@@ -440,14 +451,27 @@ def decode_split(table, lengths, n_kv: int, bs: int) -> str:
             f"{n_split}), {working} working blocks, {merge}")
 
 
-def decode_work(lengths, bs: int, n_kv: int, g: int):
+def contiguous_split(lengths, n_kv: int, s: int) -> str:
+    """The split-KV grid the contiguous wrapper launches over a cache of
+    ``s`` positions (virtual pages of 64), and its working blocks."""
+    dk = importlib.import_module("repro_torch.kernels.decode_gqa.decode_gqa")
+    b = lengths.shape[0]
+    part, n_split = dk.contiguous_plan(b, n_kv, s, dk.sm_count(lengths.device))
+    working = n_kv * sum(-(-min(max(int(n), 0), s) // part)
+                         for n in lengths.tolist())
+    merge = "merge pass" if n_split > 1 else "no merge pass"
+    return (f"{part} positions x {n_split} partitions, grid ({b}, {n_kv}, "
+            f"{n_split}), {working} working blocks, {merge}")
+
+
+def decode_work(lengths, bs: int, n_kv: int, g: int, hd: int = 128):
     """(positions read, page ids read, float32 operations) of one decode
     call: the positions below each row's length (a page past it, or its
     tail, is never needed), the ids of the pages that hold them, and
     4 * hd operations per position and query head (QK and PV)."""
     n = int(lengths.sum())
     pages = sum(-(-int(t) // bs) for t in lengths.tolist())
-    return n, pages, 4.0 * n_kv * g * 128 * n
+    return n, pages, 4.0 * n_kv * g * hd * n
 
 
 def decode_floor(name: str, fn, args, flush) -> None:
@@ -483,20 +507,24 @@ def sdpa_decode(qf, kd, vd, table, lengths):
 
 def decode_build_report(log: str) -> None:
     """Registers, spills and static shared memory of each split-KV decode
-    instantiation and merge pass, from nvcc's ``-Xptxas -v`` output."""
+    instantiation (head_dim, the g instantiation, q and page or cache
+    types: the paged kernels #7/#8 and the contiguous #9 run the same
+    ones) and merge pass, from nvcc's ``-Xptxas -v`` output."""
     import re
 
-    kinds = {"ff": "q float32, pages float32",
-             "13__nv_bfloat16f": "q bfloat16, pages float32",
-             "f13__nv_bfloat16": "q float32, pages bfloat16",
-             "13__nv_bfloat16S1_": "q bfloat16, pages bfloat16",
+    kinds = {"ff": "q float32, KV float32",
+             "13__nv_bfloat16f": "q bfloat16, KV float32",
+             "f13__nv_bfloat16": "q float32, KV bfloat16",
+             "13__nv_bfloat16S1_": "q bfloat16, KV bfloat16",
              "hh": "codes", "Lb0": "float32 out", "Lb1": "codes out"}
     fn, spill = None, ""
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '_ZN5split12(split|merge)"
-                      r"_kernelILi(\d)E(\w+?)EE+v", line)
+                      r"_kernelILi(\d+)E(?:Li(\d)E)?(\w+?)EE+v", line)
         if m:
-            fn, spill = m.groups(), "no spills"
+            kind, hd, g, types = m.groups()
+            fn = (kind, f"hd {hd}" + (f" G={g}" if g else ""), types)
+            spill = "no spills"
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and fn and m.groups() != ("0", "0"):
@@ -504,7 +532,7 @@ def decode_build_report(log: str) -> None:
         m = re.search(r"Used (\d+) registers", line)
         if m and fn:
             smem = re.search(r"(\d+) bytes smem", line)
-            print(f"    {fn[0]}_kernel g={fn[1]} {kinds.get(fn[2], fn[2])}: "
+            print(f"    {fn[0]}_kernel {fn[1]} {kinds.get(fn[2], fn[2])}: "
                   f"{m.group(1)} registers, {spill}, static shared memory "
                   f"{smem.group(1) if smem else 0} B per block", flush=True)
             fn = None
@@ -681,7 +709,8 @@ def check_kernels(tally: Tally) -> None:
     qds = qd.float().reshape(b, n_kv * g, 1, hd)
 
     # contiguous flash decode (#9) at #7's shape: the same rows, lengths
-    # and queries over [B, 768, n_kv, hd] caches, float32 and bfloat16
+    # and queries over [B, 768, n_kv, hd] caches, float32 and bfloat16;
+    # the split-KV body with contiguous addressing
     s_max = 768
     n_read = int(lengths.sum())
     maskc = (torch.arange(s_max, device=dev)[None] < lengths[:, None].long())
@@ -704,8 +733,170 @@ def check_kernels(tally: Tally) -> None:
                   qd.numel() * 2 + n_read * n_kv * hd * kc.element_size() * 2
                   + qd.numel() * 4 + b * 4,
                   4.0 * n_kv * g * hd * n_read,
-                  f"B={b} S={s_max} lengths<=732 {str(cdt)[6:]}")
+                  f"B={b} S={s_max} lengths<=732 {str(cdt)[6:]}, "
+                  f"{contiguous_split(lengths, n_kv, s_max)}")
         del kk, vv
+    r = tally.rows["decode_gqa"]
+    print(f"  decode_gqa: {r['ms']:.4f} ms over its shapes, library "
+          f"{r['library_ms']:.4f} ms, x lib {r['ms'] / r['library_ms']:.2f}",
+          flush=True)
+
+
+# the head layouts beyond qwen3-1.7b's that the attention kernels take:
+# (name, n_kv, g, head_dim) of two configs the reference registers
+LAYOUTS = (("qwen3-14b", 8, 5, 128), ("minicpm-2b", 36, 1, 64))
+
+
+def check_layouts(tally: Tally) -> None:
+    """#5-#9 at LAYOUTS, at the serving chunk (8 rows x 256 queries over
+    64 pages of 16) and the serving rows (8 rows, lengths <= 732, 64
+    pages; #9 over a 768-position cache): float (bf16 q, float32 pages
+    and cache) within 1e-4 of the plain version's scale, codes at most
+    1e-3 of the codes one step off; timed with their bound and library
+    call like phase 2's qwen3-1.7b shapes, in a tally of their own."""
+    import torch
+
+    from repro_torch.core import exponential_quant as eq
+    from repro_torch.kernels.decode_gqa import (decode_gqa, decode_gqa_paged,
+                                                decode_gqa_paged_codes)
+    from repro_torch.kernels.decode_gqa.ref import (
+        decode_gqa_paged_codes_ref, decode_gqa_paged_ref, decode_gqa_ref)
+    from repro_torch.kernels.flash_prefill import flash_prefill as fp
+    from repro_torch.kernels.flash_prefill import (flash_prefill_paged,
+                                                   flash_prefill_paged_codes)
+    from repro_torch.kernels.flash_prefill.ref import (
+        flash_prefill_paged_codes_ref, flash_prefill_paged_ref)
+    from repro_torch.runtime.calibration import ACT_BASES
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    b, bs, max_blk, s_max = 8, 16, 64, 768
+    n_pages = 1 + b * max_blk
+    x_dt = torch.bfloat16
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def close(name, label, out, ref):
+        tol = 1e-4 * max(1.0, ref.abs().max().item())
+        err = (out - ref).abs().max().item()
+        require(err <= tol, f"{name} {label}: max err {err} > {tol}")
+        return err
+
+    def codes(x, stacked=False):
+        """x as codes under its own fit (per KV head when stacked):
+        (codes, table, decoded)."""
+        if stacked:
+            n_kv = x.shape[2]
+            fit = eq.fit(x.permute(2, 0, 1, 3).reshape(n_kv, -1), 7,
+                         bases=ACT_BASES, stacked=True)
+            c = eq.encode_meta(x, eq.pack_qmeta(fit)[:, None, :])
+            lut = eq.decode_table(fit)
+            return c, lut, lut[torch.arange(n_kv, device=dev)[:, None],
+                               c.long()]
+        fit = eq.fit(x, 7, bases=ACT_BASES)
+        c = eq.encode(x, fit)
+        lut = eq.decode_table(fit)
+        return c, lut, lut[c.long()]
+
+    for name, n_kv, g, hd in LAYOUTS:
+        lay = f"{name} (n_kv {n_kv}, g {g}, hd {hd})"
+        kp, vp = rnd(n_pages, bs, n_kv, hd), rnd(n_pages, bs, n_kv, hd)
+        kc, kl, kd = codes(kp, stacked=True)
+        vc, vl, vd = codes(vp, stacked=True)
+        oq = eq.pack_qmeta(eq.fit(rnd(1 << 16) * 0.5, 7, bases=ACT_BASES))
+        label, s, q_start, kv_lens, table = prefill_shapes(
+            dev, gen, n_pages, bs)[0]
+        rows = f"{lay}, {label}"
+        q = rnd(b, s, n_kv, g, hd, dtype=x_dt)
+        args = (q, kp, vp, table, q_start, kv_lens)
+        err = close("flash_prefill_paged", rows, flash_prefill_paged(*args),
+                    flash_prefill_paged_ref(*args))
+        pages, flops, tc_flops, tiles = prefill_work(
+            q_start, kv_lens, s, n_kv, g, bs, fp.passes(x_dt, kp.dtype), hd)
+        tally.add("flash_prefill_paged", err,
+                  time_ms(lambda: flash_prefill_paged(*args), flush=flush),
+                  time_ms(lambda: flash_prefill_paged_ref(*args), flush=flush),
+                  time_ms(sdpa_prefill(q.float(), kp, vp, table, q_start,
+                                       kv_lens, bs), flush=flush),
+                  q.numel() * 2 + pages * bs * n_kv * hd * 4 * 2
+                  + q.numel() * 4 + table.numel() * 4, flops,
+                  f"{rows}, {tiles} block-tiles", tc_flops=tc_flops)
+        qc, ql, qd = codes(rnd(b, s, n_kv, g, hd))
+        args = (qc, kc, vc, ql, kl, vl, oq, table, q_start, kv_lens)
+        out = flash_prefill_paged_codes(*args)
+        ref = flash_prefill_paged_codes_ref(*args)
+        frac = codes_err(out, ref, f"flash_prefill_paged_codes {rows}")
+        pages, flops, tc_flops, tiles = prefill_work(
+            q_start, kv_lens, s, n_kv, g, bs,
+            fp.passes(torch.uint8, torch.uint8), hd)
+        tally.add("flash_prefill_paged_codes",
+                  (eq.decode_meta(out, oq) - eq.decode_meta(ref, oq))
+                  .abs().max().item(),
+                  time_ms(lambda: flash_prefill_paged_codes(*args), flush=flush),
+                  time_ms(lambda: flash_prefill_paged_codes_ref(*args),
+                          flush=flush),
+                  time_ms(sdpa_prefill(qd, kd, vd, table, q_start, kv_lens,
+                                       bs), flush=flush),
+                  qc.numel() * 2 + pages * bs * n_kv * hd * 2
+                  + table.numel() * 4 + (1 + 2 * n_kv) * 1024 + 16, flops,
+                  f"{rows}, {tiles} block-tiles, {frac:.1e} flipped",
+                  tc_flops=tc_flops)
+
+        # the serving rows of decode_shapes over the serving chunk's table
+        lens = torch.tensor([17, 732, 400, 0, 256, 33, 600, 129],
+                            dtype=torch.int32, device=dev)
+        rows = f"{lay}, 8 rows, lengths <= 732, 64 pages"
+        q = rnd(b, n_kv, g, hd, dtype=x_dt)
+        args = (q, kp, vp, table, lens)
+        err = close("decode_gqa_paged", rows, decode_gqa_paged(*args),
+                    decode_gqa_paged_ref(*args))
+        n_pos, pages, flops = decode_work(lens, bs, n_kv, g, hd)
+        tally.add("decode_gqa_paged", err,
+                  time_ms(lambda: decode_gqa_paged(*args), flush=flush),
+                  time_ms(lambda: decode_gqa_paged_ref(*args), flush=flush),
+                  time_ms(sdpa_decode(q.float(), kp, vp, table, lens),
+                          flush=flush),
+                  q.numel() * 2 + n_pos * n_kv * hd * 4 * 2 + q.numel() * 4
+                  + pages * 4 + b * 4, flops,
+                  f"{rows}, {decode_split(table, lens, n_kv, bs)}")
+        qc, ql, qd = codes(rnd(b, n_kv, g, hd))
+        args = (qc, kc, vc, ql, kl, vl, oq, table, lens)
+        out = decode_gqa_paged_codes(*args)
+        ref = decode_gqa_paged_codes_ref(*args)
+        frac = codes_err(out, ref, f"decode_gqa_paged_codes {rows}")
+        tally.add("decode_gqa_paged_codes",
+                  (eq.decode_meta(out, oq) - eq.decode_meta(ref, oq))
+                  .abs().max().item(),
+                  time_ms(lambda: decode_gqa_paged_codes(*args), flush=flush),
+                  time_ms(lambda: decode_gqa_paged_codes_ref(*args),
+                          flush=flush),
+                  time_ms(sdpa_decode(qd, kd, vd, table, lens), flush=flush),
+                  qc.numel() * 2 + n_pos * n_kv * hd * 2 + pages * 4 + b * 4
+                  + (1 + 2 * n_kv) * 1024 + 16, flops,
+                  f"{rows}, {decode_split(table, lens, n_kv, bs)}, "
+                  f"{frac:.1e} flipped")
+        del kp, vp, kc, vc, kd, vd
+
+        kc9, vc9 = rnd(b, s_max, n_kv, hd), rnd(b, s_max, n_kv, hd)
+        args = (q, kc9, vc9, lens)
+        err = close("decode_gqa", rows, decode_gqa(*args), decode_gqa_ref(*args))
+        kk = kc9.permute(0, 2, 1, 3).repeat_interleave(g, 1).contiguous()
+        vv = vc9.permute(0, 2, 1, 3).repeat_interleave(g, 1).contiguous()
+        mask = (torch.arange(s_max, device=dev)[None]
+                < lens[:, None].long())[:, None, None]
+        qs = q.float().reshape(b, n_kv * g, 1, hd)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        tally.add("decode_gqa", err,
+                  time_ms(lambda: decode_gqa(*args), flush=flush),
+                  time_ms(lambda: decode_gqa_ref(*args), flush=flush),
+                  time_ms(lambda: sdpa(qs, kk, vv, attn_mask=mask), flush=flush),
+                  q.numel() * 2 + n_pos * n_kv * hd * 4 * 2 + q.numel() * 4
+                  + b * 4, flops,
+                  f"{lay}, B={b} S={s_max} lengths<=732 float32, "
+                  f"{contiguous_split(lens, n_kv, s_max)}")
+        del kc9, vc9, kk, vv
 
 
 def check_lama_kernels(tally: Tally) -> None:
@@ -1377,6 +1568,45 @@ def serve_contiguous(counts_out: dict, params) -> None:
     print(f"  greedy-token agreement with generate (the Engine, {t_eng:.2f} "
           f"s) {agree:.4f} (printed, not gated); first completion tokens "
           f"{outs[0].tokens[:8].tolist()}", flush=True)
+    profile_contiguous(srv, cfg)
+
+
+def profile_contiguous(srv, cfg) -> None:
+    """Where a contiguous decode step's time goes: one bucket of 4
+    requests of 64-token prompts, 8 new tokens each, through
+    ``generate_bucketed`` under torch.profiler; the device's busy share,
+    #9's device time (its split and merge kernels: no other kernel of
+    the ``split`` namespace runs on this path) a decode step, and the
+    top kernels."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.runtime.server import Request
+
+    rng = np.random.default_rng(3)
+    reqs = [Request(200 + i, rng.integers(0, cfg.vocab_size, 64).astype(np.int32),
+                    max_new_tokens=8) for i in range(4)]
+    srv.generate_bucketed(reqs[:1])          # warm
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        outs = srv.generate_bucketed(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if getattr(e, "self_device_time_total", 0) > 0]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    steps = outs[0].decode_steps
+    dec9 = [e for e in events if "split::" in e.key]
+    ms9 = sum(e.self_device_time_total for e in dec9) / 1e3
+    print(f"  profile (contiguous): wall {wall * 1e3:.1f} ms, device busy "
+          f"{busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}%); {steps} decode "
+          f"steps of 4 rows, {1e3 * outs[0].decode_s / steps:.2f} ms a step; "
+          f"decode_gqa (#9) {ms9:.3f} ms in {sum(e.count for e in dec9)} "
+          f"kernels, {ms9 / steps:.3f} ms a step", flush=True)
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"    {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d} x  "
+              f"{e.key[:90]}", flush=True)
 
 
 # ----------------------------------------- phase 7: Lama primitives --
@@ -1506,6 +1736,9 @@ def main() -> int:
 
     logs = _build.build_all()
     phase(f"phase 1: built {len(logs)} kernel libraries")
+    print("  nvcc seconds a source (all started together): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in sorted(_build.BUILD_SECONDS.items(),
+                                          key=lambda kv: -kv[1])), flush=True)
     for name, log in logs.items():
         regs = [int(w) for line in log.splitlines() if "registers" in line
                 for w, nxt in zip(line.split(), line.split()[1:])
@@ -1528,6 +1761,8 @@ def main() -> int:
         check_codes_kernels(tally)
         check_lama_kernels(tally)
         tally.print_core(("lut_dequant_matmul", "lut_dequant_matmul_dual"))
+        print("  attention kernels at other head layouts:", flush=True)
+        check_layouts(Tally())
         phase("phase 3: 2-layer full-width path checks, card vs CPU")
         path_check()
         phase("phase 4: serving full-width qwen3-1.7b, 7-bit codes")

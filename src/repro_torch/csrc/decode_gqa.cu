@@ -5,57 +5,74 @@
 //     or bfloat16 q and pages, float32 out;
 //   decode_gqa_paged_codes_kernel (#8) (_paged_codes_kernel): the Codes
 //     instantiation below;
-//   decode_gqa_kernel (#9): the contiguous [B, S, n_kv, 128] cache of the
-//     legacy serving path, decode_contig.cuh's body (tiles of 64
-//     positions).  The TPU kernel's block_s=512 grid axis and its padding
-//     of S are TPU tiling: the block walks its row's tiles in a loop and
-//     masks the tail, so any S runs as it is.
+//   decode_gqa_kernel (#9): the contiguous [B, S, n_kv, hd] cache of the
+//     legacy serving path, on the same split-KV body (Contiguous
+//     instantiation below).  The TPU kernel's block_s=512 grid axis and
+//     its padding of S are TPU tiling: the partitions cover the row and
+//     mask its tail, so any S runs as it is.
 //
-// One query per row, masked by lengths[b]: logit = (q . k) / sqrt(128),
+// One query per row, masked by lengths[b]: logit = (q . k) / sqrt(hd),
 // -1e30 where kv_pos >= lengths[b]; the online softmax
 //   m' = max(m, max_t logit); p = exp(logit - m'); corr = exp(m - m');
 //   l' = l*corr + sum_t p;    acc' = acc*corr + sum_t p*v;
 // out = acc / max(l, 1e-30), or zeros where m <= -5e29 (length 0).
 //
-// Paged split-KV body (#7, #8): flash-decoding over pages.
-// Bounds on an H100: the page bytes up to lengths[b] (one read per KV
+// Split-KV body (#7, #8, #9): flash-decoding.
+// Bounds on an H100: the KV bytes up to lengths[b] (one read per KV
 // head; the arithmetic is ~1 FLOP a byte for float32 pages).  At the
 // serving shapes that is a few MB, microseconds at 3.35 TB/s, so the
 // kernel's task is to keep enough loads in flight, on enough SMs:
-// - Grid (B, n_kv, n_split).  A block owns one (row b, KV head h), the G
-//   query heads of h (each page is read once per KV head) and one
-//   partition of part_pages pages: positions [z*P, (z+1)*P), P =
-//   part_pages*bs.  The wrapper chooses part_pages and n_split from
-//   static shapes only (decode_gqa.py split_plan); lengths never reach
-//   the host, so a step can be captured in a CUDA graph.  A block whose
-//   partition starts at or past lengths[b] returns at once and writes
-//   nothing: the merge folds only the partitions that start before the
-//   length, which it reads on the device too.
+// - Grid (B, n_kv, n_split).  A block owns one (row b, KV head h), the g
+//   query heads of h (each position is read once per KV head) and one
+//   partition of `part` positions: [z*part, (z+1)*part).  The wrapper
+//   chooses part and n_split from static shapes only (decode_gqa.py
+//   split_plan); lengths never reach the host, so a step can be captured
+//   in a CUDA graph.  A block whose partition starts at or past
+//   lengths[b] returns at once and writes nothing: the merge folds only
+//   the partitions that start before the length, which it reads on the
+//   device too.  Both kernels clamp the lengths to [0, cap] (cap: the
+//   positions a row holds); the wrappers launch no clamp.
 // - Loads: a warp takes BATCH positions at a time, positions w*BATCH +
-//   k*WARPS*BATCH of its partition; lane u < BATCH looks position u's
-//   page up in block_tables once (any bs from 1 to 64; a position past
-//   the length is clamped to the last live one, in bounds, and masked),
-//   and the warp's lanes take its pool row by shuffle.  Lane i holds
-//   dims 4i..4i+3 of every position: one 16-byte load a lane for
-//   float32 (8 bytes bfloat16, 4 bytes codes), a whole warp per
-//   position, and all 2*BATCH loads of a batch are issued before the
-//   first is used.  No shared memory and no barrier in the loop.
-// - Arithmetic: every lane is busy.  Each lane holds its 4 dims of the G
-//   query rows; a dot is 4 FMAs and a 5-step __shfl_xor_sync butterfly,
+//   k*WARPS*BATCH of its partition; lane u < BATCH finds position u's
+//   pool row once (a position past the length is clamped to the last
+//   live one, in bounds, and masked), and the warp's lanes take it by
+//   shuffle.  Paged: the row is block_tables[b, t / bs] * bs + t % bs
+//   (any bs from 1 to 64).  Lane i holds dims V*i..V*i+V-1 of every
+//   position (V = HD/32): at HD 128 one 16-byte load a lane for float32
+//   (8 bytes bfloat16, 4 bytes codes), at HD 64 one 8-byte load (4, 2);
+//   a whole warp per position either way, and all 2*BATCH loads of a
+//   batch are issued before the first is used.  No shared memory and no
+//   barrier in the loop.  (At HD 64 a half-warp per position would keep
+//   16-byte loads, but then each half holds other positions' scores and
+//   its own partial acc, one more exchange a batch and a fold of the
+//   halves; the warp's 256 contiguous bytes are one coalesced load
+//   either way.)
+// - Arithmetic: every lane is busy.  Each lane holds its V dims of the g
+//   query rows; a dot is V FMAs and a 5-step __shfl_xor_sync butterfly,
 //   which leaves the same sum in every lane, so each lane runs the
 //   online softmax of the warp's rows in registers (the same values in
-//   every lane) and scales its 4 dims of acc.  float32 FMA: at G <= 8
+//   every lane) and scales its V dims of acc.  float32 FMA: at g <= 8
 //   queries a KV head the products are too thin for tensor cores.
+// - Head layouts: HD 64 or 128, and any g from 1 to 8 on the
+//   instantiation G = the next power of two (1, 2, 4, 8).  Rows r >= g
+//   load no q, fold nothing and store nothing (a branch uniform over the
+//   block); q, out and the workspace are strided by g.
 // - The 4 warps of a block merge once, at the end, in shared memory:
 //   M = max_w m_w, l = sum_w l_w*exp(m_w - M), acc likewise.
 // - Merge pass: a second kernel, grid (B, n_kv), folds a row's live
-//   partials from the workspace [B, n_kv, n_split, G, 128 + 2] (acc, m,
+//   partials from the workspace [B, n_kv, n_split, g, HD + 2] (acc, m,
 //   l) with the same rule and flushes.  A second launch rather than a
 //   last-arriving block under a counter: no counter state has to survive
 //   between calls (or be reset inside a captured graph), and the order of
 //   the sums is fixed, so the result does not depend on which block ends
 //   last.  With n_split = 1 the split kernel flushes itself and the merge
 //   is not launched.
+// Contiguous instantiation (#9): block_tables is null.  A [B, S, n_kv,
+// HD] cache is a pool of B*S rows whose row b, position t is pool row
+// b*S + t, so a lane finds its row with no table; cap = S, and split_plan
+// cuts the row into virtual pages of 64 positions.  Everything else (the
+// batches, the register softmax, the merge) is the paged body's, and the
+// same instantiations serve both.
 // Codes instantiation (#8; uint8 q and pages): the block copies the q
 // table and its KV head's K and V tables (3 x 256 floats) into shared
 // memory once, and decodes q, K and V through them right after each
@@ -71,15 +88,12 @@
 #include <type_traits>
 
 #include "dnateq.cuh"
-#include "decode_contig.cuh"
 
 namespace split {
 
-constexpr int HD = 128;
-constexpr int THREADS = 128;     // == HD: the merges give thread d dim d
+constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
 constexpr int BATCH = 8;         // positions a warp loads at once
-constexpr int WS = HD + 2;       // workspace row: acc[HD], m, l
 constexpr unsigned FULL = 0xffffffffu;
 
 struct Codes {
@@ -89,32 +103,69 @@ struct Codes {
   const float* out_qmeta;
 };
 
-// A lane's 4 consecutive elements as they are loaded: 16 bytes of
-// float32, 8 of bfloat16, 4 of uint8 codes.
-template <typename T>
-struct Raw;
+// A lane's V consecutive elements of a row as one load: float32,
+// bfloat16 or uint8 codes, V = 4 (HD 128) or 2 (HD 64).
+template <typename T, int V>
+struct RawOf;
 template <>
-struct Raw<float> { using type = float4; };
+struct RawOf<float, 4> { using type = float4; };
 template <>
-struct Raw<__nv_bfloat16> { using type = uint2; };
+struct RawOf<float, 2> { using type = float2; };
 template <>
-struct Raw<uint8_t> { using type = uint32_t; };
+struct RawOf<__nv_bfloat16, 4> { using type = uint2; };
+template <>
+struct RawOf<__nv_bfloat16, 2> { using type = unsigned; };
+template <>
+struct RawOf<uint8_t, 4> { using type = unsigned; };
+template <>
+struct RawOf<uint8_t, 2> { using type = unsigned short; };
+template <typename T, int V>
+using Raw = typename RawOf<T, V>::type;
 
-template <typename T>
-__device__ __forceinline__ typename Raw<T>::type load4(const T* p) {
-  return __ldg(reinterpret_cast<const typename Raw<T>::type*>(p));
+template <typename T, int V>
+__device__ __forceinline__ Raw<T, V> load(const T* p) {
+  return __ldg(reinterpret_cast<const Raw<T, V>*>(p));
 }
 
 // ... as float32: as they are, converted, or decoded through a table.
-__device__ __forceinline__ float4 to_f4(float4 v, const float*) { return v; }
-__device__ __forceinline__ float4 to_f4(uint2 raw, const float*) {
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 c = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(a.x, a.y, c.x, c.y);
+// The raw type and the count pick the element type (an unsigned holds
+// two bfloat16 or four codes).
+__device__ __forceinline__ float2 bf2(unsigned w) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
 }
-__device__ __forceinline__ float4 to_f4(uint32_t raw, const float* lut) {
-  return make_float4(lut[raw & 255u], lut[(raw >> 8) & 255u],
-                     lut[(raw >> 16) & 255u], lut[raw >> 24]);
+__device__ __forceinline__ void unpack(float4 r, float (&o)[4], const float*) {
+  o[0] = r.x;
+  o[1] = r.y;
+  o[2] = r.z;
+  o[3] = r.w;
+}
+__device__ __forceinline__ void unpack(float2 r, float (&o)[2], const float*) {
+  o[0] = r.x;
+  o[1] = r.y;
+}
+__device__ __forceinline__ void unpack(uint2 r, float (&o)[4], const float*) {
+  const float2 a = bf2(r.x), c = bf2(r.y);
+  o[0] = a.x;
+  o[1] = a.y;
+  o[2] = c.x;
+  o[3] = c.y;
+}
+__device__ __forceinline__ void unpack(unsigned r, float (&o)[2], const float*) {
+  const float2 a = bf2(r);
+  o[0] = a.x;
+  o[1] = a.y;
+}
+__device__ __forceinline__ void unpack(unsigned r, float (&o)[4],
+                                       const float* lut) {
+  o[0] = lut[r & 255u];
+  o[1] = lut[(r >> 8) & 255u];
+  o[2] = lut[(r >> 16) & 255u];
+  o[3] = lut[r >> 24];
+}
+__device__ __forceinline__ void unpack(unsigned short r, float (&o)[2],
+                                       const float* lut) {
+  o[0] = lut[r & 255u];
+  o[1] = lut[r >> 8];
 }
 
 // One output element from its merged (m, l, acc): the reference's flush,
@@ -130,18 +181,21 @@ __device__ __forceinline__ void flush(void* out, size_t i, float m, float l,
   }
 }
 
-// q [B, n_kv, G, HD]; pages [N, bs, n_kv, HD]; block_tables [B, max_blk];
-// lengths [B]; work [B, n_kv, n_split, G, WS] (unused when n_split = 1);
-// out [B, n_kv, G, HD] float32, or uint8 for codes.
-template <int G, typename QT, typename PT>
+// q [B, n_kv, g, HD]; pages [N, bs, n_kv, HD] with block_tables
+// [B, cap / bs], or (block_tables null) a contiguous cache [B, cap, n_kv,
+// HD]; lengths [B]; work [B, n_kv, n_split, g, HD + 2] (unused when
+// n_split = 1); out [B, n_kv, g, HD] float32, or uint8 for codes.
+template <int HD, int G, typename QT, typename PT>
 __global__ void __launch_bounds__(THREADS)
 split_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pages,
              const PT* __restrict__ v_pages,
              const int* __restrict__ block_tables,
              const int* __restrict__ lengths, float* __restrict__ work,
-             void* __restrict__ out, int bs, int max_blk, int part_pages,
+             void* __restrict__ out, int g, int bs, int cap, int part,
              float scale, Codes codes) {
   constexpr bool CODES = std::is_same_v<PT, uint8_t>;
+  constexpr int V = HD / 32;        // dims a lane holds
+  constexpr int WS = HD + 2;        // workspace row: acc[HD], m, l
   __shared__ float s_lut[CODES ? 3 * 256 : 1];     // q, K, V tables
   __shared__ float s_m[WARPS][G], s_l[WARPS][G];
   __shared__ __align__(16) float s_acc[WARPS][G][HD];
@@ -150,10 +204,10 @@ split_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pages,
   const int n_kv = gridDim.y, n_split = gridDim.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   // the lengths' one clamp, here and in the merge: the wrapper has none
-  const int kvl = max(0, min(lengths[b], max_blk * bs));
-  const int t_begin = z * part_pages * bs;
+  const int kvl = max(0, min(lengths[b], cap));
+  const int t_begin = z * part;
   if (n_split > 1 && t_begin >= kvl) return;   // the merge skips it
-  const int t_end = min(t_begin + part_pages * bs, kvl);
+  const int t_end = min(t_begin + part, kvl);
 
   const float* s_ql = s_lut;
   const float* s_kl = s_lut + (CODES ? 256 : 0);
@@ -167,46 +221,55 @@ split_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pages,
     __syncthreads();
   }
 
-  float4 qv[G], acc[G];
-  float m[G], l[G];
+  float qv[G][V], acc[G][V], m[G], l[G];
 #pragma unroll
   for (int r = 0; r < G; ++r) {
-    qv[r] = to_f4(load4(q + (((size_t)b * n_kv + h) * G + r) * HD + 4 * lane),
-                  s_ql);
-    acc[r] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+    for (int i = 0; i < V; ++i) qv[r][i] = acc[r][i] = 0.0f;
     m[r] = -1e30f;
     l[r] = 0.0f;
+    if (r < g)
+      unpack(load<QT, V>(q + (((size_t)b * n_kv + h) * g + r) * HD + V * lane),
+             qv[r], s_ql);
   }
 
-  const int* bt_row = block_tables + (size_t)b * max_blk;
+  const int* bt_row =
+      block_tables ? block_tables + (size_t)b * (cap / bs) : nullptr;
   for (int t0 = t_begin + warp * BATCH; t0 < t_end; t0 += WARPS * BATCH) {
     int row = 0;
     if (lane < BATCH) {
       const int t = min(t0 + lane, t_end - 1);
-      const int pg = t / bs;
-      row = __ldg(bt_row + pg) * bs + (t - pg * bs);
+      if (bt_row) {
+        const int pg = t / bs;
+        row = __ldg(bt_row + pg) * bs + (t - pg * bs);
+      } else {
+        row = b * cap + t;
+      }
     }
-    typename Raw<PT>::type kr[BATCH], vr[BATCH];
+    Raw<PT, V> kr[BATCH], vr[BATCH];
 #pragma unroll
     for (int u = 0; u < BATCH; ++u) {
       const int rw = __shfl_sync(FULL, row, u);
-      const size_t off = ((size_t)rw * n_kv + h) * HD + 4 * lane;
-      kr[u] = load4(k_pages + off);
-      vr[u] = load4(v_pages + off);
+      const size_t off = ((size_t)rw * n_kv + h) * HD + V * lane;
+      kr[u] = load<PT, V>(k_pages + off);
+      vr[u] = load<PT, V>(v_pages + off);
     }
-    float4 kf[BATCH], vf[BATCH];
+    float kf[BATCH][V], vf[BATCH][V];
 #pragma unroll
     for (int u = 0; u < BATCH; ++u) {
-      kf[u] = to_f4(kr[u], s_kl);
-      vf[u] = to_f4(vr[u], s_vl);
+      unpack(kr[u], kf[u], s_kl);
+      unpack(vr[u], vf[u], s_vl);
     }
 #pragma unroll
     for (int r = 0; r < G; ++r) {
+      if (r >= g) continue;
       float s[BATCH];
 #pragma unroll
-      for (int u = 0; u < BATCH; ++u)
-        s[u] = qv[r].x * kf[u].x + qv[r].y * kf[u].y + qv[r].z * kf[u].z +
-               qv[r].w * kf[u].w;
+      for (int u = 0; u < BATCH; ++u) {
+        s[u] = qv[r][0] * kf[u][0];
+#pragma unroll
+        for (int i = 1; i < V; ++i) s[u] += qv[r][i] * kf[u][i];
+      }
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) {
 #pragma unroll
@@ -220,38 +283,40 @@ split_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pages,
       }
       const float m_new = fmaxf(m[r], mx);
       const float corr = expf(m[r] - m_new);
-      float ps = 0.0f;
-      float4 pv = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      float ps = 0.0f, pv[V];
+#pragma unroll
+      for (int i = 0; i < V; ++i) pv[i] = 0.0f;
 #pragma unroll
       for (int u = 0; u < BATCH; ++u) {
         const float p = expf(s[u] - m_new);
         ps += p;
-        pv.x += p * vf[u].x;
-        pv.y += p * vf[u].y;
-        pv.z += p * vf[u].z;
-        pv.w += p * vf[u].w;
+#pragma unroll
+        for (int i = 0; i < V; ++i) pv[i] += p * vf[u][i];
       }
       l[r] = l[r] * corr + ps;
-      acc[r].x = acc[r].x * corr + pv.x;
-      acc[r].y = acc[r].y * corr + pv.y;
-      acc[r].z = acc[r].z * corr + pv.z;
-      acc[r].w = acc[r].w * corr + pv.w;
+#pragma unroll
+      for (int i = 0; i < V; ++i) acc[r][i] = acc[r][i] * corr + pv[i];
       m[r] = m_new;
     }
   }
 
-  // the block's warps, merged once; thread tid then owns dim tid
+  // the block's warps, merged once; thread tid then owns element tid
+  // (row, dim) of each THREADS-wide slice of [g, HD]
 #pragma unroll
   for (int r = 0; r < G; ++r) {
+    if (r >= g) continue;
     if (lane == 0) {
       s_m[warp][r] = m[r];
       s_l[warp][r] = l[r];
     }
-    *reinterpret_cast<float4*>(&s_acc[warp][r][4 * lane]) = acc[r];
+#pragma unroll
+    for (int i = 0; i < V; ++i) s_acc[warp][r][V * lane + i] = acc[r][i];
   }
   __syncthreads();
 #pragma unroll
-  for (int r = 0; r < G; ++r) {
+  for (int e = tid; e < G * HD; e += THREADS) {
+    const int r = e / HD, d = e % HD;
+    if (r >= g) continue;
     float mb = s_m[0][r];
 #pragma unroll
     for (int w = 1; w < WARPS; ++w) mb = fmaxf(mb, s_m[w][r]);
@@ -260,15 +325,15 @@ split_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pages,
     for (int w = 0; w < WARPS; ++w) {
       const float c = expf(s_m[w][r] - mb);
       lb += s_l[w][r] * c;
-      ab += s_acc[w][r][tid] * c;
+      ab += s_acc[w][r][d] * c;
     }
     if (n_split == 1) {
-      flush<CODES>(out, (((size_t)b * n_kv + h) * G + r) * HD + tid, mb, lb,
-                   ab, codes.out_qmeta);
+      flush<CODES>(out, (((size_t)b * n_kv + h) * g + r) * HD + d, mb, lb, ab,
+                   codes.out_qmeta);
     } else {
-      float* wr = work + ((((size_t)b * n_kv + h) * n_split + z) * G + r) * WS;
-      wr[tid] = ab;
-      if (tid == 0) {
+      float* wr = work + ((((size_t)b * n_kv + h) * n_split + z) * g + r) * WS;
+      wr[d] = ab;
+      if (d == 0) {
         wr[HD] = mb;
         wr[HD + 1] = lb;
       }
@@ -276,104 +341,116 @@ split_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pages,
   }
 }
 
-// The merge pass: grid (B, n_kv); thread d folds dim d of each of the G
-// rows over the partitions that start before lengths[b], then flushes.
-template <int G, bool CODES>
+// The merge pass: grid (B, n_kv); thread tid folds element tid (row,
+// dim) of each THREADS-wide slice of [g, HD] over the partitions that
+// start before lengths[b], then flushes.
+template <int HD, bool CODES>
 __global__ void __launch_bounds__(THREADS)
 merge_kernel(const float* __restrict__ work, const int* __restrict__ lengths,
-             void* __restrict__ out, int bs, int max_blk, int part_pages,
-             int n_split, const float* __restrict__ out_qmeta) {
+             void* __restrict__ out, int g, int cap, int part, int n_split,
+             const float* __restrict__ out_qmeta) {
+  constexpr int WS = HD + 2;
   const int b = blockIdx.x, h = blockIdx.y, n_kv = gridDim.y;
-  const int tid = threadIdx.x;
-  const int part = part_pages * bs;
-  const int kvl = max(0, min(lengths[b], max_blk * bs));
+  const int kvl = max(0, min(lengths[b], cap));
   const int n_live = min((kvl + part - 1) / part, n_split);
-  const float* w0 = work + ((size_t)b * n_kv + h) * n_split * G * WS;
-#pragma unroll
-  for (int r = 0; r < G; ++r) {
+  const float* w0 = work + ((size_t)b * n_kv + h) * n_split * g * WS;
+  for (int e = threadIdx.x; e < g * HD; e += THREADS) {
+    const int r = e / HD, d = e % HD;
     const float* wr = w0 + r * WS;
     float mm = -1e30f;
-    for (int i = 0; i < n_live; ++i) mm = fmaxf(mm, wr[(size_t)i * G * WS + HD]);
+    for (int i = 0; i < n_live; ++i) mm = fmaxf(mm, wr[(size_t)i * g * WS + HD]);
     float ll = 0.0f, aa = 0.0f;
     for (int i = 0; i < n_live; ++i) {
-      const float* wi = wr + (size_t)i * G * WS;
+      const float* wi = wr + (size_t)i * g * WS;
       const float c = expf(wi[HD] - mm);
       ll += wi[HD + 1] * c;
-      aa += wi[tid] * c;
+      aa += wi[d] * c;
     }
-    flush<CODES>(out, (((size_t)b * n_kv + h) * G + r) * HD + tid, mm, ll, aa,
+    flush<CODES>(out, (((size_t)b * n_kv + h) * g + r) * HD + d, mm, ll, aa,
                  out_qmeta);
   }
 }
 
-template <int G, typename QT, typename PT>
+// The shapes of one call: B rows, n_kv KV heads of g query heads, head_dim
+// hd; paged (bt non-null, bs positions a page) or contiguous; cap
+// positions a row; partitions of `part` positions.
+struct Shape {
+  int B, n_kv, g, hd, bs, cap, part;
+};
+
+template <int HD, int G, typename QT, typename PT>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* bt, const void* lengths, void* work, void* out,
-                   int B, int n_kv, int bs, int max_blk, int part_pages,
-                   float scale, cudaStream_t st, Codes codes) {
+                   const Shape& s, float scale, cudaStream_t st,
+                   Codes codes) {
   constexpr bool CODES = std::is_same_v<PT, uint8_t>;
-  const int n_split = (max_blk + part_pages - 1) / part_pages;
+  const int n_split = (s.cap + s.part - 1) / s.part;
   const int* ln = static_cast<const int*>(lengths);
-  split_kernel<G, QT, PT><<<dim3(B, n_kv, n_split), THREADS, 0, st>>>(
+  split_kernel<HD, G, QT, PT><<<dim3(s.B, s.n_kv, n_split), THREADS, 0, st>>>(
       static_cast<const QT*>(q), static_cast<const PT*>(k),
       static_cast<const PT*>(v), static_cast<const int*>(bt), ln,
-      static_cast<float*>(work), out, bs, max_blk, part_pages, scale, codes);
+      static_cast<float*>(work), out, s.g, s.bs, s.cap, s.part, scale, codes);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || n_split == 1) return e;
-  merge_kernel<G, CODES><<<dim3(B, n_kv), THREADS, 0, st>>>(
-      static_cast<const float*>(work), ln, out, bs, max_blk, part_pages,
-      n_split, codes.out_qmeta);
+  merge_kernel<HD, CODES><<<dim3(s.B, s.n_kv), THREADS, 0, st>>>(
+      static_cast<const float*>(work), ln, out, s.g, s.cap, s.part, n_split,
+      codes.out_qmeta);
   return cudaGetLastError();
 }
 
+// The instantiation of a head layout: HD as it is, G the next power of
+// two at or above g.
 template <typename QT, typename PT>
-cudaError_t launch_g(int g, const void* q, const void* k, const void* v,
-                     const void* bt, const void* lengths, void* work,
-                     void* out, int B, int n_kv, int bs, int max_blk,
-                     int part_pages, float scale, cudaStream_t st,
-                     Codes codes) {
-  switch (g) {
-#define REPRO_SPLIT_CASE(G)                                                 \
-  case G:                                                                   \
-    return launch<G, QT, PT>(q, k, v, bt, lengths, work, out, B, n_kv, bs,  \
-                             max_blk, part_pages, scale, st, codes);
-    REPRO_SPLIT_CASE(1)
-    REPRO_SPLIT_CASE(2)
-    REPRO_SPLIT_CASE(4)
-    REPRO_SPLIT_CASE(8)
+cudaError_t launch_layout(const void* q, const void* k, const void* v,
+                          const void* bt, const void* lengths, void* work,
+                          void* out, const Shape& s, float scale,
+                          cudaStream_t st, Codes codes) {
+  const int G = s.g <= 1 ? 1 : s.g <= 2 ? 2 : s.g <= 4 ? 4 : 8;
+#define REPRO_SPLIT_CASE(HDV, GV)                                            \
+  if (s.hd == HDV && G == GV)                                                \
+    return launch<HDV, GV, QT, PT>(q, k, v, bt, lengths, work, out, s, scale, \
+                                   st, codes);
+  REPRO_SPLIT_CASE(64, 1)
+  REPRO_SPLIT_CASE(64, 2)
+  REPRO_SPLIT_CASE(64, 4)
+  REPRO_SPLIT_CASE(64, 8)
+  REPRO_SPLIT_CASE(128, 1)
+  REPRO_SPLIT_CASE(128, 2)
+  REPRO_SPLIT_CASE(128, 4)
+  REPRO_SPLIT_CASE(128, 8)
 #undef REPRO_SPLIT_CASE
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return cudaErrorInvalidValue;
 }
 
-inline bool valid_shape(int hd, int bs, int max_blk, int part_pages) {
-  return hd == HD && bs >= 1 && bs <= 64 && max_blk >= 1 && part_pages >= 1 &&
-         (long long)max_blk * bs < (1ll << 30);
+inline bool valid_shape(const Shape& s) {
+  return (s.hd == 64 || s.hd == 128) && s.g >= 1 && s.g <= 8 && s.bs >= 1 &&
+         s.cap >= 1 && s.part >= 1;
 }
 
 }  // namespace split
 
-// q [B, n_kv, g, 128] float32/bfloat16; pages [N, bs, n_kv, 128]
-// float32/bfloat16; block_tables [B, max_blk] and lengths [B] int32
-// (any values: the kernels clamp them to [0, max_blk * bs]);
-// work float32 [B, n_kv, n_split, g, 130] with n_split =
-// ceil(max_blk / part_pages) (may be null when that is 1); out float32
-// of q's shape.  Zero-length rows get zeros.
+// q [B, n_kv, g, hd] float32/bfloat16; pages [N, bs, n_kv, hd]
+// float32/bfloat16 (hd 64 or 128, g 1..8, bs 1..64); block_tables
+// [B, max_blk] and lengths [B] int32 (any values: the kernels clamp them
+// to [0, max_blk * bs]); work float32 [B, n_kv, n_split, g, hd + 2] with
+// n_split = ceil(max_blk / part_pages) (may be null when that is 1); out
+// float32 of q's shape.  Zero-length rows get zeros.
 extern "C" int decode_gqa_paged_launch(
     const void* q, int q_bf16, const void* k_pages, const void* v_pages,
     int kv_bf16, const void* block_tables, const void* lengths, void* work,
     void* out, int B, int n_kv, int g, int hd, int bs, int max_blk,
     int part_pages, float scale, void* stream) {
   using bf16 = __nv_bfloat16;
-  if (!split::valid_shape(hd, bs, max_blk, part_pages))
+  const split::Shape s{B, n_kv, g, hd, bs, max_blk * bs, part_pages * bs};
+  if (!split::valid_shape(s) || bs > 64 || max_blk < 1 ||
+      (long long)max_blk * bs >= (1ll << 30))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const split::Codes none{nullptr, nullptr, nullptr, nullptr};
-#define REPRO_PAGED(QT, PT)                                                   \
-  return (int)split::launch_g<QT, PT>(g, q, k_pages, v_pages, block_tables,   \
-                                      lengths, work, out, B, n_kv, bs,        \
-                                      max_blk, part_pages, scale, st, none)
+#define REPRO_PAGED(QT, PT)                                                  \
+  return (int)split::launch_layout<QT, PT>(q, k_pages, v_pages, block_tables, \
+                                           lengths, work, out, s, scale, st,  \
+                                           none)
   if (q_bf16 && kv_bf16) REPRO_PAGED(bf16, bf16);
   if (q_bf16) REPRO_PAGED(bf16, float);
   if (kv_bf16) REPRO_PAGED(float, bf16);
@@ -381,7 +458,7 @@ extern "C" int decode_gqa_paged_launch(
 #undef REPRO_PAGED
 }
 
-// Codes mode: q_codes [B, n_kv, g, 128] and pages uint8; q_lut [256],
+// Codes mode: q_codes [B, n_kv, g, hd] and pages uint8; q_lut [256],
 // k_lut/v_lut [n_kv, 256], out_qmeta [4] float32; work as above; out
 // uint8 of q's shape.
 extern "C" int decode_gqa_paged_codes_launch(
@@ -390,41 +467,43 @@ extern "C" int decode_gqa_paged_codes_launch(
     const void* out_qmeta, const void* block_tables, const void* lengths,
     void* work, void* out, int B, int n_kv, int g, int hd, int bs,
     int max_blk, int part_pages, float scale, void* stream) {
-  if (!split::valid_shape(hd, bs, max_blk, part_pages))
+  const split::Shape s{B, n_kv, g, hd, bs, max_blk * bs, part_pages * bs};
+  if (!split::valid_shape(s) || bs > 64 || max_blk < 1 ||
+      (long long)max_blk * bs >= (1ll << 30))
     return (int)cudaErrorInvalidValue;
   const split::Codes codes{static_cast<const float*>(q_lut),
                            static_cast<const float*>(k_lut),
                            static_cast<const float*>(v_lut),
                            static_cast<const float*>(out_qmeta)};
-  return (int)split::launch_g<uint8_t, uint8_t>(
-      g, q_codes, k_pages, v_pages, block_tables, lengths, work, out, B, n_kv,
-      bs, max_blk, part_pages, scale, static_cast<cudaStream_t>(stream),
-      codes);
+  return (int)split::launch_layout<uint8_t, uint8_t>(
+      q_codes, k_pages, v_pages, block_tables, lengths, work, out, s, scale,
+      static_cast<cudaStream_t>(stream), codes);
 }
 
-// Contiguous caches: q [B, n_kv, g, 128] float32/bfloat16; k_cache and
-// v_cache [B, S, n_kv, 128] float32/bfloat16; lengths [B] in [0, S];
-// out float32 of q's shape.  Zero-length rows get zeros.
+// Contiguous caches: q [B, n_kv, g, hd] float32/bfloat16; k_cache and
+// v_cache [B, S, n_kv, hd] float32/bfloat16; lengths [B] int32 (any
+// values: the kernels clamp them to [0, S]); partitions of `part`
+// positions; work float32 [B, n_kv, ceil(S / part), g, hd + 2] (may be
+// null when that is 1); out float32 of q's shape.  Zero-length rows get
+// zeros.
 extern "C" int decode_gqa_launch(
     const void* q, int q_bf16, const void* k_cache, const void* v_cache,
-    int kv_bf16, const void* lengths, void* out, int B, int S, int n_kv,
-    int g, int hd, float scale, void* stream) {
-  constexpr int tile = 64;   // cache positions per shared-memory tile
-  if (hd != contig::HD || S < 1) return (int)cudaErrorInvalidValue;
-  const int* ln = static_cast<const int*>(lengths);
-  float* o = static_cast<float*>(out);
+    int kv_bf16, const void* lengths, void* work, void* out, int B, int S,
+    int n_kv, int g, int hd, int part, float scale, void* stream) {
+  using bf16 = __nv_bfloat16;
+  const split::Shape s{B, n_kv, g, hd, 1, S, part};
+  // a lane's pool row b*S + t is an int
+  if (!split::valid_shape(s) || (long long)B * S >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define REPRO_CONTIG_CASE(G)                                                  \
-  case G:                                                                     \
-    return (int)contig::launch_typed<G>(q, q_bf16, k_cache, v_cache, kv_bf16, \
-                                        ln, o, B, n_kv, tile, S, scale, st);
-  switch (g) {
-    REPRO_CONTIG_CASE(1)
-    REPRO_CONTIG_CASE(2)
-    REPRO_CONTIG_CASE(4)
-    REPRO_CONTIG_CASE(8)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef REPRO_CONTIG_CASE
+  const split::Codes none{nullptr, nullptr, nullptr, nullptr};
+#define REPRO_CONTIG(QT, PT)                                                  \
+  return (int)split::launch_layout<QT, PT>(q, k_cache, v_cache, nullptr,      \
+                                           lengths, work, out, s, scale, st,  \
+                                           none)
+  if (q_bf16 && kv_bf16) REPRO_CONTIG(bf16, bf16);
+  if (q_bf16) REPRO_CONTIG(bf16, float);
+  if (kv_bf16) REPRO_CONTIG(float, bf16);
+  REPRO_CONTIG(float, float);
+#undef REPRO_CONTIG
 }

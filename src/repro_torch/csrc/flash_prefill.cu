@@ -11,7 +11,7 @@
 // A chunk of S queries per row, row 0 at absolute position q_start[b],
 // attends the pages named by block_tables with validity
 // kv_pos <= q_start+i and kv_pos < kv_lens[b]; masked logits are -1e30,
-// the scale 1/sqrt(128); online softmax with the reference's recurrence
+// the scale 1/sqrt(hd); online softmax with the reference's recurrence
 //   m' = max(m, max_t logit); p = exp(logit - m'); corr = exp(m - m');
 //   l' = l*corr + sum_t p;    acc' = acc*corr + sum_t p*v,
 // applied per KV tile, and at the flush acc / max(l, 1e-30), or zeros
@@ -37,12 +37,18 @@
 //   TF32, so bf16 q needs no q_lo pass and bf16 pages no K_lo/V_lo pass
 //   (serving: bf16 q, float32 pages -> 2 QK passes, 3 PV passes; P is
 //   never exact, so PV always has its P_lo pass).
-// - Geometry: a block is (row b, KV head h, 64 query rows = 64/g
-//   positions x the g query heads of h), 4 warps; warp w owns rows
-//   16w..16w+15 (one m16 fragment) and keeps its S tile [16 x 32] and
-//   its O [16 x 128] in registers.  The last query tiles of a chunk see
-//   the most positions, so they are launched first (blockIdx.z counts
-//   down).  A block whose row has nothing to do writes its zeros at once.
+// - Geometry: a block is (row b, KV head h, 64 query rows = qpb =
+//   floor(64/g) positions x the g query heads of h), 4 warps; warp w owns
+//   rows 16w..16w+15 (one m16 fragment) and keeps its S tile [16 x 32]
+//   and its O [16 x HD] in registers.  Where g does not divide 64 (g 3,
+//   5, 6, 7) rows qpb*g..63 are padding: their q is zeros, every logit
+//   of theirs is masked, and they are never stored.  The last query
+//   tiles of a chunk see the most positions, so they are launched first
+//   (blockIdx.z counts down).  A block whose row has nothing to do writes
+//   its zeros at once.
+// - Head layouts: HD 64 or 128 (a template parameter: the O fragment
+//   [16 x HD], the staged row strides and the shared memory follow it),
+//   g from 1 to 8.
 // - Staging: KV tiles of 32 positions in a ring of 2 stages (K and V of
 //   a tile in one cp.async group: tile j+1 loads while tile j computes),
 //   filled by cp.async.cg 16-byte copies.  Each copy finds its page as
@@ -54,9 +60,9 @@
 //   not loaded.  q is loaded once, converted (or decoded) to float32.
 //   cp.async rather than TMA: a TMA box needs a host-built tensor map,
 //   and pages of 16 positions are small, scattered boxes.
-// - Bank conflicts: rows are padded (132 words for float32 tiles, 136
-//   halves for bfloat16) so each fragment load of a warp hits 32
-//   distinct banks.
+// - Bank conflicts: rows are padded (HD + 4 words for float32 tiles,
+//   HD + 8 halves for bfloat16; 4 banks on from one row to the next at
+//   either HD) so each fragment load of a warp hits 32 distinct banks.
 // - P feeds PV with no re-layout (no shuffles, no shared-memory tile).
 //   S's accumulator holds columns 2t, 2t+1 of a row where PV's A
 //   fragment wants k = t, t+4; PV sums over its k in any order, so it
@@ -75,6 +81,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -83,13 +90,12 @@
 
 namespace prefill {
 
-constexpr int HD = 128;
 constexpr int ROWS = 64;       // query rows per block: 64/g positions x g
 constexpr int THREADS = 128;   // 4 warps of 16 rows
 constexpr int KT = 32;         // KV positions per tile
 constexpr int STAGES = 2;      // ring depth: tiles of K and V in flight
-constexpr int FS = HD + 4;     // float32 row stride (words): q, decoded tiles
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int PAD = INT_MIN;   // the last visible position of a padding row
 
 struct Codes {
   const float* q_lut;
@@ -103,19 +109,24 @@ constexpr bool is_codes = std::is_same_v<T, uint8_t>;
 template <typename T>
 constexpr bool exact_tf32 = std::is_same_v<T, __nv_bfloat16>;
 
+// float32 row stride (words) of the q tile and the decoded tiles.
+template <int HD>
+__host__ __device__ constexpr int fstride() { return HD + 4; }
+
 // Staged row stride, in elements of the page type.
-template <typename PT>
+template <int HD, typename PT>
 __host__ __device__ constexpr int stride() {
   if constexpr (std::is_same_v<PT, float>) return HD + 4;
   else if constexpr (std::is_same_v<PT, __nv_bfloat16>) return HD + 8;
   else return HD + 16;
 }
 
-template <typename PT>
+template <int HD, typename PT>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * ROWS * FS +
-         (size_t)STAGES * 2 * KT * stride<PT>() * sizeof(PT) +
-         (is_codes<PT> ? sizeof(float) * (2 * KT * FS + 3 * 256) : 0);
+  return sizeof(float) * ROWS * fstride<HD>() +
+         (size_t)STAGES * 2 * KT * stride<HD, PT>() * sizeof(PT) +
+         (is_codes<PT> ? sizeof(float) * (2 * KT * fstride<HD>() + 3 * 256)
+                       : 0);
 }
 
 // x = hi + lo for a TF32 operand; lo is left unset when x is exact in
@@ -187,7 +198,7 @@ __device__ __forceinline__ float4 load4(const uint8_t* p, const float* lut) {
 // page * bs + t % bs, with t / bs as a multiply-high by the block's
 // reciprocal ``inv_bs`` (exact for t < 2^26 and bs <= 64; the launch
 // checks it), and each copy takes its position's row by shuffle.
-template <typename PT>
+template <int HD, typename PT>
 __device__ __forceinline__ void load_tile(PT* sk, PT* sv,
                                           const PT* __restrict__ kp,
                                           const PT* __restrict__ vp,
@@ -197,8 +208,9 @@ __device__ __forceinline__ void load_tile(PT* sk, PT* sv,
                                           int tid) {
   constexpr int EPC = 16 / sizeof(PT);     // elements per 16-byte chunk
   constexpr int CH = HD / EPC;             // chunks per position
-  constexpr int ST = stride<PT>();
+  constexpr int ST = stride<HD, PT>();
   static_assert(KT == 32, "one lane per position of a tile");
+  static_assert(KT * CH % THREADS == 0, "whole copies a thread");
   const int t = t0 + (tid & 31);
   int row = 0;
   if (t < n_pos) {
@@ -218,21 +230,23 @@ __device__ __forceinline__ void load_tile(PT* sk, PT* sv,
 }
 
 // A staged uint8 tile decoded through a table into a float32 tile.
+template <int HD>
 __device__ __forceinline__ void decode_rows(float* dst, const uint8_t* src,
                                             const float* lut, int tid) {
-  constexpr int ST = stride<uint8_t>();
+  constexpr int ST = stride<HD, uint8_t>();
 #pragma unroll
   for (int k = 0; k < KT * HD / 4 / THREADS; ++k) {
     const int c = tid + k * THREADS;
     const int i = c / (HD / 4), d = (c % (HD / 4)) * 4;
-    *reinterpret_cast<float4*>(dst + i * FS + d) = load4(src + i * ST + d, lut);
+    *reinterpret_cast<float4*>(dst + i * fstride<HD>() + d) =
+        load4(src + i * ST + d, lut);
   }
 }
 
 // q [B, S, n_kv, g, HD] (QT float, bf16, or uint8 codes); pages
 // [N, bs, n_kv, HD] (PT float, bf16, or uint8 codes); block_tables
 // [B, max_blk]; out [B, S, n_kv, g, HD] float32, or uint8 for codes.
-template <typename QT, typename PT>
+template <int HD, typename QT, typename PT>
 __global__ void __launch_bounds__(THREADS)
 prefill_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pages,
                const PT* __restrict__ v_pages,
@@ -246,8 +260,9 @@ prefill_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pages,
   constexpr bool KV_EXACT = exact_tf32<PT>;
   // the element type of the tiles the fragments read, and its stride
   using FT = std::conditional_t<CODES, float, PT>;
-  constexpr int SK = CODES ? FS : stride<PT>();
-  constexpr int ST = stride<PT>();
+  constexpr int FS = fstride<HD>();
+  constexpr int SK = CODES ? FS : stride<HD, PT>();
+  constexpr int ST = stride<HD, PT>();
 
   extern __shared__ __align__(16) unsigned char smem[];
   float* s_q = reinterpret_cast<float*>(smem);                 // [ROWS][FS]
@@ -259,6 +274,7 @@ prefill_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pages,
   float* s_vl = s_kl + 256;                                    // [256] codes
   const int b = blockIdx.x, h = blockIdx.y;
   const int qpb = ROWS / g;
+  const int live_rows = qpb * g;   // rows past it are padding
   // the last query tiles see the most positions: they go first
   const int qi0 = (gridDim.z - 1 - blockIdx.z) * qpb;
   if (qi0 >= S) return;
@@ -267,7 +283,10 @@ prefill_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pages,
   const int r0 = warp * 16 + lg, r1 = r0 + 8;
   const int qs = q_start[b];
   const int kvl = min(kv_lens[b], max_blk * bs);
-  const int qp0 = qs + qi0 + r0 / g, qp1 = qs + qi0 + r1 / g;
+  // a row's last visible position; PAD (nothing, and never stored) for a
+  // padding row, so that no flag has to stay live through the tile loop
+  const int qp0 = r0 < live_rows ? qs + qi0 + r0 / g : PAD;
+  const int qp1 = r1 < live_rows ? qs + qi0 + r1 / g : PAD;
   // positions any row of this block may see
   const int q_last = min(S - 1, qi0 + qpb - 1);
   const int n_pos = kvl > 0 ? min(kvl, qs + q_last + 1) : 0;
@@ -286,8 +305,8 @@ prefill_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pages,
     };
     auto load = [&](int jt) {
       if (jt < n_tiles)
-        load_tile(stage(jt, 0), stage(jt, 1), k_pages, v_pages, bt_row,
-                  jt * KT, n_pos, bs, inv_bs, n_kv, h, tid);
+        load_tile<HD>(stage(jt, 0), stage(jt, 1), k_pages, v_pages, bt_row,
+                      jt * KT, n_pos, bs, inv_bs, n_kv, h, tid);
       cp_async_commit();
     };
 #pragma unroll
@@ -300,13 +319,13 @@ prefill_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pages,
       }
       __syncthreads();
     }
-    // the q tile, once: rows past S are zeros
+    // the q tile, once: rows past S and padding rows are zeros
 #pragma unroll 4
     for (int c = tid; c < ROWS * HD / 4; c += THREADS) {
       const int r = c / (HD / 4), d = (c % (HD / 4)) * 4;
       const int qi = qi0 + r / g, gi = r % g;
       float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (qi < S)
+      if (qi < S && r < live_rows)
         v = load4(q + ((((size_t)b * S + qi) * n_kv + h) * g + gi) * HD + d,
                   s_ql);
       *reinterpret_cast<float4*>(s_q + r * FS + d) = v;
@@ -319,8 +338,8 @@ prefill_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pages,
       const FT* sk;
       const FT* sv;
       if constexpr (CODES) {
-        decode_rows(s_kf, stage(jt, 0), s_kl, tid);
-        decode_rows(s_vf, stage(jt, 1), s_vl, tid);
+        decode_rows<HD>(s_kf, stage(jt, 0), s_kl, tid);
+        decode_rows<HD>(s_vf, stage(jt, 1), s_vl, tid);
         __syncthreads();
         sk = s_kf;
         sv = s_vf;
@@ -438,7 +457,7 @@ prefill_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pages,
   for (int half = 0; half < 2; ++half) {
     const int r = half ? r1 : r0;
     const int qi = qi0 + r / g, gi = r % g;
-    if (qi >= S) continue;
+    if (qi >= S || (half ? qp1 : qp0) == PAD) continue;
     const bool seen = (half ? m1 : m0) > -5e29f;
     const float den = fmaxf(half ? l1 : l0, 1e-30f);
     const size_t base =
@@ -459,13 +478,13 @@ prefill_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pages,
   }
 }
 
-template <typename QT, typename PT>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* bt, const void* qs, const void* kl, void* out,
-                   int B, int S, int n_kv, int g, int bs, int max_blk,
-                   float scale, void* stream, Codes codes) {
-  constexpr size_t smem = smem_bytes<PT>();
-  auto kern = prefill_kernel<QT, PT>;
+template <int HD, typename QT, typename PT>
+cudaError_t launch_hd(const void* q, const void* k, const void* v,
+                      const void* bt, const void* qs, const void* kl,
+                      void* out, int B, int S, int n_kv, int g, int bs,
+                      int max_blk, float scale, void* stream, Codes codes) {
+  constexpr size_t smem = smem_bytes<HD, PT>();
+  auto kern = prefill_kernel<HD, QT, PT>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
@@ -479,10 +498,22 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+template <typename QT, typename PT>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* bt, const void* qs, const void* kl, void* out,
+                   int B, int S, int n_kv, int g, int hd, int bs, int max_blk,
+                   float scale, void* stream, Codes codes) {
+  if (hd == 64)
+    return launch_hd<64, QT, PT>(q, k, v, bt, qs, kl, out, B, S, n_kv, g, bs,
+                                 max_blk, scale, stream, codes);
+  return launch_hd<128, QT, PT>(q, k, v, bt, qs, kl, out, B, S, n_kv, g, bs,
+                                max_blk, scale, stream, codes);
+}
+
 // the positions' division by bs in load_tile is exact below 2^26
 inline bool valid_shape(int g, int hd, int bs, int max_blk) {
-  return hd == HD && g >= 1 && ROWS % g == 0 && bs >= 1 && bs <= 64 &&
-         (long long)max_blk * bs < (1ll << 26);
+  return (hd == 64 || hd == 128) && g >= 1 && g <= 8 && bs >= 1 &&
+         bs <= 64 && (long long)max_blk * bs < (1ll << 26);
 }
 
 }  // namespace prefill
@@ -499,7 +530,7 @@ extern "C" int flash_prefill_paged_launch(
 #define REPRO_PREFILL(QT, PT)                                                 \
   return (int)prefill::launch<QT, PT>(q, k_pages, v_pages, block_tables,      \
                                       q_start, kv_lens, out, B, S, n_kv, g,   \
-                                      bs, max_blk, scale, stream, none)
+                                      hd, bs, max_blk, scale, stream, none)
   if (q_bf16 && kv_bf16) REPRO_PREFILL(bf16, bf16);
   if (q_bf16) REPRO_PREFILL(bf16, float);
   if (kv_bf16) REPRO_PREFILL(float, bf16);
@@ -507,7 +538,7 @@ extern "C" int flash_prefill_paged_launch(
 #undef REPRO_PREFILL
 }
 
-// Codes mode: q_codes [B, S, n_kv, g, 128] and pages uint8; q_lut [256],
+// Codes mode: q_codes [B, S, n_kv, g, hd] and pages uint8; q_lut [256],
 // k_lut/v_lut [n_kv, 256] and out_qmeta [4] float32; out uint8 of q's
 // shape.
 extern "C" int flash_prefill_paged_codes_launch(
@@ -524,14 +555,19 @@ extern "C" int flash_prefill_paged_codes_launch(
                              static_cast<const float*>(out_qmeta)};
   return (int)prefill::launch<uint8_t, uint8_t>(
       q_codes, k_pages, v_pages, block_tables, q_start, kv_lens, out, B, S,
-      n_kv, g, bs, max_blk, scale, stream, codes);
+      n_kv, g, hd, bs, max_blk, scale, stream, codes);
 }
 
-// Dynamic shared memory of one block for a page dtype: 0 float32,
-// 1 bfloat16, 2 uint8 codes.
-extern "C" int flash_prefill_smem_bytes(int page_kind) {
+// Dynamic shared memory of one block for a page dtype (0 float32,
+// 1 bfloat16, 2 uint8 codes) at head_dim hd (64 or 128).
+template <int HD>
+static int smem_of(int page_kind) {
   using namespace prefill;
-  if (page_kind == 1) return (int)smem_bytes<__nv_bfloat16>();
-  if (page_kind == 2) return (int)smem_bytes<uint8_t>();
-  return (int)smem_bytes<float>();
+  if (page_kind == 1) return (int)smem_bytes<HD, __nv_bfloat16>();
+  if (page_kind == 2) return (int)smem_bytes<HD, uint8_t>();
+  return (int)smem_bytes<HD, float>();
+}
+
+extern "C" int flash_prefill_smem_bytes(int page_kind, int hd) {
+  return hd == 64 ? smem_of<64>(page_kind) : smem_of<128>(page_kind);
 }

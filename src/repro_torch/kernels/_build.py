@@ -21,6 +21,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 import torch
@@ -34,6 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LAUNCHES: dict[str, int] = {}
+BUILD_SECONDS: dict[str, float] = {}   # source -> nvcc wall seconds
 
 
 # ------------------------------------------------------------ counters --
@@ -73,7 +75,8 @@ def _lib_path(name: str) -> Path:
 
 def _start(name: str):
     """Start nvcc for one source unless its library is already built.
-    Returns (name, final path, temp path, process) or None."""
+    Returns (name, final path, temp path, log file, process, start time)
+    or None."""
     path = _lib_path(name)
     if path.exists():
         return None
@@ -82,14 +85,20 @@ def _start(name: str):
     os.close(fd)
     cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
            str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    return name, path, tmp, proc
+    # nvcc's output goes to a file, not a pipe, so that every build runs
+    # to its end while the others are polled
+    log = tempfile.TemporaryFile(mode="w+", dir=BUILD_DIR)
+    proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                            text=True)
+    return name, path, tmp, log, proc, time.perf_counter()
 
 
 def _finish(job) -> str:
-    name, path, tmp, proc = job
-    out, _ = proc.communicate()
+    name, path, tmp, log, proc, _ = job
+    proc.wait()
+    log.seek(0)
+    out = log.read()
+    log.close()
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
@@ -99,9 +108,17 @@ def _finish(job) -> str:
 
 def build_all(names=KERNEL_SOURCES) -> dict[str, str]:
     """Build every kernel library in parallel; returns nvcc's output
-    (register and shared-memory use from ``-Xptxas -v``) per source.
-    Raises if any build fails."""
+    (register and shared-memory use from ``-Xptxas -v``) per source, and
+    records each build's wall seconds in ``BUILD_SECONDS``.  Raises if
+    any build fails."""
     jobs = [j for j in (_start(n) for n in names) if j is not None]
+    running = list(jobs)
+    while running:
+        for job in [j for j in running if j[4].poll() is not None]:
+            BUILD_SECONDS[job[0]] = time.perf_counter() - job[5]
+            running.remove(job)
+        if running:
+            time.sleep(0.05)
     logs, err = {}, None
     for job in jobs:
         try:

@@ -3,9 +3,12 @@
 ``decode_gqa_paged_kernel``, ``decode_gqa_paged_codes_kernel`` and
 ``decode_gqa_kernel``.
 
-The paged kernels split each row's pages into partitions, one block
-each, and merge the partials in a second pass (flash-decoding);
-:func:`split_plan` sizes the partitions from static shapes only."""
+All three run one split-KV body: each row's positions are cut into
+partitions, one block each, and a second pass merges the partials
+(flash-decoding).  :func:`split_plan` sizes the partitions from static
+shapes only; a contiguous row is planned as virtual pages of
+``VIRTUAL_PAGE`` positions (:func:`contiguous_plan`).  Head layouts:
+those of ``flash_prefill.check_layout``."""
 
 from __future__ import annotations
 
@@ -17,14 +20,14 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_prefill.flash_prefill import (
-    HEAD_DIM, PAGE_DTYPES, check_paged, check_tables)
+    PAGE_DTYPES, check_layout, check_paged, check_tables)
 
 NAME = "decode_gqa_paged"
 CODES_NAME = NAME + "_codes"
 CONTIG_NAME = "decode_gqa"
-GROUPS = (1, 2, 4, 8)
 PART_POSITIONS = 64     # a partition's positions before the grid is thinned
 BLOCKS_PER_SM = 8       # the grid is thinned down to this many blocks an SM
+VIRTUAL_PAGE = 64       # a contiguous row's positions a page, for split_plan
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -47,6 +50,17 @@ def split_plan(b: int, n_kv: int, max_blk: int, bs: int,
     return pages, -(-max_blk // pages)
 
 
+def contiguous_plan(b: int, n_kv: int, s: int, sms: int) -> tuple[int, int]:
+    """(positions per partition, partitions per row) of the contiguous
+    kernel's grid: :func:`split_plan` over the row cut into virtual
+    pages of VIRTUAL_PAGE positions (the last one may end past S; the
+    kernel stops at S).  At phase 6's shape (4 rows, 8 KV heads,
+    S = 768) 64 positions, 12 partitions."""
+    pages, n_split = split_plan(b, n_kv, -(-s // VIRTUAL_PAGE), VIRTUAL_PAGE,
+                                sms)
+    return pages * VIRTUAL_PAGE, n_split
+
+
 @functools.lru_cache(maxsize=None)
 def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
@@ -63,20 +77,29 @@ def _lib():
         [_P] * 11 + [_I] * 7 + [ctypes.c_float, _P])
     lib.decode_gqa_paged_codes_launch.restype = _I
     lib.decode_gqa_launch.argtypes = (
-        [_P, _I, _P, _P, _I, _P, _P] + [_I] * 5 + [ctypes.c_float, _P])
+        [_P, _I, _P, _P, _I, _P, _P, _P] + [_I] * 6 + [ctypes.c_float, _P])
     lib.decode_gqa_launch.restype = _I
     return lib
 
 
+def _workspace(q, n_split: int):
+    """The partials' workspace [B, n_kv, n_split, g, hd + 2], or None
+    when one partition covers a row."""
+    if n_split == 1:
+        return None
+    b, n_kv, g, hd = q.shape
+    return torch.empty((b, n_kv, n_split, g, hd + 2), dtype=torch.float32,
+                       device=q.device)
+
+
 def _check_split(q, k_pages, v_pages, block_tables):
     """What the split kernels need beyond :func:`check_paged`: their head
-    layout, and 16-byte aligned q and pages (a lane loads 4 consecutive
-    elements of a row as one vector).  Returns (pages per partition, the
-    workspace of the partials, or None when one partition covers a
-    row)."""
-    b, n_kv, g, _ = q.shape
-    if g not in GROUPS or k_pages.shape[2] != n_kv:
-        raise ValueError(f"unsupported head layout n_kv={n_kv}, g={g}")
+    layout, and 16-byte aligned q and pages (a lane loads HD/32
+    consecutive elements of a row as one vector).  Returns (pages per
+    partition, the workspace of the partials, or None when one partition
+    covers a row)."""
+    b, n_kv, g, hd = q.shape
+    check_layout(n_kv, g, hd, k_pages.shape[2])
     for t in (q, k_pages, v_pages):
         if t.data_ptr() % 16:
             raise ValueError("q and pages must start on a 16-byte boundary")
@@ -85,15 +108,11 @@ def _check_split(q, k_pages, v_pages, block_tables):
         raise ValueError("block_tables has no columns")
     pages, n_split = split_plan(b, n_kv, max_blk, k_pages.shape[1],
                                 sm_count(q.device))
-    work = None
-    if n_split > 1:
-        work = torch.empty((b, n_kv, n_split, g, HEAD_DIM + 2),
-                           dtype=torch.float32, device=q.device)
-    return pages, work
+    return pages, _workspace(q, n_split)
 
 
 def launch(q, k_pages, v_pages, block_tables, lengths) -> torch.Tensor:
-    """q [B, n_kv, g, 128]; returns float32 of q's shape."""
+    """q [B, n_kv, g, hd]; returns float32 of q's shape."""
     check_paged(q, k_pages, v_pages, block_tables, ((lengths, "lengths"),))
     pages, work = _check_split(q, k_pages, v_pages, block_tables)
     b, n_kv, g, hd = q.shape
@@ -112,7 +131,7 @@ def launch(q, k_pages, v_pages, block_tables, lengths) -> torch.Tensor:
 
 def launch_codes(q_codes, k_pages, v_pages, q_lut, k_lut, v_lut, out_qmeta,
                  block_tables, lengths) -> torch.Tensor:
-    """q_codes [B, n_kv, g, 128] and pages uint8; returns uint8 codes of
+    """q_codes [B, n_kv, g, hd] and pages uint8; returns uint8 codes of
     q's shape."""
     check_paged(q_codes, k_pages, v_pages, block_tables,
                 ((lengths, "lengths"),), dtypes=(torch.uint8,))
@@ -134,9 +153,9 @@ def launch_codes(q_codes, k_pages, v_pages, q_lut, k_lut, v_lut, out_qmeta,
 
 
 def launch_contiguous(q, k_cache, v_cache, lengths) -> torch.Tensor:
-    """q [B, n_kv, g, 128]; caches [B, S, n_kv, 128] float32 or
-    bfloat16; lengths int32 [B] in [0, S].  Returns float32 of q's
-    shape (zeros for a zero-length row)."""
+    """q [B, n_kv, g, hd]; caches [B, S, n_kv, hd] float32 or bfloat16;
+    lengths int32 [B] (any values: the kernels clamp them to [0, S]).
+    Returns float32 of q's shape (zeros for a zero-length row)."""
     b, n_kv, g, hd = q.shape
     for t, name in ((q, "q"), (k_cache, "k_cache"), (v_cache, "v_cache"),
                     (lengths, "lengths")):
@@ -148,22 +167,27 @@ def launch_contiguous(q, k_cache, v_cache, lengths) -> torch.Tensor:
         raise TypeError(f"q/cache dtype must be one of {PAGE_DTYPES}, got "
                         f"{q.dtype}/{k_cache.dtype}")
     if (k_cache.ndim != 4 or k_cache.shape[0] != b or k_cache.shape[1] < 1
-            or k_cache.shape[2:] != (n_kv, hd)
+            or k_cache.shape[3] != hd
             or v_cache.shape != k_cache.shape or v_cache.dtype != k_cache.dtype):
         raise ValueError(f"caches {tuple(k_cache.shape)}/"
                          f"{tuple(v_cache.shape)} do not match q "
                          f"{tuple(q.shape)}")
     if lengths.dtype != torch.int32 or lengths.shape != (b,):
         raise ValueError(f"lengths must be int32 [{b}]")
-    if hd != HEAD_DIM or g not in GROUPS:
-        raise ValueError(f"unsupported head layout n_kv={n_kv}, g={g}, "
-                         f"head_dim={hd}")
+    check_layout(n_kv, g, hd, k_cache.shape[2])
+    for t in (q, k_cache, v_cache):
+        if t.data_ptr() % 16:
+            raise ValueError("q and caches must start on a 16-byte boundary")
+    s = k_cache.shape[1]
+    part, n_split = contiguous_plan(b, n_kv, s, sm_count(q.device))
+    work = _workspace(q, n_split)
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     err = _lib().decode_gqa_launch(
         q.data_ptr(), int(q.dtype == torch.bfloat16), k_cache.data_ptr(),
         v_cache.data_ptr(), int(k_cache.dtype == torch.bfloat16),
-        lengths.data_ptr(), out.data_ptr(), b, k_cache.shape[1], n_kv, g, hd,
-        1.0 / math.sqrt(hd), _build.stream_ptr(q))
+        lengths.data_ptr(), None if work is None else work.data_ptr(),
+        out.data_ptr(), b, s, n_kv, g, hd, part, 1.0 / math.sqrt(hd),
+        _build.stream_ptr(q))
     _build.check(err, CONTIG_NAME)
     _build.count_launch(CONTIG_NAME)
     return out

@@ -18,11 +18,14 @@ from repro_torch.kernels.flash_prefill.ops import row_ints
 def decode_gqa(q, k_cache, v_cache, lengths, *, out_dtype=None) -> torch.Tensor:
     """Flash decode over contiguous caches: q [B, n_kv, g, hd]; caches
     [B, S, n_kv, hd] (float32 or bfloat16 on the card); lengths [B] or a
-    scalar, broadcast and clipped to [0, S].  Any S works: the kernel
-    masks the tail itself (the reference pads S to its block).
-    Zero-length rows return zeros.  Returns [B, n_kv, g, hd]."""
+    scalar, broadcast and clipped to [0, S] (the plain version gets them
+    clipped here, the kernel clips them on the card itself, so a card
+    call launches nothing here for an int32 [B] tensor).  Any S works:
+    the kernel masks the tail itself (the reference pads S to its
+    block).  Zero-length rows return zeros.  Returns [B, n_kv, g, hd]."""
     out_dtype = out_dtype or torch.float32
-    lengths = row_ints(lengths, q.shape[0], q.device, k_cache.shape[1])
+    hi = k_cache.shape[1] if q.device.type == "cpu" else None
+    lengths = row_ints(lengths, q.shape[0], q.device, hi)
     if q.device.type == "cpu":
         return decode_gqa_ref(q, k_cache, v_cache, lengths,
                               out_dtype=out_dtype)

@@ -1,7 +1,10 @@
 """CUDA launch of chunked flash prefill over a paged KV cache
 (``csrc/flash_prefill.cu``: split-TF32 tensor-core tiles fed by
 ``cp.async`` page staging); counterpart of the JAX package's
-``flash_prefill_paged_kernel`` and ``flash_prefill_paged_codes_kernel``."""
+``flash_prefill_paged_kernel`` and ``flash_prefill_paged_codes_kernel``.
+Head layouts: head_dim in ``HEAD_DIMS`` and any g from 1 to
+``MAX_GROUP`` (a block holds ``ROWS_PER_BLOCK // g`` positions x g
+heads; the rows past them are padding)."""
 
 from __future__ import annotations
 
@@ -15,8 +18,9 @@ from repro_torch.kernels import _build
 
 NAME = "flash_prefill_paged"
 CODES_NAME = NAME + "_codes"
-HEAD_DIM = 128
-ROWS_PER_BLOCK = 64     # query rows of a block: 64 / g positions x g heads
+HEAD_DIMS = (64, 128)   # the head_dims the attention kernels are built for
+MAX_GROUP = 8           # query heads a KV head, at most
+ROWS_PER_BLOCK = 64     # query rows of a block: 64 // g positions x g heads
 KV_TILE = 32            # KV positions a block stages and folds at a time
 PAGE_DTYPES = (torch.float32, torch.bfloat16)
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -32,7 +36,7 @@ def _lib():
     lib.flash_prefill_paged_codes_launch.argtypes = (
         [_P] * 11 + [_I] * 7 + [ctypes.c_float, _P])
     lib.flash_prefill_paged_codes_launch.restype = _I
-    lib.flash_prefill_smem_bytes.argtypes = [_I]
+    lib.flash_prefill_smem_bytes.argtypes = [_I, _I]
     lib.flash_prefill_smem_bytes.restype = _I
     return lib
 
@@ -47,11 +51,12 @@ def passes(q_dtype, page_dtype) -> tuple[int, int]:
     return 1 + (not q_exact) + (not kv_exact), 2 + (not kv_exact)
 
 
-def smem_bytes(page_dtype) -> int:
+def smem_bytes(page_dtype, hd: int = 128) -> int:
     """Dynamic shared memory of one block for ``page_dtype`` (float32,
-    bfloat16 or uint8 codes), as the kernel is built."""
+    bfloat16 or uint8 codes) at head_dim ``hd``, as the kernel is
+    built."""
     kind = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}[page_dtype]
-    return int(_lib().flash_prefill_smem_bytes(kind))
+    return int(_lib().flash_prefill_smem_bytes(kind, hd))
 
 
 def _check_launch(q, k_pages, v_pages, block_tables) -> None:
@@ -89,19 +94,30 @@ def check_paged(q, k_pages, v_pages, block_tables, rows,
             raise ValueError(f"{name} must be contiguous int32 [{q.shape[0]}] "
                              f"on {q.device}")
     hd = q.shape[-1]
-    if hd != HEAD_DIM or k_pages.shape[-1] != hd:
-        raise ValueError(f"the CUDA kernel takes head_dim {HEAD_DIM}, got {hd}")
+    if hd not in HEAD_DIMS or k_pages.shape[-1] != hd:
+        raise ValueError(f"the CUDA kernels take head_dim in {HEAD_DIMS}, got "
+                         f"q {hd}, pages {k_pages.shape[-1]}")
     if not 1 <= k_pages.shape[1] <= 64:
         raise ValueError(f"block size {k_pages.shape[1]} outside 1..64")
 
 
+def check_layout(n_kv: int, g: int, hd: int, kv_heads: int) -> None:
+    """The head layouts the attention kernels take: head_dim in
+    HEAD_DIMS, g from 1 to MAX_GROUP, and q's n_kv equal to the cache's
+    ``kv_heads``."""
+    if hd not in HEAD_DIMS or not 1 <= g <= MAX_GROUP or kv_heads != n_kv:
+        raise ValueError(
+            f"unsupported head layout n_kv={n_kv}, g={g}, head_dim={hd} "
+            f"(cache KV heads {kv_heads}): the CUDA kernels take head_dim "
+            f"in {HEAD_DIMS} and g from 1 to {MAX_GROUP}")
+
+
 def launch(q, k_pages, v_pages, block_tables, q_start, kv_lens) -> torch.Tensor:
-    """q [B, S, n_kv, g, 128]; returns float32 of q's shape."""
+    """q [B, S, n_kv, g, hd]; returns float32 of q's shape."""
     check_paged(q, k_pages, v_pages, block_tables,
                 ((q_start, "q_start"), (kv_lens, "kv_lens")))
     b, s, n_kv, g, hd = q.shape
-    if ROWS_PER_BLOCK % g or k_pages.shape[2] != n_kv:
-        raise ValueError(f"unsupported head layout n_kv={n_kv}, g={g}")
+    check_layout(n_kv, g, hd, k_pages.shape[2])
     _check_launch(q, k_pages, v_pages, block_tables)
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     err = _lib().flash_prefill_paged_launch(
@@ -133,14 +149,13 @@ def check_tables(q, n_kv, q_lut, k_lut, v_lut, out_qmeta):
 
 def launch_codes(q_codes, k_pages, v_pages, q_lut, k_lut, v_lut, out_qmeta,
                  block_tables, q_start, kv_lens) -> torch.Tensor:
-    """q_codes [B, S, n_kv, g, 128] and pages uint8; returns uint8 codes
+    """q_codes [B, S, n_kv, g, hd] and pages uint8; returns uint8 codes
     of q's shape."""
     check_paged(q_codes, k_pages, v_pages, block_tables,
                 ((q_start, "q_start"), (kv_lens, "kv_lens")),
                 dtypes=(torch.uint8,))
     b, s, n_kv, g, hd = q_codes.shape
-    if ROWS_PER_BLOCK % g or k_pages.shape[2] != n_kv:
-        raise ValueError(f"unsupported head layout n_kv={n_kv}, g={g}")
+    check_layout(n_kv, g, hd, k_pages.shape[2])
     _check_launch(q_codes, k_pages, v_pages, block_tables)
     q_lut, k_lut, v_lut, out_qmeta = check_tables(
         q_codes, n_kv, q_lut, k_lut, v_lut, out_qmeta)

@@ -10,8 +10,9 @@ decode, bias and every epilogue, float32 and bfloat16 activations,
 other group sizes and block sizes (one above 48 KB of shared memory),
 zero-length rows, the wrappers' refusals, small engines (float and
 codes mode) served on the card against the same engine on the CPU, the
-contiguous decode at every group size and a cache length that is no
-multiple of its tile, and the Lama primitives (bulk LUT op, signed
+attention kernels at every g from 1 to 8 and head_dim 64, the contiguous
+decode at every group size and head_dim, lengths 0 and past its cache,
+and replayed in a CUDA graph, and the Lama primitives (bulk LUT op, signed
 histogram) on their vector and scalar paths, with out-of-range codes.
 The Lama primitives and the histogram are held to exact equality
 (integers, and sums of +-1 in float32).
@@ -420,10 +421,10 @@ def test_plain_decode_replays_in_a_cuda_graph(dev, kind, transposed):
             _codes_close(out, ref())
 
 
-def _pages(dev, gen, b, n_kv, bs, max_blk, dtype):
+def _pages(dev, gen, b, n_kv, bs, max_blk, dtype, hd=128):
     n = 1 + b * max_blk
-    kp = torch.randn(n, bs, n_kv, 128, generator=gen, device=dev).to(dtype)
-    vp = torch.randn(n, bs, n_kv, 128, generator=gen, device=dev).to(dtype)
+    kp = torch.randn(n, bs, n_kv, hd, generator=gen, device=dev).to(dtype)
+    vp = torch.randn(n, bs, n_kv, hd, generator=gen, device=dev).to(dtype)
     perm = torch.randperm(n - 1, generator=gen, device=dev)[: b * max_blk] + 1
     return kp, vp, perm.reshape(b, max_blk).to(torch.int32).contiguous()
 
@@ -554,11 +555,26 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         lut_dequant_matmul(x[:, ::2], codes, lut)
     with pytest.raises(TypeError):            # x dtype
         lut_dequant_matmul(x[:, :64].to(torch.float16), codes, lut)
-    kp, vp, bt = _pages(dev, gen, 2, 2, 16, 4, torch.float32)
-    q = torch.randn(2, 2, 2, 64, generator=gen, device=dev)
-    with pytest.raises(ValueError):           # head_dim 64
-        decode_gqa_paged(q, kp[..., :64].contiguous(), vp[..., :64].contiguous(),
-                         bt, torch.tensor([3, 4], device=dev))
+    kp, vp, bt = _pages(dev, gen, 2, 2, 16, 4, torch.float32, hd=256)
+    q = torch.randn(2, 2, 2, 256, generator=gen, device=dev)
+    lengths = torch.tensor([3, 4], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):     # head_dim 256
+        decode_gqa_paged(q, kp, vp, bt, lengths)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_prefill_paged(q[:, None], kp, vp, bt, 0, 3)
+    kp, vp = kp[..., :128].contiguous(), vp[..., :128].contiguous()
+    q9 = torch.randn(2, 2, 9, 128, generator=gen, device=dev)
+    with pytest.raises(ValueError, match="g=9"):          # g 9
+        decode_gqa_paged(q9, kp, vp, bt, lengths)
+    with pytest.raises(ValueError, match="g=9"):
+        flash_prefill_paged(q9[:, None], kp, vp, bt, 0, 3)
+    from repro_torch.kernels.decode_gqa import decode_gqa
+    kc = torch.randn(2, 16, 2, 128, generator=gen, device=dev)
+    with pytest.raises(ValueError, match="g=9"):
+        decode_gqa(q9, kc, kc, lengths)
+    kb, vb, bt2 = _pages(dev, gen, 2, 2, 80, 2, torch.float32)
+    with pytest.raises(ValueError, match="block size"):   # bs 80
+        decode_gqa_paged(q9[:, :, :2].contiguous(), kb, vb, bt2, lengths)
     qp = torch.randn(2 * 3 * 2 * 2 * 128 + 1, generator=gen, device=dev)
     qp = qp[1:].view(2, 3, 2, 2, 128)         # 4 bytes off a 16-byte boundary
     with pytest.raises(ValueError, match="16-byte"):
@@ -663,9 +679,9 @@ def test_lut_dequant_matmul_dual_gated_kernel(dev, m, k, n, mode, act, quant):
         _close(out, ref_f)
 
 
-def _code_pages(dev, gen, b, n_kv, bs, max_blk):
+def _code_pages(dev, gen, b, n_kv, bs, max_blk, hd=128):
     """uint8 code pages with per-head tables: (kp, vp, bt, k_lut, v_lut)."""
-    kp, vp, bt = _pages(dev, gen, b, n_kv, bs, max_blk, torch.float32)
+    kp, vp, bt = _pages(dev, gen, b, n_kv, bs, max_blk, torch.float32, hd)
     out = [bt]
     for p in (kp, vp):
         rows = p.permute(2, 0, 1, 3).reshape(n_kv, -1)
@@ -739,26 +755,117 @@ def test_small_codes_engine_on_the_card_matches_the_cpu(dev, tmp_path,
         np.testing.assert_array_equal(x.tokens, y.tokens)
 
 
-@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("g", range(1, 9))
+@pytest.mark.parametrize("hd", [128, 64])
 @pytest.mark.parametrize("kdt", [torch.float32, torch.bfloat16])
-def test_decode_gqa_contiguous_kernel(dev, g, kdt):
+def test_decode_gqa_contiguous_kernel(dev, g, hd, kdt):
+    """#9 on the split-KV body: S = 200 (3 virtual pages of 64 and a
+    tail of 8), lengths 1, 0, 64, past S (clipped to S on the card) and
+    -3 (clipped to 0), and one mid-row."""
     from repro_torch.kernels.decode_gqa import decode_gqa
     from repro_torch.kernels.decode_gqa.ref import decode_gqa_ref
 
-    gen = _gen(dev, 700 + g)
-    b, s, n_kv = 5, 200, 2          # 200 = 3 tiles of 64 and a tail of 8
-    q = torch.randn(b, n_kv, g, 128, generator=gen, device=dev)
+    gen = _gen(dev, 700 + g + hd)
+    b, s, n_kv = 6, 200, 2
+    q = torch.randn(b, n_kv, g, hd, generator=gen, device=dev)
     q = q.to(torch.bfloat16) if g % 2 else q
-    k = torch.randn(b, s, n_kv, 128, generator=gen, device=dev).to(kdt)
-    v = torch.randn(b, s, n_kv, 128, generator=gen, device=dev).to(kdt)
-    lengths = torch.tensor([1, 0, 64, 200, 131], dtype=torch.int32, device=dev)
+    k = torch.randn(b, s, n_kv, hd, generator=gen, device=dev).to(kdt)
+    v = torch.randn(b, s, n_kv, hd, generator=gen, device=dev).to(kdt)
+    lengths = torch.tensor([1, 0, 64, s + 60, -3, 131], dtype=torch.int32,
+                           device=dev)
     out = decode_gqa(q, k, v, lengths)
-    ref = decode_gqa_ref(q, k, v, lengths)
+    ref = decode_gqa_ref(q, k, v, lengths.clamp(0, s))
     _close(out, ref)
-    assert torch.all(out[1] == 0)
+    assert torch.all(out[1] == 0) and torch.all(out[4] == 0)
     k2, v2 = k.clone(), v.clone()               # past lengths: no effect
     k2[0, 1:], v2[0, 1:] = 1e4, -1e4
     assert torch.equal(decode_gqa(q, k2, v2, lengths)[0], out[0])
+
+
+def test_decode_gqa_contiguous_replays_in_a_cuda_graph(dev):
+    """#9's split grid is sized from shapes alone and the wrapper
+    launches no clamp: a call captured in a CUDA graph and replayed after
+    new lengths are written into the captured tensor equals the plain
+    version on those lengths (clipped to [0, S])."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_gqa import decode_gqa
+    from repro_torch.kernels.decode_gqa.ref import decode_gqa_ref
+
+    gen = _gen(dev, 78)
+    b, s, n_kv, g = 4, 768, 8, 2
+    q = torch.randn(b, n_kv, g, 128, generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn(b, s, n_kv, 128, generator=gen, device=dev)
+    v = torch.randn(b, s, n_kv, 128, generator=gen, device=dev)
+    lengths = torch.tensor([5, 0, 300, 768], dtype=torch.int32, device=dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                  # build, load, warm up
+        decode_gqa(q, k, v, lengths)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = _build.launch_counts().get("decode_gqa", 0)
+    with torch.cuda.graph(graph):
+        out = decode_gqa(q, k, v, lengths)
+    assert _build.launch_counts()["decode_gqa"] == before + 1
+    for new in ([768, 7, 0, 65], [0, 0, 0, 0], [17, 900, 400, -1]):
+        lengths.copy_(torch.tensor(new, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        clipped = lengths.clamp(0, s)
+        _close(out, decode_gqa_ref(q, k, v, clipped))
+        assert torch.all(out[clipped == 0] == 0)
+
+
+# the head layouts beyond qwen3-1.7b's: every g from 1 to 8 at head_dim
+# 128 (g 3, 5, 6, 7 run the next power of two's instantiation, and pad
+# the prefill blocks' rows) and at head_dim 64
+LAYOUTS = [(3, 128), (5, 128), (6, 128), (7, 128),
+           (1, 64), (2, 64), (3, 64), (5, 64), (8, 64)]
+
+
+@pytest.mark.parametrize("g,hd", LAYOUTS)
+@pytest.mark.parametrize("kernel", ["prefill", "prefill_codes", "decode",
+                                    "decode_codes"])
+def test_paged_attention_kernels_at_other_head_layouts(dev, kernel, g, hd):
+    """#5-#8 at g 3-8 and head_dim 64: prefill over rows that start off a
+    page and a 4096-position table's last chunk would repeat the other
+    tests; here the prefill rows of ``_prefill_rows`` (S = 37, bs 16)
+    and the decode rows of ``_decode_rows`` (bs 16, 6 pages)."""
+    gen = _gen(dev, 900 + g * 10 + hd)
+    b, n_kv, bs = 4, 2, 16
+    oq = torch.tensor([0.02, 1e-4, 1.04, 7.0], device=dev)
+    if kernel.startswith("prefill"):
+        s = 37
+        max_blk, q_start, kv_lens = _prefill_rows(dev, bs, s, False)
+        shape = (b, s, n_kv, g, hd)
+    else:
+        b = 5
+        max_blk, lengths = _decode_rows(dev, bs, False)
+        shape = (b, n_kv, g, hd)
+    if kernel.endswith("codes"):
+        kc, vc, bt, kl, vl = _code_pages(dev, gen, b, n_kv, bs, max_blk, hd)
+        qc, ql, _ = _act_codes(shape, dev, gen)
+        args = (qc, kc, vc, ql, kl, vl, oq, bt)
+        if kernel == "prefill_codes":
+            args += (q_start, kv_lens)
+            _codes_close(flash_prefill_paged_codes(*args),
+                         flash_prefill_paged_codes_ref(*args))
+        else:
+            args += (lengths,)
+            _codes_close(decode_gqa_paged_codes(*args),
+                         decode_gqa_paged_codes_ref(*args))
+        return
+    kp, vp, bt = _pages(dev, gen, b, n_kv, bs, max_blk, torch.float32, hd)
+    q = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    if kernel == "prefill":
+        args = (q, kp, vp, bt, q_start, kv_lens)
+        out = flash_prefill_paged(*args)
+        _close(out, flash_prefill_paged_ref(*args))
+        assert torch.all(out[3] == 0)
+    else:
+        out = decode_gqa_paged(q, kp, vp, bt, lengths)
+        _close(out, decode_gqa_paged_ref(q, kp, vp, bt, lengths))
+        assert torch.all(out[1] == 0)
 
 
 @pytest.mark.parametrize("g,m,bdt,bits,tdt", [

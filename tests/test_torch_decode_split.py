@@ -1,8 +1,10 @@
-"""The split-KV arithmetic of the card's paged flash-decode kernels
-(``csrc/decode_gqa.cu``, #7 float and #8 codes), emulated on the CPU.
+"""The split-KV arithmetic of the card's flash-decode kernels
+(``csrc/decode_gqa.cu``: #7 float and #8 codes over pages, #9 over a
+contiguous cache), emulated on the CPU.
 
-The kernel cuts each row's pages into partitions of ``split_plan``'s
-size, one block each.  Inside a block, warp w folds batches of BATCH
+The kernel cuts each row's positions into partitions of ``split_plan``'s
+size (a contiguous row as virtual pages of 64 positions:
+``contiguous_plan``), one block each.  Inside a block, warp w folds batches of BATCH
 positions (batches w, w + WARPS, ...) into its own online softmax
 (m, l, acc); the block merges its warps, writes a partial, and a merge
 pass folds the partials of the partitions that start before the row's
@@ -13,7 +15,10 @@ encoded once, after the merge.  The emulation below follows that order
 in float32 and is held against the port's plain versions and the JAX
 package's oracle on the same numpy-seeded inputs: within 1e-4 of the
 output's scale for float pages, at most 1e-3 of the codes one step off
-for uint8 ones (``chip_smoke.py``'s gates for the two kernels).
+for uint8 ones (``chip_smoke.py``'s gates for the kernels), at
+head_dim 128 and 64 and g from 1 to 8 (the kernel runs g 5 and 6 on its
+g = 8 instantiation: rows past g take no part, so the arithmetic of the
+live rows is the emulation's).
 """
 
 import math
@@ -28,9 +33,13 @@ import jax.numpy as jnp
 from repro.kernels.decode_gqa import ops as jdec
 from repro_torch.core import exponential_quant as eq
 from repro_torch.kernels import _build
-from repro_torch.kernels.decode_gqa.decode_gqa import split_plan
+from repro_torch.kernels.decode_gqa import decode_gqa
+from repro_torch.kernels.decode_gqa.decode_gqa import (VIRTUAL_PAGE,
+                                                       contiguous_plan,
+                                                       split_plan)
 from repro_torch.kernels.decode_gqa.ref import (decode_gqa_paged_codes_ref,
-                                                decode_gqa_paged_ref)
+                                                decode_gqa_paged_ref,
+                                                decode_gqa_ref)
 
 F32 = torch.float32
 NEG = -1e30
@@ -78,13 +87,20 @@ def merge(parts, live=None):
     return mm, ll, aa
 
 
-def emulate(q, k, v, lengths, bs, max_blk, sms=SMS):
-    """The kernel's order on float32 q [B, n_kv, g, hd] and the gathered
-    pages k/v [B, max_blk*bs, n_kv, hd]; returns [B, n_kv, g, hd]."""
+def paged_plan(b, max_blk, bs, sms=SMS):
+    """(positions a partition, partitions, positions a row) of the paged
+    kernels' grid."""
+    pages, n_split = split_plan(b, N_KV, max_blk, bs, sms)
+    return pages * bs, n_split, max_blk * bs
+
+
+def emulate(q, k, v, lengths, part, n_split, cap):
+    """The kernel's order on float32 q [B, n_kv, g, hd] and the rows' KV
+    k/v [B, cap, n_kv, hd] (the gathered pages, or the contiguous
+    cache), partitions of ``part`` positions; returns [B, n_kv, g,
+    hd]."""
     b, n_kv, g, hd = q.shape
-    pages, n_split = split_plan(b, n_kv, max_blk, bs, sms)
-    part = pages * bs
-    kvl = lengths.long().clamp(0, max_blk * bs)
+    kvl = lengths.long().clamp(0, cap)
     scale = 1.0 / math.sqrt(hd)
     partials = []
     for z in range(n_split):
@@ -124,17 +140,23 @@ def _gather(pages, bt):
                                     *pages.shape[2:]).to(F32)
 
 
-def _inputs(g, bs, lengths, seed, max_blk=MAX_BLK):
+def _bf16_q(r, b, g, hd):
+    """numpy float32 q [B, n_kv, g, hd] rounded through bfloat16 (the
+    serving path's)."""
+    return np.array(jnp.asarray(r.normal(size=(b, N_KV, g, hd)), jnp.bfloat16)
+                    .astype(jnp.float32))
+
+
+def _inputs(g, bs, lengths, seed, max_blk=MAX_BLK, hd=HD):
     """numpy q [B, n_kv, g, hd], pages [N, bs, n_kv, hd] (float32 values
-    rounded through bfloat16 for q, the serving path's), a scrambled
-    block table [B, max_blk] and lengths."""
+    rounded through bfloat16 for q), a scrambled block table
+    [B, max_blk] and lengths."""
     r = np.random.default_rng(seed)
     b = len(lengths)
     n = 1 + b * max_blk
-    q = np.array(jnp.asarray(r.normal(size=(b, N_KV, g, HD)), jnp.bfloat16)
-                 .astype(jnp.float32))
-    kp = r.normal(size=(n, bs, N_KV, HD)).astype(np.float32)
-    vp = r.normal(size=(n, bs, N_KV, HD)).astype(np.float32)
+    q = _bf16_q(r, b, g, hd)
+    kp = r.normal(size=(n, bs, N_KV, hd)).astype(np.float32)
+    vp = r.normal(size=(n, bs, N_KV, hd)).astype(np.float32)
     bt = r.permutation(np.arange(1, n))[: b * max_blk].reshape(b, max_blk)
     return q, kp, vp, bt.astype(np.int32), np.asarray(lengths, np.int32)
 
@@ -160,16 +182,28 @@ def test_split_plan_reads_static_shapes_only():
     for bs in (1, 5, 16, 48, 64):
         pages, n_split = split_plan(3, 2, 7, bs, SMS)
         assert 1 <= pages <= 7 and (n_split - 1) * pages < 7 <= n_split * pages
+    # a contiguous row: virtual pages of 64 positions; phase 6 (4 rows)
+    # and phase 2 (8 rows) at S = 768, 12 partitions of 64; an S off the
+    # virtual page ends inside its last partition
+    assert contiguous_plan(4, 8, 768, SMS) == (VIRTUAL_PAGE, 12)
+    assert contiguous_plan(8, 8, 768, SMS) == (VIRTUAL_PAGE, 12)
+    part, n_split = contiguous_plan(5, 2, 200, SMS)
+    assert (part, n_split) == (64, 4) and (n_split - 1) * part < 200
+    part, n_split = contiguous_plan(8, 36, 4096, SMS)    # thinned
+    assert 8 * 36 * n_split <= 8 * SMS and part * n_split >= 4096
 
 
-@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("g", [1, 2, 4, 5, 6, 8])
 @pytest.mark.parametrize("bs", [16, 48])
-def test_split_order_matches_the_plain_version_and_jax(g, bs):
-    q, kp, vp, bt, lengths = _inputs(g, bs, _lengths(bs), seed=g * 10 + bs)
+@pytest.mark.parametrize("hd", [128, 64])
+def test_split_order_matches_the_plain_version_and_jax(g, bs, hd):
+    q, kp, vp, bt, lengths = _inputs(g, bs, _lengths(bs),
+                                     seed=g * 10 + bs + hd, hd=hd)
     tq, tk, tv, tbt, tl = (torch.from_numpy(a) for a in (q, kp, vp, bt, lengths))
-    pages, n_split = split_plan(len(lengths), N_KV, MAX_BLK, bs, SMS)
-    assert n_split > 1 and (bs != 16 or MAX_BLK % pages)
-    out = emulate(tq, _gather(tk, tbt), _gather(tv, tbt), tl, bs, MAX_BLK)
+    part, n_split, cap = paged_plan(len(lengths), MAX_BLK, bs)
+    assert n_split > 1 and (bs != 16 or cap % part)
+    out = emulate(tq, _gather(tk, tbt), _gather(tv, tbt), tl, part, n_split,
+                  cap)
     ref = decode_gqa_paged_ref(tq.to(torch.bfloat16), tk, tv, tbt, tl)
     tol = GATE * max(1.0, ref.abs().max().item())
     assert (out - ref).abs().max().item() <= tol
@@ -187,15 +221,16 @@ def test_thinned_grids_keep_the_result(sms):
     bs = 16
     q, kp, vp, bt, lengths = _inputs(2, bs, _lengths(bs), seed=7)
     tq, tk, tv, tbt, tl = (torch.from_numpy(a) for a in (q, kp, vp, bt, lengths))
-    out = emulate(tq, _gather(tk, tbt), _gather(tv, tbt), tl, bs, MAX_BLK, sms)
+    out = emulate(tq, _gather(tk, tbt), _gather(tv, tbt), tl,
+                  *paged_plan(len(lengths), MAX_BLK, bs, sms))
     ref = decode_gqa_paged_ref(tq, tk, tv, tbt, tl)
     assert (out - ref).abs().max().item() <= GATE * max(1.0, ref.abs().max().item())
 
 
-def _code_inputs(g, bs, seed):
+def _code_inputs(g, bs, seed, hd=HD):
     """uint8 q and pages with the q table and per-head K/V tables, and
     an out table fitted on the float context: numpy arrays."""
-    q, kp, vp, bt, lengths = _inputs(g, bs, _lengths(bs), seed)
+    q, kp, vp, bt, lengths = _inputs(g, bs, _lengths(bs), seed, hd=hd)
     tabs = []
     for x, stacked in ((q, False), (kp, True), (vp, True)):
         xt = torch.from_numpy(x)
@@ -213,17 +248,20 @@ def _code_inputs(g, bs, seed):
     return qc, kc, vc, ql, kl, vl, oq, bt, lengths
 
 
-@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("g", [1, 2, 4, 5, 6, 8])
 @pytest.mark.parametrize("bs", [16, 48])
-def test_codes_split_order_encodes_once_after_the_merge(g, bs):
-    arrays = _code_inputs(g, bs, seed=100 + g * 10 + bs)
+@pytest.mark.parametrize("hd", [128, 64])
+def test_codes_split_order_encodes_once_after_the_merge(g, bs, hd):
+    arrays = _code_inputs(g, bs, seed=100 + g * 10 + bs + hd, hd=hd)
     qc, kc, vc, ql, kl, vl, oq, bt, lengths = (torch.from_numpy(a)
                                                for a in arrays)
     heads = torch.arange(N_KV)
     qf = ql[qc.long()]
     kf = _gather(kl[heads[:, None], kc.long()], bt)
     vf = _gather(vl[heads[:, None], vc.long()], bt)
-    out = eq.encode_meta(emulate(qf, kf, vf, lengths, bs, MAX_BLK), oq)
+    out = eq.encode_meta(
+        emulate(qf, kf, vf, lengths, *paged_plan(len(lengths), MAX_BLK, bs)),
+        oq)
     ref = decode_gqa_paged_codes_ref(qc, kc, vc, ql, kl, vl, oq, bt, lengths)
     jref = torch.from_numpy(np.array(jdec.decode_gqa_paged_codes(
         *(jnp.asarray(a) for a in arrays))))
@@ -233,3 +271,39 @@ def test_codes_split_order_encodes_once_after_the_merge(g, bs):
         assert out.dtype == want.dtype == torch.uint8
         assert bool(eq.codes_agree(out, want).all())
         assert int((out != want).sum()) <= 1e-3 * want.numel()
+
+
+# a contiguous cache of S positions: S off the virtual page (130, 200,
+# 77) and on it (256); g from 1 to 8 at head_dim 128 and 64
+@pytest.mark.parametrize("g,hd,s", [
+    (1, 128, 200), (2, 128, 256), (5, 128, 130), (8, 128, 77),
+    (3, 64, 200), (6, 64, 130), (7, 64, 256),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_contiguous_split_order_matches_the_plain_version_and_jax(g, hd, s,
+                                                                  dtype):
+    """#9 on the split-KV body: a [B, S, n_kv, hd] cache is a pool whose
+    row b, position t is pool row b*S + t, partitioned by
+    ``contiguous_plan``.  Rows: a zero-length one, length 1, one ending
+    mid-row, one filling S, and one past S (clipped to S)."""
+    r = np.random.default_rng(g * 1000 + hd + s)
+    lengths = np.array([0, 1, s // 2 + 3, s, s + 40], np.int32)
+    b = len(lengths)
+    jd, td = jnp.dtype(dtype), getattr(torch, dtype)
+    q = _bf16_q(r, b, g, hd)
+    k, v = (np.array(jnp.asarray(r.normal(size=(b, s, N_KV, hd)), jd)
+                     .astype(jnp.float32)) for _ in range(2))
+    tq, tk, tv, tl = (torch.from_numpy(a) for a in (q, k, v, lengths))
+    part, n_split = contiguous_plan(b, N_KV, s, SMS)
+    assert n_split > 1 and (n_split - 1) * part < s <= n_split * part
+    out = emulate(tq, tk, tv, tl, part, n_split, s)
+    ref = decode_gqa_ref(tq, tk.to(td), tv.to(td), tl.clamp(0, s))
+    tol = GATE * max(1.0, ref.abs().max().item())
+    assert (out - ref).abs().max().item() <= tol
+    assert torch.all(out[0] == 0)
+    # the port's CPU wrapper clips the length past S as the kernel does
+    assert torch.equal(decode_gqa(tq, tk.to(td), tv.to(td), tl), ref)
+    jref = np.asarray(jdec.decode_gqa(           # interpret-mode kernel
+        jnp.asarray(q), jnp.asarray(k, jd), jnp.asarray(v, jd),
+        jnp.asarray(lengths)))
+    assert np.abs(out.numpy() - jref).max() <= tol

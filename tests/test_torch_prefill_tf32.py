@@ -9,12 +9,14 @@ hi*lo + lo*hi, leaving out a pass whose lo part is zero by construction
 (bfloat16 values are exact in TF32; ``flash_prefill.passes``).  The
 emulation below does the same cuts and passes, with float32 sums,
 folding the online softmax over KV tiles of the kernel's width (32
-positions).  Held against the plain version
-(``flash_prefill_paged_ref``) and the JAX package's oracle on the same
-inputs within 1e-4, the float kernel's gate on the card, at head_dim
-128, g 2, a 64-query chunk over 1000 positions and a cold 64-query
-chunk; and single-pass TF32 is shown to miss that bound, which is why
-the kernel splits.
+positions), on the kernel's query rows: blocks of 64 rows, ``64 // g``
+positions x g heads, the rows past them padding (zero q, every logit
+masked, never stored) where g does not divide 64.  Held against the
+plain version (``flash_prefill_paged_ref``) and the JAX package's oracle
+on the same inputs within 1e-4, the float kernel's gate on the card, at
+head_dim 128 and 64, g 2, 5 and 6, a 64-query chunk over 1000 positions
+and a cold 64-query chunk; and single-pass TF32 is shown to miss that
+bound, which is why the kernel splits.
 """
 
 import math
@@ -26,7 +28,8 @@ import torch
 import jax.numpy as jnp
 
 from repro.kernels.flash_prefill import ops as jpre
-from repro_torch.kernels.flash_prefill.flash_prefill import KV_TILE, passes
+from repro_torch.kernels.flash_prefill.flash_prefill import (
+    KV_TILE, MAX_GROUP, ROWS_PER_BLOCK, passes)
 from repro_torch.kernels.flash_prefill.ref import flash_prefill_paged_ref
 
 F32 = torch.float32
@@ -63,13 +66,27 @@ def tf32_product(a, b, split_a: bool, split_b: bool, eq: str) -> torch.Tensor:
     return out
 
 
+def block_rows(s: int, g: int):
+    """The kernel's query rows: block z holds qpb = 64 // g positions x
+    g heads, row r being (position z*qpb + r // g, head r % g); rows
+    r >= qpb*g are padding, and rows at positions >= s are past the
+    chunk.  Returns (position, head, padding, stored), each [Z, 64]."""
+    qpb = ROWS_PER_BLOCK // g
+    r = torch.arange(ROWS_PER_BLOCK)
+    pos = torch.arange(-(-s // qpb))[:, None] * qpb + r // g
+    pad = (r >= qpb * g).expand_as(pos)
+    return pos, (r % g).expand_as(pos), pad, ~pad & (pos < s)
+
+
 def emulate(q, k_pages, v_pages, block_tables, q_start, kv_lens,
             split_q=None, split_k=None, split_v=None, split_p=True,
             kv_tile=KV_TILE) -> torch.Tensor:
-    """The kernel's arithmetic: masks, scale and recurrence as the
-    reference, products as :func:`tf32_product`, folded per KV tile.
-    By default q and the pages are split unless bfloat16 (exact in
-    TF32), and P always, as the kernel does."""
+    """The kernel's arithmetic on its blocks of query rows
+    (:func:`block_rows`): masks, scale and recurrence as the reference,
+    products as :func:`tf32_product`, folded per KV tile; a padding row
+    has zero q and sees no position, and only the stored rows reach the
+    output.  By default q and the pages are split unless bfloat16 (exact
+    in TF32), and P always, as the kernel does."""
     if split_q is None:
         split_q = q.dtype != torch.bfloat16
     if split_k is None:
@@ -78,33 +95,41 @@ def emulate(q, k_pages, v_pages, block_tables, q_start, kv_lens,
     t_all = block_tables.shape[1] * k_pages.shape[1]
     k = k_pages[block_tables.long()].reshape(b, t_all, n_kv, hd).to(F32)
     v = v_pages[block_tables.long()].reshape(b, t_all, n_kv, hd).to(F32)
-    qf = q.to(F32)
+    pos, head, pad, stored = block_rows(s, g)
+    zero = (pad | (pos >= s))
+    # q rows [B, n_kv, Z, 64, hd] (the advanced indices' [Z, 64] come
+    # first): zeros for padding and past the chunk
+    qf = q.to(F32)[:, pos.clamp(max=s - 1), :, head].permute(2, 3, 0, 1, 4)
+    qf = torch.where(zero[None, None, ..., None], torch.zeros(()), qf)
     scale = 1.0 / math.sqrt(hd)
-    qpos = q_start.long()[:, None] + torch.arange(s)[None]
-    m = torch.full((b, n_kv, g, s), -1e30)
-    l = torch.zeros((b, n_kv, g, s))
-    acc = torch.zeros((b, n_kv, g, s, hd))
+    qpos = torch.where(pad, -1, q_start.long()[:, None, None] + pos)
+    m = torch.full(qf.shape[:-1], -1e30)
+    l = torch.zeros(qf.shape[:-1])
+    acc = torch.zeros(qf.shape)
     for t0 in range(0, t_all, kv_tile):
         kk, vv = k[:, t0:t0 + kv_tile], v[:, t0:t0 + kv_tile]
         logit = tf32_product(qf, kk, split_q, split_k,
-                             "bsngh,btnh->bngst") * scale
+                             "bnzrh,btnh->bnzrt") * scale
         kvpos = t0 + torch.arange(kk.shape[1])
-        valid = ((kvpos[None, None] <= qpos[:, :, None])
-                 & (kvpos[None, None] < kv_lens.long()[:, None, None]))
-        logit = torch.where(valid[:, None, None], logit, torch.tensor(-1e30))
+        valid = ((kvpos <= qpos[..., None])
+                 & (kvpos < kv_lens.long()[:, None, None, None]))
+        logit = torch.where(valid[:, None], logit, torch.tensor(-1e30))
         m_new = torch.maximum(m, logit.amax(-1))
         p = torch.exp(logit - m_new[..., None])
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(-1)
         acc = acc * corr[..., None] + tf32_product(p, vv, split_p, split_v,
-                                                   "bngst,btnh->bngsh")
+                                                   "bnzrt,btnh->bnzrh")
         m = m_new
-    out = acc / torch.clamp_min(l, 1e-30)[..., None]
-    out = torch.where((m > -5e29)[..., None], out, torch.zeros(()))
-    return out.permute(0, 3, 1, 2, 4)
+    rows = acc / torch.clamp_min(l, 1e-30)[..., None]
+    rows = torch.where((m > -5e29)[..., None], rows, torch.zeros(()))
+    # the stored rows, each (position, head) once, into [B, S, n_kv, g, hd]
+    out = torch.full((b, s, n_kv, g, hd), float("nan"))
+    out[:, pos[stored], :, head[stored]] = rows[:, :, stored].permute(2, 0, 1, 3)
+    return out
 
 
-def _inputs(dtype: str, seed: int):
+def _inputs(dtype: str, seed: int, g: int = G, hd: int = HD):
     """Two rows: row 0 the last 64-query chunk of a 1000-position row,
     row 1 a cold 64-query chunk; bf16 q (the serving path's), pages
     rounded once through ``dtype``.  numpy arrays."""
@@ -112,9 +137,9 @@ def _inputs(dtype: str, seed: int):
     max_blk = -(-CTX // BS)
     n = 1 + 2 * max_blk
     jd, _ = DTYPES[dtype]
-    kp = np.array(jnp.asarray(r.normal(size=(n, BS, N_KV, HD)), jd).astype(jnp.float32))
-    vp = np.array(jnp.asarray(r.normal(size=(n, BS, N_KV, HD)), jd).astype(jnp.float32))
-    q = np.array(jnp.asarray(r.normal(size=(2, S, N_KV, G, HD)), jnp.bfloat16)
+    kp = np.array(jnp.asarray(r.normal(size=(n, BS, N_KV, hd)), jd).astype(jnp.float32))
+    vp = np.array(jnp.asarray(r.normal(size=(n, BS, N_KV, hd)), jd).astype(jnp.float32))
+    q = np.array(jnp.asarray(r.normal(size=(2, S, N_KV, g, hd)), jnp.bfloat16)
                  .astype(jnp.float32))
     bt = r.permutation(np.arange(1, n))[: 2 * max_blk].reshape(2, max_blk)
     return (q, kp, vp, bt.astype(np.int32),
@@ -153,10 +178,23 @@ def test_passes_skip_only_the_exact_parts():
     assert passes(torch.uint8, torch.uint8) == (3, 3)   # decoded codes
 
 
+@pytest.mark.parametrize("g", range(1, MAX_GROUP + 1))
+@pytest.mark.parametrize("s", [1, 37, 64, 256])
+def test_block_rows_store_each_query_once(g, s):
+    """Every (position, head) of the chunk is stored by exactly one row;
+    a block holds 64 // g positions and 64 % g padding rows."""
+    pos, head, pad, stored = block_rows(s, g)
+    keys = (pos * g + head)[stored]
+    assert torch.equal(keys.sort().values, torch.arange(s * g))
+    assert bool((pad.sum(1) == ROWS_PER_BLOCK % g).all())
+    assert pos.shape[0] == -(-s // (ROWS_PER_BLOCK // g))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("seed", [0, 1])
-def test_split_tf32_is_within_the_gate(dtype, seed):
-    arrays = _inputs(dtype, seed)
+@pytest.mark.parametrize("g,hd", [(G, HD), (5, 128), (6, 64)])
+def test_split_tf32_is_within_the_gate(dtype, seed, g, hd):
+    arrays = _inputs(dtype, seed, g, hd)
     args = _torch(arrays, dtype)
     out = emulate(*args)
     ref = flash_prefill_paged_ref(*args)
