@@ -48,6 +48,14 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
      (contiguous cache, flash decode over it), launch counters read
      around that run; token agreement with ``generate`` is printed, and
      a profile gives #9's device time a decode step;
+     phases 4-6 serve with each step replayed as a CUDA graph (the
+     default), then serve the same requests again with
+     ``cuda_graphs=False`` (the A/B: the token streams must be equal),
+     each mode with its rates, graphs captured and capture seconds,
+     peak memory and a profile whose #7 / #8 / #9 kernels must number
+     what the launch counters say, and whose device busy share is
+     printed beside the steps' device span (CUDA events around each
+     step);
   7. the paper's Lama primitives at card size: ``lama_vector_matrix``
      (Fig. 2, 8-bit v [4096] and M [4096, 8192]) and ``term1_counts``
      (Eq. 1's T1 counters of a 2048 x 2048 projection at 8 rows), exact
@@ -1363,14 +1371,129 @@ def check_served(outs, reqs, cfg) -> None:
 
 
 def print_rates(eng, peak_gib: float) -> None:
-    print(f"  prefill {eng.prefill_tokens_computed / eng.prefill_dispatch_s:.1f} "
+    graphs, capture_s = eng.graph_captures()
+    mode = "graphs" if eng.cuda_graphs else "eager"
+    print(f"  [{mode}] prefill "
+          f"{eng.prefill_tokens_computed / eng.prefill_dispatch_s:.1f} "
           f"tok/s ({eng.prefill_tokens_computed} tokens in "
           f"{eng.prefill_dispatch_s:.3f} s), decode "
           f"{eng.decode_tokens / eng.decode_dispatch_s:.1f} tok/s "
           f"({eng.decode_tokens} tokens in {eng.decode_dispatch_s:.3f} s, "
           f"{1e3 * eng.decode_dispatch_s / eng.total_decode_steps:.2f} ms/step), "
           f"peak memory {peak_gib:.2f} GiB, page pools {eng.cache.nbytes} B "
-          f"({eng.cache.k_pages.dtype})", flush=True)
+          f"({eng.cache.k_pages.dtype}), {graphs} graphs captured in "
+          f"{capture_s:.2f} s", flush=True)
+
+
+def fresh_peak() -> None:
+    """Free what nothing holds and restart the peak-memory count, so a
+    run's peak holds what is live during it and what it allocates."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def serve_eager(served, reqs, outs, cfg, kernel: str):
+    """The A/B of one dispatch a tick: the same requests through an
+    Engine on the graph-mode engine's weights (and tables) and config
+    (``served``: params, EngineConfig, kv_codes) with
+    ``cuda_graphs=False``, once the graph-mode engine is freed.  Same
+    kernels in the same order, so the token streams must be equal
+    (exactly).  Prints its rates and its profile."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.runtime.engine import Engine
+
+    params, ec, codes = served
+    fresh_peak()
+    off = Engine(cfg, params=params, engine=ec, kv_codes=codes,
+                 device="cuda", cuda_graphs=False)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    eager = off.generate(reqs)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_served(eager, reqs, cfg)
+    require(all(np.array_equal(a.tokens, b.tokens)
+                for a, b in zip(outs, eager)),
+            "cuda_graphs=False gave other token streams than the graphs")
+    require(_build.launch_counts().get(kernel, 0)
+            == cfg.num_layers * off.total_decode_steps,
+            f"{kernel}: eager launches != {cfg.num_layers} x decode steps")
+    print(f"  A/B: cuda_graphs=False served the same {len(eager)} requests "
+          f"in {t_run:.2f} s, token streams equal", flush=True)
+    print_rates(off, peak)
+    profile_decode(off, cfg, kernel)
+
+
+def step_spans(fn):
+    """Run ``fn()`` with every ``StepGraph.step`` bracketed by CUDA
+    events.  Returns (wall s, the steps' device span in ms): each span
+    runs from the step's first enqueued work to its last, as the device
+    saw it, so it bounds the step's busy time from above (it also holds
+    the gaps an eager step leaves while the host enqueues)."""
+    import torch
+
+    from repro_torch.runtime import step_graph as sg
+
+    pairs = []
+    step = sg.StepGraph.step
+
+    def timed(self, fn):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = step(self, fn)
+        b.record()
+        pairs.append((a, b))
+        return out
+    sg.StepGraph.step = timed
+    try:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        sg.StepGraph.step = step
+    return wall, sum(a.elapsed_time(b) for a, b in pairs)
+
+
+def profiled(fn, kernel: str):
+    """``fn()`` under torch.profiler with the launch counters reset
+    first and the steps' device spans taken (``step_spans``); busy time
+    is the sum of the device's kernel and copy events.  Requires
+    that the profile's split-KV kernels (``split::split_kernel``: one a
+    launch of #7, #8 or #9, the merge pass apart) number the launches
+    the counter ``kernel`` took, so the counters agree with the device
+    in graph mode too.  Returns (kernel events, wall s, busy ms, span
+    ms, split kernels)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import _build
+
+    _build.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall, span = step_spans(fn)
+    # the device's own events only: an eager op's self device time is
+    # its kernels' again (a graph's kernels belong to no op)
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    seen = sum(e.count for e in events if "split::split_kernel" in e.key)
+    launched = _build.launch_counts().get(kernel, 0)
+    require(launched > 0 and seen == launched,
+            f"profile: {seen} split-KV kernels on the device, the {kernel} "
+            f"counter took {launched} launches")
+    return events, wall, busy, span, seen
 
 
 def serve(counts_out: dict):
@@ -1391,10 +1514,12 @@ def serve(counts_out: dict):
     t_setup = time.perf_counter() - t0
     lens, reqs = serving_requests(cfg)
     sqnr = [db for _, db in srv.quant_report.values()]
-    print(f"  setup (random init + quantize on the card) {t_setup:.1f} s; "
+    print(f"  setup (random init + quantize on the card) {t_setup:.1f} s, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"{len(sqnr)} tensors at 7 bits, round-trip SQNR "
           f"{min(sqnr):.1f}..{max(sqnr):.1f} dB; prompt lengths "
           f"{lens.tolist()}", flush=True)
+    fresh_peak()                              # the serving run's own peak
     _build.reset_launch_counts()
     t0 = time.perf_counter()
     outs = srv.generate(reqs)
@@ -1417,7 +1542,10 @@ def serve(counts_out: dict):
     print_rates(eng, peak)
     print(f"  first completion tokens {outs[0].tokens[:8].tolist()}", flush=True)
     pool = eng.cache.nbytes
-    profile_decode(srv, cfg)
+    profile_decode(eng, cfg, "decode_gqa_paged")
+    served = (eng.params, eng.engine_cfg, eng.kv_codes)
+    srv.last_engine = eng = None
+    serve_eager(served, reqs, outs, cfg, "decode_gqa_paged")
     return outs, pool, srv.params
 
 
@@ -1456,6 +1584,7 @@ def serve_codes(counts_out: dict, float_outs, float_pool: int,
     print(f"  setup {t_setup:.1f} s; calibration on the card {t_cal:.2f} s, "
           f"mean SQNR per site (dB): "
           + ", ".join(f"{k} {v:.2f}" for k, v in sqnr.items()), flush=True)
+    fresh_peak()                              # the serving run's own peak
     _build.reset_launch_counts()
     t0 = time.perf_counter()
     outs = srv.generate(reqs)
@@ -1497,7 +1626,11 @@ def serve_codes(counts_out: dict, float_outs, float_pool: int,
           f"weights: printed, not gated); attention counters: bytes read "
           f"{eng.attn_bytes_read}, activation bytes {eng.attn_act_bytes}, "
           f"dequants {eng.attn_dequants}", flush=True)
-    profile_decode(srv, cfg)
+    profile_decode(eng, cfg, "decode_gqa_paged_codes")
+    time_encodes(eng.params, cfg)
+    served = (eng.params, eng.engine_cfg, eng.kv_codes)
+    srv.last_engine = eng = None
+    serve_eager(served, reqs, outs, cfg, "decode_gqa_paged_codes")
 
 
 # ------------------------------------- phase 6: contiguous serving --
@@ -1523,7 +1656,7 @@ def serve_contiguous(counts_out: dict, params) -> None:
             for i, n in enumerate([64] * 4 + [256] * 4 + [700] * 4)]
     srv = InferenceServer(cfg, params=params, max_len=768, num_slots=8,
                           prefill_chunk=256, device="cuda")
-    torch.cuda.reset_peak_memory_stats()
+    fresh_peak()
     _build.reset_launch_counts()
     t0 = time.perf_counter()
     outs = srv.generate_bucketed(reqs)
@@ -1546,20 +1679,11 @@ def serve_contiguous(counts_out: dict, params) -> None:
     for name in PAGED_ATTENTION:
         require(counts.get(name, 0) == 0, f"{name} launched "
                 f"{counts.get(name)} times on the contiguous path")
-    prefill_s = sum(cs[0].prefill_s for cs in buckets.values())
-    decode_s = sum(cs[0].decode_s for cs in buckets.values())
-    prompt_toks = sum(len(r.prompt) for r in reqs)
-    decode_toks = sum(len(cs) * cs[0].decode_steps for cs in buckets.values())
     cache_bytes = (2 * cfg.num_layers * 4 * srv.max_len * cfg.num_kv_heads
                    * cfg.resolved_head_dim * 4)
     print(f"  served {len(outs)} requests in {t_run:.2f} s: {len(buckets)} "
           f"buckets, {steps} decode steps, launches {counts}", flush=True)
-    print(f"  prefill {prompt_toks / prefill_s:.1f} tok/s ({prompt_toks} "
-          f"tokens in {prefill_s:.3f} s), decode {decode_toks / decode_s:.1f} "
-          f"tok/s ({decode_toks} tokens in {decode_s:.3f} s, "
-          f"{1e3 * decode_s / steps:.2f} ms/step), peak memory {peak:.2f} "
-          f"GiB, contiguous cache {cache_bytes} B per 4-row bucket "
-          f"(float32, {srv.max_len} positions)", flush=True)
+    print_bucketed(srv, outs, reqs, peak, cache_bytes)
     t0 = time.perf_counter()
     engine_outs = srv.generate(reqs)
     t_eng = time.perf_counter() - t0
@@ -1569,18 +1693,59 @@ def serve_contiguous(counts_out: dict, params) -> None:
           f"s) {agree:.4f} (printed, not gated); first completion tokens "
           f"{outs[0].tokens[:8].tolist()}", flush=True)
     profile_contiguous(srv, cfg)
+    # the A/B: the same requests with every step run eagerly
+    srv.last_engine = None
+    off = InferenceServer(cfg, params=params, max_len=768, num_slots=8,
+                          prefill_chunk=256, device="cuda", cuda_graphs=False)
+    fresh_peak()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    eager = off.generate_bucketed(reqs)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    require(all(np.array_equal(a.tokens, b.tokens)
+                for a, b in zip(outs, eager)),
+            "cuda_graphs=False gave other token streams than the graphs")
+    require(_build.launch_counts() == counts,
+            "cuda_graphs=False launched other counts than the graphs")
+    print(f"  A/B: cuda_graphs=False served the same {len(eager)} requests "
+          f"in {t_run:.2f} s, token streams and launch counts equal",
+          flush=True)
+    print_bucketed(off, eager, reqs, peak, cache_bytes)
+    profile_contiguous(off, cfg)
+
+
+def print_bucketed(srv, outs, reqs, peak: float, cache_bytes: int) -> None:
+    """Phase 6's rates from the completions (a bucket shares one stamp)."""
+    buckets: dict = {}
+    for r, c in zip(reqs, outs):
+        buckets.setdefault(len(r.prompt), []).append(c)
+    steps = sum(cs[0].decode_steps for cs in buckets.values())
+    prefill_s = sum(cs[0].prefill_s for cs in buckets.values())
+    decode_s = sum(cs[0].decode_s for cs in buckets.values())
+    prompt_toks = sum(len(r.prompt) for r in reqs)
+    decode_toks = sum(len(cs) * cs[0].decode_steps for cs in buckets.values())
+    mode = "graphs" if srv.cuda_graphs else "eager"
+    print(f"  [{mode}] prefill {prompt_toks / prefill_s:.1f} tok/s "
+          f"({prompt_toks} tokens in {prefill_s:.3f} s), decode "
+          f"{decode_toks / decode_s:.1f} tok/s ({decode_toks} tokens in "
+          f"{decode_s:.3f} s, {1e3 * decode_s / steps:.2f} ms/step, capture "
+          f"included), peak memory {peak:.2f} GiB, contiguous cache "
+          f"{cache_bytes} B per 4-row bucket (float32, {srv.max_len} "
+          f"positions), {srv.bucket_graphs} graphs captured in "
+          f"{srv.bucket_capture_s:.2f} s", flush=True)
 
 
 def profile_contiguous(srv, cfg) -> None:
     """Where a contiguous decode step's time goes: one bucket of 4
     requests of 64-token prompts, 8 new tokens each, through
-    ``generate_bucketed`` under torch.profiler; the device's busy share,
-    #9's device time (its split and merge kernels: no other kernel of
-    the ``split`` namespace runs on this path) a decode step, and the
-    top kernels."""
+    ``generate_bucketed`` under torch.profiler; the device's busy share
+    and the decode steps' device span, #9's device time (its split and
+    merge kernels: no other kernel of the ``split`` namespace runs on
+    this path) a decode step, and the top kernels; the split kernels
+    seen must number the ``decode_gqa`` counter's launches."""
     import numpy as np
-    import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.runtime.server import Request
 
@@ -1588,22 +1753,21 @@ def profile_contiguous(srv, cfg) -> None:
     reqs = [Request(200 + i, rng.integers(0, cfg.vocab_size, 64).astype(np.int32),
                     max_new_tokens=8) for i in range(4)]
     srv.generate_bucketed(reqs[:1])          # warm
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        outs = srv.generate_bucketed(reqs)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = [e for e in prof.key_averages()
-              if getattr(e, "self_device_time_total", 0) > 0]
-    busy = sum(e.self_device_time_total for e in events) / 1e3
+    outs = []
+    events, wall, busy, span, seen = profiled(
+        lambda: outs.extend(srv.generate_bucketed(reqs)), "decode_gqa")
     steps = outs[0].decode_steps
     dec9 = [e for e in events if "split::" in e.key]
     ms9 = sum(e.self_device_time_total for e in dec9) / 1e3
-    print(f"  profile (contiguous): wall {wall * 1e3:.1f} ms, device busy "
-          f"{busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}%); {steps} decode "
-          f"steps of 4 rows, {1e3 * outs[0].decode_s / steps:.2f} ms a step; "
-          f"decode_gqa (#9) {ms9:.3f} ms in {sum(e.count for e in dec9)} "
-          f"kernels, {ms9 / steps:.3f} ms a step", flush=True)
+    mode = "graphs" if srv.cuda_graphs else "eager"
+    print(f"  profile (contiguous) [{mode}]: wall {wall * 1e3:.1f} ms, device "
+          f"busy {busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}%), decode "
+          f"steps' device span {span:.1f} ms ({100 * span / (wall * 1e3):.1f}"
+          f"%); {steps} decode steps of 4 rows, "
+          f"{1e3 * outs[0].decode_s / steps:.2f} ms a step (capture "
+          f"included); decode_gqa (#9) {ms9:.3f} ms in "
+          f"{sum(e.count for e in dec9)} kernels ({seen} split kernels = "
+          f"decode_gqa launches), {ms9 / steps:.3f} ms a step", flush=True)
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"    {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d} x  "
               f"{e.key[:90]}", flush=True)
@@ -1673,33 +1837,79 @@ def lama_primitives(counts_out: dict) -> None:
           f"and counters)", flush=True)
 
 
-def profile_decode(srv, cfg) -> None:
-    """Where a decode step's time goes: 8 requests of 64-token prompts,
-    8 new tokens each, under torch.profiler; device time by kernel and
-    the device's busy share of the wall time."""
-    import numpy as np
+def time_encodes(params, cfg) -> None:
+    """The act-site encodes of a codes decode step, alone: six
+    ``encode_meta`` calls a layer at the serving rows (attn_in for k/v
+    and again for q, attn_q, attn_k, attn_v, mlp_in), 28 layers, under
+    the calibrated tables, captured in one CUDA graph and replayed;
+    prints ms a step and kernels a step."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.exponential_quant import encode_meta
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    b, hd, n_kv = 8, cfg.resolved_head_dim, cfg.num_kv_heads
+    g = cfg.num_heads // n_kv
+    bf16 = torch.bfloat16             # the compute dtype at every site
+    x = torch.randn(b, 1, cfg.d_model, generator=gen, device=dev).to(bf16)
+    q = torch.randn(b, n_kv, g, hd, generator=gen, device=dev).to(bf16)
+    kv = torch.randn(b, 1, n_kv, hd, generator=gen, device=dev).to(bf16)
+
+    def encodes():
+        for i in range(cfg.num_layers):
+            aq = params.layer(i)["act_q"]
+            encode_meta(x, aq["attn_in"]["qmeta"])
+            encode_meta(x, aq["attn_in"]["qmeta"])
+            encode_meta(q, aq["attn_q"]["qmeta"])
+            encode_meta(kv, aq["attn_k"]["qmeta"][:, None, :])
+            encode_meta(kv, aq["attn_v"]["qmeta"][:, None, :])
+            encode_meta(x, aq["mlp_in"]["qmeta"])
+    encodes()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        encodes()
+    ms = time_ms(graph.replay, iters=20)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(f"  act-site encodes of a decode step (6 sites x {cfg.num_layers} "
+          f"layers at 8 rows, bf16 in, one captured graph): {ms:.3f} ms "
+          f"a step, "
+          f"{sum(e.count for e in kernels)} kernels busy {busy:.3f} ms",
+          flush=True)
+
+
+def profile_decode(eng, cfg, kernel: str) -> None:
+    """Where a decode step's time goes: 8 requests of 64-token prompts,
+    8 new tokens each, through ``eng`` under torch.profiler (after one
+    warm request, which also captures the window's keys in graph mode);
+    device time by kernel, the device's busy share of the wall time and
+    the steps' device span; the split-KV kernels seen must number the
+    ``kernel`` counter's launches."""
+    import numpy as np
 
     from repro_torch.runtime.server import Request
 
     rng = np.random.default_rng(1)
     reqs = [Request(100 + i, rng.integers(0, cfg.vocab_size, 64).astype(np.int32),
                     max_new_tokens=8) for i in range(8)]
-    srv.generate(reqs[:1])          # warm
-    steps0 = srv.last_engine.total_decode_steps
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        srv.generate(reqs)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = [e for e in prof.key_averages()
-              if getattr(e, "self_device_time_total", 0) > 0]
-    busy = sum(e.self_device_time_total for e in events) / 1e6
-    eng = srv.last_engine
-    print(f"  profile: wall {wall * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms "
-          f"({100 * busy / wall:.1f}%); "
-          f"{eng.total_decode_steps - steps0} decode steps", flush=True)
+    eng.generate(reqs[:1])          # warm
+    steps0 = eng.total_decode_steps
+    events, wall, busy, span, seen = profiled(lambda: eng.generate(reqs),
+                                              kernel)
+    mode = "graphs" if eng.cuda_graphs else "eager"
+    print(f"  profile [{mode}]: wall {wall * 1e3:.1f} ms, device busy "
+          f"{busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}%), steps' device "
+          f"span {span:.1f} ms ({100 * span / (wall * 1e3):.1f}%); "
+          f"{eng.total_decode_steps - steps0} decode steps; {seen} split-KV "
+          f"kernels = {kernel} launches", flush=True)
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"    {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d} x  "
               f"{e.key[:90]}", flush=True)

@@ -478,15 +478,31 @@ prefill_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pages,
   }
 }
 
+// Raise a kernel's dynamic shared-memory limit, once per device: the
+// attribute is a property of the function, setting it on every call costs
+// host time, and a launch inside a CUDA graph capture then makes no API
+// call but the launch.  ``done`` is the calling instantiation's own flags.
+template <typename Kern>
+cudaError_t smem_limit(Kern kern, int bytes, bool (&done)[16]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 16 && done[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes);
+  if (e == cudaSuccess && dev < 16) done[dev] = true;
+  return e;
+}
+
 template <int HD, typename QT, typename PT>
 cudaError_t launch_hd(const void* q, const void* k, const void* v,
                       const void* bt, const void* qs, const void* kl,
                       void* out, int B, int S, int n_kv, int g, int bs,
                       int max_blk, float scale, void* stream, Codes codes) {
   constexpr size_t smem = smem_bytes<HD, PT>();
+  static bool done[16] = {};
   auto kern = prefill_kernel<HD, QT, PT>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t e = smem_limit(kern, (int)smem, done);
   if (e != cudaSuccess) return e;
   const int qpb = ROWS / g;
   dim3 grid(B, n_kv, (S + qpb - 1) / qpb);

@@ -11,10 +11,15 @@ started together).
 
 Every wrapper counts its launches here (:func:`count_launch`), once per
 call that launched its kernel; the plain PyTorch versions never count.
+A CUDA graph capture calls the wrappers but launches nothing, and a
+replay launches without a wrapper call: inside :func:`recording_launches`
+the calls go to the capture's own record, and each replay adds that
+record to the counts (:func:`add_launches`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -35,13 +40,34 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LAUNCHES: dict[str, int] = {}
+_RECORD: dict[str, int] | None = None   # the capture being recorded
 BUILD_SECONDS: dict[str, float] = {}   # source -> nvcc wall seconds
 
 
 # ------------------------------------------------------------ counters --
 
 def count_launch(name: str) -> None:
-    _LAUNCHES[name] = _LAUNCHES.get(name, 0) + 1
+    counts = _LAUNCHES if _RECORD is None else _RECORD
+    counts[name] = counts.get(name, 0) + 1
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Count the wrapper calls made inside the block into a record of
+    their own (yielded), not into the launch counts: what a CUDA graph
+    captured, which each replay then adds with :func:`add_launches`."""
+    global _RECORD
+    prev, _RECORD = _RECORD, {}
+    try:
+        yield _RECORD
+    finally:
+        _RECORD = prev
+
+
+def add_launches(record: dict[str, int]) -> None:
+    """Add a capture's record to the launch counts: one replay."""
+    for name, n in record.items():
+        _LAUNCHES[name] = _LAUNCHES.get(name, 0) + n
 
 
 def launch_counts() -> dict[str, int]:

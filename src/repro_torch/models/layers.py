@@ -75,7 +75,8 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     d = x.shape[-1]
     half = d // 2
     freq = torch.arange(half, dtype=F32, device=x.device) / half
-    inv = torch.pow(torch.tensor(theta, dtype=F32, device=x.device), -freq)
+    # theta filled on the device: no host copy, so a capture takes it
+    inv = torch.pow(torch.full((), theta, dtype=F32, device=x.device), -freq)
     ang = positions.to(F32)[..., None] * inv
     cos = torch.cos(ang)[..., None, :]
     sin = torch.sin(ang)[..., None, :]

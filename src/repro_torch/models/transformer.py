@@ -190,27 +190,43 @@ def decode_step(params: DecoderLM, cache: dict, tokens: torch.Tensor,
     place.  Attention goes through the flash-decode kernel (policy
     ``flash_decode``, S = 1), else the dense masked attend over the
     cache upcast to the compute dtype.  Returns (logits [B, S, V], the
-    cache with ``pos`` advanced by one, as the reference's)."""
+    cache with ``pos`` advanced by one, as the reference's).
+
+    ``pos`` is an int, or a 0-d int64 tensor on the cache's device (the
+    reference's traced position): then nothing here reads it on the
+    host, so a captured step replays at whatever position the tensor
+    holds, and the caller checks that the cache has room."""
     _check_dense(cfg, None)
     x = L.embed_tokens(params["embed"], tokens, cfg)
     b, s, _ = x.shape
-    pos = int(cache["pos"])
+    pos = cache["pos"]
     max_len = cache["k"].shape[2]
-    if pos + s > max_len:
-        raise ValueError(f"cache full: position {pos} + {s} > {max_len}")
     dev = x.device
-    positions = torch.full((b, s), pos, device=dev)
+    if isinstance(pos, torch.Tensor):
+        positions = pos.expand(b, s)
+        at = pos + torch.arange(s, device=dev)
+        lengths = (pos + 1).to(torch.int32).expand(b)
+    else:
+        pos = int(pos)
+        if pos + s > max_len:
+            raise ValueError(f"cache full: position {pos} + {s} > {max_len}")
+        positions = torch.full((b, s), pos, device=dev)
+        at = slice(pos, pos + s)
+        lengths = torch.full((b,), pos + 1, dtype=torch.int32, device=dev)
     mask = (torch.arange(max_len, device=dev)[None, :] <= pos).expand(s, max_len)
     flash = ll.get_policy().flash_decode and s == 1
-    lengths = torch.full((b,), pos + 1, dtype=torch.int32, device=dev)
     for i in range(cfg.num_layers):
         lp = params.layer(i)
         aq = lp.get("act_q")
         kc, vc = cache["k"][i], cache["v"][i]
         h = L.apply_norm(lp["ln1"], x, cfg)
         k_new, v_new = L.self_kv(lp["attn"], h, cfg, positions, act_q=aq)
-        kc[:, pos:pos + s] = k_new.to(kc.dtype)
-        vc[:, pos:pos + s] = v_new.to(vc.dtype)
+        if isinstance(at, slice):
+            kc[:, at] = k_new.to(kc.dtype)
+            vc[:, at] = v_new.to(vc.dtype)
+        else:
+            kc.index_copy_(1, at, k_new.to(kc.dtype))
+            vc.index_copy_(1, at, v_new.to(vc.dtype))
         if flash:
             attn = L.mha_decode(lp["attn"], h, cfg, positions, kc, vc,
                                 lengths, act_q=aq)

@@ -19,7 +19,15 @@ pow2 ladders (``_chunk_width``/``_live_cols``), so the kernels see the
 same M and page-column counts as the reference's.
 
 Greedy argmax and the per-row ``isfinite`` flag are computed in the same
-step as the logits and cross to the host in one transfer per tick.
+step as the logits and cross to the host in one transfer per tick.  On
+the card each tick is one dispatch, as the reference's jitted
+``_jit_prefill`` / ``_jit_decode`` are: a
+:class:`~repro_torch.runtime.step_graph.StepGraph` per decode width
+(the pow2 block-table column ladder) and per prefill (chunk width,
+columns) takes the tick's host inputs in one copy, replays the step as a
+CUDA graph captured after the first eager tick at that key, and returns
+the argmax and flags in one copy back.  ``cuda_graphs=False`` runs every
+tick eagerly (the A/B); on the CPU ticks always run eagerly.
 
 Activations as codes (``act_quant``: per-(layer, site) tables fit on
 sample prompts at construction, on the engine's device, disk-cached) and
@@ -54,6 +62,7 @@ from repro_torch.models import api as mapi
 from repro_torch.models.transformer import DecoderLM
 from repro_torch.runtime import calibration as cal
 from repro_torch.runtime.paged_cache import PagedKVCache
+from repro_torch.runtime.step_graph import StepGraph
 
 ST_OK = "ok"
 KV_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -129,14 +138,13 @@ def kv_dtype_of(kv_dtype) -> torch.dtype:
 _QUEUED, _RUNNING, _FINISHED = "queued", "running", "finished"
 
 
-def _greedy(logits: torch.Tensor):
-    """Greedy token and finite flag per row of the last position, moved
-    to the host in one transfer (which waits for the dispatch)."""
+def _greedy(logits: torch.Tensor) -> torch.Tensor:
+    """[2, B] int64 on the logits' device: the greedy token and the
+    finite flag of each row's last position (inside the step, so they
+    cross to the host in the tick's one transfer)."""
     last = logits[:, -1, :]
-    both = torch.stack([torch.argmax(last, -1),
+    return torch.stack([torch.argmax(last, -1),
                         torch.isfinite(last).all(-1).to(torch.int64)])
-    both = both.cpu().numpy()
-    return both[0], both[1].astype(bool)
 
 
 @dataclasses.dataclass
@@ -185,15 +193,20 @@ class Engine:
     ``params`` that already carry tables are served with them.
     ``kv_codes`` stores KV pages as uint8 codes under the per-head
     attn_k/attn_v tables, which must exist (``act_quant`` or params that
-    carry them)."""
+    carry them).
+
+    ``cuda_graphs`` (on the card): replay each tick's step as a CUDA
+    graph, one per shape key, captured after the key's first (eager)
+    tick; False runs every tick eagerly.  Meaningless on the CPU."""
 
     def __init__(self, cfg: ModelConfig, params: DecoderLM | None = None,
                  rng_seed: int = 0, quant_bits: int | None = None,
                  act_quant: int | None = None, calib_prompts=None,
                  engine: EngineConfig | None = None,
                  kv_dtype="float32", kv_codes: bool = False, chaos=None,
-                 device=None):
+                 device=None, cuda_graphs: bool = True):
         self.device = resolve_device(device)
+        self.cuda_graphs = bool(cuda_graphs) and self.device.type == "cuda"
         if chaos is not None:
             raise _not_ported("chaos injection", 11)
         self.cfg = cfg
@@ -265,6 +278,13 @@ class Engine:
         self.attn_bytes_read = 0
         self.attn_act_bytes = 0
         self.attn_dequants = 0
+        # the step runners, by shape key (and policy): decode (cols,),
+        # prefill (chunk width, cols); every graph shares one pool, as
+        # each replay's output is copied off before the next replay
+        self.step_runners: dict[str, dict[tuple, StepGraph]] = {
+            "decode": {}, "prefill": {}}
+        self._pool = (torch.cuda.graph_pool_handle() if self.cuda_graphs
+                      else None)
 
     # ---------------------------------------------------------------- api
     def submit(self, request: Request) -> int:
@@ -340,6 +360,12 @@ class Engine:
         """Assert the page-partition invariant (cheap; tests call it
         every tick)."""
         self.cache.audit_partition()
+
+    def graph_captures(self) -> tuple[int, float]:
+        """(CUDA graphs captured, seconds spent capturing them)."""
+        done = [r for d in self.step_runners.values() for r in d.values()
+                if r.graph is not None]
+        return len(done), sum(r.capture_s for r in done)
 
     # ---------------------------------------------------------- scheduler
     def _free_slot(self) -> int | None:
@@ -483,6 +509,28 @@ class Engine:
         if self.kv_codes:
             self.attn_dequants += q_tokens * cfg.num_heads * hd + kv_elems
 
+    def _runner(self, kind: str, key: tuple, inputs) -> StepGraph:
+        """The step runner of ``kind`` at ``key`` under the current
+        policy (a capture bakes the policy in), made on first use."""
+        key = (*key, ll.get_policy())
+        runners = self.step_runners[kind]
+        if key not in runners:
+            runners[key] = StepGraph(inputs, self.device,
+                                     graphs=self.cuda_graphs, pool=self._pool)
+        return runners[key]
+
+    def _prefill_step(self, v: dict) -> torch.Tensor:
+        logits, _ = self.api.prefill_into_cache(
+            self.params, v["tokens"], self.cache.bind(v["table"], v["lengths"]),
+            self.cfg, v["start"])
+        return _greedy(logits)
+
+    def _decode_step(self, v: dict) -> torch.Tensor:
+        logits, _ = self.api.decode_step_paged(
+            self.params, self.cache.bind(v["table"], v["lengths"]),
+            v["tokens"], v["mask"] != 0, self.cfg)
+        return _greedy(logits)
+
     def _check_finite(self, ok, rows) -> None:
         bad = [self._slots[i].request.uid for i in rows if not ok[i]]
         if bad:
@@ -503,31 +551,34 @@ class Engine:
         remaining = max(len(st.full_prompt()) - st.prefill_pos
                         for _, st in pref)
         w = self._chunk_width(remaining)
-        toks = np.zeros((ec.num_slots, w), np.int32)
-        start = np.asarray(self.cache.lengths, np.int32).copy()
         takes: dict[int, int] = {}
         cols_need = 1
         for i, st in pref:
-            prompt = st.full_prompt()
             s0 = st.prefill_pos
-            take = min(w, len(prompt) - s0)
-            toks[i, :take] = prompt[s0:s0 + take]
-            start[i] = s0
-            takes[i] = take
-            self.prefill_tokens_computed += take
-            self._attn_accounting(take, s0 + take)
-            cols_need = max(cols_need, -(-(s0 + take) // bs))
+            takes[i] = min(w, len(st.full_prompt()) - s0)
+            cols_need = max(cols_need, -(-(s0 + takes[i]) // bs))
         self.prefill_batches += 1
         cols = min(self._pow2(cols_need), self.cache.max_blocks_per_seq)
+        b = ec.num_slots
+        run = self._runner("prefill", (w, cols),
+                           {"table": (b, cols), "lengths": (b,),
+                            "start": (b,), "tokens": (b, w)})
 
         t0 = self._clock()
-        logits, _ = self.api.prefill_into_cache(
-            self.params, torch.as_tensor(toks, device=self.device),
-            self.cache.view(cols=cols), self.cfg,
-            torch.as_tensor(start, device=self.device))
-        nxt, ok = _greedy(logits)
+        h = run.host
+        self.cache.fill(h["table"], h["lengths"])
+        h["start"][:] = h["lengths"]
+        h["tokens"][:] = 0
+        for i, st in pref:
+            s0, take = st.prefill_pos, takes[i]
+            h["tokens"][i, :take] = st.full_prompt()[s0:s0 + take]
+            h["start"][i] = s0
+            self.prefill_tokens_computed += take
+            self._attn_accounting(take, s0 + take)
+        nxt, ok = run.run(self._prefill_step)
         dt = self._clock() - t0
         self.prefill_dispatch_s += dt
+        run.capture(self._prefill_step)
 
         completing = [i for i, st in pref
                       if st.prefill_pos + takes[i]
@@ -561,22 +612,25 @@ class Engine:
                   if s is not None and s.prefill_done]
         if not active:
             return []
-        ec = self.engine_cfg
-        tokens = np.zeros((ec.num_slots, 1), np.int32)
-        mask = np.zeros((ec.num_slots,), bool)
-        for i, st in active:
-            tokens[i, 0] = st.next_token
-            mask[i] = True
-            self._attn_accounting(1, int(self.cache.lengths[i]) + 1)
+        b = self.engine_cfg.num_slots
+        cols = self._live_cols(active)
+        run = self._runner("decode", (cols,),
+                           {"table": (b, cols), "lengths": (b,),
+                            "tokens": (b, 1), "mask": (b,)})
 
         t0 = self._clock()
-        logits, _ = self.api.decode_step_paged(
-            self.params, self.cache.view(cols=self._live_cols(active)),
-            torch.as_tensor(tokens, device=self.device),
-            torch.as_tensor(mask, device=self.device), self.cfg)
-        nxt, ok = _greedy(logits)
+        h = run.host
+        self.cache.fill(h["table"], h["lengths"])
+        h["tokens"][:] = 0
+        h["mask"][:] = 0
+        for i, st in active:
+            h["tokens"][i, 0] = st.next_token
+            h["mask"][i] = 1
+            self._attn_accounting(1, int(self.cache.lengths[i]) + 1)
+        nxt, ok = run.run(self._decode_step)
         dt = self._clock() - t0
         self.decode_dispatch_s += dt
+        run.capture(self._decode_step)
         self.total_decode_steps += 1
         self.decode_tokens += len(active)
         self._check_finite(ok, [i for i, _ in active])

@@ -14,7 +14,8 @@ port owns this copy).
 The page pools ``k_pages``/``v_pages`` live on the device and are
 written in place by the model steps; the host keeps the allocator, the
 block tables and the lengths, and hands the device a small int32 view
-of them each step.  Pools are float32 or bfloat16, or uint8 in codes
+of them each step (``view``, or ``fill`` into a step's own buffers and
+``bind``).  Pools are float32 or bfloat16, or uint8 in codes
 mode (each element a DNA-TEQ code under its layer's per-head table).
 """
 
@@ -200,6 +201,19 @@ class PagedKVCache:
             assert alloc.refcount(b) == 1, (b, alloc.refcount(b))
 
     # ------------------------------------------------------------ views
+    def fill(self, block_tables: np.ndarray, lengths: np.ndarray) -> None:
+        """Write the block tables' first ``block_tables.shape[1]``
+        columns and the lengths into the given host arrays (a step's
+        pinned input buffer), making no device tensor."""
+        block_tables[...] = self.block_tables[:, :block_tables.shape[1]]
+        lengths[...] = self.lengths
+
+    def bind(self, block_tables: torch.Tensor,
+             lengths: torch.Tensor) -> PagedView:
+        """The page pools under device tables and lengths the caller
+        owns (a step's static input buffers)."""
+        return PagedView(self.k_pages, self.v_pages, block_tables, lengths)
+
     def view(self, cols: int | None = None) -> PagedView:
         """Device view of every slot.  ``cols`` trims the block table to
         its first ``cols`` logical columns, so the kernels see no column

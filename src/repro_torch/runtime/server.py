@@ -13,7 +13,12 @@ tables), and with ``kv_codes`` the KV pages.
 reference as the engine's measured baseline and numerical reference:
 requests bucketed by prompt length, each bucket prefilled in one batch
 into a contiguous cache of ``max_len`` positions and decoded in
-lockstep through the contiguous flash-decode kernel.  It serves float
+lockstep through the contiguous flash-decode kernel.  On the card the
+decode steps of a bucket replay one CUDA graph, captured after the
+first (eager) step, as the reference jits its decode step: the argmax
+feeds the next step's token buffer, the position advances and the token
+lands in a device buffer, all inside the graph, and the bucket's tokens
+come to the host in one copy at the end.  It serves float
 activations (``act_quant`` and ``kv_codes`` apply to the Engine only,
 as in the reference).  The decoder family is the only one ported, so
 ``generate`` never falls back to it.
@@ -35,6 +40,7 @@ from repro_torch.models import api as mapi
 from repro_torch.models.transformer import DecoderLM
 from repro_torch.runtime.engine import (Completion, Engine, EngineConfig,
                                         Request, kv_dtype_of)
+from repro_torch.runtime.step_graph import StepGraph
 
 __all__ = ["InferenceServer", "Request", "Completion"]
 
@@ -48,7 +54,7 @@ class InferenceServer:
                  prefix_cache: bool = False, prefill_chunk: int = 256,
                  max_queue: int | None = None,
                  shed_policy: str = "reject-new", spec_k: int = 0,
-                 device=None):
+                 device=None, cuda_graphs: bool = True):
         """As the reference's server, on the card unless
         ``device="cpu"`` is passed.  ``kv_dtype`` is ``"float32"`` or
         ``"bfloat16"``, for the Engine's pages and for the contiguous
@@ -60,7 +66,9 @@ class InferenceServer:
         ``quantize_tree`` on the device.  ``act_quant`` (bits) serves
         activations as codes, calibrated by each Engine the server
         builds (disk-cached); ``kv_codes`` stores KV pages as uint8
-        codes and requires ``act_quant``."""
+        codes and requires ``act_quant``.  ``cuda_graphs=False`` runs
+        every step eagerly, in the Engines and in
+        :meth:`generate_bucketed` (the A/B of one dispatch a step)."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.api = mapi.get_model(cfg)
@@ -77,6 +85,7 @@ class InferenceServer:
         self.max_queue = max_queue
         self.shed_policy = shed_policy
         self.spec_k = int(spec_k)
+        self.cuda_graphs = bool(cuda_graphs)
         if params is None:
             params = self.api.init(self.device, seed=rng_seed)
         self.quant_report = None
@@ -88,6 +97,9 @@ class InferenceServer:
         self.params = params.to(self.device)
         self.last_engine: Engine | None = None
         self._engine_max_seq = max_len          # grows monotonically
+        # generate_bucketed's decode graphs: (captured, capture seconds)
+        self.bucket_graphs = 0
+        self.bucket_capture_s = 0.0
 
     def make_engine(self, requests: Sequence[Request]) -> Engine:
         """An Engine for this request set, reused while its config
@@ -107,7 +119,7 @@ class InferenceServer:
             self.last_engine = Engine(
                 self.cfg, params=self.params, act_quant=self.act_quant,
                 engine=ec, kv_dtype=self.kv_dtype, kv_codes=self.kv_codes,
-                device=self.device)
+                device=self.device, cuda_graphs=self.cuda_graphs)
         return self.last_engine
 
     def generate(self, requests: Sequence[Request]) -> list[Completion]:
@@ -146,16 +158,39 @@ class InferenceServer:
         self._sync()
         t_prefill = time.perf_counter() - t0
 
+        plen = toks.shape[1]
         max_new = max(r.max_new_tokens for r in group)
-        generated = [cur]
+        if plen + max_new - 1 > self.max_len:   # the steps cannot check
+            raise ValueError(f"cache full: position {plen} + "
+                             f"{max_new - 1} decode steps > {self.max_len}")
+
+        # the decode loop's state lives on the device: the step reads
+        # and advances it, so its graph replays with no host input
+        gen = torch.zeros((len(group), max(max_new, 1)), dtype=torch.int32,
+                          device=self.device)
+        gen[:, :1] = cur
+        pos = torch.full((), plen, dtype=torch.int64, device=self.device)
+        cache["pos"] = pos
+
+        def step(_inputs):
+            logits, _ = self.api.decode_step(self.params, cache, cur,
+                                             self.cfg)
+            nxt = logits[:, -1, :].argmax(-1)[:, None].to(torch.int32)
+            gen.index_copy_(1, (pos - (plen - 1)).reshape(1), nxt)
+            cur.copy_(nxt)
+            pos.add_(1)
+
+        run = StepGraph({}, self.device, graphs=self.cuda_graphs)
         t0 = time.perf_counter()
-        for _ in range(max_new - 1):
-            logits, cache = self.api.decode_step(self.params, cache, cur,
-                                                 self.cfg)
-            cur = logits[:, -1, :].argmax(-1)[:, None].to(torch.int32)
-            generated.append(cur)
-        gen = torch.cat(generated, dim=1).cpu().numpy()   # waits for the card
+        for i in range(max_new - 1):
+            run.step(step)
+            if i == 0 and max_new > 2:
+                run.capture(step)
+        gen = gen.cpu().numpy()                 # waits for the card
         t_decode = time.perf_counter() - t0
+        if run.graph is not None:
+            self.bucket_graphs += 1
+            self.bucket_capture_s += run.capture_s
 
         outs = []
         for i, r in enumerate(group):

@@ -12,7 +12,9 @@ zero-length rows, the wrappers' refusals, small engines (float and
 codes mode) served on the card against the same engine on the CPU, the
 attention kernels at every g from 1 to 8 and head_dim 64, the contiguous
 decode at every group size and head_dim, lengths 0 and past its cache,
-and replayed in a CUDA graph, and the Lama primitives (bulk LUT op, signed
+and replayed in a CUDA graph (#1-#9, each alone), the engine and the
+bucketed server with their steps replayed as CUDA graphs against the same
+steps run eagerly, and the Lama primitives (bulk LUT op, signed
 histogram) on their vector and scalar paths, with out-of-range codes.
 The Lama primitives and the histogram are held to exact equality
 (integers, and sums of +-1 in float32).
@@ -943,3 +945,278 @@ def test_lama_primitives_on_the_card_match_the_cpu(dev):
     after = _build.launch_counts()
     for name in ("lama_bulk_op", "exp_histogram"):
         assert after.get(name, 0) == before.get(name, 0) + 1
+
+
+# ------------------------------------------------ one dispatch a tick --
+
+def _replays(call, refresh, check, seeds=(1, 2, 3)):
+    """Warm ``call`` up on a side stream, capture it, then for each seed
+    write new inputs (``refresh(seed)``), replay and ``check(out)``."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                  # build, load, warm up
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for seed in seeds:
+        refresh(seed)
+        graph.replay()
+        torch.cuda.synchronize()
+        check(out)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("kind", ["dual", "dual_gated"])
+def test_dual_prefill_replays_in_a_cuda_graph(dev, kind, quant):
+    """#3 and #4 at a prefill tail chunk's M (tensor-core tiles, split K
+    with a workspace and a reduce pass): captured alone and replayed
+    after new activation codes are written (the first codes shuffled),
+    float out equals the plain version on those codes, and u8 out the
+    same kernel called eagerly on them, bit for bit (the plain
+    version's float sums may cross an out code's rounding boundary
+    where the kernel's do not)."""
+    m, k, n = 256, 2048, 2048
+    assert gemm_plan(m, k, n, _sms(), 2 if kind == "dual_gated" else 1)[0] > 1
+    gen = _gen(dev, 59)
+    if kind == "dual":
+        x, call, ref = _plain_call(kind, m, k, n, "gather", None, dev, gen,
+                                   quant=quant)
+    else:
+        x, call, ref, _ = _gated_call(kind, m, k, n, "gather", None, dev, gen,
+                                      quant=quant)
+    first = x.clone()
+
+    def refresh(seed):
+        perm = torch.randperm(m * k, generator=_gen(dev, seed), device=dev)
+        x.copy_(first.flatten()[perm].view(m, k))
+
+    def check(out):
+        if quant:
+            assert out.dtype == torch.uint8 and torch.equal(out, call())
+        else:
+            _close(out, ref())
+    _replays(call, refresh, check)
+
+
+@pytest.mark.parametrize("codes", [False, True])
+def test_flash_prefill_replays_in_a_cuda_graph(dev, codes):
+    """#5 and #6 take their dynamic shared memory limit once, before any
+    capture: captured alone and replayed after new queries, starts and
+    lengths are written, they equal the plain versions on those."""
+    gen = _gen(dev, 61)
+    b, n_kv, g, bs, s = 4, 2, 2, 16, 64
+    max_blk, q_start, kv_lens = _prefill_rows(dev, bs, s, False)
+    if codes:
+        kp, vp, bt, kl, vl = _code_pages(dev, gen, b, n_kv, bs, max_blk)
+        q, ql, _ = _act_codes((b, s, n_kv, g, 128), dev, gen)
+        oq = torch.tensor([0.02, 1e-4, 1.04, 7.0], device=dev)
+        args = (q, kp, vp, ql, kl, vl, oq, bt, q_start, kv_lens)
+        call = lambda: flash_prefill_paged_codes(*args)
+        check = lambda out: _codes_close(
+            out, flash_prefill_paged_codes_ref(*args))
+    else:
+        kp, vp, bt = _pages(dev, gen, b, n_kv, bs, max_blk, torch.float32)
+        q = torch.randn(b, s, n_kv, g, 128, generator=gen, device=dev)
+        args = (q, kp, vp, bt, q_start, kv_lens)
+        call = lambda: flash_prefill_paged(*args)
+        check = lambda out: _close(out, flash_prefill_paged_ref(*args))
+
+    def refresh(seed):
+        g2 = _gen(dev, seed)
+        if codes:
+            q.copy_(torch.randint(0, 256, q.shape, generator=g2, device=dev))
+        else:
+            q.copy_(torch.randn(q.shape, generator=g2, device=dev))
+        start = torch.tensor([0, seed, bs * seed + 1, 5], dtype=torch.int32,
+                             device=dev)
+        valid = torch.tensor([s, s - 9 * seed, s // seed, 0],
+                             dtype=torch.int32, device=dev)
+        q_start.copy_(start)
+        kv_lens.copy_(torch.where(valid > 0, start + valid, 0))
+    _replays(call, refresh, check)
+
+
+def _tiny_card_cfg():
+    from repro_torch.configs import get_config
+
+    return get_config("qwen3-1.7b").replace(
+        num_layers=2, d_model=256, num_heads=2, num_kv_heads=1, head_dim=128,
+        d_ff=512, vocab_size=1024, compute_dtype="float32")
+
+
+def _tiny_prompts():
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, 1024, n).astype(np.int32) for n in (5, 40, 70, 17)]
+
+
+def _counting_api(eng):
+    """Wrap the engine's two step entry points so that every Python call
+    of them (an eager tick, or a capture) is counted."""
+    import dataclasses
+
+    calls = {"prefill": 0, "decode": 0}
+    api = eng.api
+
+    def prefill(*a, **kw):
+        calls["prefill"] += 1
+        return api.prefill_into_cache(*a, **kw)
+
+    def decode(*a, **kw):
+        calls["decode"] += 1
+        return api.decode_step_paged(*a, **kw)
+    eng.api = dataclasses.replace(api, prefill_into_cache=prefill,
+                                  decode_step_paged=decode)
+    return calls
+
+
+@pytest.mark.parametrize("codes", [False, True])
+def test_engine_replays_its_ticks_as_eager_ticks(dev, codes, tmp_path,
+                                                 monkeypatch):
+    """With graphs on, each shape key runs its step eagerly once and is
+    captured once; every later tick at the key replays (the step
+    functions are called twice a key, however many ticks).  The token
+    streams and the launch counts equal an eager engine's on the same
+    weights (and tables), and a second request set replays only."""
+    from repro_torch.kernels import _build
+    from repro_torch.runtime.engine import Engine, EngineConfig, Request
+
+    monkeypatch.setenv("REPRO_ACT_CALIB_CACHE", str(tmp_path / "calib.json"))
+    cfg = _tiny_card_cfg()
+    ec = EngineConfig(num_slots=3, block_size=16, max_seq_len=96,
+                      prefill_chunk=32)
+    kw = dict(act_quant=7, kv_codes=True) if codes else {}
+    on = Engine(cfg, quant_bits=7, engine=ec, device="cuda", rng_seed=3, **kw)
+    off = Engine(cfg, params=on.params, engine=ec, device="cuda",
+                 kv_codes=codes, cuda_graphs=False)
+    assert on.cuda_graphs and not off.cuda_graphs
+    calls = _counting_api(on)
+    prompts = _tiny_prompts()
+    reqs = lambda: [Request(i, p, 10) for i, p in enumerate(prompts)]
+    _build.reset_launch_counts()
+    a = on.generate(reqs())
+    counts_on = _build.launch_counts()
+    _build.reset_launch_counts()
+    b = off.generate(reqs())
+    counts_off = _build.launch_counts()
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x.tokens, y.tokens)
+    assert counts_on == counts_off
+    runners = on.step_runners
+    for kind in ("prefill", "decode"):
+        assert calls[kind] == 2 * len(runners[kind])
+        assert all(r.graph is not None for r in runners[kind].values())
+    assert on.total_decode_steps > len(runners["decode"])
+    assert sum(r.replays for r in runners["decode"].values()) == (
+        on.total_decode_steps - len(runners["decode"]))
+    assert on.graph_captures()[0] == sum(map(len, runners.values()))
+    assert all(r.graph is None for d in off.step_runners.values()
+               for r in d.values())
+    before = dict(calls)
+    c = on.generate(reqs())
+    assert calls == before                 # every key captured: replays only
+    for x, y in zip(a, c):
+        np.testing.assert_array_equal(x.tokens, y.tokens)
+
+
+def test_replayed_tick_logits_equal_the_eager_tick(dev):
+    """One prefill tick and one decode tick as a step runner returning
+    the logits: the replay's logits equal the eager run's bit for bit
+    (the same kernels in the same order), and a second replay after the
+    inputs are rewritten equals an eager run on those inputs."""
+    from repro_torch.runtime.engine import Engine, EngineConfig, Request
+    from repro_torch.runtime.step_graph import StepGraph
+
+    cfg = _tiny_card_cfg()
+    eng = Engine(cfg, quant_bits=7, device="cuda", rng_seed=3,
+                 engine=EngineConfig(num_slots=3, block_size=16,
+                                     max_seq_len=96, prefill_chunk=32))
+    eng.generate([Request(0, _tiny_prompts()[2], 4)])
+    rng = np.random.default_rng(8)
+    b, cols = 3, 4
+    table = rng.permutation(np.arange(1, eng.cache.k_pages.shape[1]))[:b * cols]
+
+    def prefill(v):
+        return eng.api.prefill_into_cache(
+            eng.params, v["tokens"], eng.cache.bind(v["table"], v["lengths"]),
+            cfg, v["start"])[0]
+
+    def decode(v):
+        return eng.api.decode_step_paged(
+            eng.params, eng.cache.bind(v["table"], v["lengths"]),
+            v["tokens"], v["mask"] != 0, cfg)[0]
+
+    cases = [(prefill, {"table": (b, cols), "lengths": (b,), "start": (b,),
+                        "tokens": (b, 32)},
+              lambda: {"lengths": rng.integers(1, 64, b),
+                       "start": rng.integers(0, 24, b)}),
+             (decode, {"table": (b, cols), "lengths": (b,), "tokens": (b, 1),
+                       "mask": (b,)},
+              lambda: {"lengths": rng.integers(0, 63, b),
+                       "mask": rng.integers(0, 2, b)})]
+    for fn, inputs, draw in cases:
+        eager = StepGraph(inputs, dev, graphs=False)
+        run = StepGraph(inputs, dev, graphs=True)
+        for i in range(3):
+            vals = {"table": table.reshape(b, cols),
+                    "tokens": rng.integers(0, 1024, inputs["tokens"]), **draw()}
+            for r in (eager, run):
+                for k, a in vals.items():
+                    r.host[k][...] = a
+            want = eager.step(fn).clone()
+            got = run.step(fn).clone()
+            assert torch.equal(got, want), (fn.__name__, i)
+            run.capture(fn)
+        assert run.replays == 2
+
+
+def test_engine_capture_failure_raises(dev):
+    """A step that fails while it is captured raises out of the tick:
+    the engine neither falls back to the eager step nor replays."""
+    import dataclasses
+
+    from repro_torch.runtime.engine import Engine, EngineConfig, Request
+
+    eng = Engine(_tiny_card_cfg(), quant_bits=7, device="cuda", rng_seed=3,
+                 engine=EngineConfig(num_slots=2, block_size=16,
+                                     max_seq_len=96, prefill_chunk=32))
+    api = eng.api
+
+    def decode(*a, **kw):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("refused under capture")
+        return api.decode_step_paged(*a, **kw)
+    eng.api = dataclasses.replace(api, decode_step_paged=decode)
+    with pytest.raises(RuntimeError, match="refused under capture"):
+        eng.generate([Request(0, _tiny_prompts()[0], 6)])
+    (run,) = eng.step_runners["decode"].values()
+    assert run.graph is None and run.replays == 0
+    torch.cuda.synchronize()
+
+
+def test_bucketed_decode_replays_one_graph_a_bucket(dev):
+    """generate_bucketed with graphs on and off on the same weights:
+    equal token streams and launch counts, ``decode_gqa`` launched once
+    a layer and decode step, one graph captured per bucket."""
+    from repro_torch.kernels import _build
+    from repro_torch.runtime.server import InferenceServer, Request
+
+    cfg = _tiny_card_cfg()
+    on = InferenceServer(cfg, quant_bits=7, max_len=96, num_slots=3,
+                         device="cuda", rng_seed=3)
+    off = InferenceServer(cfg, params=on.params, max_len=96, num_slots=3,
+                          device="cuda", cuda_graphs=False)
+    rng = np.random.default_rng(1)
+    reqs = [Request(i, rng.integers(0, 1024, n).astype(np.int32), 12)
+            for i, n in enumerate((9, 9, 33, 33, 50))]
+    outs, counts = [], []
+    for srv in (on, off):
+        _build.reset_launch_counts()
+        outs.append(srv.generate_bucketed(reqs))
+        counts.append(_build.launch_counts())
+    for x, y in zip(*outs):
+        np.testing.assert_array_equal(x.tokens, y.tokens)
+    assert counts[0] == counts[1]
+    assert counts[0]["decode_gqa"] == cfg.num_layers * 3 * 11
+    assert on.bucket_graphs == 3 and off.bucket_graphs == 0

@@ -1,21 +1,24 @@
 #!/usr/bin/env python3
-"""Host time of the paged flash-decode wrappers on one CUDA card.
+"""Host time of the paged attention wrappers on one CUDA card.
 
-    PYTHONPATH=src python3 tools/decode_host_time.py [--rounds 50]
+    PYTHONPATH=src python3 tools/wrapper_host_time.py [--rounds 50]
 
-Times on the host's clock a decode step's worth of wrapper calls (28,
-one per layer of qwen3-1.7b) of ``decode_gqa_paged`` (#7) and
+Times on the host's clock a step's worth of wrapper calls (28, one per
+layer of qwen3-1.7b) of ``decode_gqa_paged`` (#7) and
 ``decode_gqa_paged_codes`` (#8) at ``chip_smoke.py``'s serving decode
 shape (8 rows, 8 KV heads x 2 query heads, head_dim 128, 64 pages of
-16, lengths <= 732), enqueued while the stream sleeps: the timer reads
-what a call costs the host (argument checks, workspace, enqueueing its
-kernels), not the device's work.  Prints the card's name and power
-limit, then per wrapper the median over the rounds in microseconds a
-call, as one JSON line.  It runs the ``repro_torch`` found on
-PYTHONPATH, so two trees compare in one session:
+16, lengths <= 732), and of ``flash_prefill_paged`` (#5) and
+``flash_prefill_paged_codes`` (#6) at its serving chunk (8 rows of 256
+queries over the same pages), enqueued while the stream sleeps: the
+timer reads what a call costs the host (argument checks, workspace, the
+CUDA calls that enqueue its kernels), not the device's work.  Prints
+the card's name and power limit, then per wrapper the median over the
+rounds in microseconds a call, as one JSON line.  It runs the
+``repro_torch`` found on PYTHONPATH, so two trees compare on one card
+in one run:
 
-    PYTHONPATH=parent/src python3 tools/decode_host_time.py
-    PYTHONPATH=src python3 tools/decode_host_time.py
+    PYTHONPATH=parent/src python3 tools/wrapper_host_time.py
+    PYTHONPATH=src python3 tools/wrapper_host_time.py
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import subprocess
 import sys
 import time
 
-CALLS = 28          # paged decode calls in one decode step
+CALLS = 28          # paged attention calls in one step
 
 
 def main() -> int:
@@ -43,6 +46,8 @@ def main() -> int:
     from repro_torch.core import exponential_quant as eq
     from repro_torch.kernels.decode_gqa.ops import (decode_gqa_paged,
                                                    decode_gqa_paged_codes)
+    from repro_torch.kernels.flash_prefill.ops import (
+        flash_prefill_paged, flash_prefill_paged_codes)
 
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -71,11 +76,19 @@ def main() -> int:
 
     qc, kc, vc = (codes(b, n_kv, g, hd), codes(n, bs, n_kv, hd),
                   codes(n, bs, n_kv, hd))
+    s = 256                                    # the serving chunk
+    qp = rnd(b, s, n_kv, g, hd).to(torch.bfloat16)
+    qpc = codes(b, s, n_kv, g, hd)
+    q_start = (lengths - s).clamp_min(0)
     calls = {
         "decode_gqa_paged": lambda: decode_gqa_paged(q, kp, vp, table,
                                                      lengths),
         "decode_gqa_paged_codes": lambda: decode_gqa_paged_codes(
             qc, kc, vc, lut, heads, heads, qmeta, table, lengths),
+        "flash_prefill_paged": lambda: flash_prefill_paged(
+            qp, kp, vp, table, q_start, lengths),
+        "flash_prefill_paged_codes": lambda: flash_prefill_paged_codes(
+            qpc, kc, vc, lut, heads, heads, qmeta, table, q_start, lengths),
     }
     out = {}
     for name, fn in calls.items():
