@@ -1,14 +1,16 @@
 """Architecture registry of the PyTorch port.
 
 The port keeps its own copy of the config dataclasses (``base.py``) and
-of each architecture it serves; it never imports the JAX package.  Only
-``qwen3-1.7b`` is registered so far.
+of each architecture it serves; it never imports the JAX package.  The
+four dense decoders are registered: qwen3-1.7b, olmo-1b (non-parametric
+LayerNorm), minicpm-2b (head_dim 64, an odd vocabulary) and qwen3-14b
+(untied unembedding).
 """
 
-from repro_torch.configs import qwen3_1_7b
+from repro_torch.configs import minicpm_2b, olmo_1b, qwen3_14b, qwen3_1_7b
 from repro_torch.configs.base import ModelConfig, RunShape  # noqa: F401
 
-_MODULES = (qwen3_1_7b,)
+_MODULES = (olmo_1b, qwen3_14b, qwen3_1_7b, minicpm_2b)
 
 ARCHS = {m.ARCH: m for m in _MODULES}
 ARCH_NAMES = tuple(ARCHS)

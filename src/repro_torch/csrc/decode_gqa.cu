@@ -2,11 +2,14 @@
 //
 // Replaces src/repro/kernels/decode_gqa/decode_gqa.py:
 //   decode_gqa_paged_kernel (#7) (body _paged_kernel -> _kernel): float32
-//     or bfloat16 q and pages, float32 out;
+//     or bfloat16 q; float32, bfloat16 or float8_e4m3fn pages, upcast to
+//     float32 right after the load as the TPU kernel upcasts; float32
+//     out;
 //   decode_gqa_paged_codes_kernel (#8) (_paged_codes_kernel): the Codes
 //     instantiation below;
 //   decode_gqa_kernel (#9): the contiguous [B, S, n_kv, hd] cache of the
-//     legacy serving path, on the same split-KV body (Contiguous
+//     legacy serving path (float32, bfloat16 or float8_e4m3fn), on the
+//     same split-KV body (Contiguous
 //     instantiation below).  The TPU kernel's block_s=512 grid axis and
 //     its padding of S are TPU tiling: the partitions cover the row and
 //     mask its tail, so any S runs as it is.
@@ -22,8 +25,9 @@
 // head; the arithmetic is ~1 FLOP a byte for float32 pages).  At the
 // serving shapes that is a few MB, microseconds at 3.35 TB/s, so the
 // kernel's task is to keep enough loads in flight, on enough SMs:
-// - Grid (B, n_kv, n_split).  A block owns one (row b, KV head h), the g
-//   query heads of h (each position is read once per KV head) and one
+// - Grid (B, n_kv * row groups, n_split).  A block owns one (row b, KV
+//   head h), the g query heads of h (each position is read once per KV
+//   head and row group; one group up to g = 8) and one
 //   partition of `part` positions: [z*part, (z+1)*part).  The wrapper
 //   chooses part and n_split from static shapes only (decode_gqa.py
 //   split_plan); lengths never reach the host, so a step can be captured
@@ -32,14 +36,16 @@
 //   the partitions that start before the length, which it reads on the
 //   device too.  Both kernels clamp the lengths to [0, cap] (cap: the
 //   positions a row holds); the wrappers launch no clamp.
-// - Loads: a warp takes BATCH positions at a time, positions w*BATCH +
+// - Loads: a warp takes BATCH positions at a time (BATCH_WIDE at HD 256,
+//   whose lanes hold twice the dims), positions w*BATCH +
 //   k*WARPS*BATCH of its partition; lane u < BATCH finds position u's
 //   pool row once (a position past the length is clamped to the last
 //   live one, in bounds, and masked), and the warp's lanes take it by
 //   shuffle.  Paged: the row is block_tables[b, t / bs] * bs + t % bs
-//   (any bs from 1 to 64).  Lane i holds dims V*i..V*i+V-1 of every
+//   (any bs).  Lane i holds dims V*i..V*i+V-1 of every
 //   position (V = HD/32): at HD 128 one 16-byte load a lane for float32
-//   (8 bytes bfloat16, 4 bytes codes), at HD 64 one 8-byte load (4, 2);
+//   (8 bytes bfloat16, 4 bytes codes and e4m3), at HD 64 one 8-byte load
+//   (4, 2), at HD 256 two 16-byte loads (16, 8);
 //   a whole warp per position either way, and all 2*BATCH loads of a
 //   batch are issued before the first is used.  No shared memory and no
 //   barrier in the loop.  (At HD 64 a half-warp per position would keep
@@ -53,10 +59,14 @@
 //   online softmax of the warp's rows in registers (the same values in
 //   every lane) and scales its V dims of acc.  float32 FMA: at g <= 8
 //   queries a KV head the products are too thin for tensor cores.
-// - Head layouts: HD 64 or 128, and any g from 1 to 8 on the
-//   instantiation G = the next power of two (1, 2, 4, 8).  Rows r >= g
-//   load no q, fold nothing and store nothing (a branch uniform over the
-//   block); q, out and the workspace are strided by g.
+// - Head layouts: HD 64, 128 or 256, and any g from 1 to 16: up to 8
+//   rows a block on the instantiation G = the next power of two (1, 2,
+//   4, 8), g 9..16 as two row groups (launch_layout).  Rows past the
+//   block's own load no q, fold nothing and store nothing (a branch
+//   uniform over the block); q, out and the workspace are strided by g.
+// - e4m3 pages (#7, #9): 1 B an element across device memory, two
+//   values converted at a time by __nv_cvt_fp8x2_to_halfraw2 and half2
+//   -> float2 (exact: every e4m3 value is a half; NaN stays NaN).
 // - The 4 warps of a block merge once, at the end, in shared memory:
 //   M = max_w m_w, l = sum_w l_w*exp(m_w - M), acc likewise.
 // - Merge pass: a second kernel, grid (B, n_kv), folds a row's live
@@ -82,6 +92,8 @@
 // partition.  Pages cross device memory at 1 B per element.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -91,9 +103,13 @@
 
 namespace split {
 
+using f8 = __nv_fp8_e4m3;
+
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
 constexpr int BATCH = 8;         // positions a warp loads at once
+constexpr int BATCH_WIDE = 4;    // the same at HD 256 (8 dims a lane)
+constexpr int MAX_G = 8;         // query rows a block holds, at most
 constexpr unsigned FULL = 0xffffffffu;
 
 struct Codes {
@@ -103,69 +119,90 @@ struct Codes {
   const float* out_qmeta;
 };
 
-// A lane's V consecutive elements of a row as one load: float32,
-// bfloat16 or uint8 codes, V = 4 (HD 128) or 2 (HD 64).
+// A lane's V consecutive elements of a row (float32, bfloat16, e4m3 or
+// uint8 codes; V = HD / 32 = 2, 4 or 8) as one load of 2 to 16 bytes,
+// or two 16-byte loads (float32 at HD 256).
+template <int BYTES>
+struct Vec;
+template <>
+struct Vec<32> { uint4 a, b; };
+template <>
+struct Vec<16> { uint4 a; };
+template <>
+struct Vec<8> { uint2 a; };
+template <>
+struct Vec<4> { unsigned a; };
+template <>
+struct Vec<2> { unsigned short a; };
 template <typename T, int V>
-struct RawOf;
-template <>
-struct RawOf<float, 4> { using type = float4; };
-template <>
-struct RawOf<float, 2> { using type = float2; };
-template <>
-struct RawOf<__nv_bfloat16, 4> { using type = uint2; };
-template <>
-struct RawOf<__nv_bfloat16, 2> { using type = unsigned; };
-template <>
-struct RawOf<uint8_t, 4> { using type = unsigned; };
-template <>
-struct RawOf<uint8_t, 2> { using type = unsigned short; };
-template <typename T, int V>
-using Raw = typename RawOf<T, V>::type;
+using Raw = Vec<V * (int)sizeof(T)>;
 
 template <typename T, int V>
 __device__ __forceinline__ Raw<T, V> load(const T* p) {
-  return __ldg(reinterpret_cast<const Raw<T, V>*>(p));
+  Raw<T, V> r;
+  if constexpr (sizeof(r) == 32) {
+    const uint4* s = reinterpret_cast<const uint4*>(p);
+    r.a = __ldg(s);
+    r.b = __ldg(s + 1);
+  } else {
+    r.a = __ldg(reinterpret_cast<const decltype(r.a)*>(p));
+  }
+  return r;
 }
 
-// ... as float32: as they are, converted, or decoded through a table.
-// The raw type and the count pick the element type (an unsigned holds
-// two bfloat16 or four codes).
+// 32-bit word i of a load (i is a constant once the loops unroll).
+__device__ __forceinline__ unsigned word4(const uint4& a, int i) {
+  return i == 0 ? a.x : i == 1 ? a.y : i == 2 ? a.z : a.w;
+}
+__device__ __forceinline__ unsigned word(const Vec<32>& r, int i) {
+  return i < 4 ? word4(r.a, i) : word4(r.b, i - 4);
+}
+__device__ __forceinline__ unsigned word(const Vec<16>& r, int i) {
+  return word4(r.a, i);
+}
+__device__ __forceinline__ unsigned word(const Vec<8>& r, int i) {
+  return i == 0 ? r.a.x : r.a.y;
+}
+__device__ __forceinline__ unsigned word(const Vec<4>& r, int) { return r.a; }
+__device__ __forceinline__ unsigned word(const Vec<2>& r, int) { return r.a; }
+
 __device__ __forceinline__ float2 bf2(unsigned w) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
 }
-__device__ __forceinline__ void unpack(float4 r, float (&o)[4], const float*) {
-  o[0] = r.x;
-  o[1] = r.y;
-  o[2] = r.z;
-  o[3] = r.w;
+// two e4m3 values (the low 16 bits) as float32: exact through half, and
+// a NaN stays NaN
+__device__ __forceinline__ float2 f8x2(unsigned w) {
+  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+      static_cast<__nv_fp8x2_storage_t>(w & 0xffffu), __NV_E4M3);
+  return __half22float2(__half2(h));
 }
-__device__ __forceinline__ void unpack(float2 r, float (&o)[2], const float*) {
-  o[0] = r.x;
-  o[1] = r.y;
-}
-__device__ __forceinline__ void unpack(uint2 r, float (&o)[4], const float*) {
-  const float2 a = bf2(r.x), c = bf2(r.y);
-  o[0] = a.x;
-  o[1] = a.y;
-  o[2] = c.x;
-  o[3] = c.y;
-}
-__device__ __forceinline__ void unpack(unsigned r, float (&o)[2], const float*) {
-  const float2 a = bf2(r);
-  o[0] = a.x;
-  o[1] = a.y;
-}
-__device__ __forceinline__ void unpack(unsigned r, float (&o)[4],
+
+// ... as float32: as they are, converted, or decoded through a table.
+template <typename T, int V, int N>
+__device__ __forceinline__ void unpack(const Vec<N>& r, float (&o)[V],
                                        const float* lut) {
-  o[0] = lut[r & 255u];
-  o[1] = lut[(r >> 8) & 255u];
-  o[2] = lut[(r >> 16) & 255u];
-  o[3] = lut[r >> 24];
-}
-__device__ __forceinline__ void unpack(unsigned short r, float (&o)[2],
-                                       const float* lut) {
-  o[0] = lut[r & 255u];
-  o[1] = lut[r >> 8];
+  if constexpr (std::is_same_v<T, float>) {
+#pragma unroll
+    for (int i = 0; i < V; ++i) o[i] = __uint_as_float(word(r, i));
+  } else if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+#pragma unroll
+    for (int i = 0; i < V / 2; ++i) {
+      const float2 f = bf2(word(r, i));
+      o[2 * i] = f.x;
+      o[2 * i + 1] = f.y;
+    }
+  } else if constexpr (std::is_same_v<T, f8>) {
+#pragma unroll
+    for (int i = 0; i < V / 2; ++i) {
+      const float2 f = f8x2(word(r, i / 2) >> (16 * (i % 2)));
+      o[2 * i] = f.x;
+      o[2 * i + 1] = f.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i)
+      o[i] = lut[(word(r, i / 4) >> (8 * (i % 4))) & 255u];
+  }
 }
 
 // One output element from its merged (m, l, acc): the reference's flush,
@@ -185,23 +222,29 @@ __device__ __forceinline__ void flush(void* out, size_t i, float m, float l,
 // [B, cap / bs], or (block_tables null) a contiguous cache [B, cap, n_kv,
 // HD]; lengths [B]; work [B, n_kv, n_split, g, HD + 2] (unused when
 // n_split = 1); out [B, n_kv, g, HD] float32, or uint8 for codes.
+// Grid (B, n_kv * row groups, n_split): block y holds rows gs * (y % row
+// groups) .. + gs - 1 of KV head y / row groups (fewer in the last
+// group).
 template <int HD, int G, typename QT, typename PT>
 __global__ void __launch_bounds__(THREADS)
 split_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pages,
              const PT* __restrict__ v_pages,
              const int* __restrict__ block_tables,
              const int* __restrict__ lengths, float* __restrict__ work,
-             void* __restrict__ out, int g, int bs, int cap, int part,
-             float scale, Codes codes) {
+             void* __restrict__ out, int n_kv, int g, int gs, int bs,
+             int cap, int part, float scale, Codes codes) {
   constexpr bool CODES = std::is_same_v<PT, uint8_t>;
   constexpr int V = HD / 32;        // dims a lane holds
+  constexpr int NB = HD > 128 ? BATCH_WIDE : BATCH;
   constexpr int WS = HD + 2;        // workspace row: acc[HD], m, l
   __shared__ float s_lut[CODES ? 3 * 256 : 1];     // q, K, V tables
   __shared__ float s_m[WARPS][G], s_l[WARPS][G];
   __shared__ __align__(16) float s_acc[WARPS][G][HD];
 
-  const int b = blockIdx.x, h = blockIdx.y, z = blockIdx.z;
-  const int n_kv = gridDim.y, n_split = gridDim.z;
+  const int b = blockIdx.x, z = blockIdx.z;
+  const int n_rg = gridDim.y / n_kv, n_split = gridDim.z;
+  const int h = blockIdx.y / n_rg, r0 = (blockIdx.y % n_rg) * gs;
+  const int gr = min(gs, g - r0);   // this block's rows
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   // the lengths' one clamp, here and in the merge: the wrapper has none
   const int kvl = max(0, min(lengths[b], cap));
@@ -228,16 +271,17 @@ split_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pages,
     for (int i = 0; i < V; ++i) qv[r][i] = acc[r][i] = 0.0f;
     m[r] = -1e30f;
     l[r] = 0.0f;
-    if (r < g)
-      unpack(load<QT, V>(q + (((size_t)b * n_kv + h) * g + r) * HD + V * lane),
-             qv[r], s_ql);
+    if (r < gr)
+      unpack<QT>(load<QT, V>(q + (((size_t)b * n_kv + h) * g + r0 + r) * HD +
+                             V * lane),
+                 qv[r], s_ql);
   }
 
   const int* bt_row =
       block_tables ? block_tables + (size_t)b * (cap / bs) : nullptr;
-  for (int t0 = t_begin + warp * BATCH; t0 < t_end; t0 += WARPS * BATCH) {
+  for (int t0 = t_begin + warp * NB; t0 < t_end; t0 += WARPS * NB) {
     int row = 0;
-    if (lane < BATCH) {
+    if (lane < NB) {
       const int t = min(t0 + lane, t_end - 1);
       if (bt_row) {
         const int pg = t / bs;
@@ -246,26 +290,26 @@ split_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pages,
         row = b * cap + t;
       }
     }
-    Raw<PT, V> kr[BATCH], vr[BATCH];
+    Raw<PT, V> kr[NB], vr[NB];
 #pragma unroll
-    for (int u = 0; u < BATCH; ++u) {
+    for (int u = 0; u < NB; ++u) {
       const int rw = __shfl_sync(FULL, row, u);
       const size_t off = ((size_t)rw * n_kv + h) * HD + V * lane;
       kr[u] = load<PT, V>(k_pages + off);
       vr[u] = load<PT, V>(v_pages + off);
     }
-    float kf[BATCH][V], vf[BATCH][V];
+    float kf[NB][V], vf[NB][V];
 #pragma unroll
-    for (int u = 0; u < BATCH; ++u) {
-      unpack(kr[u], kf[u], s_kl);
-      unpack(vr[u], vf[u], s_vl);
+    for (int u = 0; u < NB; ++u) {
+      unpack<PT>(kr[u], kf[u], s_kl);
+      unpack<PT>(vr[u], vf[u], s_vl);
     }
 #pragma unroll
     for (int r = 0; r < G; ++r) {
-      if (r >= g) continue;
-      float s[BATCH];
+      if (r >= gr) continue;
+      float s[NB];
 #pragma unroll
-      for (int u = 0; u < BATCH; ++u) {
+      for (int u = 0; u < NB; ++u) {
         s[u] = qv[r][0] * kf[u][0];
 #pragma unroll
         for (int i = 1; i < V; ++i) s[u] += qv[r][i] * kf[u][i];
@@ -273,11 +317,11 @@ split_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pages,
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) {
 #pragma unroll
-        for (int u = 0; u < BATCH; ++u) s[u] += __shfl_xor_sync(FULL, s[u], o);
+        for (int u = 0; u < NB; ++u) s[u] += __shfl_xor_sync(FULL, s[u], o);
       }
       float mx = -1e30f;
 #pragma unroll
-      for (int u = 0; u < BATCH; ++u) {
+      for (int u = 0; u < NB; ++u) {
         s[u] = t0 + u < t_end ? s[u] * scale : -1e30f;
         mx = fmaxf(mx, s[u]);
       }
@@ -287,7 +331,7 @@ split_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pages,
 #pragma unroll
       for (int i = 0; i < V; ++i) pv[i] = 0.0f;
 #pragma unroll
-      for (int u = 0; u < BATCH; ++u) {
+      for (int u = 0; u < NB; ++u) {
         const float p = expf(s[u] - m_new);
         ps += p;
 #pragma unroll
@@ -304,7 +348,7 @@ split_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pages,
   // (row, dim) of each THREADS-wide slice of [g, HD]
 #pragma unroll
   for (int r = 0; r < G; ++r) {
-    if (r >= g) continue;
+    if (r >= gr) continue;
     if (lane == 0) {
       s_m[warp][r] = m[r];
       s_l[warp][r] = l[r];
@@ -316,7 +360,7 @@ split_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pages,
 #pragma unroll
   for (int e = tid; e < G * HD; e += THREADS) {
     const int r = e / HD, d = e % HD;
-    if (r >= g) continue;
+    if (r >= gr) continue;
     float mb = s_m[0][r];
 #pragma unroll
     for (int w = 1; w < WARPS; ++w) mb = fmaxf(mb, s_m[w][r]);
@@ -328,10 +372,11 @@ split_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pages,
       ab += s_acc[w][r][d] * c;
     }
     if (n_split == 1) {
-      flush<CODES>(out, (((size_t)b * n_kv + h) * g + r) * HD + d, mb, lb, ab,
-                   codes.out_qmeta);
+      flush<CODES>(out, (((size_t)b * n_kv + h) * g + r0 + r) * HD + d, mb,
+                   lb, ab, codes.out_qmeta);
     } else {
-      float* wr = work + ((((size_t)b * n_kv + h) * n_split + z) * g + r) * WS;
+      float* wr =
+          work + ((((size_t)b * n_kv + h) * n_split + z) * g + r0 + r) * WS;
       wr[d] = ab;
       if (d == 0) {
         wr[HD] = mb;
@@ -381,15 +426,17 @@ struct Shape {
 template <int HD, int G, typename QT, typename PT>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* bt, const void* lengths, void* work, void* out,
-                   const Shape& s, float scale, cudaStream_t st,
-                   Codes codes) {
+                   const Shape& s, int n_rg, int gs, float scale,
+                   cudaStream_t st, Codes codes) {
   constexpr bool CODES = std::is_same_v<PT, uint8_t>;
   const int n_split = (s.cap + s.part - 1) / s.part;
   const int* ln = static_cast<const int*>(lengths);
-  split_kernel<HD, G, QT, PT><<<dim3(s.B, s.n_kv, n_split), THREADS, 0, st>>>(
-      static_cast<const QT*>(q), static_cast<const PT*>(k),
-      static_cast<const PT*>(v), static_cast<const int*>(bt), ln,
-      static_cast<float*>(work), out, s.g, s.bs, s.cap, s.part, scale, codes);
+  split_kernel<HD, G, QT, PT>
+      <<<dim3(s.B, s.n_kv * n_rg, n_split), THREADS, 0, st>>>(
+          static_cast<const QT*>(q), static_cast<const PT*>(k),
+          static_cast<const PT*>(v), static_cast<const int*>(bt), ln,
+          static_cast<float*>(work), out, s.n_kv, s.g, gs, s.bs, s.cap,
+          s.part, scale, codes);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || n_split == 1) return e;
   merge_kernel<HD, CODES><<<dim3(s.B, s.n_kv), THREADS, 0, st>>>(
@@ -398,18 +445,24 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// The instantiation of a head layout: HD as it is, G the next power of
-// two at or above g.
+// The instantiation of a head layout: HD as it is; the g rows of a KV
+// head in ceil(g / MAX_G) row groups of gs = ceil(g / groups) rows, one
+// block each, on the instantiation G = the next power of two at or above
+// gs.  (g 9..16 is two groups: each block reads its KV head once more,
+// where one block of 16 rows would hold 2 x 16 x V accumulators and q
+// values a lane, past the register file at HD 256.)
 template <typename QT, typename PT>
 cudaError_t launch_layout(const void* q, const void* k, const void* v,
                           const void* bt, const void* lengths, void* work,
                           void* out, const Shape& s, float scale,
                           cudaStream_t st, Codes codes) {
-  const int G = s.g <= 1 ? 1 : s.g <= 2 ? 2 : s.g <= 4 ? 4 : 8;
+  const int n_rg = (s.g + MAX_G - 1) / MAX_G;
+  const int gs = (s.g + n_rg - 1) / n_rg;
+  const int G = gs <= 1 ? 1 : gs <= 2 ? 2 : gs <= 4 ? 4 : 8;
 #define REPRO_SPLIT_CASE(HDV, GV)                                            \
   if (s.hd == HDV && G == GV)                                                \
-    return launch<HDV, GV, QT, PT>(q, k, v, bt, lengths, work, out, s, scale, \
-                                   st, codes);
+    return launch<HDV, GV, QT, PT>(q, k, v, bt, lengths, work, out, s, n_rg, \
+                                   gs, scale, st, codes);
   REPRO_SPLIT_CASE(64, 1)
   REPRO_SPLIT_CASE(64, 2)
   REPRO_SPLIT_CASE(64, 4)
@@ -418,44 +471,64 @@ cudaError_t launch_layout(const void* q, const void* k, const void* v,
   REPRO_SPLIT_CASE(128, 2)
   REPRO_SPLIT_CASE(128, 4)
   REPRO_SPLIT_CASE(128, 8)
+  REPRO_SPLIT_CASE(256, 1)
+  REPRO_SPLIT_CASE(256, 2)
+  REPRO_SPLIT_CASE(256, 4)
+  REPRO_SPLIT_CASE(256, 8)
 #undef REPRO_SPLIT_CASE
   return cudaErrorInvalidValue;
 }
 
 inline bool valid_shape(const Shape& s) {
-  return (s.hd == 64 || s.hd == 128) && s.g >= 1 && s.g <= 8 && s.bs >= 1 &&
-         s.cap >= 1 && s.part >= 1;
+  return (s.hd == 64 || s.hd == 128 || s.hd == 256) && s.g >= 1 &&
+         s.g <= 2 * MAX_G && s.bs >= 1 && s.cap >= 1 && s.part >= 1;
+}
+
+// The float launches' KV element type: 0 float32, 1 bfloat16, 2 e4m3.
+template <typename QT>
+cudaError_t launch_float(int kv_kind, const void* q, const void* k,
+                         const void* v, const void* bt, const void* lengths,
+                         void* work, void* out, const Shape& s, float scale,
+                         cudaStream_t st) {
+  const Codes none{nullptr, nullptr, nullptr, nullptr};
+  if (kv_kind == 1)
+    return launch_layout<QT, __nv_bfloat16>(q, k, v, bt, lengths, work, out,
+                                            s, scale, st, none);
+  if (kv_kind == 2)
+    return launch_layout<QT, f8>(q, k, v, bt, lengths, work, out, s, scale,
+                                 st, none);
+  if (kv_kind == 0)
+    return launch_layout<QT, float>(q, k, v, bt, lengths, work, out, s, scale,
+                                    st, none);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace split
 
-// q [B, n_kv, g, hd] float32/bfloat16; pages [N, bs, n_kv, hd]
-// float32/bfloat16 (hd 64 or 128, g 1..8, bs 1..64); block_tables
-// [B, max_blk] and lengths [B] int32 (any values: the kernels clamp them
-// to [0, max_blk * bs]); work float32 [B, n_kv, n_split, g, hd + 2] with
-// n_split = ceil(max_blk / part_pages) (may be null when that is 1); out
-// float32 of q's shape.  Zero-length rows get zeros.
+// q [B, n_kv, g, hd] float32/bfloat16; pages [N, bs, n_kv, hd] float32,
+// bfloat16 or float8_e4m3fn (kv_kind 0, 1, 2; hd 64, 128 or 256, g
+// 1..16, any bs); block_tables [B, max_blk] and lengths [B] int32 (any
+// values: the kernels clamp them to [0, max_blk * bs]); work float32
+// [B, n_kv, n_split, g, hd + 2] with n_split = ceil(max_blk / part_pages)
+// (may be null when that is 1); out float32 of q's shape.  Zero-length
+// rows get zeros.
 extern "C" int decode_gqa_paged_launch(
     const void* q, int q_bf16, const void* k_pages, const void* v_pages,
-    int kv_bf16, const void* block_tables, const void* lengths, void* work,
+    int kv_kind, const void* block_tables, const void* lengths, void* work,
     void* out, int B, int n_kv, int g, int hd, int bs, int max_blk,
     int part_pages, float scale, void* stream) {
-  using bf16 = __nv_bfloat16;
   const split::Shape s{B, n_kv, g, hd, bs, max_blk * bs, part_pages * bs};
-  if (!split::valid_shape(s) || bs > 64 || max_blk < 1 ||
+  if (!split::valid_shape(s) || max_blk < 1 ||
       (long long)max_blk * bs >= (1ll << 30))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const split::Codes none{nullptr, nullptr, nullptr, nullptr};
-#define REPRO_PAGED(QT, PT)                                                  \
-  return (int)split::launch_layout<QT, PT>(q, k_pages, v_pages, block_tables, \
-                                           lengths, work, out, s, scale, st,  \
-                                           none)
-  if (q_bf16 && kv_bf16) REPRO_PAGED(bf16, bf16);
-  if (q_bf16) REPRO_PAGED(bf16, float);
-  if (kv_bf16) REPRO_PAGED(float, bf16);
-  REPRO_PAGED(float, float);
-#undef REPRO_PAGED
+  if (q_bf16)
+    return (int)split::launch_float<__nv_bfloat16>(
+        kv_kind, q, k_pages, v_pages, block_tables, lengths, work, out, s,
+        scale, st);
+  return (int)split::launch_float<float>(kv_kind, q, k_pages, v_pages,
+                                         block_tables, lengths, work, out, s,
+                                         scale, st);
 }
 
 // Codes mode: q_codes [B, n_kv, g, hd] and pages uint8; q_lut [256],
@@ -468,7 +541,7 @@ extern "C" int decode_gqa_paged_codes_launch(
     void* work, void* out, int B, int n_kv, int g, int hd, int bs,
     int max_blk, int part_pages, float scale, void* stream) {
   const split::Shape s{B, n_kv, g, hd, bs, max_blk * bs, part_pages * bs};
-  if (!split::valid_shape(s) || bs > 64 || max_blk < 1 ||
+  if (!split::valid_shape(s) || max_blk < 1 ||
       (long long)max_blk * bs >= (1ll << 30))
     return (int)cudaErrorInvalidValue;
   const split::Codes codes{static_cast<const float*>(q_lut),
@@ -481,29 +554,25 @@ extern "C" int decode_gqa_paged_codes_launch(
 }
 
 // Contiguous caches: q [B, n_kv, g, hd] float32/bfloat16; k_cache and
-// v_cache [B, S, n_kv, hd] float32/bfloat16; lengths [B] int32 (any
-// values: the kernels clamp them to [0, S]); partitions of `part`
-// positions; work float32 [B, n_kv, ceil(S / part), g, hd + 2] (may be
-// null when that is 1); out float32 of q's shape.  Zero-length rows get
-// zeros.
+// v_cache [B, S, n_kv, hd] float32, bfloat16 or float8_e4m3fn (kv_kind
+// as above); lengths [B] int32 (any values: the kernels clamp them to
+// [0, S]); partitions of `part` positions; work float32
+// [B, n_kv, ceil(S / part), g, hd + 2] (may be null when that is 1); out
+// float32 of q's shape.  Zero-length rows get zeros.
 extern "C" int decode_gqa_launch(
     const void* q, int q_bf16, const void* k_cache, const void* v_cache,
-    int kv_bf16, const void* lengths, void* work, void* out, int B, int S,
+    int kv_kind, const void* lengths, void* work, void* out, int B, int S,
     int n_kv, int g, int hd, int part, float scale, void* stream) {
-  using bf16 = __nv_bfloat16;
   const split::Shape s{B, n_kv, g, hd, 1, S, part};
   // a lane's pool row b*S + t is an int
   if (!split::valid_shape(s) || (long long)B * S >= (1ll << 31))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const split::Codes none{nullptr, nullptr, nullptr, nullptr};
-#define REPRO_CONTIG(QT, PT)                                                  \
-  return (int)split::launch_layout<QT, PT>(q, k_cache, v_cache, nullptr,      \
-                                           lengths, work, out, s, scale, st,  \
-                                           none)
-  if (q_bf16 && kv_bf16) REPRO_CONTIG(bf16, bf16);
-  if (q_bf16) REPRO_CONTIG(bf16, float);
-  if (kv_bf16) REPRO_CONTIG(float, bf16);
-  REPRO_CONTIG(float, float);
-#undef REPRO_CONTIG
+  if (q_bf16)
+    return (int)split::launch_float<__nv_bfloat16>(
+        kv_kind, q, k_cache, v_cache, nullptr, lengths, work, out, s, scale,
+        st);
+  return (int)split::launch_float<float>(kv_kind, q, k_cache, v_cache,
+                                         nullptr, lengths, work, out, s,
+                                         scale, st);
 }

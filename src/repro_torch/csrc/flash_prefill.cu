@@ -2,8 +2,9 @@
 // (sm_90a).
 //
 // Replaces src/repro/kernels/flash_prefill/flash_prefill.py:
-//   flash_prefill_paged_kernel (:211, #5): float32 or bfloat16 q and
-//     pages, float32 out;
+//   flash_prefill_paged_kernel (:211, #5): float32 or bfloat16 q;
+//     float32, bfloat16 or float8_e4m3fn pages, upcast to float32 after
+//     the load as the TPU kernel upcasts; float32 out;
 //   flash_prefill_paged_codes_kernel (:145, #6): uint8 DNA-TEQ codes for
 //     q and pages, decoded through the q table and this KV head's K and V
 //     tables (3 x 256 floats in shared memory), the context encoded to
@@ -33,8 +34,9 @@
 // - Split TF32: x = hi + lo, hi = x cut to TF32, lo = x - hi (exact);
 //   a.b ~ a_hi.b_hi + a_hi.b_lo + a_lo.b_hi on
 //   mma.sync.m16n8k8.row.col.f32.tf32.tf32.f32.  A pass whose lo part
-//   is zero by construction is left out: bfloat16 values are exact in
-//   TF32, so bf16 q needs no q_lo pass and bf16 pages no K_lo/V_lo pass
+//   is zero by construction is left out: bfloat16 and e4m3 values are
+//   exact in TF32, so bf16 q needs no q_lo pass and bf16 or e4m3 pages
+//   no K_lo/V_lo pass
 //   (serving: bf16 q, float32 pages -> 2 QK passes, 3 PV passes; P is
 //   never exact, so PV always has its P_lo pass).
 // - Geometry: a block is (row b, KV head h, 64 query rows = qpb =
@@ -46,14 +48,16 @@
 //   tiles of a chunk see the most positions, so they are launched first
 //   (blockIdx.z counts down).  A block whose row has nothing to do writes
 //   its zeros at once.
-// - Head layouts: HD 64 or 128 (a template parameter: the O fragment
-//   [16 x HD], the staged row strides and the shared memory follow it),
-//   g from 1 to 8.
+// - Head layouts: HD 64, 128 or 256 (a template parameter: the O
+//   fragment [16 x HD], the staged row strides and the shared memory
+//   follow it; at HD 256 O is 128 floats a thread), g from 1 to 16 (4
+//   positions x 16 heads at the most).
 // - Staging: KV tiles of 32 positions in a ring of 2 stages (K and V of
 //   a tile in one cp.async group: tile j+1 loads while tile j computes),
 //   filled by cp.async.cg 16-byte copies.  Each copy finds its page as
 //   block_tables[b, t / bs]: lane j of a warp looks position t0 + j up
-//   once per tile (t / bs as a multiply-high, not a division) and the
+//   once per tile (t / bs as a multiply-high, not a division; exact while
+//   t * bs < 2^32) and the
 //   copies take it by shuffle, so any bs works and a tile may span pages
 //   or end mid-page.  Positions past the last one a row of the block may
 //   see are zero-filled (src-size 0) and masked; tiles wholly past it are
@@ -78,8 +82,13 @@
 //   decoded through the tables once per tile into a float32 tile that
 //   all four warps then read; q is decoded at its load.  Decoded values
 //   are not exact in TF32: 3 passes for each product.
+// - e4m3 pages: staged at 1 B per element as codes are, and converted
+//   into the same float32 tiles (two values at a time through half2:
+//   exact, NaN stays NaN); exact in TF32, so K and V take one pass.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
@@ -104,10 +113,16 @@ struct Codes {
   const float* out_qmeta;
 };
 
+using f8 = __nv_fp8_e4m3;
+
 template <typename T>
 constexpr bool is_codes = std::is_same_v<T, uint8_t>;
+// pages staged at 1 B an element and converted into float32 tiles
 template <typename T>
-constexpr bool exact_tf32 = std::is_same_v<T, __nv_bfloat16>;
+constexpr bool is_narrow = is_codes<T> || std::is_same_v<T, f8>;
+template <typename T>
+constexpr bool exact_tf32 =
+    std::is_same_v<T, __nv_bfloat16> || std::is_same_v<T, f8>;
 
 // float32 row stride (words) of the q tile and the decoded tiles.
 template <int HD>
@@ -125,8 +140,8 @@ template <int HD, typename PT>
 constexpr size_t smem_bytes() {
   return sizeof(float) * ROWS * fstride<HD>() +
          (size_t)STAGES * 2 * KT * stride<HD, PT>() * sizeof(PT) +
-         (is_codes<PT> ? sizeof(float) * (2 * KT * fstride<HD>() + 3 * 256)
-                       : 0);
+         (is_narrow<PT> ? sizeof(float) * 2 * KT * fstride<HD>() : 0) +
+         (is_codes<PT> ? sizeof(float) * 3 * 256 : 0);
 }
 
 // x = hi + lo for a TF32 operand; lo is left unset when x is exact in
@@ -191,13 +206,23 @@ __device__ __forceinline__ float4 load4(const uint8_t* p, const float* lut) {
   return make_float4(lut[raw & 255u], lut[(raw >> 8) & 255u],
                      lut[(raw >> 16) & 255u], lut[raw >> 24]);
 }
+__device__ __forceinline__ float2 f8x2(uint32_t w) {
+  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+      static_cast<__nv_fp8x2_storage_t>(w & 0xffffu), __NV_E4M3);
+  return __half22float2(__half2(h));
+}
+__device__ __forceinline__ float4 load4(const f8* p, const float*) {
+  const uint32_t raw = *reinterpret_cast<const uint32_t*>(p);
+  const float2 a = f8x2(raw), c = f8x2(raw >> 16);
+  return make_float4(a.x, a.y, c.x, c.y);
+}
 
 // Start the copies of KV positions t0..t0+KT-1 into one ring stage (K and
 // V tiles [KT][stride]); positions at or past n_pos are zero-filled.
 // Lane j of every warp looks up position t0 + j once: its pool row
 // page * bs + t % bs, with t / bs as a multiply-high by the block's
-// reciprocal ``inv_bs`` (exact for t < 2^26 and bs <= 64; the launch
-// checks it), and each copy takes its position's row by shuffle.
+// reciprocal ``inv_bs`` (exact while t * bs <= 2^32; the launch checks
+// it), and each copy takes its position's row by shuffle.
 template <int HD, typename PT>
 __device__ __forceinline__ void load_tile(PT* sk, PT* sv,
                                           const PT* __restrict__ kp,
@@ -229,11 +254,12 @@ __device__ __forceinline__ void load_tile(PT* sk, PT* sv,
   }
 }
 
-// A staged uint8 tile decoded through a table into a float32 tile.
-template <int HD>
-__device__ __forceinline__ void decode_rows(float* dst, const uint8_t* src,
+// A staged uint8 tile decoded through a table, or an e4m3 tile
+// converted, into a float32 tile.
+template <int HD, typename PT>
+__device__ __forceinline__ void decode_rows(float* dst, const PT* src,
                                             const float* lut, int tid) {
-  constexpr int ST = stride<HD, uint8_t>();
+  constexpr int ST = stride<HD, PT>();
 #pragma unroll
   for (int k = 0; k < KT * HD / 4 / THREADS; ++k) {
     const int c = tid + k * THREADS;
@@ -244,7 +270,7 @@ __device__ __forceinline__ void decode_rows(float* dst, const uint8_t* src,
 }
 
 // q [B, S, n_kv, g, HD] (QT float, bf16, or uint8 codes); pages
-// [N, bs, n_kv, HD] (PT float, bf16, or uint8 codes); block_tables
+// [N, bs, n_kv, HD] (PT float, bf16, e4m3, or uint8 codes); block_tables
 // [B, max_blk]; out [B, S, n_kv, g, HD] float32, or uint8 for codes.
 template <int HD, typename QT, typename PT>
 __global__ void __launch_bounds__(THREADS)
@@ -256,19 +282,20 @@ prefill_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pages,
                int n_kv, int g, int bs, int max_blk, float scale,
                Codes codes) {
   constexpr bool CODES = is_codes<PT>;
+  constexpr bool NARROW = is_narrow<PT>;
   constexpr bool Q_EXACT = exact_tf32<QT>;
   constexpr bool KV_EXACT = exact_tf32<PT>;
   // the element type of the tiles the fragments read, and its stride
-  using FT = std::conditional_t<CODES, float, PT>;
+  using FT = std::conditional_t<NARROW, float, PT>;
   constexpr int FS = fstride<HD>();
-  constexpr int SK = CODES ? FS : stride<HD, PT>();
+  constexpr int SK = NARROW ? FS : stride<HD, PT>();
   constexpr int ST = stride<HD, PT>();
 
   extern __shared__ __align__(16) unsigned char smem[];
   float* s_q = reinterpret_cast<float*>(smem);                 // [ROWS][FS]
   PT* ring = reinterpret_cast<PT*>(s_q + ROWS * FS);  // [STAGES][K, V][KT][ST]
-  float* s_kf = reinterpret_cast<float*>(ring + STAGES * 2 * KT * ST);  // codes
-  float* s_vf = s_kf + KT * FS;                                // [KT][FS] codes
+  float* s_kf = reinterpret_cast<float*>(ring + STAGES * 2 * KT * ST);  // narrow
+  float* s_vf = s_kf + KT * FS;                               // [KT][FS] narrow
   float* s_ql = s_vf + KT * FS;                                // [256] codes
   float* s_kl = s_ql + 256;                                    // [256] codes
   float* s_vl = s_kl + 256;                                    // [256] codes
@@ -337,7 +364,7 @@ prefill_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pages,
       load(jt + STAGES - 1);
       const FT* sk;
       const FT* sv;
-      if constexpr (CODES) {
+      if constexpr (NARROW) {
         decode_rows<HD>(s_kf, stage(jt, 0), s_kl, tid);
         decode_rows<HD>(s_vf, stage(jt, 1), s_vl, tid);
         __syncthreads();
@@ -522,36 +549,60 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   if (hd == 64)
     return launch_hd<64, QT, PT>(q, k, v, bt, qs, kl, out, B, S, n_kv, g, bs,
                                  max_blk, scale, stream, codes);
+  if (hd == 256)
+    return launch_hd<256, QT, PT>(q, k, v, bt, qs, kl, out, B, S, n_kv, g,
+                                  bs, max_blk, scale, stream, codes);
   return launch_hd<128, QT, PT>(q, k, v, bt, qs, kl, out, B, S, n_kv, g, bs,
                                 max_blk, scale, stream, codes);
 }
 
-// the positions' division by bs in load_tile is exact below 2^26
+// the positions' division by bs in load_tile is exact while t * bs <= 2^32
 inline bool valid_shape(int g, int hd, int bs, int max_blk) {
-  return (hd == 64 || hd == 128) && g >= 1 && g <= 8 && bs >= 1 &&
-         bs <= 64 && (long long)max_blk * bs < (1ll << 26);
+  const long long n = (long long)max_blk * bs;
+  return (hd == 64 || hd == 128 || hd == 256) && g >= 1 && g <= 16 &&
+         bs >= 1 && n < (1ll << 26) && n * bs <= (1ll << 32);
+}
+
+// The float launches' page type: 0 float32, 1 bfloat16, 2 e4m3.
+template <typename QT>
+cudaError_t launch_float(int kv_kind, const void* q, const void* k,
+                         const void* v, const void* bt, const void* qs,
+                         const void* kl, void* out, int B, int S, int n_kv,
+                         int g, int hd, int bs, int max_blk, float scale,
+                         void* stream) {
+  const Codes none{nullptr, nullptr, nullptr, nullptr};
+  if (kv_kind == 1)
+    return launch<QT, __nv_bfloat16>(q, k, v, bt, qs, kl, out, B, S, n_kv, g,
+                                     hd, bs, max_blk, scale, stream, none);
+  if (kv_kind == 2)
+    return launch<QT, f8>(q, k, v, bt, qs, kl, out, B, S, n_kv, g, hd, bs,
+                          max_blk, scale, stream, none);
+  if (kv_kind == 0)
+    return launch<QT, float>(q, k, v, bt, qs, kl, out, B, S, n_kv, g, hd, bs,
+                             max_blk, scale, stream, none);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace prefill
 
+// q [B, S, n_kv, g, hd] float32/bfloat16; pages [N, bs, n_kv, hd]
+// float32, bfloat16 or float8_e4m3fn (kv_kind 0, 1, 2; hd 64, 128 or
+// 256, g 1..16, any bs with max_blk * bs^2 <= 2^32); out float32 of q's
+// shape.
 extern "C" int flash_prefill_paged_launch(
     const void* q, int q_bf16, const void* k_pages, const void* v_pages,
-    int kv_bf16, const void* block_tables, const void* q_start,
+    int kv_kind, const void* block_tables, const void* q_start,
     const void* kv_lens, void* out, int B, int S, int n_kv, int g, int hd,
     int bs, int max_blk, float scale, void* stream) {
-  using bf16 = __nv_bfloat16;
   if (!prefill::valid_shape(g, hd, bs, max_blk))
     return (int)cudaErrorInvalidValue;
-  const prefill::Codes none{nullptr, nullptr, nullptr, nullptr};
-#define REPRO_PREFILL(QT, PT)                                                 \
-  return (int)prefill::launch<QT, PT>(q, k_pages, v_pages, block_tables,      \
-                                      q_start, kv_lens, out, B, S, n_kv, g,   \
-                                      hd, bs, max_blk, scale, stream, none)
-  if (q_bf16 && kv_bf16) REPRO_PREFILL(bf16, bf16);
-  if (q_bf16) REPRO_PREFILL(bf16, float);
-  if (kv_bf16) REPRO_PREFILL(float, bf16);
-  REPRO_PREFILL(float, float);
-#undef REPRO_PREFILL
+  if (q_bf16)
+    return (int)prefill::launch_float<__nv_bfloat16>(
+        kv_kind, q, k_pages, v_pages, block_tables, q_start, kv_lens, out, B,
+        S, n_kv, g, hd, bs, max_blk, scale, stream);
+  return (int)prefill::launch_float<float>(
+      kv_kind, q, k_pages, v_pages, block_tables, q_start, kv_lens, out, B, S,
+      n_kv, g, hd, bs, max_blk, scale, stream);
 }
 
 // Codes mode: q_codes [B, S, n_kv, g, hd] and pages uint8; q_lut [256],
@@ -575,15 +626,18 @@ extern "C" int flash_prefill_paged_codes_launch(
 }
 
 // Dynamic shared memory of one block for a page dtype (0 float32,
-// 1 bfloat16, 2 uint8 codes) at head_dim hd (64 or 128).
+// 1 bfloat16, 2 e4m3, 3 uint8 codes) at head_dim hd (64, 128 or 256).
 template <int HD>
 static int smem_of(int page_kind) {
   using namespace prefill;
   if (page_kind == 1) return (int)smem_bytes<HD, __nv_bfloat16>();
-  if (page_kind == 2) return (int)smem_bytes<HD, uint8_t>();
+  if (page_kind == 2) return (int)smem_bytes<HD, f8>();
+  if (page_kind == 3) return (int)smem_bytes<HD, uint8_t>();
   return (int)smem_bytes<HD, float>();
 }
 
 extern "C" int flash_prefill_smem_bytes(int page_kind, int hd) {
-  return hd == 64 ? smem_of<64>(page_kind) : smem_of<128>(page_kind);
+  return hd == 64    ? smem_of<64>(page_kind)
+         : hd == 256 ? smem_of<256>(page_kind)
+                     : smem_of<128>(page_kind);
 }

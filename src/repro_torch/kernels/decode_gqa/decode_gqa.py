@@ -8,7 +8,10 @@ partitions, one block each, and a second pass merges the partials
 (flash-decoding).  :func:`split_plan` sizes the partitions from static
 shapes only; a contiguous row is planned as virtual pages of
 ``VIRTUAL_PAGE`` positions (:func:`contiguous_plan`).  Head layouts:
-those of ``flash_prefill.check_layout``."""
+those of ``flash_prefill.check_layout`` (g past 8 runs as two row groups
+of one KV head, each a block of its own); pages and caches: float32,
+bfloat16 or float8_e4m3fn (upcast to float32 after the load), or uint8
+codes; any block size."""
 
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_prefill.flash_prefill import (
-    PAGE_DTYPES, check_layout, check_paged, check_tables)
+    KV_KIND, PAGE_DTYPES, Q_DTYPES, check_layout, check_paged, check_tables)
 
 NAME = "decode_gqa_paged"
 CODES_NAME = NAME + "_codes"
@@ -95,7 +98,8 @@ def _workspace(q, n_split: int):
 def _check_split(q, k_pages, v_pages, block_tables):
     """What the split kernels need beyond :func:`check_paged`: their head
     layout, and 16-byte aligned q and pages (a lane loads HD/32
-    consecutive elements of a row as one vector).  Returns (pages per
+    consecutive elements of a row as one vector, or two 16-byte ones for
+    float32 at head_dim 256).  Returns (pages per
     partition, the workspace of the partials, or None when one partition
     covers a row)."""
     b, n_kv, g, hd = q.shape
@@ -119,7 +123,7 @@ def launch(q, k_pages, v_pages, block_tables, lengths) -> torch.Tensor:
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     err = _lib().decode_gqa_paged_launch(
         q.data_ptr(), int(q.dtype == torch.bfloat16), k_pages.data_ptr(),
-        v_pages.data_ptr(), int(k_pages.dtype == torch.bfloat16),
+        v_pages.data_ptr(), KV_KIND[k_pages.dtype],
         block_tables.data_ptr(), lengths.data_ptr(),
         None if work is None else work.data_ptr(), out.data_ptr(), b, n_kv,
         g, hd, k_pages.shape[1], block_tables.shape[1], pages,
@@ -134,7 +138,8 @@ def launch_codes(q_codes, k_pages, v_pages, q_lut, k_lut, v_lut, out_qmeta,
     """q_codes [B, n_kv, g, hd] and pages uint8; returns uint8 codes of
     q's shape."""
     check_paged(q_codes, k_pages, v_pages, block_tables,
-                ((lengths, "lengths"),), dtypes=(torch.uint8,))
+                ((lengths, "lengths"),), q_dtypes=(torch.uint8,),
+                page_dtypes=(torch.uint8,))
     pages, work = _check_split(q_codes, k_pages, v_pages, block_tables)
     b, n_kv, g, hd = q_codes.shape
     q_lut, k_lut, v_lut, out_qmeta = check_tables(
@@ -153,9 +158,10 @@ def launch_codes(q_codes, k_pages, v_pages, q_lut, k_lut, v_lut, out_qmeta,
 
 
 def launch_contiguous(q, k_cache, v_cache, lengths) -> torch.Tensor:
-    """q [B, n_kv, g, hd]; caches [B, S, n_kv, hd] float32 or bfloat16;
-    lengths int32 [B] (any values: the kernels clamp them to [0, S]).
-    Returns float32 of q's shape (zeros for a zero-length row)."""
+    """q [B, n_kv, g, hd] float32 or bfloat16; caches [B, S, n_kv, hd]
+    float32, bfloat16 or float8_e4m3fn; lengths int32 [B] (any values:
+    the kernels clamp them to [0, S]).  Returns float32 of q's shape
+    (zeros for a zero-length row)."""
     b, n_kv, g, hd = q.shape
     for t, name in ((q, "q"), (k_cache, "k_cache"), (v_cache, "v_cache"),
                     (lengths, "lengths")):
@@ -163,9 +169,9 @@ def launch_contiguous(q, k_cache, v_cache, lengths) -> torch.Tensor:
             raise ValueError(f"{name} must be on {q.device}, got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if q.dtype not in PAGE_DTYPES or k_cache.dtype not in PAGE_DTYPES:
-        raise TypeError(f"q/cache dtype must be one of {PAGE_DTYPES}, got "
-                        f"{q.dtype}/{k_cache.dtype}")
+    if q.dtype not in Q_DTYPES or k_cache.dtype not in PAGE_DTYPES:
+        raise TypeError(f"q dtype must be one of {Q_DTYPES} and caches one "
+                        f"of {PAGE_DTYPES}, got {q.dtype}/{k_cache.dtype}")
     if (k_cache.ndim != 4 or k_cache.shape[0] != b or k_cache.shape[1] < 1
             or k_cache.shape[3] != hd
             or v_cache.shape != k_cache.shape or v_cache.dtype != k_cache.dtype):
@@ -184,9 +190,8 @@ def launch_contiguous(q, k_cache, v_cache, lengths) -> torch.Tensor:
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     err = _lib().decode_gqa_launch(
         q.data_ptr(), int(q.dtype == torch.bfloat16), k_cache.data_ptr(),
-        v_cache.data_ptr(), int(k_cache.dtype == torch.bfloat16),
-        lengths.data_ptr(), None if work is None else work.data_ptr(),
-        out.data_ptr(), b, s, n_kv, g, hd, part, 1.0 / math.sqrt(hd),
+        v_cache.data_ptr(), KV_KIND[k_cache.dtype], lengths.data_ptr(),
+        None if work is None else work.data_ptr(), out.data_ptr(), b, s, n_kv, g, hd, part, 1.0 / math.sqrt(hd),
         _build.stream_ptr(q))
     _build.check(err, CONTIG_NAME)
     _build.count_launch(CONTIG_NAME)

@@ -6,9 +6,10 @@ Every matmul routes through :mod:`repro_torch.core.lama_layers`, so any
 weight may be a :class:`~repro_torch.core.exponential_quant.QWeight`.
 With a layer's act-quant tables (``act_q``), activations are encoded at
 the calibrated sites and the matmuls run on codes; KV pages are float
-(float32, bfloat16) or uint8 codes (codes mode).  f8 pages are a later
-ROADMAP item.  The contiguous attends (``mha``: dense or chunked
-online-softmax, both plain PyTorch as the reference's are plain jnp)
+(float32, bfloat16, float8_e4m3fn: the kernels upcast after the load)
+or uint8 codes (codes mode).  The contiguous attends (``mha``: dense or
+chunked online-softmax, both plain PyTorch as the reference's are plain
+jnp)
 serve ``forward``/``prefill`` and the dense decode branch;
 ``mha_decode`` runs the contiguous flash-decode kernel.
 """
@@ -41,17 +42,29 @@ def cdtype(cfg: ModelConfig) -> torch.dtype:
 
 def norm_specs(cfg: ModelConfig, kind: str | None = None) -> dict:
     kind = kind or cfg.norm
-    if kind != "rmsnorm":
-        raise NotImplementedError(f"norm {kind!r}: only rmsnorm is ported")
-    return {"scale": ParamSpec((cfg.d_model,), ("embed",), "ones")}
+    if kind == "rmsnorm":
+        return {"scale": ParamSpec((cfg.d_model,), ("embed",), "ones")}
+    if kind == "nonparam_ln":   # OLMo: LayerNorm without scale or bias
+        return {}
+    raise NotImplementedError(f"norm {kind!r} is not ported yet (ROADMAP "
+                              f"Queue 1 item 13)")
 
 
 def apply_norm(p: Params, x: torch.Tensor, cfg: ModelConfig,
                eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm in float32, back to x's dtype."""
+    """RMSNorm, or (``nonparam_ln``) ``(x - mean) * rsqrt(var + eps)``
+    with the biased variance; in float32, back to x's dtype."""
     xf = x.to(F32)
-    var = (xf * xf).mean(-1, keepdim=True)
-    out = xf * torch.rsqrt(var + eps) * p["scale"].to(F32)
+    if cfg.norm == "rmsnorm":
+        var = (xf * xf).mean(-1, keepdim=True)
+        out = xf * torch.rsqrt(var + eps) * p["scale"].to(F32)
+    elif cfg.norm == "nonparam_ln":
+        mu = xf.mean(-1, keepdim=True)
+        var = xf.var(-1, keepdim=True, unbiased=False)
+        out = (xf - mu) * torch.rsqrt(var + eps)
+    else:
+        raise NotImplementedError(f"norm {cfg.norm!r} is not ported yet "
+                                  f"(ROADMAP Queue 1 item 13)")
     return out.to(x.dtype)
 
 
@@ -442,18 +455,28 @@ def embed_tokens(p: Params, tokens: torch.Tensor,
     return ll.embed_lookup(p["tokens"], tokens, cdtype(cfg))
 
 
+def unembed_specs(cfg: ModelConfig) -> dict:
+    if cfg.tie_embeddings:
+        return {}
+    return {"out": ParamSpec((cfg.d_model, cfg.vocab_size),
+                             ("embed", "vocab"), "scaled")}
+
+
 def logits_fn(params: Params, x: torch.Tensor,
               cfg: ModelConfig) -> torch.Tensor:
     """Tied unembedding: a quantized table runs the fused kernel's
-    transposed-codes layout (``'bsd,vd->bsv'``)."""
-    if not cfg.tie_embeddings:
-        raise NotImplementedError("untied unembedding is not ported yet")
-    w = params["embed"]["tokens"]
-    if is_qtensor(w):
-        out = ll.dense_general(x, w, "bsd,vd->bsv", dtype=F32)
+    transposed-codes layout (``'bsd,vd->bsv'``).  Untied: ``unembed.out``
+    [D, V] in the plain layout, the logits rounded to x's dtype before
+    float32 as the reference rounds them."""
+    if cfg.tie_embeddings:
+        w = params["embed"]["tokens"]
+        if is_qtensor(w):
+            out = ll.dense_general(x, w, "bsd,vd->bsv", dtype=F32)
+        else:
+            table = ll.materialize(w, cdtype(cfg))
+            out = torch.einsum("bsd,vd->bsv", x.to(F32), table.to(F32))
     else:
-        table = ll.materialize(w, cdtype(cfg))
-        out = torch.einsum("bsd,vd->bsv", x.to(F32), table.to(F32))
+        out = ll.dense(x, params["unembed"]["out"], dtype=x.dtype).to(F32)
     if cfg.logit_softcap:
         out = cfg.logit_softcap * torch.tanh(out / cfg.logit_softcap)
     return out.to(F32)

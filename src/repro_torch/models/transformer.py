@@ -12,8 +12,9 @@ pools in place too (``index_put_``); the reference returns a new view.
 The loop over the layer index takes the place of the reference's
 ``scan_blocks``.  A layer's act-quant tables (``blocks.act_q``, attached
 by calibration) switch its activations to codes; uint8 pages store K/V
-as codes, encoded at the write.  ``collect_act_calibration`` is the
-calibration hook.
+as codes, encoded at the write; float8_e4m3fn pages and caches store
+them cast as the reference casts them (:func:`cache_cast`).
+``collect_act_calibration`` is the calibration hook.
 """
 
 from __future__ import annotations
@@ -31,6 +32,10 @@ from repro_torch.models.params import (ParamTree, init_params, layer_slice,
 
 # --------------------------------------------------------------- specs --
 
+F8 = torch.float8_e4m3fn
+F8_LIMIT = 464.0   # past it e4m3fn's round to nearest even leaves 448
+
+
 def block_specs(cfg: ModelConfig) -> dict:
     if cfg.is_moe:
         raise NotImplementedError("MoE blocks are not ported yet "
@@ -44,7 +49,7 @@ def model_specs(cfg: ModelConfig) -> dict:
          "blocks": stack_specs(block_specs(cfg), cfg.num_layers),
          "ln_f": L.norm_specs(cfg)}
     if not cfg.tie_embeddings:
-        raise NotImplementedError("untied unembedding is not ported yet")
+        s["unembed"] = L.unembed_specs(cfg)
     return s
 
 
@@ -112,6 +117,30 @@ def _rewrap(tree: dict) -> dict:
 
 # ---------------------------------------------------- contiguous cache --
 
+def cache_cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` as a cache or page of ``dtype`` stores it: the reference's
+    ``astype(cache_dtype)``.  To float8_e4m3fn, torch's cast saturates
+    |x| past F8_LIMIT and +-inf to +-448, where the reference's
+    (ml_dtypes) gives NaN: those, and NaN, become NaN of x's sign here
+    (0x7f / 0xff), and every other value takes torch's cast, which rounds
+    as the reference's does.  No host read and no branch on the data, so
+    a CUDA graph captures it."""
+    if dtype != F8:
+        return x.to(dtype)
+    xf = x.float()
+    nan = torch.signbit(xf).to(torch.uint8) * 128 + 0x7F
+    return torch.where(xf.abs() <= F8_LIMIT, xf.to(F8).view(torch.uint8),
+                       nan).view(F8)
+
+
+def _copy_at(cache: torch.Tensor, at: torch.Tensor, new: torch.Tensor) -> None:
+    """``cache[:, at] = new`` for a tensor of positions ``at``; float8
+    through byte views (``index_copy_`` has no CPU kernel for it)."""
+    if cache.dtype == F8:
+        cache, new = cache.view(torch.uint8), new.view(torch.uint8)
+    cache.index_copy_(1, at, new)
+
+
 def _check_dense(cfg: ModelConfig, prefix_embeds) -> None:
     if cfg.is_moe:
         raise NotImplementedError("MoE blocks are not ported yet "
@@ -176,8 +205,8 @@ def prefill(params: DecoderLM, tokens: torch.Tensor, cfg: ModelConfig,
     for i in range(cfg.num_layers):
         x, (k, v) = _block(params.layer(i), x, cfg, positions,
                            ("causal", None))
-        cache["k"][i, :, :s] = k.to(cache_dtype)
-        cache["v"][i, :, :s] = v.to(cache_dtype)
+        cache["k"][i, :, :s] = cache_cast(k, cache_dtype)
+        cache["v"][i, :, :s] = cache_cast(v, cache_dtype)
     x = L.apply_norm(params["ln_f"], x, cfg)
     cache["pos"] = s
     return L.logits_fn(params, x[:, -1:], cfg), cache
@@ -221,12 +250,13 @@ def decode_step(params: DecoderLM, cache: dict, tokens: torch.Tensor,
         kc, vc = cache["k"][i], cache["v"][i]
         h = L.apply_norm(lp["ln1"], x, cfg)
         k_new, v_new = L.self_kv(lp["attn"], h, cfg, positions, act_q=aq)
+        k_new, v_new = cache_cast(k_new, kc.dtype), cache_cast(v_new, vc.dtype)
         if isinstance(at, slice):
-            kc[:, at] = k_new.to(kc.dtype)
-            vc[:, at] = v_new.to(vc.dtype)
+            kc[:, at] = k_new
+            vc[:, at] = v_new
         else:
-            kc.index_copy_(1, at, k_new.to(kc.dtype))
-            vc.index_copy_(1, at, v_new.to(vc.dtype))
+            _copy_at(kc, at, k_new)
+            _copy_at(vc, at, v_new)
         if flash:
             attn = L.mha_decode(lp["attn"], h, cfg, positions, kc, vc,
                                 lengths, act_q=aq)
@@ -254,8 +284,8 @@ def _paged_block(lp: dict, x, cfg: ModelConfig, positions, k_pages, v_pages,
         # a uint8 page stores codes: a cast would truncate floats to junk
         k_new, v_new = L.encode_kv_codes(k_new, v_new, aq)
     # in place: the page pool is updated where it lives
-    k_pages.index_put_((page, off), k_new.to(k_pages.dtype))
-    v_pages.index_put_((page, off), v_new.to(v_pages.dtype))
+    k_pages.index_put_((page, off), cache_cast(k_new, k_pages.dtype))
+    v_pages.index_put_((page, off), cache_cast(v_new, v_pages.dtype))
     x = x + attend(lp["attn"], h, k_pages, v_pages, aq)
     h = L.apply_norm(lp["ln2"], x, cfg)
     return x + L.apply_mlp(lp["mlp"], h, cfg, act_q=aq)

@@ -30,8 +30,10 @@ the argmax and flags in one copy back.  ``cuda_graphs=False`` runs every
 tick eagerly (the A/B); on the CPU ticks always run eagerly.
 
 Activations as codes (``act_quant``: per-(layer, site) tables fit on
-sample prompts at construction, on the engine's device, disk-cached) and
-KV pages as codes (``kv_codes``: uint8 pages under per-head tables) are
+sample prompts at construction, on the engine's device, disk-cached),
+KV pages as codes (``kv_codes``: uint8 pages under per-head tables) and
+narrow KV pages (``kv_dtype="float8_e4m3fn"``: cast at the write as the
+reference casts, upcast in the attention kernels after the load) are
 served; the engine counts the attention boundary's traffic from shapes
 (``attn_bytes_read``, ``attn_act_bytes``, ``attn_dequants``).
 
@@ -40,8 +42,9 @@ ROADMAP item that brings it: the prefix cache (item 7; the port's
 ``EngineConfig.prefix_cache`` therefore defaults to False), speculative
 decoding (10), bounded queues and load shedding, deadlines, chaos,
 checksums and the handling of non-finite rows (11: until then a
-non-finite row raises), disaggregation roles and the calibration drift
-guard, which reports through the metrics registry (12), and f8 KV (6).
+non-finite row raises, an f8 page's NaN included), disaggregation roles
+and the calibration drift guard, which reports through the metrics
+registry (12).
 """
 
 from __future__ import annotations
@@ -65,7 +68,8 @@ from repro_torch.runtime.paged_cache import PagedKVCache
 from repro_torch.runtime.step_graph import StepGraph
 
 ST_OK = "ok"
-KV_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+KV_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+             "float8_e4m3fn": torch.float8_e4m3fn}
 
 
 @dataclasses.dataclass
@@ -128,10 +132,11 @@ def _not_ported(what: str, item: int):
 
 
 def kv_dtype_of(kv_dtype) -> torch.dtype:
-    """float32 or bfloat16 KV pages (f8 pages are ROADMAP item 6)."""
+    """The KV page dtype of a name or dtype: float32, bfloat16 or
+    float8_e4m3fn."""
     name = kv_dtype if isinstance(kv_dtype, str) else str(kv_dtype).split(".")[-1]
     if name not in KV_DTYPES:
-        raise _not_ported(f"kv_dtype={name!r}", 6)
+        raise ValueError(f"kv_dtype {name!r}: one of {tuple(KV_DTYPES)}")
     return KV_DTYPES[name]
 
 

@@ -113,7 +113,9 @@ class BlockAllocator:
 
 
 class PagedKVCache:
-    """Page pool + per-slot block tables for a fixed set of decode slots."""
+    """Page pool + per-slot block tables for a fixed set of decode slots.
+    ``dtype``: float32, bfloat16, float8_e4m3fn (1 B an element) or uint8
+    codes."""
 
     def __init__(self, *, num_layers: int, num_kv_heads: int, head_dim: int,
                  num_slots: int, block_size: int, num_blocks: int,

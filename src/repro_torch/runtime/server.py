@@ -56,9 +56,11 @@ class InferenceServer:
                  shed_policy: str = "reject-new", spec_k: int = 0,
                  device=None, cuda_graphs: bool = True):
         """As the reference's server, on the card unless
-        ``device="cpu"`` is passed.  ``kv_dtype`` is ``"float32"`` or
-        ``"bfloat16"``, for the Engine's pages and for the contiguous
-        cache of :meth:`generate_bucketed` (``max_len`` positions).  ``prefix_cache`` defaults to False (the
+        ``device="cpu"`` is passed.  ``kv_dtype`` is ``"float32"``,
+        ``"bfloat16"`` or ``"float8_e4m3fn"`` (1 B an element, upcast
+        in the attention kernels), for the Engine's pages and for the
+        contiguous cache of :meth:`generate_bucketed` (``max_len``
+        positions).  ``prefix_cache`` defaults to False (the
         reference's default is True) until the prefix cache is ported
         (ROADMAP Queue 1 item 7); ``max_queue`` and ``spec_k`` are
         refused by the Engine until their ROADMAP items land.  With

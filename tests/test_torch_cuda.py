@@ -10,7 +10,11 @@ decode, bias and every epilogue, float32 and bfloat16 activations,
 other group sizes and block sizes (one above 48 KB of shared memory),
 zero-length rows, the wrappers' refusals, small engines (float and
 codes mode) served on the card against the same engine on the CPU, the
-attention kernels at every g from 1 to 8 and head_dim 64, the contiguous
+attention kernels at every g from 1 to 8 and head_dim 64, and at
+head_dim 256, g 10 and 16 and a block of 128 positions, float8_e4m3fn
+pages and caches (#5, #7, #9, eager and in a CUDA graph), the f8 write
+cast against the CPU's bytes, minicpm-2b's odd-vocabulary tied
+unembedding, the contiguous
 decode at every group size and head_dim, lengths 0 and past its cache,
 and replayed in a CUDA graph (#1-#9, each alone), the engine and the
 bucketed server with their steps replayed as CUDA graphs against the same
@@ -557,26 +561,33 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         lut_dequant_matmul(x[:, ::2], codes, lut)
     with pytest.raises(TypeError):            # x dtype
         lut_dequant_matmul(x[:, :64].to(torch.float16), codes, lut)
-    kp, vp, bt = _pages(dev, gen, 2, 2, 16, 4, torch.float32, hd=256)
-    q = torch.randn(2, 2, 2, 256, generator=gen, device=dev)
+    kp, vp, bt = _pages(dev, gen, 2, 2, 16, 4, torch.float32, hd=96)
+    q = torch.randn(2, 2, 2, 96, generator=gen, device=dev)
     lengths = torch.tensor([3, 4], dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="head_dim"):     # head_dim 256
+    with pytest.raises(ValueError, match="head_dim"):     # head_dim 96
         decode_gqa_paged(q, kp, vp, bt, lengths)
     with pytest.raises(ValueError, match="head_dim"):
         flash_prefill_paged(q[:, None], kp, vp, bt, 0, 3)
-    kp, vp = kp[..., :128].contiguous(), vp[..., :128].contiguous()
-    q9 = torch.randn(2, 2, 9, 128, generator=gen, device=dev)
-    with pytest.raises(ValueError, match="g=9"):          # g 9
-        decode_gqa_paged(q9, kp, vp, bt, lengths)
-    with pytest.raises(ValueError, match="g=9"):
-        flash_prefill_paged(q9[:, None], kp, vp, bt, 0, 3)
+    kp, vp, bt = _pages(dev, gen, 2, 2, 16, 4, torch.float32)
+    q17 = torch.randn(2, 2, 17, 128, generator=gen, device=dev)
+    with pytest.raises(ValueError, match="g=17"):         # g 17
+        decode_gqa_paged(q17, kp, vp, bt, lengths)
+    with pytest.raises(ValueError, match="g=17"):
+        flash_prefill_paged(q17[:, None], kp, vp, bt, 0, 3)
     from repro_torch.kernels.decode_gqa import decode_gqa
     kc = torch.randn(2, 16, 2, 128, generator=gen, device=dev)
-    with pytest.raises(ValueError, match="g=9"):
-        decode_gqa(q9, kc, kc, lengths)
-    kb, vb, bt2 = _pages(dev, gen, 2, 2, 80, 2, torch.float32)
-    with pytest.raises(ValueError, match="block size"):   # bs 80
-        decode_gqa_paged(q9[:, :, :2].contiguous(), kb, vb, bt2, lengths)
+    with pytest.raises(ValueError, match="g=17"):
+        decode_gqa(q17, kc, kc, lengths)
+    f8 = torch.float8_e4m3fn
+    q2 = q17[:, :, :2].contiguous()
+    with pytest.raises(TypeError, match="q dtype"):       # f8 queries
+        decode_gqa_paged(q2.to(f8), kp.to(f8), vp.to(f8), bt, lengths)
+    # 2 x 65536 positions of 65536-position pages: past the prefill
+    # kernel's exact division (positions x bs <= 2^32)
+    kw = torch.zeros(1, 1 << 16, 2, 128, dtype=f8, device=dev)
+    btw = torch.zeros(2, 2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="2\\^32"):
+        flash_prefill_paged(q2[:, None], kw, kw, btw, 0, 3)
     qp = torch.randn(2 * 3 * 2 * 2 * 128 + 1, generator=gen, device=dev)
     qp = qp[1:].view(2, 3, 2, 2, 128)         # 4 bytes off a 16-byte boundary
     with pytest.raises(ValueError, match="16-byte"):
@@ -1220,3 +1231,195 @@ def test_bucketed_decode_replays_one_graph_a_bucket(dev):
     assert counts[0] == counts[1]
     assert counts[0]["decode_gqa"] == cfg.num_layers * 3 * 11
     assert on.bucket_graphs == 3 and off.bucket_graphs == 0
+
+
+# ----------------------------------------------------- f8 KV, layouts --
+
+F8 = torch.float8_e4m3fn
+
+
+def _f8_pages(dev, gen, b, n_kv, bs, max_blk, hd=128):
+    """float8_e4m3fn pages from N(0, 4) values (the e4m3 grid's coarse
+    steps, a few subnormals and values near 448 among them)."""
+    kp, vp, bt = _pages(dev, gen, b, n_kv, bs, max_blk, torch.float32, hd)
+    return (kp * 4).to(F8), (vp * 4).to(F8), bt
+
+
+@pytest.mark.parametrize("g,hd,bs,s,long", [
+    (2, 128, 16, 37, False), (5, 128, 16, 256, False), (1, 64, 48, 20, False),
+    (8, 128, 8, 16, False), (2, 128, 16, 256, True), (10, 256, 128, 37, False),
+])
+@pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
+def test_flash_prefill_f8_pages(dev, g, hd, bs, s, long, qdt):
+    gen = _gen(dev, 300 + g + hd + bs)
+    b, n_kv = 4, 2
+    max_blk, q_start, kv_lens = _prefill_rows(dev, bs, s, long)
+    kp, vp, bt = _f8_pages(dev, gen, b, n_kv, bs, max_blk, hd)
+    q = torch.randn(b, s, n_kv, g, hd, generator=gen, device=dev).to(qdt)
+    out = flash_prefill_paged(q, kp, vp, bt, q_start, kv_lens)
+    _close(out, flash_prefill_paged_ref(q, kp, vp, bt, q_start, kv_lens))
+    assert torch.all(out[3] == 0)
+
+
+@pytest.mark.parametrize("g,hd,bs,long", [
+    (1, 128, 16, False), (2, 128, 16, True), (5, 128, 64, False),
+    (8, 64, 16, False), (10, 256, 128, False), (16, 128, 16, True),
+])
+@pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
+def test_decode_gqa_paged_f8_pages(dev, g, hd, bs, long, qdt):
+    gen = _gen(dev, 400 + g + hd + bs + long)
+    b, n_kv = 5, 2
+    max_blk, lengths = _decode_rows(dev, bs, long)
+    kp, vp, bt = _f8_pages(dev, gen, b, n_kv, bs, max_blk, hd)
+    q = torch.randn(b, n_kv, g, hd, generator=gen, device=dev).to(qdt)
+    out = decode_gqa_paged(q, kp, vp, bt, lengths)
+    _close(out, decode_gqa_paged_ref(q, kp, vp, bt, lengths))
+    assert torch.all(out[1] == 0)
+
+
+@pytest.mark.parametrize("g,hd", [(2, 128), (1, 64), (5, 128), (10, 256)])
+def test_decode_gqa_contiguous_f8_cache(dev, g, hd):
+    from repro_torch.kernels.decode_gqa import decode_gqa
+    from repro_torch.kernels.decode_gqa.ref import decode_gqa_ref
+
+    gen = _gen(dev, 500 + g + hd)
+    b, s, n_kv = 6, 200, 2
+    q = torch.randn(b, n_kv, g, hd, generator=gen, device=dev).to(torch.bfloat16)
+    k = (torch.randn(b, s, n_kv, hd, generator=gen, device=dev) * 4).to(F8)
+    v = (torch.randn(b, s, n_kv, hd, generator=gen, device=dev) * 4).to(F8)
+    lengths = torch.tensor([1, 0, 64, s + 60, -3, 131], dtype=torch.int32,
+                           device=dev)
+    out = decode_gqa(q, k, v, lengths)
+    _close(out, decode_gqa_ref(q, k, v, lengths.clamp(0, s)))
+    assert torch.all(out[1] == 0) and torch.all(out[4] == 0)
+
+
+def test_f8_pages_replay_in_a_cuda_graph(dev):
+    """#5, #7 and #9 on float8_e4m3fn pages and caches, captured together
+    and replayed after new queries and lengths are written, equal their
+    plain versions on those."""
+    from repro_torch.kernels.decode_gqa import decode_gqa
+    from repro_torch.kernels.decode_gqa.ref import decode_gqa_ref
+
+    gen = _gen(dev, 62)
+    b, n_kv, g, bs, s = 4, 2, 2, 16, 64
+    max_blk, q_start, kv_lens = _prefill_rows(dev, bs, s, False)
+    kp, vp, bt = _f8_pages(dev, gen, b, n_kv, bs, max_blk)
+    qp = torch.randn(b, s, n_kv, g, 128, generator=gen, device=dev)
+    qd = torch.randn(b, n_kv, g, 128, generator=gen, device=dev)
+    lengths = torch.tensor([5, 0, 40, 100], dtype=torch.int32, device=dev)
+    kc = (torch.randn(b, 200, n_kv, 128, generator=gen, device=dev) * 4).to(F8)
+    vc = (torch.randn(b, 200, n_kv, 128, generator=gen, device=dev) * 4).to(F8)
+
+    def call():
+        return (flash_prefill_paged(qp, kp, vp, bt, q_start, kv_lens),
+                decode_gqa_paged(qd, kp, vp, bt, lengths),
+                decode_gqa(qd, kc, vc, lengths))
+
+    def refresh(seed):
+        g2 = _gen(dev, seed)
+        qp.copy_(torch.randn(qp.shape, generator=g2, device=dev))
+        qd.copy_(torch.randn(qd.shape, generator=g2, device=dev))
+        lengths.copy_(torch.tensor([seed * 30, 3, 0, 128 - seed],
+                                   dtype=torch.int32))
+        valid = torch.tensor([s, s - 9 * seed, s // seed, 0],
+                             dtype=torch.int32, device=dev)
+        kv_lens.copy_(torch.where(valid > 0, q_start + valid, 0))
+
+    def check(out):
+        _close(out[0], flash_prefill_paged_ref(qp, kp, vp, bt, q_start, kv_lens))
+        _close(out[1], decode_gqa_paged_ref(qd, kp, vp, bt, lengths))
+        _close(out[2], decode_gqa_ref(qd, kc, vc, lengths))
+    _replays(call, refresh, check)
+
+
+@pytest.mark.parametrize("g,hd,bs", [(10, 256, 16), (16, 128, 16),
+                                     (8, 256, 128), (2, 128, 128)])
+@pytest.mark.parametrize("kernel", ["prefill", "prefill_codes", "decode",
+                                    "decode_codes", "contiguous"])
+def test_attention_kernels_at_head_dim_256_g_16_and_block_128(dev, kernel, g,
+                                                              hd, bs):
+    """#5-#9 at the layouts past PR 18's: head_dim 256 (paligemma's g 8,
+    recurrentgemma's g 10), g 16 (two row groups in the decode kernels)
+    and blocks of 128 positions."""
+    from repro_torch.kernels.decode_gqa import decode_gqa
+    from repro_torch.kernels.decode_gqa.ref import decode_gqa_ref
+
+    gen = _gen(dev, 950 + g * 10 + hd + bs)
+    b, n_kv = 4, 2
+    oq = torch.tensor([0.02, 1e-4, 1.04, 7.0], device=dev)
+    if kernel.startswith("prefill"):
+        s = 37
+        max_blk, q_start, kv_lens = _prefill_rows(dev, bs, s, False)
+        shape = (b, s, n_kv, g, hd)
+    else:
+        b = 5
+        max_blk, lengths = _decode_rows(dev, bs, False)
+        shape = (b, n_kv, g, hd)
+    if kernel.endswith("codes"):
+        kc, vc, bt, kl, vl = _code_pages(dev, gen, b, n_kv, bs, max_blk, hd)
+        qc, ql, _ = _act_codes(shape, dev, gen)
+        args = (qc, kc, vc, ql, kl, vl, oq, bt)
+        if kernel == "prefill_codes":
+            args += (q_start, kv_lens)
+            _codes_close(flash_prefill_paged_codes(*args),
+                         flash_prefill_paged_codes_ref(*args))
+        else:
+            args += (lengths,)
+            _codes_close(decode_gqa_paged_codes(*args),
+                         decode_gqa_paged_codes_ref(*args))
+        return
+    q = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    if kernel == "contiguous":
+        k = torch.randn(b, 200, n_kv, hd, generator=gen, device=dev)
+        v = torch.randn(b, 200, n_kv, hd, generator=gen, device=dev)
+        out = decode_gqa(q, k, v, lengths)
+        _close(out, decode_gqa_ref(q, k, v, lengths.clamp(0, 200)))
+        return
+    kp, vp, bt = _pages(dev, gen, b, n_kv, bs, max_blk, torch.float32, hd)
+    if kernel == "prefill":
+        args = (q, kp, vp, bt, q_start, kv_lens)
+        out = flash_prefill_paged(*args)
+        _close(out, flash_prefill_paged_ref(*args))
+        assert torch.all(out[3] == 0)
+    else:
+        out = decode_gqa_paged(q, kp, vp, bt, lengths)
+        _close(out, decode_gqa_paged_ref(q, kp, vp, bt, lengths))
+        assert torch.all(out[1] == 0)
+
+
+def test_f8_write_cast_on_the_card_equals_the_cpu(dev):
+    """``cache_cast`` to float8_e4m3fn gives the CPU's bytes on the card,
+    float32 and bfloat16 in: the rounding inside the range and NaN of
+    the input's sign past 464, at +-inf and at NaN (the CPU's bytes are
+    held to the reference's in tests/test_torch_f8_kv.py)."""
+    from repro_torch.models.transformer import cache_cast
+
+    r = np.random.default_rng(5)
+    x = np.concatenate([
+        r.normal(size=20000) * 64, r.normal(size=2000) * 1e-3,
+        np.array([448, 463.9, 464, 464.01, 480, 1e6, np.inf, 0.0, np.nan,
+                  2.0 ** -10, 3 * 2.0 ** -11]),
+        -np.array([448, 463.9, 464, 464.01, 480, 1e6, np.inf, 0.0, np.nan])
+    ]).astype(np.float32)
+    for dt in (torch.float32, torch.bfloat16):
+        t = torch.from_numpy(x).to(dt)
+        want = cache_cast(t, F8).view(torch.uint8)
+        got = cache_cast(t.to(dev), F8).view(torch.uint8).cpu()
+        assert torch.equal(got, want)
+
+
+def test_minicpm_odd_vocab_tied_unembedding(dev):
+    """minicpm-2b's tied unembedding at its vocabulary, 122753 (odd): the
+    transposed-codes kernel at decode (M = 8) and prefill (M = 256) rows
+    masks the tail columns."""
+    gen = _gen(dev, 81)
+    n, k = 122753, 2304
+    codes, lut, qmeta = _qweight((n, k), dev, gen)
+    for m in (8, 256):
+        x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+        out = lut_dequant_matmul(x, codes, lut, transpose_codes=True,
+                                 out_dtype=torch.float32)
+        assert out.shape == (m, n)
+        _close(out, lut_dequant_matmul_ref(x, codes, lut,
+                                           transpose_codes=True))

@@ -16,9 +16,12 @@ in float32 and is held against the port's plain versions and the JAX
 package's oracle on the same numpy-seeded inputs: within 1e-4 of the
 output's scale for float pages, at most 1e-3 of the codes one step off
 for uint8 ones (``chip_smoke.py``'s gates for the kernels), at
-head_dim 128 and 64 and g from 1 to 8 (the kernel runs g 5 and 6 on its
-g = 8 instantiation: rows past g take no part, so the arithmetic of the
-live rows is the emulation's).
+head_dim 128, 64 and 256 (BATCH_WIDE positions a warp), g from 1 to 16
+(the kernel runs g 5 and 6 on its g = 8 instantiation, and g 10 and 16
+as two row groups of one KV head: rows past a block's own take no part,
+so the arithmetic of the live rows is the emulation's), float32 and
+float8_e4m3fn pages (upcast after the load), and blocks of 16, 48 and
+128 positions.
 """
 
 import math
@@ -59,6 +62,19 @@ def _split_constant(name):
 
 WARPS = _split_constant("THREADS") // 32    # warps of a split block
 BATCH = _split_constant("BATCH")            # positions a warp loads at once
+BATCH_WIDE = _split_constant("BATCH_WIDE")  # the same at head_dim 256
+F8 = "float8_e4m3fn"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One torch thread for this module: its emulation runs thousands of
+    small tensor ops, which spin-wait across a full thread pool when the
+    suite's workers share the cores (a quarter of the time under load)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def fold(state, logit, v):
@@ -100,6 +116,7 @@ def emulate(q, k, v, lengths, part, n_split, cap):
     cache), partitions of ``part`` positions; returns [B, n_kv, g,
     hd]."""
     b, n_kv, g, hd = q.shape
+    batch = BATCH_WIDE if hd > 128 else BATCH
     kvl = lengths.long().clamp(0, cap)
     scale = 1.0 / math.sqrt(hd)
     partials = []
@@ -109,10 +126,10 @@ def emulate(q, k, v, lengths, part, n_split, cap):
         for w in range(WARPS):
             st = (torch.full((b, n_kv, g), NEG), torch.zeros((b, n_kv, g)),
                   torch.zeros((b, n_kv, g, hd)))
-            for t0 in range(z * part + w * BATCH, (z + 1) * part,
-                            WARPS * BATCH):
+            for t0 in range(z * part + w * batch, (z + 1) * part,
+                            WARPS * batch):
                 run = t0 < t_end                                  # [B]
-                pos = t0 + torch.arange(BATCH)
+                pos = t0 + torch.arange(batch)
                 idx = torch.minimum(pos[None], t_end[:, None] - 1).clamp(min=0)
                 kb = k[torch.arange(b)[:, None], idx]             # [B, U, n, hd]
                 vb = v[torch.arange(b)[:, None], idx]
@@ -147,16 +164,17 @@ def _bf16_q(r, b, g, hd):
                     .astype(jnp.float32))
 
 
-def _inputs(g, bs, lengths, seed, max_blk=MAX_BLK, hd=HD):
+def _inputs(g, bs, lengths, seed, max_blk=MAX_BLK, hd=HD, pdt="float32"):
     """numpy q [B, n_kv, g, hd], pages [N, bs, n_kv, hd] (float32 values
-    rounded through bfloat16 for q), a scrambled block table
-    [B, max_blk] and lengths."""
+    rounded through bfloat16 for q, through ``pdt`` for the pages), a
+    scrambled block table [B, max_blk] and lengths."""
     r = np.random.default_rng(seed)
     b = len(lengths)
     n = 1 + b * max_blk
     q = _bf16_q(r, b, g, hd)
-    kp = r.normal(size=(n, bs, N_KV, hd)).astype(np.float32)
-    vp = r.normal(size=(n, bs, N_KV, hd)).astype(np.float32)
+    kp, vp = (np.array(jnp.asarray(r.normal(size=(n, bs, N_KV, hd)),
+                                   jnp.dtype(pdt)).astype(jnp.float32))
+              for _ in range(2))
     bt = r.permutation(np.arange(1, n))[: b * max_blk].reshape(b, max_blk)
     return q, kp, vp, bt.astype(np.int32), np.asarray(lengths, np.int32)
 
@@ -177,9 +195,11 @@ def test_split_plan_reads_static_shapes_only():
     # a long context is thinned to at most 8 blocks an SM
     pages, n_split = split_plan(8, 8, 256, 16, SMS)
     assert 8 * 8 * n_split <= 8 * SMS and pages * n_split >= 256
-    # one partition covers a short table; any bs from 1 to 64
+    # one partition covers a short table; any bs (past 64: a page a
+    # partition)
     assert split_plan(8, 8, 4, 16, SMS) == (4, 1)
-    for bs in (1, 5, 16, 48, 64):
+    assert split_plan(5, 2, 6, 128, SMS) == (1, 6)
+    for bs in (1, 5, 16, 48, 64, 128, 200):
         pages, n_split = split_plan(3, 2, 7, bs, SMS)
         assert 1 <= pages <= 7 and (n_split - 1) * pages < 7 <= n_split * pages
     # a contiguous row: virtual pages of 64 positions; phase 6 (4 rows)
@@ -193,24 +213,36 @@ def test_split_plan_reads_static_shapes_only():
     assert 8 * 36 * n_split <= 8 * SMS and part * n_split >= 4096
 
 
-@pytest.mark.parametrize("g", [1, 2, 4, 5, 6, 8])
-@pytest.mark.parametrize("bs", [16, 48])
-@pytest.mark.parametrize("hd", [128, 64])
-def test_split_order_matches_the_plain_version_and_jax(g, bs, hd):
+def _cases(more, pdt=("float32",)):
+    """PR 15's (g, bs, hd) cross product under its own ids (with
+    ``pdt``, the float pages' dtype), then the cases ``more``."""
+    return ([pytest.param(g, bs, hd, *pdt, id=f"{hd}-{bs}-{g}")
+             for hd in (128, 64) for bs in (16, 48) for g in (1, 2, 4, 5, 6, 8)]
+            + [pytest.param(*c, id="-".join(map(str, c))) for c in more])
+
+
+# f8 pages; head_dim 256 (paligemma's g 8, recurrentgemma's g 10); g 16
+# (two row groups); blocks of 128 positions
+@pytest.mark.parametrize("g,bs,hd,pdt", _cases([
+    (2, 16, 128, F8), (8, 16, 256, "float32"), (10, 16, 256, F8),
+    (16, 128, 64, F8)]))
+def test_split_order_matches_the_plain_version_and_jax(g, bs, hd, pdt):
     q, kp, vp, bt, lengths = _inputs(g, bs, _lengths(bs),
-                                     seed=g * 10 + bs + hd, hd=hd)
+                                     seed=g * 10 + bs + hd, hd=hd, pdt=pdt)
     tq, tk, tv, tbt, tl = (torch.from_numpy(a) for a in (q, kp, vp, bt, lengths))
     part, n_split, cap = paged_plan(len(lengths), MAX_BLK, bs)
     assert n_split > 1 and (bs != 16 or cap % part)
     out = emulate(tq, _gather(tk, tbt), _gather(tv, tbt), tl, part, n_split,
                   cap)
-    ref = decode_gqa_paged_ref(tq.to(torch.bfloat16), tk, tv, tbt, tl)
+    td = getattr(torch, pdt)
+    ref = decode_gqa_paged_ref(tq.to(torch.bfloat16), tk.to(td), tv.to(td),
+                               tbt, tl)
     tol = GATE * max(1.0, ref.abs().max().item())
     assert (out - ref).abs().max().item() <= tol
     assert torch.all(out[0] == 0)
     jref = np.asarray(jdec.decode_gqa_paged(
-        jnp.asarray(q, jnp.bfloat16), jnp.asarray(kp), jnp.asarray(vp),
-        jnp.asarray(bt), jnp.asarray(lengths)))
+        jnp.asarray(q, jnp.bfloat16), jnp.asarray(kp, pdt),
+        jnp.asarray(vp, pdt), jnp.asarray(bt), jnp.asarray(lengths)))
     assert np.abs(out.numpy() - jref).max() <= tol
 
 
@@ -248,9 +280,8 @@ def _code_inputs(g, bs, seed, hd=HD):
     return qc, kc, vc, ql, kl, vl, oq, bt, lengths
 
 
-@pytest.mark.parametrize("g", [1, 2, 4, 5, 6, 8])
-@pytest.mark.parametrize("bs", [16, 48])
-@pytest.mark.parametrize("hd", [128, 64])
+@pytest.mark.parametrize("g,bs,hd", _cases(
+    [(10, 16, 256), (16, 128, 128)], pdt=()))
 def test_codes_split_order_encodes_once_after_the_merge(g, bs, hd):
     arrays = _code_inputs(g, bs, seed=100 + g * 10 + bs + hd, hd=hd)
     qc, kc, vc, ql, kl, vl, oq, bt, lengths = (torch.from_numpy(a)
@@ -274,12 +305,16 @@ def test_codes_split_order_encodes_once_after_the_merge(g, bs, hd):
 
 
 # a contiguous cache of S positions: S off the virtual page (130, 200,
-# 77) and on it (256); g from 1 to 8 at head_dim 128 and 64
-@pytest.mark.parametrize("g,hd,s", [
-    (1, 128, 200), (2, 128, 256), (5, 128, 130), (8, 128, 77),
-    (3, 64, 200), (6, 64, 130), (7, 64, 256),
-])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+# 77) and on it (256); g from 1 to 8 at head_dim 128 and 64, float32 and
+# bfloat16 caches (PR 18's ids); then f8 caches, g 10 at head_dim 256
+# and g 16 at 128
+@pytest.mark.parametrize("dtype,g,hd,s", [
+    pytest.param(dt, g, hd, s, id=f"{dt}-{g}-{hd}-{s}")
+    for dt in ("float32", "bfloat16")
+    for g, hd, s in ((1, 128, 200), (2, 128, 256), (5, 128, 130),
+                     (8, 128, 77), (3, 64, 200), (6, 64, 130), (7, 64, 256))
+] + [pytest.param(*c, id="-".join(map(str, c))) for c in (
+    (F8, 2, 128, 256), (F8, 10, 256, 200), ("float32", 16, 128, 77))])
 def test_contiguous_split_order_matches_the_plain_version_and_jax(g, hd, s,
                                                                   dtype):
     """#9 on the split-KV body: a [B, S, n_kv, hd] cache is a pool whose

@@ -297,9 +297,18 @@ def test_unported_engine_settings_raise(kw, item):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(kv_dtype="float8_e4m3fn"), "item 6"), (dict(chaos=object()), "item 11"),
-])
+    pytest.param(dict(chaos=object()), "item 11", id="kw1-item 11")])
 def test_unported_serving_options_raise(kw, item):
     _, cfg = _cfgs()
     with pytest.raises(NotImplementedError, match=item):
         Engine(cfg, device="cpu", **kw)
+
+
+def test_f8_kv_dtype_builds_f8_pools():
+    """``kv_dtype="float8_e4m3fn"`` is served: the pools hold 1 B an
+    element, a quarter of float32's."""
+    _, cfg = _cfgs()
+    eng = Engine(cfg, device="cpu", kv_dtype="float8_e4m3fn")
+    f32 = Engine(cfg, device="cpu")
+    assert eng.cache.k_pages.dtype == eng.cache.v_pages.dtype == torch.float8_e4m3fn
+    assert 4 * eng.cache.nbytes == f32.cache.nbytes

@@ -6,7 +6,8 @@ operand's upper 19 bits (10 mantissa bits).  So the kernel splits each
 float32 operand as x = hi + lo, hi = x cut to TF32 and lo = x - hi
 (exact in float32, cut to TF32 by the tensor core), and computes hi*hi +
 hi*lo + lo*hi, leaving out a pass whose lo part is zero by construction
-(bfloat16 values are exact in TF32; ``flash_prefill.passes``).  The
+(bfloat16 and float8_e4m3fn values are exact in TF32;
+``flash_prefill.passes``).  The
 emulation below does the same cuts and passes, with float32 sums,
 folding the online softmax over KV tiles of the kernel's width (32
 positions), on the kernel's query rows: blocks of 64 rows, ``64 // g``
@@ -14,9 +15,11 @@ positions x g heads, the rows past them padding (zero q, every logit
 masked, never stored) where g does not divide 64.  Held against the
 plain version (``flash_prefill_paged_ref``) and the JAX package's oracle
 on the same inputs within 1e-4, the float kernel's gate on the card, at
-head_dim 128 and 64, g 2, 5 and 6, a 64-query chunk over 1000 positions
-and a cold 64-query chunk; and single-pass TF32 is shown to miss that
-bound, which is why the kernel splits.
+head_dim 128, 64 and 256, g 2, 5, 6, 10 and 16, float32, bfloat16 and
+float8_e4m3fn pages (the last two with one K/V pass), blocks of 16 and
+128 positions, a 64-query chunk over 1000 positions and a cold 64-query
+chunk; and single-pass TF32 is shown to miss that bound, which is why
+the kernel splits.
 """
 
 import math
@@ -36,7 +39,20 @@ F32 = torch.float32
 GATE = 1e-4                 # chip_smoke.py's bound for the float kernel
 N_KV, G, HD, BS, S, CTX = 2, 2, 128, 16, 64, 1000
 DTYPES = {"float32": (jnp.float32, torch.float32),
-          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+          "bfloat16": (jnp.bfloat16, torch.bfloat16),
+          "float8_e4m3fn": (jnp.float8_e4m3fn, torch.float8_e4m3fn)}
+EXACT = (torch.bfloat16, torch.float8_e4m3fn)   # exact in TF32
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One torch thread for this module: its emulation runs thousands of
+    small tensor ops, which spin-wait across a full thread pool when the
+    suite's workers share the cores (a quarter of the time under load)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:
@@ -85,12 +101,12 @@ def emulate(q, k_pages, v_pages, block_tables, q_start, kv_lens,
     (:func:`block_rows`): masks, scale and recurrence as the reference,
     products as :func:`tf32_product`, folded per KV tile; a padding row
     has zero q and sees no position, and only the stored rows reach the
-    output.  By default q and the pages are split unless bfloat16 (exact
-    in TF32), and P always, as the kernel does."""
+    output.  By default q and the pages are split unless bfloat16 or
+    float8_e4m3fn (exact in TF32), and P always, as the kernel does."""
     if split_q is None:
-        split_q = q.dtype != torch.bfloat16
+        split_q = q.dtype not in EXACT
     if split_k is None:
-        split_k = split_v = k_pages.dtype != torch.bfloat16
+        split_k = split_v = k_pages.dtype not in EXACT
     b, s, n_kv, g, hd = q.shape
     t_all = block_tables.shape[1] * k_pages.shape[1]
     k = k_pages[block_tables.long()].reshape(b, t_all, n_kv, hd).to(F32)
@@ -129,16 +145,16 @@ def emulate(q, k_pages, v_pages, block_tables, q_start, kv_lens,
     return out
 
 
-def _inputs(dtype: str, seed: int, g: int = G, hd: int = HD):
+def _inputs(dtype: str, seed: int, g: int = G, hd: int = HD, bs: int = BS):
     """Two rows: row 0 the last 64-query chunk of a 1000-position row,
     row 1 a cold 64-query chunk; bf16 q (the serving path's), pages
     rounded once through ``dtype``.  numpy arrays."""
     r = np.random.default_rng(seed)
-    max_blk = -(-CTX // BS)
+    max_blk = -(-CTX // bs)
     n = 1 + 2 * max_blk
     jd, _ = DTYPES[dtype]
-    kp = np.array(jnp.asarray(r.normal(size=(n, BS, N_KV, hd)), jd).astype(jnp.float32))
-    vp = np.array(jnp.asarray(r.normal(size=(n, BS, N_KV, hd)), jd).astype(jnp.float32))
+    kp = np.array(jnp.asarray(r.normal(size=(n, bs, N_KV, hd)), jd).astype(jnp.float32))
+    vp = np.array(jnp.asarray(r.normal(size=(n, bs, N_KV, hd)), jd).astype(jnp.float32))
     q = np.array(jnp.asarray(r.normal(size=(2, S, N_KV, g, hd)), jnp.bfloat16)
                  .astype(jnp.float32))
     bt = r.permutation(np.arange(1, n))[: 2 * max_blk].reshape(2, max_blk)
@@ -176,6 +192,11 @@ def test_passes_skip_only_the_exact_parts():
     assert passes(bf, bf) == (1, 2)
     assert passes(f, f) == (3, 3)
     assert passes(torch.uint8, torch.uint8) == (3, 3)   # decoded codes
+    f8 = torch.float8_e4m3fn                     # exact in TF32, as bf16
+    assert passes(bf, f8) == (1, 2)
+    assert passes(f, f8) == (2, 2)
+    f8v = torch.randn(4096, generator=torch.Generator().manual_seed(1)).to(f8)
+    assert torch.equal(tf32(f8v.to(F32)), f8v.to(F32))
 
 
 @pytest.mark.parametrize("g", range(1, MAX_GROUP + 1))
@@ -190,11 +211,17 @@ def test_block_rows_store_each_query_once(g, s):
     assert pos.shape[0] == -(-s // (ROWS_PER_BLOCK // g))
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("seed", [0, 1])
-@pytest.mark.parametrize("g,hd", [(G, HD), (5, 128), (6, 64)])
-def test_split_tf32_is_within_the_gate(dtype, seed, g, hd):
-    arrays = _inputs(dtype, seed, g, hd)
+# PR 14/18's layouts at both seeds under their ids, then f8 pages (one
+# K/V pass), head_dim 256 at g 10, g 16 on pages of 128
+@pytest.mark.parametrize("dtype,seed,g,hd,bs", [
+    pytest.param(dt, seed, g, hd, BS, id=f"{g}-{hd}-{seed}-{dt}")
+    for g, hd in ((G, HD), (5, 128), (6, 64)) for seed in (0, 1)
+    for dt in ("float32", "bfloat16")
+] + [pytest.param(*c, id="-".join(map(str, c))) for c in (
+    ("float8_e4m3fn", 0, G, HD, BS), ("float8_e4m3fn", 1, 10, 256, BS),
+    ("float32", 0, 10, 256, BS), ("bfloat16", 1, 16, 128, 128))])
+def test_split_tf32_is_within_the_gate(dtype, seed, g, hd, bs):
+    arrays = _inputs(dtype, seed, g, hd, bs)
     args = _torch(arrays, dtype)
     out = emulate(*args)
     ref = flash_prefill_paged_ref(*args)
