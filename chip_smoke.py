@@ -79,7 +79,21 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
      qwen3-14b (8 of its 40 layers) at full width, 7-bit random weights,
      8 requests each through ``generate`` with float32 pages, every
      request ``ok`` and the float path's launches exact (qwen3-14b's
-     untied unembedding through #1's plain layout).
+     untied unembedding through #1's plain layout);
+ 10. the prefix cache and speculative decoding (phases 4-9 serve with
+     the prefix cache on, the default): phase 4's weights serve 16
+     requests sharing a 500-token system prompt after one warm-up (every
+     hit copies its boundary page) with the prefix cache on and off --
+     reuse and copy counts, the page partition after every tick, the
+     streams equal where the top-2 gap is clear, prefill tok/s and TTFT
+     printed; then spec_k 1, 4 and 8 against vanilla on 8 repeating
+     prompts (and spec_k 4 eager, and on phase 5's codes tables): equal
+     streams where the gap is clear, the launches exact through the
+     replays, one graph a ("spec", cols) key, the acceptance rate, ms
+     and tokens a decode dispatch printed.
+Phase 3 prints, for olmo-1b, minicpm-2b and qwen3-14b, the card-vs-CPU
+error after each layer beside the CPU's own spread under last-bit
+weight tables, at the prefill chunk and the first decode step.
 Phase 3 also checks the contiguous path (``prefill`` and
 ``decode_step``) card against CPU, and its dense decode branch against
 the kernel branch on the card.  The line before the last is a JSON
@@ -90,6 +104,7 @@ object of per-kernel figures; the last line is ``{"ok": true,
 from __future__ import annotations
 
 import copy
+import dataclasses
 import importlib
 import json
 import os
@@ -172,17 +187,19 @@ def require_close(name: str, label: str, out, ref) -> float:
     return err
 
 
-def codes_err(out, ref, label: str) -> float:
+def codes_err(out, ref, qo, label: str) -> float:
     """The uint8 tolerance: at most 1e-3 of the codes differ, each by one
-    rounding step (a last-bit float difference moves a value across a
-    rounding boundary now and then).  Returns the differing fraction."""
+    rounding step under the out table ``qo`` (a last-bit float
+    difference moves a value across a rounding boundary now and then).
+    Returns the differing fraction."""
     from repro_torch.core import exponential_quant as eq
 
     require(out.dtype == ref.dtype and out.shape == ref.shape,
             f"{label}: {out.dtype}{tuple(out.shape)} vs "
             f"{ref.dtype}{tuple(ref.shape)}")
-    require(bool(eq.codes_agree(out, ref).all()),
-            f"{label}: codes more than one rounding step apart")
+    ok = eq.codes_agree(out, ref, qo)
+    require(bool(ok.all()), f"{label}: codes more than one rounding step "
+            f"apart, e.g. {out[~ok][:8].tolist()} vs {ref[~ok][:8].tolist()}")
     frac = (out != ref).float().mean().item()
     require(frac <= 1e-3, f"{label}: {frac:.2e} of the codes differ > 1e-3")
     return frac
@@ -961,7 +978,7 @@ def check_layouts(tally: Tally) -> None:
         args = (qc, kc, vc, ql, kl, vl, oq, table, q_start, kv_lens)
         out = flash_prefill_paged_codes(*args)
         ref = flash_prefill_paged_codes_ref(*args)
-        frac = codes_err(out, ref, f"flash_prefill_paged_codes {rows}")
+        frac = codes_err(out, ref, oq, f"flash_prefill_paged_codes {rows}")
         pages, flops, tc_flops, tiles = prefill_work(
             q_start, kv_lens, s, n_kv, g, bs,
             fp.passes(torch.uint8, torch.uint8), hd)
@@ -1000,7 +1017,7 @@ def check_layouts(tally: Tally) -> None:
         args = (qc, kc, vc, ql, kl, vl, oq, table, lens)
         out = decode_gqa_paged_codes(*args)
         ref = decode_gqa_paged_codes_ref(*args)
-        frac = codes_err(out, ref, f"decode_gqa_paged_codes {rows}")
+        frac = codes_err(out, ref, oq, f"decode_gqa_paged_codes {rows}")
         tally.add("decode_gqa_paged_codes",
                   (eq.decode_meta(out, oq) - eq.decode_meta(ref, oq))
                   .abs().max().item(),
@@ -1171,7 +1188,7 @@ def check_codes_kernels(tally: Tally) -> None:
         require(m > 8 or splits > 1, f"M={m}: split-K expected, got {splits}")
         out = lut_dequant_matmul_dual(*args, out_qmeta=qo)
         ref = lut_dequant_matmul_dual_ref(*args, out_qmeta=qo)
-        frac = codes_err(out, ref, f"dual u8 M={m}")
+        frac = codes_err(out, ref, qo, f"dual u8 M={m}")
         xf, wf = decode_weight(xc, lx, None), decode_weight(c, lw, None)
         tally.add("lut_dequant_matmul_dual", value_err(out, ref, qo),
                   time_ms(lambda: lut_dequant_matmul_dual(*args, out_qmeta=qo),
@@ -1192,7 +1209,7 @@ def check_codes_kernels(tally: Tally) -> None:
         qo = out_table(lut_dequant_matmul_dual_gated_ref(*args))
         out = lut_dequant_matmul_dual_gated(*args, out_qmeta=qo)
         ref = lut_dequant_matmul_dual_gated_ref(*args, out_qmeta=qo)
-        frac = codes_err(out, ref, f"dual gated M={m}")
+        frac = codes_err(out, ref, qo, f"dual gated M={m}")
         xf = decode_weight(xc, lx, None)
         wgu = torch.cat([decode_weight(cg, lg, None),
                          decode_weight(cu, lu, None)], dim=1)
@@ -1240,7 +1257,7 @@ def check_codes_kernels(tally: Tally) -> None:
         args = (qc, kc, vc, ql, kl, vl, oq, table, q_start, kv_lens)
         out = flash_prefill_paged_codes(*args)
         ref = flash_prefill_paged_codes_ref(*args)
-        frac = codes_err(out, ref, f"flash_prefill_paged_codes {label}")
+        frac = codes_err(out, ref, oq, f"flash_prefill_paged_codes {label}")
         pages, flops, tc_flops, tiles = prefill_work(
             q_start, kv_lens, s, n_kv, g, bs, passes)
         tally.add("flash_prefill_paged_codes", value_err(out, ref, oq),
@@ -1266,7 +1283,7 @@ def check_codes_kernels(tally: Tally) -> None:
         args = (qc, kc, vc, ql, kl, vl, oq, table, lens)
         out = decode_gqa_paged_codes(*args)
         ref = decode_gqa_paged_codes_ref(*args)
-        frac = codes_err(out, ref, f"decode_gqa_paged_codes {label}")
+        frac = codes_err(out, ref, oq, f"decode_gqa_paged_codes {label}")
         require(bool(torch.all(out[lens == 0] == zero)),
                 f"decode_gqa_paged_codes {label}: a zero-length row is not "
                 f"the code of 0.0")
@@ -1598,15 +1615,20 @@ def path_check_configs() -> None:
         prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                    for n in PATH_LENS]
         t0 = time.perf_counter()
-        on_cpu = paged_run(api, cfg, cpu, torch.device("cpu"), torch.float32,
-                           prompts)
+        on_cpu, cpu_layers = layer_states(lambda: paged_run(
+            api, cfg, cpu, torch.device("cpu"), torch.float32, prompts))
         feed = [o.argmax(-1) for o in on_cpu[:-1]]
         t1 = time.perf_counter()
-        on_card = paged_run(api, cfg, gpu, torch.device("cuda"),
-                            torch.float32, prompts, feed)
+        on_card, card_layers = layer_states(lambda: paged_run(
+            api, cfg, gpu, torch.device("cuda"), torch.float32, prompts,
+            feed))
         t2 = time.perf_counter()
-        spread = rel_err(paged_run(api, cfg, _nudged(cpu), torch.device("cpu"),
-                                   torch.float32, prompts, feed), on_cpu)
+        on_nudged, nudged_layers = layer_states(lambda: paged_run(
+            api, cfg, _nudged(cpu), torch.device("cpu"), torch.float32,
+            prompts, feed))
+        spread = rel_err(on_nudged, on_cpu)
+        print_layer_errors(name, cfg.num_layers, card_layers, cpu_layers,
+                           nudged_layers)
         print(f"  {name}: CPU against itself with last-bit weight tables: "
               f"logits differ by {spread:.3e} of their scale", flush=True)
         compare(name, on_card, on_cpu, max(1e-4, 4 * spread))
@@ -1615,6 +1637,54 @@ def path_check_configs() -> None:
         del gpu, cpu
         gc.collect()
         torch.cuda.empty_cache()
+
+
+def layer_states(run):
+    """``run()`` with the hidden state after every block of every step
+    recorded (on the CPU): returns (its result, the states in the order
+    the blocks ran).  The blocks are ``transformer._paged_block``, which
+    the paged entry points call by name."""
+    from repro_torch.models import transformer
+
+    block, states = transformer._paged_block, []
+
+    def recorded(*args):
+        x = block(*args)
+        states.append(x.detach().float().cpu())
+        return x
+
+    transformer._paged_block = recorded
+    try:
+        return run(), states
+    finally:
+        transformer._paged_block = block
+
+
+def print_layer_errors(name, n_layers, card, cpu, nudged) -> None:
+    """Card against CPU, and the CPU against itself under last-bit weight
+    tables, after each layer, relative to that layer's hidden-state
+    scale: at the prefill chunk (its valid positions, PATH_LENS) and at
+    the first decode step.  A layer where the card's error jumps while
+    the CPU's own spread does not is a module that differs; an error
+    that grows with the spread from layer 0 on is the cascade."""
+    import torch
+
+    for step, label in ((0, "prefill"), (1, "decode step 0")):
+        for layer in range(n_layers):
+            i = step * n_layers + layer
+            r = cpu[i]
+            if step == 0:   # the chunk's valid positions only
+                keep = (torch.arange(r.shape[1])[None, :]
+                        < torch.tensor(PATH_LENS)[:, None])
+                a, r, n = card[i][keep], r[keep], nudged[i][keep]
+            else:
+                a, n = card[i], nudged[i]
+            scale = r.abs().max().item()
+            err = (a - r).abs().max().item() / scale
+            own = (n - r).abs().max().item() / scale
+            print(f"  {name} {label} layer {layer}: card vs CPU {err:.3e}, CPU "
+                  f"spread {own:.3e} ({err / max(own, 1e-30):.1f}x) of the "
+                  f"layer's scale {scale:.3e}", flush=True)
 
 
 def _nudged(model, rel: float = 2 ** -22):
@@ -1660,14 +1730,16 @@ def check_served(outs, reqs, cfg, n_new: int = 32) -> None:
 def require_float_path(counts: dict, eng, cfg, label: str) -> None:
     """The float path's launches, exactly: #1 5L + 1 times a dispatch
     (q, k, v, o and w_down a layer, then the unembedding, tied or
-    untied), #2 L times a dispatch, #5 L times a prefill dispatch, #7 L
-    times a decode step, and no other kernel."""
+    untied), #2 L times a dispatch, #5 L times a prefill or verify
+    dispatch, #7 L times a vanilla decode step, and no other kernel."""
     n = cfg.num_layers
     disp = eng.prefill_batches + eng.total_decode_steps
+    spec = eng.spec_dispatches
     want = {"lut_dequant_matmul": (5 * n + 1) * disp,
             "lut_dequant_matmul_gated": n * disp,
-            "flash_prefill_paged": n * eng.prefill_batches,
-            "decode_gqa_paged": n * eng.total_decode_steps}
+            "flash_prefill_paged": n * (eng.prefill_batches + spec),
+            "decode_gqa_paged": n * (eng.total_decode_steps - spec)}
+    want = {k: v for k, v in want.items() if v}     # counters hold launches
     require(counts == want, f"{label}: launches {counts}, want {want}")
 
 
@@ -1950,6 +2022,7 @@ def serve_codes(counts_out: dict, float_outs, float_pool: int,
     served = (eng.params, eng.engine_cfg, eng.kv_codes, eng.kv_dtype)
     srv.last_engine = eng = None
     serve_eager(served, reqs, outs, cfg, "decode_gqa_paged_codes")
+    return served[0]
 
 
 # ------------------------------------- phase 6: contiguous serving --
@@ -2231,6 +2304,282 @@ def serve_dense_decoders() -> None:
         torch.cuda.empty_cache()
 
 
+# ------------------------ phase 10: prefix cache and speculation --
+
+PHASE10_EC = dict(num_slots=8, block_size=16, prefill_chunk=256)
+
+
+def gate_streams(label, params, cfg, reqs, outs, refs,
+                 floor: float = 1e-4) -> int:
+    """Greedy streams equal wherever the top-2 gap is clear, as phase 3
+    gates: a request whose stream leaves the reference's must do so
+    where the model's top-2 logits (a card ``forward`` of the prompt and
+    the common tokens) lie within twice the tolerance, ``max(floor, 4 x
+    the spread)``, the spread being how far the same ``forward`` moves
+    under last-bit weight tables (``_nudged``; with bf16 activations and
+    28 layers a last-bit difference moves the logits far more than in
+    phase 3's 2-layer float32 checks).  Returns the number of such
+    requests."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import api as mapi
+
+    api = mapi.get_model(cfg)
+    nudged = _nudged(params)
+
+    def last(model, ctx):
+        with torch.no_grad():
+            return api.forward(model, torch.as_tensor(ctx[None], device="cuda"),
+                               cfg)[0][0, -1].float()
+
+    apart = 0
+    for r, a, b in zip(reqs, outs, refs):
+        n = min(len(a.tokens), len(b.tokens))
+        diff = np.flatnonzero(a.tokens[:n] != b.tokens[:n])
+        if not len(diff) and len(a.tokens) == len(b.tokens):
+            continue
+        j = int(diff[0]) if len(diff) else n
+        ctx = np.concatenate([r.prompt, b.tokens[:j]]).astype(np.int64)
+        logits = last(params, ctx)
+        scale = max(1.0, logits.abs().max().item())
+        spread = (last(nudged, ctx) - logits).abs().max().item() / scale
+        tol = 2 * max(floor, 4 * spread) * scale
+        top2 = logits.topk(2).values
+        gap = (top2[0] - top2[1]).item()
+        print(f"  {label}: request {r.uid} leaves the reference at token {j}: "
+              f"top-2 gap {gap:.3e}, clear above {tol:.3e} (spread under "
+              f"last-bit tables {spread:.3e} of the logits' scale)", flush=True)
+        require(gap <= tol, f"{label}: request {r.uid} differs at token {j} "
+                f"where the top-2 gap {gap:.3e} is clear (> {tol:.3e})")
+        apart += 1
+    return apart
+
+
+def serve_ticked(eng, reqs):
+    """``reqs`` through ``eng`` tick by tick, the page partition audited
+    after every tick; the completions sorted by uid."""
+    for r in reqs:
+        eng.submit(r)
+    while eng.pending:
+        eng.step()
+        eng.check_partition()
+    return eng.collect()
+
+
+def engine_deltas(eng, run):
+    """``run()``'s completions and what it added to ``eng``'s counters
+    and dispatch seconds (a namespace of the differences)."""
+    import types
+
+    names = ("prefill_batches", "prefill_tokens_computed", "prefill_dispatch_s",
+             "total_decode_steps", "decode_tokens", "decode_dispatch_s",
+             "spec_dispatches", "spec_proposed", "spec_accepted")
+    before = {k: getattr(eng, k) for k in names}
+    stats = (dataclasses.asdict(eng.prefix_stats)
+             if eng.prefix is not None else {})
+    outs = run()
+    d = {k: getattr(eng, k) - v for k, v in before.items()}
+    if eng.prefix is not None:
+        d.update({k: v - stats[k]
+                  for k, v in dataclasses.asdict(eng.prefix_stats).items()})
+    return outs, types.SimpleNamespace(**d)
+
+
+def serve_prefix_traffic(params) -> None:
+    """Phase 10a: prefix traffic on phase 4's weights (8 slots, block 16,
+    chunk 256, graphs).  One warm-up request, then 16 that share its
+    500-token system prompt (seed 4: 31 whole pages and 4 tokens of the
+    32nd, so every hit copies its boundary page), tails of 17..200
+    tokens, 32 new tokens each; with the prefix cache on, then off.  Each
+    engine first serves the same shapes under another system prompt, so
+    that every step is captured before the measured pass.  Every request
+    ok, the streams equal where the top-2 gap is clear, 500 tokens reused
+    a request, the prefill tokens computed equal the prompts' less the
+    reused, one copy a hit, the partition after every tick."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.engine import Engine, EngineConfig, Request
+
+    cfg = get_config(ARCH)
+    tails = np.random.default_rng(4).integers(17, 201, 17)
+
+    def traffic(seed):
+        rng = np.random.default_rng(seed)
+        system = rng.integers(0, cfg.vocab_size, 500)
+        return [Request(i, np.concatenate(
+                    [system, rng.integers(0, cfg.vocab_size, int(n))]
+                ).astype(np.int32), max_new_tokens=32)
+                for i, n in enumerate(tails)]
+
+    reqs = traffic(4)
+    plens = sum(len(r.prompt) for r in reqs)
+    runs = {}
+    for on in (True, False):
+        fresh_peak()
+        eng = Engine(cfg, params=params, device="cuda", engine=EngineConfig(
+            **PHASE10_EC, max_seq_len=768, prefix_cache=on))
+        warm = traffic(5)
+        serve_ticked(eng, warm[:1])
+        serve_ticked(eng, warm[1:])
+        graphs = eng.graph_captures()[0]
+
+        def measured():
+            serve_ticked(eng, reqs[:1])
+            t0 = time.perf_counter()
+            outs = serve_ticked(eng, reqs[1:])
+            torch.cuda.synchronize()
+            return outs, time.perf_counter() - t0
+
+        (outs, t_run), d = engine_deltas(eng, measured)
+        check_served(outs, reqs[1:], cfg)
+        require(eng.graph_captures()[0] == graphs,
+                "phase 10a: the measured pass captured a new step")
+        ttft = np.mean([c.ttft_s for c in outs]) * 1e3
+        print(f"  [prefix cache {'on' if on else 'off'}] 17 requests: prefill "
+              f"{d.prefill_tokens_computed} tokens computed, "
+              f"{d.prefill_tokens_computed / d.prefill_dispatch_s:.1f} tok/s "
+              f"in {d.prefill_batches} dispatches; the 16: mean TTFT "
+              f"{ttft:.1f} ms, served in {t_run:.3f} s (every step replayed); "
+              f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+        if on:
+            print(f"  prefix stats of the pass: queries {d.queries}, hits "
+                  f"{d.hits}, tokens reused {d.tokens_reused}, missed "
+                  f"{d.tokens_missed}, copies {d.cow_copies}, evicted "
+                  f"{d.evicted_pages}", flush=True)
+            require(d.tokens_reused >= 16 * 500,
+                    f"{d.tokens_reused} tokens reused < 16 x 500")
+            require(d.prefill_tokens_computed == plens - d.tokens_reused,
+                    f"prefill computed {d.prefill_tokens_computed} != "
+                    f"{plens} - {d.tokens_reused} reused")
+            require(d.cow_copies == d.hits >= 16,
+                    f"{d.cow_copies} copies for {d.hits} hits")
+        runs[on] = outs
+        del eng
+    apart = gate_streams("prefix on vs off", params, cfg, reqs[1:], runs[True],
+                         runs[False])
+    print(f"  prefix cache on vs off: {16 - apart} of 16 streams equal, "
+          f"{apart} apart at a near-tie", flush=True)
+
+
+def spec_prompts(cfg, params):
+    """8 prompts in prompt lookup's home regime (as the reference's
+    ``repetitive_prompts``): an 8-token seed and the first 24 tokens of
+    the model's own greedy rollout from it (a vanilla engine's), so
+    decoding repeats spans the drafter finds."""
+    import numpy as np
+
+    from repro_torch.runtime.engine import Engine, EngineConfig, Request
+
+    eng = Engine(cfg, params=params, device="cuda",
+                 engine=EngineConfig(**PHASE10_EC, max_seq_len=256))
+    seeds = [np.random.default_rng(100 + i).integers(0, cfg.vocab_size, 8)
+             .astype(np.int32) for i in range(8)]
+    boots = eng.generate([Request(900 + i, s, max_new_tokens=72)
+                          for i, s in enumerate(seeds)])
+    return [np.concatenate([s, c.tokens[:24]]).astype(np.int32)
+            for s, c in zip(seeds, boots)]
+
+
+def serve_speculative(params, codes_params) -> None:
+    """Phase 10b: speculative decoding on phase 4's weights.  spec_k 1,
+    4 and 8 against vanilla on 8 repeating prompts (48 new tokens), each
+    engine serving them twice (the first pass captures every step; the
+    second is measured): streams equal where the top-2 gap is clear;
+    the launches exact through the replays (a verify dispatch launches
+    #5 once a layer and #1/#2 as a prefill dispatch does, #7 never); one
+    graph a ("spec", cols) key; the same streams with graphs off.  Then
+    spec_k 4 on phase 5's codes tables (#6 in the verify dispatch)
+    against the vanilla codes engine.  The acceptance rate, ms a decode
+    dispatch and tokens a dispatch are printed (random weights: not
+    gated)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.runtime.engine import Engine, EngineConfig, Request
+
+    cfg = get_config(ARCH)
+    prompts = spec_prompts(cfg, params)
+    reqs = lambda: [Request(i, p, max_new_tokens=48)
+                    for i, p in enumerate(prompts)]
+    n = cfg.num_layers
+
+    def run(k, codes=False, graphs=True):
+        eng = Engine(cfg, params=codes_params if codes else params,
+                     kv_codes=codes, device="cuda", cuda_graphs=graphs,
+                     engine=EngineConfig(**PHASE10_EC, max_seq_len=256,
+                                         prefix_cache=False, spec_k=k))
+        first = serve_ticked(eng, reqs())
+        captured = eng.graph_captures()[0]
+        _build.reset_launch_counts()
+        outs, d = engine_deltas(eng, lambda: serve_ticked(eng, reqs()))
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        check_served(outs, reqs(), cfg, 48)
+        require(all(np.array_equal(a.tokens, b.tokens)
+                    for a, b in zip(first, outs)),
+                f"spec_k {k}: the second pass gave other streams")
+        steps = d.total_decode_steps
+        print(f"  [spec_k {k}{' codes' if codes else ''}"
+              f"{'' if graphs else ' eager'}] {d.spec_dispatches} verify "
+              f"dispatches of {steps} decode dispatches, {d.spec_accepted} "
+              f"of {d.spec_proposed} drafts accepted "
+              f"({d.spec_accepted / max(d.spec_proposed, 1):.3f}), "
+              f"{d.decode_tokens / steps:.2f} tokens and "
+              f"{1e3 * d.decode_dispatch_s / steps:.2f} ms a decode dispatch",
+              flush=True)
+        if graphs:
+            spec = eng.step_runners["spec"]
+            require(eng.graph_captures()[0] == captured,
+                    f"spec_k {k}: the second pass captured a new step")
+            require(all(r.graph is not None for r in spec.values())
+                    and len({key[0] for key in spec}) == len(spec),
+                    f"spec_k {k}: not one graph a (spec, cols) key")
+            require(bool(spec) == bool(k) and (d.spec_dispatches > 0) == bool(k),
+                    f"spec_k {k}: {d.spec_dispatches} verify dispatches, "
+                    f"{len(spec)} verify keys")
+        if codes:
+            v = d.prefill_batches + d.spec_dispatches
+            want = {"flash_prefill_paged_codes": n * v,
+                    "decode_gqa_paged_codes": n * (steps - d.spec_dispatches),
+                    "lut_dequant_matmul": d.prefill_batches + steps}
+            for name, w in want.items():
+                require(counts.get(name, 0) == w, f"codes spec_k {k}: {name} "
+                        f"launched {counts.get(name, 0)} times, want {w}")
+            for name in ("flash_prefill_paged", "decode_gqa_paged",
+                         "lut_dequant_matmul_gated"):
+                require(counts.get(name, 0) == 0,
+                        f"codes spec_k {k}: {name} launched")
+        else:
+            require_float_path(counts, d, cfg, f"spec_k {k}")
+        return outs
+
+    vanilla = run(0)
+    for k in (1, 4, 8):
+        outs = run(k)
+        apart = gate_streams(f"spec_k {k}", params, cfg, reqs(), outs, vanilla)
+        print(f"  spec_k {k} vs vanilla: {8 - apart} of 8 streams equal",
+              flush=True)
+        if k == 4:
+            eager = run(4, graphs=False)
+            require(all(np.array_equal(a.tokens, b.tokens)
+                        for a, b in zip(outs, eager)),
+                    "spec_k 4: cuda_graphs=False gave other streams")
+    codes_vanilla = run(0, codes=True)
+    outs = run(4, codes=True)
+    # codes logits move by a code step where #6 and #8 round an output
+    # code apart: phase 3's floor for codes
+    apart = gate_streams("codes spec_k 4", codes_params, cfg, reqs(), outs,
+                         codes_vanilla, floor=1e-3)
+    print(f"  codes spec_k 4 vs codes vanilla: {8 - apart} of 8 streams "
+          f"equal", flush=True)
+
+
 # ----------------------------------------- phase 7: Lama primitives --
 
 def lama_primitives(counts_out: dict) -> None:
@@ -2440,7 +2789,8 @@ def main() -> int:
         float_outs, float_pool, params = serve(counts)
         phase("phase 5: serving with activations and KV pages as codes")
         codes_counts: dict = {}
-        serve_codes(codes_counts, float_outs, float_pool, params)
+        codes_params = serve_codes(codes_counts, float_outs, float_pool,
+                                   params)
         phase("phase 6: contiguous serving (generate_bucketed)")
         contig_counts: dict = {}
         serve_contiguous(contig_counts, params)
@@ -2451,6 +2801,9 @@ def main() -> int:
         serve_f8(float_outs, float_pool, params)
         phase("phase 9: serving olmo-1b, minicpm-2b and qwen3-14b")
         serve_dense_decoders()
+        phase("phase 10: the prefix cache and speculative decoding")
+        serve_prefix_traffic(params)
+        serve_speculative(params, codes_params)
         phase("all phases passed")
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

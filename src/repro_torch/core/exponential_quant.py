@@ -170,17 +170,31 @@ def decode_meta(codes: torch.Tensor, qmeta: torch.Tensor,
     return (sign * mag).to(dtype)
 
 
-def codes_agree(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Elementwise: the codes are equal, or one rounding step apart --
-    adjacent exponents of the same sign, or the smallest magnitude under
-    the two signs.  Two encoders of the same value differ by no more
-    than this when their float inputs or their ``log`` differ in the last
-    bits."""
-    a, b = a.to(torch.int32), b.to(torch.int32)
-    ea, eb = a & 0x7F, b & 0x7F
-    same_sign = (a >> 7) == (b >> 7)
-    return ((a == b) | (same_sign & ((ea - eb).abs() == 1))
-            | (~same_sign & (ea == 0) & (eb == 0)))
+def code_order(codes: torch.Tensor, qmeta: torch.Tensor) -> torch.Tensor:
+    """Each code's place in the order the encoder gives codes along the
+    real line under the packed ``qmeta [..., 4]`` (leading dims broadcast
+    against the codes as in :func:`encode_meta`): negative inputs by
+    falling magnitude, then positive ones by rising.  Zero's code (the
+    exponent the encoder gives ``|x| = 0``: exponent 0 when beta >= 0,
+    higher when beta < 0) and its negative twin are neighbours; the
+    exponents below it, which the encoder never gives, share its
+    place."""
+    c = codes.to(torch.int32)
+    zero = encode_meta(torch.zeros((), device=qmeta.device), qmeta)
+    d = torch.clamp_min((c & 0x7F) - (zero & 0x7F).to(torch.int32), 0)
+    return torch.where((c >> 7) > 0, -d - 1, d)
+
+
+def codes_agree(a: torch.Tensor, b: torch.Tensor,
+                qmeta: torch.Tensor) -> torch.Tensor:
+    """Elementwise: the codes are equal, or one rounding step apart under
+    the out table ``qmeta`` -- neighbours in :func:`code_order`.  Two
+    encoders of the same value differ by no more than this when their
+    float inputs or their ``log`` differ in the last bits: adjacent
+    exponents of one sign, or, for a value near zero whose sign the two
+    float sums disagree on, zero's two codes (the smallest magnitudes
+    when beta >= 0; two codes above exponent 0 when beta < 0)."""
+    return (code_order(a, qmeta) - code_order(b, qmeta)).abs() <= 1
 
 
 # ----------------------------------------------------------------- fit --

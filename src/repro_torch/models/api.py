@@ -2,7 +2,8 @@
 architecture family; only the ``decoder`` family is ported.  Its
 contiguous-cache entry points (``forward``, ``prefill``,
 ``decode_step``, ``init_cache``) serve ``generate_bucketed``; the paged
-ones serve the Engine."""
+ones (``prefill_into_cache``, ``decode_step_paged`` and
+``spec_verify_into_cache``) serve the Engine."""
 
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ class ModelAPI:
     init_cache: Callable   # (cfg, batch, max_len, dtype, device)
     prefill_into_cache: Callable
     decode_step_paged: Callable
+    spec_verify_into_cache: Callable | None = None
     collect_act_calibration: Callable | None = None
 
     def init(self, device=None, seed: int = 0) -> transformer.DecoderLM:
@@ -47,4 +49,5 @@ def get_model(cfg: ModelConfig) -> ModelAPI:
                     init_cache=transformer.init_cache,
                     prefill_into_cache=transformer.prefill_into_cache,
                     decode_step_paged=transformer.decode_step_paged,
+                    spec_verify_into_cache=transformer.spec_verify_into_cache,
                     collect_act_calibration=transformer.collect_act_calibration)

@@ -6,7 +6,8 @@ entry points and the paged serving entry points.
 path (``InferenceServer.generate_bucketed``): one ``[L, B, max_len,
 n_kv, hd]`` cache per batch, written *in place* at ``pos`` (the
 reference returns a new cache from ``dynamic_update_slice``).
-``prefill_into_cache`` and ``decode_step_paged`` take a
+``prefill_into_cache``, ``spec_verify_into_cache`` and
+``decode_step_paged`` take a
 :class:`~repro_torch.runtime.paged_cache.PagedView` and update its page
 pools in place too (``index_put_``); the reference returns a new view.
 The loop over the layer index takes the place of the reference's
@@ -291,6 +292,35 @@ def _paged_block(lp: dict, x, cfg: ModelConfig, positions, k_pages, v_pages,
     return x + L.apply_mlp(lp["mlp"], h, cfg, act_q=aq)
 
 
+def _window_layers(params: DecoderLM, x, view, cfg: ModelConfig, start,
+                   valid):
+    """Every layer over a window of each row's tokens at ``start``
+    (``valid`` of them real): their K/V scattered into the pages first
+    (padding and positions past the table to the trash page), then the
+    chunked flash attend over the cached prefix and the window's causal
+    left (a row with nothing valid attends nothing).  Returns the
+    final-normed hidden states."""
+    bs = view.block_size
+    max_blk = view.block_tables.shape[1]
+    kv_lens = torch.where(valid > 0, start + valid, torch.zeros_like(valid))
+    ar = torch.arange(x.shape[1], device=x.device)
+    positions = start[:, None].long() + ar[None, :]
+    tok_ok = (ar[None, :] < valid[:, None]) & (positions // bs < max_blk)
+    col = torch.where(tok_ok, positions // bs, 0)
+    page = torch.where(tok_ok, torch.gather(view.block_tables.long(), 1, col), 0)
+    off = torch.where(tok_ok, positions % bs, 0)
+
+    def attend(p, h, kp, vp, aq):
+        return L.mha_prefill_paged(p, h, cfg, positions, kp, vp,
+                                   view.block_tables, start, kv_lens,
+                                   act_q=aq)
+
+    for i in range(cfg.num_layers):
+        x = _paged_block(params.layer(i), x, cfg, positions,
+                         view.k_pages[i], view.v_pages[i], page, off, attend)
+    return L.apply_norm(params["ln_f"], x, cfg)
+
+
 def prefill_into_cache(params: DecoderLM, tokens: torch.Tensor, view,
                        cfg: ModelConfig, start_pos: torch.Tensor | None = None):
     """Run one chunk of each row's prompt and scatter its KV into the
@@ -306,32 +336,49 @@ def prefill_into_cache(params: DecoderLM, tokens: torch.Tensor, view,
     last token ``lengths - 1 - start``, the view)."""
     x = L.embed_tokens(params["embed"], tokens, cfg)
     b, s, _ = x.shape
-    dev = x.device
-    bs = view.block_size
-    max_blk = view.block_tables.shape[1]
-    start = (torch.zeros(b, dtype=torch.int32, device=dev) if start_pos is None
-             else start_pos.to(torch.int32))
+    start = (torch.zeros(b, dtype=torch.int32, device=x.device)
+             if start_pos is None else start_pos.to(torch.int32))
     valid = torch.clamp(view.lengths - start, 0, s)
-    kv_lens = torch.where(valid > 0, start + valid, torch.zeros_like(valid))
-    ar = torch.arange(s, device=dev)
-    positions = start[:, None].long() + ar[None, :]
-    tok_ok = (ar[None, :] < valid[:, None]) & (positions // bs < max_blk)
-    col = torch.where(tok_ok, positions // bs, 0)
-    page = torch.where(tok_ok, torch.gather(view.block_tables.long(), 1, col), 0)
-    off = torch.where(tok_ok, positions % bs, 0)
-
-    def attend(p, h, kp, vp, aq):
-        return L.mha_prefill_paged(p, h, cfg, positions, kp, vp,
-                                   view.block_tables, start, kv_lens,
-                                   act_q=aq)
-
-    for i in range(cfg.num_layers):
-        x = _paged_block(params.layer(i), x, cfg, positions,
-                         view.k_pages[i], view.v_pages[i], page, off, attend)
-    x = L.apply_norm(params["ln_f"], x, cfg)
+    x = _window_layers(params, x, view, cfg, start, valid)
     idx = torch.clamp(view.lengths - 1 - start, 0, s - 1).long()
     x_last = torch.gather(x, 1, idx[:, None, None].expand(b, 1, x.shape[-1]))
     return L.logits_fn(params, x_last, cfg), view
+
+
+def spec_verify_into_cache(params: DecoderLM, tokens: torch.Tensor, view,
+                           cfg: ModelConfig, start_pos: torch.Tensor,
+                           n_tokens: torch.Tensor):
+    """Score a speculative window: the engine's verify dispatch.
+    ``tokens[b]`` is the row's undecoded next token followed by up to
+    ``S-1`` drafted continuations at positions ``start_pos[b] + i``;
+    ``n_tokens[b]`` of them are real (0 parks an idle row: its writes go
+    to the trash page and it attends nothing; 1 is an ordinary decode
+    step riding the dispatch).
+
+    :func:`prefill_into_cache` with the valid count given by the
+    caller: every valid position's K/V is written first (encoded to
+    codes on uint8 pages, as a decode step writes it), then the chunked
+    flash attend scores position ``i`` as if drafts ``< i`` were
+    accepted.  Greedy acceptance is computed here, with no host read:
+    returns ``greedy [B, S]`` (the argmax at every position), ``accept
+    [B]`` (the leading run where the argmax reproduces the drafts, ``0
+    <= accept <= n_tokens - 1``), ``ok [B]`` (finite logits at the
+    row's valid positions; True for a parked row) and the view, whose
+    lengths the engine advances itself."""
+    x = L.embed_tokens(params["embed"], tokens, cfg)
+    s = x.shape[1]
+    start = start_pos.to(torch.int32)
+    valid = torch.clamp(n_tokens.to(torch.int32), 0, s)
+    x = _window_layers(params, x, view, cfg, start, valid)
+    logits = L.logits_fn(params, x, cfg)                      # [B, S, V]
+    greedy = torch.argmax(logits, -1)                         # [B, S]
+    ar = torch.arange(s, device=x.device)
+    in_window = ar[None, :-1] < (valid - 1)[:, None]
+    match = (greedy[:, :-1] == tokens[:, 1:].long()) & in_window
+    accept = torch.cumprod(match.to(torch.int32), 1).sum(1)
+    finite = torch.isfinite(logits).all(-1)
+    ok = torch.where(ar[None, :] < valid[:, None], finite, True).all(1)
+    return greedy, accept, ok, view
 
 
 def decode_step_paged(params: DecoderLM, view, tokens: torch.Tensor,

@@ -10,13 +10,38 @@ flash prefill (port of the core of the JAX package's
 - ``stream(handle)`` / ``run()`` / ``generate(requests)``.
 
 Scheduling is the reference's: FIFO admission of up to
-``max_batched_prefill`` heads per tick, pages for the prompt only (no
-worst-case reservation), and when the free list runs dry the youngest
-running sequence is preempted (pages released, sequence re-queued to be
+``max_batched_prefill`` heads per tick, pages for the prompt tail only
+(no worst-case reservation); when the head cannot get its pages, the
+next four waiting requests are scanned and prefix-cache hits admitted
+first (``admission_reorders``); when the free list runs dry, unpinned
+trie pages are evicted (LRU leaves first) and then the youngest running
+sequence is preempted (pages released, sequence re-queued to be
 recomputed; greedy decoding makes the recompute token-identical).  The
 chunk width and the block-table column count follow the reference's
 pow2 ladders (``_chunk_width``/``_live_cols``), so the kernels see the
 same M and page-column counts as the reference's.
+
+Prefix cache (``EngineConfig.prefix_cache``, on by default as in the
+reference): a retired sequence's pages go into a radix trie
+(:class:`~repro_torch.runtime.prefix_cache.PrefixCache`) keyed by the
+tokens they hold.  Admission matches the prompt against the trie (the
+match is kept across ticks until the trie changes), pins the longest
+cached prefix (at most ``plen - 1`` tokens, so the last prompt token is
+always computed), splices those pages into the block table and
+prefills only the tail, whose first chunk starts at the hit length --
+anywhere inside a page.  The boundary page the tail writes into is
+copied first (``cow_slot_page``, on the device, at admission, between
+two steps): a shared page is never written.
+
+Speculative decoding (``spec_k > 0``): each tick a prompt-lookup
+drafter (:class:`~repro_torch.runtime.drafter.PromptLookupDrafter`)
+proposes up to ``spec_k`` tokens a decoding slot, clamped to the
+request's budget and the pages the slot owns; if any slot has a
+proposal, the tick is one verify dispatch of width ``spec_k + 1``
+(``transformer.spec_verify_into_cache``) that commits ``drafts[:accept]``
+plus the model's own token, cut at the stop token.  Only ``lengths``
+advances, so a rejected tail needs no undo.  A tick with no proposal
+runs the vanilla decode step.
 
 Greedy argmax and the per-row ``isfinite`` flag are computed in the same
 step as the logits and cross to the host in one transfer per tick.  On
@@ -26,8 +51,12 @@ the card each tick is one dispatch, as the reference's jitted
 (the pow2 block-table column ladder) and per prefill (chunk width,
 columns) takes the tick's host inputs in one copy, replays the step as a
 CUDA graph captured after the first eager tick at that key, and returns
-the argmax and flags in one copy back.  ``cuda_graphs=False`` runs every
-tick eagerly (the A/B); on the CPU ticks always run eagerly.
+the argmax and flags in one copy back; a verify dispatch is one more
+key, ``("spec", cols)``, whose step packs the argmax at every window
+position, the accepted count and the flag into one int32 ``[B, S + 2]``.
+``cuda_graphs=False`` runs every tick eagerly (the A/B); on the CPU
+ticks always run eagerly.  Trie and drafter state live on the host and
+are read between steps, never inside one.
 
 Activations as codes (``act_quant``: per-(layer, site) tables fit on
 sample prompts at construction, on the engine's device, disk-cached),
@@ -38,13 +67,11 @@ served; the engine counts the attention boundary's traffic from shapes
 (``attn_bytes_read``, ``attn_act_bytes``, ``attn_dequants``).
 
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item that brings it: the prefix cache (item 7; the port's
-``EngineConfig.prefix_cache`` therefore defaults to False), speculative
-decoding (10), bounded queues and load shedding, deadlines, chaos,
-checksums and the handling of non-finite rows (11: until then a
-non-finite row raises, an f8 page's NaN included), disaggregation roles
-and the calibration drift guard, which reports through the metrics
-registry (12).
+ROADMAP item that brings it: bounded queues and load shedding,
+deadlines, chaos, checksums and the handling of non-finite rows (11:
+until then a non-finite row raises, an f8 page's NaN included),
+disaggregation roles and the calibration drift guard, which reports
+through the metrics registry (12).
 """
 
 from __future__ import annotations
@@ -64,7 +91,9 @@ from repro_torch.core import lama_layers as ll
 from repro_torch.models import api as mapi
 from repro_torch.models.transformer import DecoderLM
 from repro_torch.runtime import calibration as cal
+from repro_torch.runtime.drafter import PromptLookupDrafter
 from repro_torch.runtime.paged_cache import PagedKVCache
+from repro_torch.runtime.prefix_cache import PrefixCache, PrefixNode
 from repro_torch.runtime.step_graph import StepGraph
 
 ST_OK = "ok"
@@ -95,14 +124,13 @@ class Completion:
 
 @dataclasses.dataclass
 class EngineConfig:
-    """The reference's fields and defaults, except ``prefix_cache``,
-    which defaults to False until the prefix cache is ported."""
+    """The reference's fields and defaults."""
 
     num_slots: int = 4            # concurrent decode lanes
     block_size: int = 16          # tokens per KV page
     max_seq_len: int = 512        # per-sequence cap (prompt + generated)
     num_blocks: int | None = None  # page-pool size; None -> full occupancy
-    prefix_cache: bool = False    # ROADMAP item 7
+    prefix_cache: bool = True     # radix-trie KV reuse across requests
     max_batched_prefill: int = 4  # admissions per scheduler tick
     prefill_chunk: int = 256      # max prompt tokens advanced per row/tick
     max_queue: int | None = None  # ROADMAP item 11
@@ -112,18 +140,18 @@ class EngineConfig:
     quarantine_ticks: int = 8     # ROADMAP item 11
     replay_dir: str | None = None  # ROADMAP item 11
     role: str = "unified"         # ROADMAP item 12
-    spec_k: int = 0               # ROADMAP item 10
-    spec_max_ngram: int = 3
-    spec_min_ngram: int = 1
+    spec_k: int = 0               # drafted tokens a slot a tick; 0: off
+    spec_max_ngram: int = 3       # longest n-gram the drafter matches
+    spec_min_ngram: int = 1       # shortest n-gram worth proposing from
     drift_check_every: int = 0    # ROADMAP item 12
     drift_threshold_db: float = 6.0
 
 
 # field -> (default, ROADMAP item that brings the feature)
-_UNPORTED = {"prefix_cache": (False, 7), "max_queue": (None, 11),
+_UNPORTED = {"max_queue": (None, 11),
              "shed_policy": ("reject-new", 11), "checksum_pages": (False, 11),
              "replay_dir": (None, 11), "role": ("unified", 12),
-             "spec_k": (0, 10), "drift_check_every": (0, 12)}
+             "drift_check_every": (0, 12)}
 
 
 def _not_ported(what: str, item: int):
@@ -160,8 +188,10 @@ class _SeqState:
     slot: int = -1
     tokens: list[int] = dataclasses.field(default_factory=list)
     next_token: int = 0
+    prefix_len: int = 0           # prompt tokens served from the trie
     prefill_pos: int = 0          # tail tokens already chunk-prefilled
     prefill_done: bool = False
+    pinned: list[PrefixNode] = dataclasses.field(default_factory=list)
     preemptions: int = 0
     prefill_s: float = 0.0
     decode_s: float = 0.0
@@ -169,6 +199,9 @@ class _SeqState:
     submit_t: float = 0.0
     admit_t: float | None = None
     first_token_t: float | None = None
+    # the trie match kept across ticks: (trie generation, prompt
+    # length, match); valid while neither changes
+    match_cache: tuple | None = None
 
     def full_prompt(self) -> np.ndarray:
         """Prompt plus tokens generated before a preemption: greedy
@@ -224,6 +257,9 @@ class Engine:
         if ec.prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got "
                              f"{ec.prefill_chunk}")
+        if ec.spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0 (0 disables "
+                             f"speculation), got {ec.spec_k}")
         self.kv_codes = bool(kv_codes)
         # codes mode: pages hold uint8 codes (1 B per element)
         self.kv_dtype = torch.uint8 if self.kv_codes else kv_dtype_of(kv_dtype)
@@ -264,6 +300,14 @@ class Engine:
             block_size=ec.block_size, num_blocks=num_blocks,
             max_blocks_per_seq=max_blk, dtype=self.kv_dtype,
             device=self.device)
+        self.prefix: PrefixCache | None = (
+            PrefixCache(self.cache.allocator, ec.block_size)
+            if ec.prefix_cache else None)
+        # spec_k = 0 keeps the verify path cold: no drafter, no key
+        self.drafter: PromptLookupDrafter | None = (
+            PromptLookupDrafter(ec.spec_k, max_ngram=ec.spec_max_ngram,
+                                min_ngram=ec.spec_min_ngram)
+            if ec.spec_k > 0 else None)
 
         self._queue: deque[_SeqState] = deque()
         self._slots: list[_SeqState | None] = [None] * ec.num_slots
@@ -275,6 +319,11 @@ class Engine:
         self.prefill_tokens_computed = 0
         self.prefill_batches = 0
         self.preemptions = 0
+        self.admission_reorders = 0   # prefix hits admitted past the head
+        self.trie_match_reuses = 0    # trie matches kept across ticks
+        self.spec_dispatches = 0      # verify dispatches run
+        self.spec_proposed = 0        # drafted tokens sent to verify
+        self.spec_accepted = 0        # drafted tokens accepted
         # wall time inside prefill / decode dispatches (each ends with
         # the host transfer that waits for the device)
         self.prefill_dispatch_s = 0.0
@@ -284,10 +333,11 @@ class Engine:
         self.attn_act_bytes = 0
         self.attn_dequants = 0
         # the step runners, by shape key (and policy): decode (cols,),
-        # prefill (chunk width, cols); every graph shares one pool, as
-        # each replay's output is copied off before the next replay
+        # prefill (chunk width, cols), spec (cols,) at width spec_k + 1;
+        # every graph shares one pool, as each replay's output is copied
+        # off before the next replay
         self.step_runners: dict[str, dict[tuple, StepGraph]] = {
-            "decode": {}, "prefill": {}}
+            "decode": {}, "prefill": {}, "spec": {}}
         self._pool = (torch.cuda.graph_pool_handle() if self.cuda_graphs
                       else None)
 
@@ -361,10 +411,19 @@ class Engine:
             self.submit(r)
         return self.run()
 
+    @property
+    def prefix_stats(self):
+        return self.prefix.stats if self.prefix is not None else None
+
     def check_partition(self) -> None:
-        """Assert the page-partition invariant (cheap; tests call it
-        every tick)."""
-        self.cache.audit_partition()
+        """Assert the page-partition invariant: free, slot-owned, trie
+        and trash pages cover the pool exactly once, with consistent
+        refcounts (cheap; tests call it every tick)."""
+        if self.prefix is not None:
+            self.cache.audit_partition(self.prefix.pages(),
+                                       self.prefix.pins())
+        else:
+            self.cache.audit_partition(set(), {})
 
     def graph_captures(self) -> tuple[int, float]:
         """(CUDA graphs captured, seconds spent capturing them)."""
@@ -386,9 +445,20 @@ class Engine:
                     and st.tokens[-1] == r.stop_token))
 
     def _retire(self, slot: int) -> Completion:
+        """Finish a sequence.  With the prefix cache on, its pages go
+        into the trie (keyed by the tokens they hold) instead of back to
+        the free list."""
         st = self._slots[slot]
         self._slots[slot] = None
-        self.cache.release_slot(slot)
+        if self.prefix is None:
+            self.cache.release_slot(slot)
+        else:
+            content = st.full_prompt()[:int(self.cache.lengths[slot])]
+            shared = set(self.cache.slot_shared[slot])
+            blocks = self.cache.clear_slot(slot)
+            self.prefix.insert(content, blocks, shared)
+            self.prefix.unpin(st.pinned)
+            st.pinned = []
         st.status = _FINISHED
         return st.completion()
 
@@ -398,6 +468,10 @@ class Engine:
         st = self._slots[slot]
         self._slots[slot] = None
         self.cache.release_slot(slot)
+        if self.prefix is not None:
+            self.prefix.unpin(st.pinned)
+        st.pinned = []
+        st.prefix_len = 0
         st.prefill_pos = 0
         st.prefill_done = False
         st.slot = -1
@@ -406,12 +480,19 @@ class Engine:
         self.preemptions += 1
         self._queue.appendleft(st)
 
-    def _make_room(self, need: int, seq_no: int) -> bool:
-        """Preempt the youngest running sequence submitted after
-        ``seq_no`` (never one preempted ``max_preemptions`` times) until
-        ``need`` pages are free.  False if that cannot be done."""
+    def _make_room(self, need: int, seq_no: int, *,
+                   allow_preempt: bool = True) -> bool:
+        """The eviction ladder until ``need`` pages are free: evict
+        unpinned trie pages (LRU leaves first), then preempt the youngest
+        running sequence submitted after ``seq_no`` (never one preempted
+        ``max_preemptions`` times).  False if that cannot be done."""
         alloc = self.cache.allocator
         while alloc.free_blocks < need:
+            if (self.prefix is not None
+                    and self.prefix.evict(need - alloc.free_blocks)):
+                continue
+            if not allow_preempt:
+                return False
             victim = None
             for st in self._slots:
                 if (st is not None and st.seq_no > seq_no
@@ -438,6 +519,10 @@ class Engine:
                     f"KV pool too small: sequence {st.request.uid} cannot "
                     f"grow past {pos} tokens and nothing is evictable")
             self.cache.ensure_capacity(slot, reserved=False)
+        # decode never writes a shared page: the boundary page was
+        # copied at admission, later pages are fresh allocations
+        page = self.cache.block_tables[slot, pos // self.engine_cfg.block_size]
+        assert page not in self.cache.slot_shared[slot], (slot, pos, page)
 
     @staticmethod
     def _pow2(n: int) -> int:
@@ -460,21 +545,82 @@ class Engine:
                   self.cache.max_blocks_per_seq * bs)
         return max(min(padded, cap), 1)
 
-    def _try_place(self, st: _SeqState) -> bool:
-        """Size the prompt's pages, make room, bind a slot.  The sequence
-        enters with ``prefill_done=False``; the chunk scheduler advances
-        it.  False when the pages cannot be freed."""
-        plen = len(st.full_prompt())
-        need = self.cache.blocks_for(plen)
-        if need > self.cache.max_blocks_per_seq:
+    def _trie_match(self, st: _SeqState):
+        """The request's trie match, kept across ticks while the trie's
+        structure (``PrefixCache.generation``) and the request's prompt
+        length stay the same; a kept match counts in
+        ``trie_match_reuses``."""
+        prompt = st.full_prompt()
+        mc = st.match_cache
+        gen = self.prefix.generation
+        if mc is not None and mc[0] == gen and mc[1] == len(prompt):
+            self.trie_match_reuses += 1
+            return mc[2]
+        match = self.prefix.match(prompt)
+        st.match_cache = (gen, len(prompt), match)
+        return match
+
+    def _try_place(self, st: _SeqState, *, allow_preempt: bool = True,
+                   match: tuple | None = None) -> bool:
+        """Match the trie, size the tail, and commit: pin the prefix,
+        make room (evict, then preempt), splice the block table, copy the
+        boundary page.  The sequence enters with ``prefill_done=False``;
+        the chunk scheduler advances it.  ``match`` is a trie match made
+        already (``(nodes, tokens)``).  False when the pages cannot be
+        freed."""
+        prompt = st.full_prompt()
+        plen = len(prompt)
+        bs = self.engine_cfg.block_size
+        need_total = self.cache.blocks_for(plen)
+        if need_total > self.cache.max_blocks_per_seq:
             raise RuntimeError(
-                f"request {st.request.uid} needs {need} blocks > "
+                f"request {st.request.uid} needs {need_total} blocks > "
                 f"max_blocks_per_seq {self.cache.max_blocks_per_seq}")
-        if not self._make_room(need, st.seq_no):
+        nodes: list[PrefixNode] = []
+        prefix_len = 0
+        if self.prefix is not None:
+            matched, mtokens = (match if match is not None
+                                else self.prefix.match(prompt))
+            # tokens each node covers: whole pages, except maybe the last
+            contribs = [len(nd.key) for nd in matched]
+            if matched:
+                contribs[-1] = mtokens - sum(contribs[:-1])
+            # reuse stops at plen - 1: the last prompt token is always
+            # computed, so its logits exist to sample from
+            allowed, cum = plen - 1, 0
+            for nd, contrib in zip(matched, contribs):
+                if cum >= allowed:
+                    break
+                nodes.append(nd)
+                cum += contrib
+            prefix_len = min(cum, allowed)
+        first_write_col = prefix_len // bs
+        cow = first_write_col < len(nodes)
+        need = need_total - len(nodes) + (1 if cow else 0)
+        if self.prefix is not None:
+            self.prefix.pin(nodes)      # safe from eviction in _make_room
+        if not self._make_room(need, st.seq_no, allow_preempt=allow_preempt):
+            if self.prefix is not None:
+                self.prefix.unpin(nodes)
             return False
+        if self.prefix is not None:     # committed admissions only
+            stats = self.prefix.stats
+            stats.queries += 1
+            stats.hits += bool(nodes)
+            stats.tokens_reused += prefix_len
+            stats.tokens_missed += plen - prefix_len
         slot = self._free_slot()
-        self.cache.bind_slot(slot, plen, reserved=False)
+        self.cache.bind_slot(slot, plen, [nd.page for nd in nodes],
+                             reserved=False)
+        if cow:
+            # the tail writes into the last matched page: copy it, and
+            # drop the pin on the original (the copy holds the KV now)
+            self.cache.cow_slot_page(slot, first_write_col)
+            self.prefix.stats.cow_copies += 1
+            self.prefix.unpin([nodes.pop(first_write_col)])
         st.slot, st.status = slot, _RUNNING
+        st.pinned = nodes
+        st.prefix_len = prefix_len
         st.prefill_pos = 0
         st.prefill_done = False
         if st.admit_t is None:
@@ -483,18 +629,48 @@ class Engine:
         return True
 
     def _admit(self) -> None:
-        """FIFO admission of up to ``max_batched_prefill`` queue heads."""
+        """FIFO admission of up to ``max_batched_prefill`` queue heads;
+        when the head cannot get its pages, prefix hits among the next
+        waiting requests go first (``_admit_reordered``)."""
         admitted = 0
         while (self._queue and self._free_slot() is not None
                and admitted < self.engine_cfg.max_batched_prefill):
             # pop before placing: _try_place may preempt a victim onto
             # the queue front
             st = self._queue.popleft()
-            if self._try_place(st):
+            match = self._trie_match(st) if self.prefix is not None else None
+            if self._try_place(st, match=match):
                 admitted += 1
                 continue
             self._queue.appendleft(st)    # head-of-line: wait for pages
+            self._admit_reordered(
+                self.engine_cfg.max_batched_prefill - admitted)
             break
+
+    def _admit_reordered(self, budget: int) -> None:
+        """The queue head is blocked on pages: scan the next four waiting
+        requests and admit prefix-cache hits, whose spliced pages shrink
+        their need.  These admissions never preempt, so a failed one
+        leaves the queue as it was; ``budget`` is what is left of the
+        tick's ``max_batched_prefill``."""
+        if self.prefix is None:
+            return
+        idx, scanned = 1, 0
+        while (idx < len(self._queue) and scanned < 4 and budget > 0
+               and self._free_slot() is not None):
+            st = self._queue[idx]
+            scanned += 1
+            match = self._trie_match(st)
+            if match[1] == 0:
+                idx += 1
+                continue
+            del self._queue[idx]
+            if self._try_place(st, allow_preempt=False, match=match):
+                self.admission_reorders += 1
+                budget -= 1             # the next candidate is now at idx
+            else:
+                self._queue.insert(idx, st)
+                idx += 1
 
     def _attn_accounting(self, q_tokens: int, kv_tokens: int) -> None:
         """Analytic attention traffic of one dispatched row: the bytes
@@ -530,6 +706,14 @@ class Engine:
             self.cfg, v["start"])
         return _greedy(logits)
 
+    def _spec_step(self, v: dict) -> torch.Tensor:
+        greedy, accept, ok, _ = self.api.spec_verify_into_cache(
+            self.params, v["tokens"], self.cache.bind(v["table"], v["lengths"]),
+            self.cfg, v["start"], v["n_tok"])
+        return torch.cat([greedy.to(torch.int32),
+                          accept[:, None].to(torch.int32),
+                          ok[:, None].to(torch.int32)], 1)
+
     def _decode_step(self, v: dict) -> torch.Tensor:
         logits, _ = self.api.decode_step_paged(
             self.params, self.cache.bind(v["table"], v["lengths"]),
@@ -553,13 +737,13 @@ class Engine:
             return []
         ec = self.engine_cfg
         bs = ec.block_size
-        remaining = max(len(st.full_prompt()) - st.prefill_pos
+        remaining = max(len(st.full_prompt()) - st.prefix_len - st.prefill_pos
                         for _, st in pref)
         w = self._chunk_width(remaining)
         takes: dict[int, int] = {}
         cols_need = 1
         for i, st in pref:
-            s0 = st.prefill_pos
+            s0 = st.prefix_len + st.prefill_pos
             takes[i] = min(w, len(st.full_prompt()) - s0)
             cols_need = max(cols_need, -(-(s0 + takes[i]) // bs))
         self.prefill_batches += 1
@@ -575,7 +759,7 @@ class Engine:
         h["start"][:] = h["lengths"]
         h["tokens"][:] = 0
         for i, st in pref:
-            s0, take = st.prefill_pos, takes[i]
+            s0, take = st.prefix_len + st.prefill_pos, takes[i]
             h["tokens"][i, :take] = st.full_prompt()[s0:s0 + take]
             h["start"][i] = s0
             self.prefill_tokens_computed += take
@@ -586,7 +770,7 @@ class Engine:
         run.capture(self._prefill_step)
 
         completing = [i for i, st in pref
-                      if st.prefill_pos + takes[i]
+                      if st.prefix_len + st.prefill_pos + takes[i]
                       >= len(st.full_prompt())
                       and st.request.max_new_tokens > 0]
         self._check_finite(ok, completing)
@@ -594,7 +778,7 @@ class Engine:
         for i, st in pref:
             st.prefill_s += dt      # coalesced rows share the stamp
             st.prefill_pos += takes[i]
-            if st.prefill_pos < len(st.full_prompt()):
+            if st.prefix_len + st.prefill_pos < len(st.full_prompt()):
                 continue            # more chunks to go
             st.prefill_done = True
             r = st.request
@@ -617,6 +801,12 @@ class Engine:
                   if s is not None and s.prefill_done]
         if not active:
             return []
+        if self.drafter is not None:
+            # one verify dispatch when any slot has a proposal; else the
+            # vanilla step, so a stream with nothing to draft pays nothing
+            drafts = self._draft(active)
+            if drafts:
+                return self._spec_tick(active, drafts)
         b = self.engine_cfg.num_slots
         cols = self._live_cols(active)
         run = self._runner("decode", (cols,),
@@ -646,6 +836,97 @@ class Engine:
             st.decode_s += dt
             st.tokens.append(int(nxt[i]))
             st.next_token = st.tokens[-1]
+            if self._should_stop(st):
+                finished.append(self._retire(i))
+        return finished
+
+    # ------------------------------------------------- speculative decode
+    def _draft(self, active) -> dict[int, np.ndarray]:
+        """Each slot's prompt-lookup proposal for this tick, clamped so
+        that a fully accepted window fits the request's budget (accept +
+        1 committed tokens) and the pages the slot owns: speculation
+        allocates no page vanilla decode would not (``_grow`` ran, so
+        one free position is there)."""
+        ec = self.engine_cfg
+        drafts: dict[int, np.ndarray] = {}
+        for i, st in active:
+            budget = st.request.max_new_tokens - len(st.tokens) - 1
+            pos = int(self.cache.lengths[i])
+            cap = len(self.cache.slot_blocks[i]) * ec.block_size - pos - 1
+            k = min(ec.spec_k, budget, cap)
+            if k < 1:
+                continue
+            d = self.drafter.propose(st.full_prompt(), k=k)
+            if len(d):
+                drafts[i] = d
+        return drafts
+
+    def _spec_tick(self, active, drafts) -> list[Completion]:
+        """One verify dispatch over every decoding slot: a drafted row
+        scores its next token and its proposals, a draftless row rides
+        along with a one-token window, any other row is parked (no valid
+        token).  A row commits ``drafts[:accept]`` and the model's token
+        at the first divergence -- what vanilla steps would have
+        produced -- cut after a stop token; ``lengths`` advances over
+        the committed tokens only, and the rejected tail's K/V is masked
+        out of every later attend until overwritten."""
+        ec = self.engine_cfg
+        bs = ec.block_size
+        b, width = ec.num_slots, ec.spec_k + 1
+        cols_need = 1
+        for i, st in active:
+            n = 1 + len(drafts.get(i, ()))
+            cols_need = max(cols_need,
+                            -(-(int(self.cache.lengths[i]) + n) // bs))
+        cols = min(self._pow2(cols_need), self.cache.max_blocks_per_seq)
+        run = self._runner("spec", (cols,),
+                           {"table": (b, cols), "lengths": (b,),
+                            "start": (b,), "n_tok": (b,),
+                            "tokens": (b, width)})
+
+        t0 = self._clock()
+        h = run.host
+        self.cache.fill(h["table"], h["lengths"])
+        h["start"][:] = h["lengths"]      # parked rows: nothing valid
+        h["n_tok"][:] = 0
+        h["tokens"][:] = 0
+        pre_pos: dict[int, int] = {}
+        for i, st in active:
+            d = drafts.get(i)
+            n = 1 + (len(d) if d is not None else 0)
+            h["tokens"][i, 0] = st.next_token
+            if d is not None:
+                h["tokens"][i, 1:n] = d
+                self.spec_proposed += len(d)
+            h["n_tok"][i] = n
+            pre_pos[i] = int(self.cache.lengths[i])
+            self._attn_accounting(n, pre_pos[i] + n)
+        out = run.run(self._spec_step)
+        dt = self._clock() - t0
+        self.decode_dispatch_s += dt
+        run.capture(self._spec_step)
+        self.total_decode_steps += 1
+        self.spec_dispatches += 1
+        greedy, acc, ok = out[:, :width], out[:, width], out[:, width + 1]
+        self._check_finite(ok, [i for i, _ in active])
+        finished: list[Completion] = []
+        for i, st in active:
+            d = drafts.get(i)
+            a = int(acc[i]) if d is not None else 0
+            self.spec_accepted += a
+            committed = [int(t) for t in (d[:a] if d is not None else ())]
+            committed.append(int(greedy[i, a]))
+            stop = st.request.stop_token
+            if stop is not None and stop in committed:
+                # vanilla stops AT the stop token: drop what follows it
+                committed = committed[:committed.index(stop) + 1]
+            st.decode_steps += 1
+            st.decode_s += dt
+            st.tokens.extend(committed)
+            st.next_token = committed[-1]
+            # the commit is the rewind: only committed positions count
+            self.cache.lengths[i] = pre_pos[i] + len(committed)
+            self.decode_tokens += len(committed)
             if self._should_stop(st):
                 finished.append(self._retire(i))
         return finished

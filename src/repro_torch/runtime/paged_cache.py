@@ -7,27 +7,32 @@ port owns this copy).
   sequence's allocation point at it so every gather index is valid.
 - Logical block ``j`` of a sequence holds tokens ``[j*bs, (j+1)*bs)``;
   ``block_tables[slot, j]`` is its physical page.
-- Every non-trash page is either free (refcount 0) or owned by one live
-  slot (refcount 1); ``audit_partition`` asserts this.  (Pages held by
-  the prefix trie come with the prefix cache, ROADMAP item 7.)
+- Every non-trash page is free (refcount 0), owned by one live slot
+  (refcount 1), or held by the prefix trie (refcount 1 plus one per
+  slot that pins it); ``audit_partition`` asserts this partition.
+- A slot writes only pages it owns: prefix pages pinned from the trie
+  are read-only, and the engine copies a shared page
+  (``cow_slot_page``) before the first write into it.
 
 The page pools ``k_pages``/``v_pages`` live on the device and are
 written in place by the model steps; the host keeps the allocator, the
 block tables and the lengths, and hands the device a small int32 view
 of them each step (``view``, or ``fill`` into a step's own buffers and
-``bind``).  Pools are float32 or bfloat16, or uint8 in codes
-mode (each element a DNA-TEQ code under its layer's per-head table).
+``bind``).  Pools are float32, bfloat16 or float8_e4m3fn, or uint8 in
+codes mode (each element a DNA-TEQ code under its layer's per-head
+table).
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
 
 TRASH_PAGE = 0
+F8 = torch.float8_e4m3fn
 
 
 class PagedView(NamedTuple):
@@ -97,6 +102,10 @@ class BlockAllocator:
     def refcount(self, block: int) -> int:
         return int(self._refcount[block])
 
+    def incref(self, block: int) -> None:
+        assert block != TRASH_PAGE and self._refcount[block] > 0, block
+        self._refcount[block] += 1
+
     def decref(self, block: int) -> None:
         """Drop one reference; the page frees when the count hits 0."""
         assert block != TRASH_PAGE and self._refcount[block] > 0, block
@@ -133,6 +142,9 @@ class PagedKVCache:
                                     TRASH_PAGE, np.int32)
         self.lengths = np.zeros((num_slots,), np.int32)
         self.slot_blocks: list[list[int]] = [[] for _ in range(num_slots)]
+        # the subset of slot_blocks[i] pinned from the prefix trie:
+        # read-only for the slot, written only after cow_slot_page
+        self.slot_shared: list[set[int]] = [set() for _ in range(num_slots)]
 
     @property
     def nbytes(self) -> int:
@@ -143,20 +155,42 @@ class PagedKVCache:
         return max(1, math.ceil(tokens / self.block_size))
 
     # ------------------------------------------------------------ slot ops
-    def bind_slot(self, slot: int, prompt_tokens: int, *,
+    def bind_slot(self, slot: int, prompt_tokens: int,
+                  shared: Sequence[int] = (), *,
                   reserved: bool = True) -> list[int]:
-        """Install the table row for a new sequence with freshly
-        allocated pages covering the prompt.  Returns the new pages.
-        (Splicing shared prefix pages comes with the prefix cache,
-        ROADMAP Queue 1 item 7.)"""
+        """Install the table row for a new sequence: the ``shared`` pages
+        (already pinned from the prefix trie) spliced read-only at the
+        front, then freshly allocated pages covering the rest of the
+        prompt.  Returns the new (owned) pages."""
         assert not self.slot_blocks[slot], "slot already bound"
-        owned = self.allocator.alloc(self.blocks_for(prompt_tokens),
-                                     reserved=reserved)
-        self.slot_blocks[slot] = list(owned)
+        need = self.blocks_for(prompt_tokens) - len(shared)
+        assert need >= 0, (prompt_tokens, len(shared))
+        owned = self.allocator.alloc(need, reserved=reserved) if need else []
+        blocks = list(shared) + owned
+        self.slot_blocks[slot] = blocks
+        self.slot_shared[slot] = set(shared)
         self.block_tables[slot, :] = TRASH_PAGE
-        self.block_tables[slot, : len(owned)] = owned
+        self.block_tables[slot, : len(blocks)] = blocks
         self.lengths[slot] = prompt_tokens
         return owned
+
+    def cow_slot_page(self, slot: int, col: int) -> tuple[int, int]:
+        """Copy-on-write logical block ``col``: allocate a private page,
+        copy the shared page into it (every layer, K and V, on the
+        pools' device, ordered on the stream before the next step) and
+        swap the table entry.  The shared page keeps its trie reference
+        (the engine unpins it).  Returns ``(old_page, new_page)``."""
+        old = self.slot_blocks[slot][col]
+        assert old in self.slot_shared[slot], (slot, col, old)
+        (new,) = self.allocator.alloc(1, reserved=False)
+        for pool in (self.k_pages, self.v_pages):
+            # through bytes: index_copy_ has no CPU kernel for e4m3
+            raw = pool.view(torch.uint8) if pool.dtype == F8 else pool
+            raw[:, new].copy_(raw[:, old])
+        self.slot_blocks[slot][col] = new
+        self.slot_shared[slot].discard(old)
+        self.block_tables[slot, col] = new
+        return old, new
 
     def ensure_capacity(self, slot: int, *, reserved: bool = True) -> None:
         """Grow the slot by one page iff the next write crosses into an
@@ -172,35 +206,64 @@ class PagedKVCache:
             self.block_tables[slot, owned] = blk
 
     def release_slot(self, slot: int) -> int:
-        """Retire a sequence: its pages go back to the free list.
-        Returns the number of pages freed."""
+        """Retire a sequence: its owned pages go back to the free list;
+        shared (trie-pinned) pages are left to the engine's unpin.
+        Returns the number of owned pages freed."""
+        shared = self.slot_shared[slot]
+        owned = [b for b in self.slot_blocks[slot] if b not in shared]
+        self.allocator.free(owned)
+        self.clear_slot(slot)
+        return len(owned)
+
+    def clear_slot(self, slot: int) -> list[int]:
+        """Detach a slot without freeing anything (the caller took the
+        pages over, e.g. into the prefix trie).  Returns the slot's
+        block list."""
         blocks = self.slot_blocks[slot]
-        self.allocator.free(blocks)
         self.slot_blocks[slot] = []
+        self.slot_shared[slot] = set()
         self.block_tables[slot, :] = TRASH_PAGE
         self.lengths[slot] = 0
-        return len(blocks)
+        return blocks
 
     # ------------------------------------------------------------ audit
-    def audit_partition(self) -> None:
-        """Assert that free, slot-owned and trash pages cover every page
-        exactly once, with refcount 0 for free and 1 for owned pages."""
+    def audit_partition(self, trie_pages: set[int] = frozenset(),
+                        trie_pins: dict[int, int] | None = None) -> None:
+        """Assert the page partition: free, slot-owned, trie and trash
+        pages cover every page exactly once, and the refcounts agree
+        (owned pages 1; trie pages 1 plus one per pinning slot, which
+        ``trie_pins`` must count too when given)."""
         alloc = self.allocator
         free = set(alloc._free)
         owned: set[int] = set()
+        pins: dict[int, int] = {}
         for slot in range(self.num_slots):
+            shared = self.slot_shared[slot]
             for b in self.slot_blocks[slot]:
-                assert b not in owned, (slot, b, "owned twice")
-                owned.add(b)
-        assert TRASH_PAGE not in free | owned
+                if b in shared:
+                    assert b in trie_pages, (slot, b, "shared not in trie")
+                    pins[b] = pins.get(b, 0) + 1
+                else:
+                    assert b not in owned, (slot, b, "owned twice")
+                    owned.add(b)
+        trie_pages = set(trie_pages)
+        assert TRASH_PAGE not in free | owned | trie_pages
         assert not free & owned, free & owned
-        universe = free | owned | {TRASH_PAGE}
+        assert not free & trie_pages, free & trie_pages
+        assert not owned & trie_pages, owned & trie_pages
+        universe = free | owned | trie_pages | {TRASH_PAGE}
         assert universe == set(range(alloc.num_blocks)), (
             set(range(alloc.num_blocks)) - universe)
         for b in free:
             assert alloc.refcount(b) == 0, (b, alloc.refcount(b))
         for b in owned:
             assert alloc.refcount(b) == 1, (b, alloc.refcount(b))
+        for b in trie_pages:
+            assert alloc.refcount(b) == 1 + pins.get(b, 0), (
+                b, alloc.refcount(b), pins.get(b, 0))
+        if trie_pins is not None:
+            for b, n in pins.items():
+                assert trie_pins.get(b, 0) == n, (b, trie_pins.get(b), n)
 
     # ------------------------------------------------------------ views
     def fill(self, block_tables: np.ndarray, lengths: np.ndarray) -> None:

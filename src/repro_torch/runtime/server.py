@@ -51,7 +51,7 @@ class InferenceServer:
                  act_quant: int | None = None, max_len: int = 512,
                  kv_dtype="float32", kv_codes: bool = False,
                  num_slots: int = 8, block_size: int = 16,
-                 prefix_cache: bool = False, prefill_chunk: int = 256,
+                 prefix_cache: bool = True, prefill_chunk: int = 256,
                  max_queue: int | None = None,
                  shed_policy: str = "reject-new", spec_k: int = 0,
                  device=None, cuda_graphs: bool = True):
@@ -60,10 +60,14 @@ class InferenceServer:
         ``"bfloat16"`` or ``"float8_e4m3fn"`` (1 B an element, upcast
         in the attention kernels), for the Engine's pages and for the
         contiguous cache of :meth:`generate_bucketed` (``max_len``
-        positions).  ``prefix_cache`` defaults to False (the
-        reference's default is True) until the prefix cache is ported
-        (ROADMAP Queue 1 item 7); ``max_queue`` and ``spec_k`` are
-        refused by the Engine until their ROADMAP items land.  With
+        positions).  ``prefix_cache`` keeps retired sequences' KV pages
+        in a radix trie, so later requests sharing a prompt prefix
+        prefill only their tail; the Engine persists across
+        ``generate`` calls, and so does the trie (False: the cold-path
+        baseline).  ``spec_k`` turns on speculative decoding
+        (prompt-lookup drafts, up to ``spec_k`` verified a tick); the
+        served tokens are the same either way.  ``max_queue`` is
+        refused by the Engine until ROADMAP item 11 lands.  With
         ``quant_bits`` the weights are quantized by the port's
         ``quantize_tree`` on the device.  ``act_quant`` (bits) serves
         activations as codes, calibrated by each Engine the server

@@ -10,7 +10,7 @@ Tolerances, stated once: float outputs within 1e-4 of their largest
 magnitude (float32 on both sides; only summation order and the
 libraries' exp/log differ).  uint8 code outputs: at most 1e-3 of the
 codes may differ, and each differing pair is one rounding step apart
-(``eq.codes_agree``: adjacent exponents of one sign, or the smallest
+(``eq.codes_agree``: neighbours under the out table -- adjacent exponents of one sign, or the smallest
 magnitude under both signs) -- the two libraries' ``log`` and the two
 summation orders put a value on either side of a rounding boundary now
 and then.  Logits of a whole model step are held to 1e-3 of their scale:
@@ -61,10 +61,10 @@ def _f32_close(out, ref):
                                atol=tol)
 
 
-def _codes_close(out, ref):
+def _codes_close(out, ref, qo):
     out, ref = _t(out), _t(ref)
     assert out.dtype == ref.dtype == torch.uint8
-    assert bool(eq.codes_agree(out, ref).all())
+    assert bool(eq.codes_agree(out, ref, _t(qo)).all())
     assert int((out != ref).sum()) <= 1e-3 * ref.numel()
 
 
@@ -111,7 +111,10 @@ def test_dual_matches_reference(m, k, n, mode, epi, bias, quant):
         _t(xc), _t(wc), _t(lx), _t(lw), _t(qx), _t(qw),
         bias=None if b is None else _t(b),
         out_qmeta=None if qo is None else _t(qo), **kw)
-    (_codes_close if quant else _f32_close)(out, ref)
+    if quant:
+        _codes_close(out, ref, qo)
+    else:
+        _f32_close(out, ref)
 
 
 GATED_CASES = [
@@ -139,7 +142,10 @@ def test_dual_gated_matches_reference(m, k, n, mode, act, quant):
     out = tops.lut_dequant_matmul_dual_gated(
         *map(_t, args), activation=act, decode_mode=mode,
         out_qmeta=None if qo is None else _t(qo))
-    (_codes_close if quant else _f32_close)(out, ref)
+    if quant:
+        _codes_close(out, ref, qo)
+    else:
+        _f32_close(out, ref)
 
 
 def test_k_edge_pad_code_is_masked_after_decode():

@@ -75,9 +75,12 @@ def _close(out, ref):
     assert (out.float() - ref.float()).abs().max().item() <= tol
 
 
-def _codes_close(out, ref):
+def _codes_close(out, ref, qo):
+    """u8 out under the out table ``qo``: codes one rounding step apart
+    at most (``eq.codes_agree``), and at most 1e-3 of them differing."""
     assert out.dtype == ref.dtype == torch.uint8
-    assert bool(eq.codes_agree(out, ref).all())
+    ok = eq.codes_agree(out, ref, qo)
+    assert bool(ok.all()), (out[~ok][:8].tolist(), ref[~ok][:8].tolist())
     assert int((out != ref).sum()) <= 1e-3 * ref.numel()
 
 
@@ -142,7 +145,8 @@ def _sms():
 def _gated_call(kind, m, k, n, mode, xdt, dev, gen, quant=False):
     """Inputs of #2 (``kind`` "gated": x float32 or bfloat16) or #4
     ("dual_gated": activation codes, u8 out with ``quant``) and
-    (kernel call, plain call, float32 plain call) on them."""
+    (kernel call, plain call, float32 plain call) on them; the plain
+    call carries the out qmeta as ``ref.qo`` (None for float out)."""
     cg, lg, qg = _qweight((k, n), dev, gen)
     cu, lu, qu = _qweight((k, n), dev, gen)
     if kind == "gated":
@@ -160,6 +164,7 @@ def _gated_call(kind, m, k, n, mode, xdt, dev, gen, quant=False):
                                                  decode_mode=mode)
     ref = lambda: lut_dequant_matmul_dual_gated_ref(*args, out_qmeta=qo,
                                                     decode_mode=mode)
+    ref.qo = qo
     return xc, call, ref, ref_f
 
 
@@ -187,7 +192,7 @@ def test_gated_kernels_at_the_path_edges(dev, kind, m, k, n, mode, xdt):
     _, call, ref, _ = _gated_call(kind, m, k, n, mode, xdt, dev, gen, quant)
     out = call()
     if kind == "dual_gated" and quant:
-        _codes_close(out, ref())
+        _codes_close(out, ref(), ref.qo)
     else:
         _close(out, ref())
 
@@ -228,9 +233,9 @@ def test_gated_split_encodes_once_after_the_reduce(dev, m, k, n):
     _, call, ref, ref_f = _gated_call("dual_gated", m, k, n, "gather", None,
                                       dev, gen, quant=True)
     out = call()
-    _codes_close(out, ref())
+    _codes_close(out, ref(), ref.qo)
     qo = _out_qmeta(ref_f())
-    assert bool((eq.codes_agree(out, eq.encode_meta(ref_f(), qo))).all())
+    assert bool((eq.codes_agree(out, eq.encode_meta(ref_f(), qo), qo)).all())
 
 
 @pytest.mark.parametrize("kind", ["gated", "dual_gated"])
@@ -262,7 +267,7 @@ def test_gated_decode_replays_in_a_cuda_graph(dev, kind):
         if kind == "gated":
             _close(out, ref())
         else:
-            _codes_close(out, ref())
+            _codes_close(out, ref(), ref.qo)
 
 
 def _plain_call(kind, m, k, n, mode, xdt, dev, gen, quant=False,
@@ -270,7 +275,7 @@ def _plain_call(kind, m, k, n, mode, xdt, dev, gen, quant=False,
     """Inputs of #1 (``kind`` "plain": x float32 or bfloat16, bias,
     gelu; codes [N, K] when ``transposed``) or #3 ("dual": activation
     codes, bias, silu, u8 out with ``quant``) and (x, kernel call, plain
-    call) on them."""
+    call) on them; the plain call carries the out qmeta as ``ref.qo``."""
     codes, lut, qmeta = _qweight((n, k) if transposed else (k, n), dev, gen)
     b = torch.randn(n, generator=gen, device=dev)
     if kind == "plain":
@@ -287,6 +292,7 @@ def _plain_call(kind, m, k, n, mode, xdt, dev, gen, quant=False,
     qo = _out_qmeta(lut_dequant_matmul_dual_ref(*args, **kw)) if quant else None
     call = lambda: lut_dequant_matmul_dual(*args, out_qmeta=qo, **kw)
     ref = lambda: lut_dequant_matmul_dual_ref(*args, out_qmeta=qo, **kw)
+    ref.qo = qo
     return xc, call, ref
 
 
@@ -316,7 +322,7 @@ def test_plain_and_dual_kernels_at_the_path_edges(dev, kind, m, k, n, mode,
     _, call, ref = _plain_call(kind, m, k, n, mode, xdt, dev, gen, quant)
     out = call()
     if kind == "dual" and quant:
-        _codes_close(out, ref())
+        _codes_close(out, ref(), ref.qo)
     else:
         _close(out, ref())
 
@@ -424,7 +430,7 @@ def test_plain_decode_replays_in_a_cuda_graph(dev, kind, transposed):
         if kind == "plain":
             _close(out, ref())
         else:
-            _codes_close(out, ref())
+            _codes_close(out, ref(), ref.qo)
 
 
 def _pages(dev, gen, b, n_kv, bs, max_blk, dtype, hd=128):
@@ -548,7 +554,7 @@ def test_decode_gqa_paged_kernels_clip_the_lengths(dev, bs, max_blk):
     oq = torch.tensor([0.02, 1e-4, 1.04, 7.0], device=dev)
     args = (qc, kc, vc, ql, kl, vl, oq, bt)
     _codes_close(decode_gqa_paged_codes(*args, lengths),
-                 decode_gqa_paged_codes_ref(*args, clipped))
+                 decode_gqa_paged_codes_ref(*args, clipped), oq)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -649,7 +655,8 @@ def test_lut_dequant_matmul_dual_kernel(dev, m, k, n, mode, epi, bias, quant):
     qo = _out_qmeta(ref_f) if quant else None
     out = lut_dequant_matmul_dual(*args, out_qmeta=qo, **kw)
     if quant:
-        _codes_close(out, lut_dequant_matmul_dual_ref(*args, out_qmeta=qo, **kw))
+        _codes_close(out, lut_dequant_matmul_dual_ref(*args, out_qmeta=qo, **kw),
+                     qo)
     else:
         _close(out, ref_f)
 
@@ -666,7 +673,7 @@ def test_dual_split_k_encodes_once_after_the_reduce(dev):
     ref_f = lut_dequant_matmul_dual_ref(xc, codes, lx, lut, qx, qmeta)
     qo = _out_qmeta(ref_f)
     out = lut_dequant_matmul_dual(xc, codes, lx, lut, qx, qmeta, out_qmeta=qo)
-    _codes_close(out, eq.encode_meta(ref_f, qo))
+    _codes_close(out, eq.encode_meta(ref_f, qo), qo)
 
 
 @pytest.mark.parametrize("m,k,n,mode,act,quant", [
@@ -687,7 +694,7 @@ def test_lut_dequant_matmul_dual_gated_kernel(dev, m, k, n, mode, act, quant):
     out = lut_dequant_matmul_dual_gated(*args, out_qmeta=qo, **kw)
     if quant:
         _codes_close(out, lut_dequant_matmul_dual_gated_ref(
-            *args, out_qmeta=qo, **kw))
+            *args, out_qmeta=qo, **kw), qo)
     else:
         _close(out, ref_f)
 
@@ -719,7 +726,7 @@ def test_flash_prefill_paged_codes_kernel(dev, g, bs, s, long):
     oq = torch.tensor([0.02, 1e-4, 1.04, 7.0], device=dev)
     args = (qc, kc, vc, ql, kl, vl, oq, bt, q_start, kv_lens)
     out = flash_prefill_paged_codes(*args)
-    _codes_close(out, flash_prefill_paged_codes_ref(*args))
+    _codes_close(out, flash_prefill_paged_codes_ref(*args), oq)
     assert torch.all(out[3] == eq.encode_meta(torch.zeros((), device=dev), oq))
 
 
@@ -735,7 +742,7 @@ def test_decode_gqa_paged_codes_kernel(dev, g, bs, long):
     oq = torch.tensor([0.02, 1e-4, 1.04, 7.0], device=dev)
     args = (qc, kc, vc, ql, kl, vl, oq, bt, lengths)
     out = decode_gqa_paged_codes(*args)
-    _codes_close(out, decode_gqa_paged_codes_ref(*args))
+    _codes_close(out, decode_gqa_paged_codes_ref(*args), oq)
     assert torch.all(out[1] == eq.encode_meta(torch.zeros((), device=dev), oq))
 
 
@@ -862,11 +869,11 @@ def test_paged_attention_kernels_at_other_head_layouts(dev, kernel, g, hd):
         if kernel == "prefill_codes":
             args += (q_start, kv_lens)
             _codes_close(flash_prefill_paged_codes(*args),
-                         flash_prefill_paged_codes_ref(*args))
+                         flash_prefill_paged_codes_ref(*args), oq)
         else:
             args += (lengths,)
             _codes_close(decode_gqa_paged_codes(*args),
-                         decode_gqa_paged_codes_ref(*args))
+                         decode_gqa_paged_codes_ref(*args), oq)
         return
     kp, vp, bt = _pages(dev, gen, b, n_kv, bs, max_blk, torch.float32, hd)
     q = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
@@ -985,9 +992,10 @@ def test_dual_prefill_replays_in_a_cuda_graph(dev, kind, quant):
     with a workspace and a reduce pass): captured alone and replayed
     after new activation codes are written (the first codes shuffled),
     float out equals the plain version on those codes, and u8 out the
-    same kernel called eagerly on them, bit for bit (the plain
-    version's float sums may cross an out code's rounding boundary
-    where the kernel's do not)."""
+    same kernel called eagerly on them, bit for bit, and the plain
+    version within one rounding step under the out table (a near-zero
+    output whose sign the two float sums disagree on sits on either
+    side of zero, two codes that are neighbours when beta < 0)."""
     m, k, n = 256, 2048, 2048
     assert gemm_plan(m, k, n, _sms(), 2 if kind == "dual_gated" else 1)[0] > 1
     gen = _gen(dev, 59)
@@ -1006,6 +1014,7 @@ def test_dual_prefill_replays_in_a_cuda_graph(dev, kind, quant):
     def check(out):
         if quant:
             assert out.dtype == torch.uint8 and torch.equal(out, call())
+            _codes_close(out, ref(), ref.qo)
         else:
             _close(out, ref())
     _replays(call, refresh, check)
@@ -1026,7 +1035,7 @@ def test_flash_prefill_replays_in_a_cuda_graph(dev, codes):
         args = (q, kp, vp, ql, kl, vl, oq, bt, q_start, kv_lens)
         call = lambda: flash_prefill_paged_codes(*args)
         check = lambda out: _codes_close(
-            out, flash_prefill_paged_codes_ref(*args))
+            out, flash_prefill_paged_codes_ref(*args), oq)
     else:
         kp, vp, bt = _pages(dev, gen, b, n_kv, bs, max_blk, torch.float32)
         q = torch.randn(b, s, n_kv, g, 128, generator=gen, device=dev)
@@ -1095,8 +1104,10 @@ def test_engine_replays_its_ticks_as_eager_ticks(dev, codes, tmp_path,
 
     monkeypatch.setenv("REPRO_ACT_CALIB_CACHE", str(tmp_path / "calib.json"))
     cfg = _tiny_card_cfg()
+    # no prefix cache: the second request set must take the first's keys
+    # (a warm trie would prefill shorter tails, at other keys)
     ec = EngineConfig(num_slots=3, block_size=16, max_seq_len=96,
-                      prefill_chunk=32)
+                      prefill_chunk=32, prefix_cache=False)
     kw = dict(act_quant=7, kv_codes=True) if codes else {}
     on = Engine(cfg, quant_bits=7, engine=ec, device="cuda", rng_seed=3, **kw)
     off = Engine(cfg, params=on.params, engine=ec, device="cuda",
@@ -1363,11 +1374,11 @@ def test_attention_kernels_at_head_dim_256_g_16_and_block_128(dev, kernel, g,
         if kernel == "prefill_codes":
             args += (q_start, kv_lens)
             _codes_close(flash_prefill_paged_codes(*args),
-                         flash_prefill_paged_codes_ref(*args))
+                         flash_prefill_paged_codes_ref(*args), oq)
         else:
             args += (lengths,)
             _codes_close(decode_gqa_paged_codes(*args),
-                         decode_gqa_paged_codes_ref(*args))
+                         decode_gqa_paged_codes_ref(*args), oq)
         return
     q = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
     if kernel == "contiguous":
@@ -1423,3 +1434,159 @@ def test_minicpm_odd_vocab_tied_unembedding(dev):
         assert out.shape == (m, n)
         _close(out, lut_dequant_matmul_ref(x, codes, lut,
                                            transpose_codes=True))
+
+
+# ------------------------------------ prefix hits and speculative windows --
+
+def _window_rows(dev, bs, s):
+    """(max_blk, q_start, kv_lens) of a prefix hit's tail chunk or a verify
+    window: S queries at starts off every page boundary (one just before
+    a boundary, one deep into the table), a row with fewer valid
+    positions than S, and a parked row (nothing valid)."""
+    max_blk = 16
+    q_start = torch.tensor([3, bs + 5, 2 * bs - 1, 7 * bs + 11, 9],
+                           dtype=torch.int32, device=dev)
+    valid = torch.tensor([s, s, max(s - 1, 1), s, 0], dtype=torch.int32,
+                         device=dev)
+    kv_lens = torch.where(valid > 0, q_start + valid, 0).to(torch.int32)
+    return max_blk, q_start, kv_lens
+
+
+@pytest.mark.parametrize("pages", ["float32", "bfloat16", "float8_e4m3fn",
+                                   "codes"])
+@pytest.mark.parametrize("s", [1, 2, 5, 9])
+def test_flash_prefill_at_unaligned_starts_and_narrow_windows(dev, s, pages):
+    """#5 (float32, bf16 and e4m3 pages) and #6 (codes) as a prefix hit's
+    tail and a verify window call them: S of 1, 2, 5 and 9 queries
+    starting anywhere in a page, against their plain versions; the
+    parked row gives zeros (its code under the out table)."""
+    gen = _gen(dev, 700 + 10 * s + len(pages))
+    b, n_kv, g, bs = 5, 2, 2, 16
+    max_blk, q_start, kv_lens = _window_rows(dev, bs, s)
+    if pages == "codes":
+        kc, vc, bt, kl, vl = _code_pages(dev, gen, b, n_kv, bs, max_blk)
+        qc, ql, _ = _act_codes((b, s, n_kv, g, 128), dev, gen)
+        oq = torch.tensor([0.02, -1e-4, 1.04, 7.0], device=dev)
+        args = (qc, kc, vc, ql, kl, vl, oq, bt, q_start, kv_lens)
+        out = flash_prefill_paged_codes(*args)
+        _codes_close(out, flash_prefill_paged_codes_ref(*args), oq)
+        zero = eq.encode_meta(torch.zeros((), device=dev), oq)
+        assert torch.all(out[4] == zero)
+        return
+    if pages == "float8_e4m3fn":
+        kp, vp, bt = _f8_pages(dev, gen, b, n_kv, bs, max_blk)
+    else:
+        kp, vp, bt = _pages(dev, gen, b, n_kv, bs, max_blk,
+                            getattr(torch, pages))
+    q = torch.randn(b, s, n_kv, g, 128, generator=gen, device=dev)
+    out = flash_prefill_paged(q, kp, vp, bt, q_start, kv_lens)
+    _close(out, flash_prefill_paged_ref(q, kp, vp, bt, q_start, kv_lens))
+    assert torch.all(out[4] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float8_e4m3fn, torch.uint8])
+def test_cow_page_copy_is_exact_on_the_card(dev, dtype):
+    """``cow_slot_page`` on pools on the card whose every byte is random:
+    the copy equals the shared page byte for byte (every layer, K and V),
+    and no other page changes."""
+    from repro_torch.runtime.paged_cache import PagedKVCache
+
+    c = PagedKVCache(num_layers=3, num_kv_heads=2, head_dim=128, num_slots=2,
+                     block_size=16, num_blocks=9, max_blocks_per_seq=4,
+                     dtype=dtype, device=dev)
+    gen = _gen(dev, 17)
+    for pool in (c.k_pages, c.v_pages):
+        raw = pool.view(torch.uint8)
+        raw.copy_(torch.randint(0, 256, raw.shape, generator=gen, device=dev,
+                                dtype=torch.uint8))
+    before = [p.view(torch.uint8).clone() for p in (c.k_pages, c.v_pages)]
+    (shared,) = c.allocator.alloc(1, reserved=False)
+    c.allocator.incref(shared)
+    c.bind_slot(1, 20, [shared], reserved=False)
+    old, new = c.cow_slot_page(1, 0)
+    torch.cuda.synchronize()
+    assert old == shared and c.block_tables[1, 0] == new
+    for pool, was in zip((c.k_pages, c.v_pages), before):
+        raw = pool.view(torch.uint8)
+        assert torch.equal(raw[:, new], was[:, old])
+        keep = [p for p in range(raw.shape[1]) if p != new]
+        assert torch.equal(raw[:, keep], was[:, keep])
+
+
+def _spec_engine(graphs, spec_k=4, **kw):
+    from repro_torch.runtime.engine import Engine, EngineConfig
+
+    return Engine(_tiny_card_cfg(), quant_bits=7, device="cuda", rng_seed=3,
+                  cuda_graphs=graphs, engine=EngineConfig(
+                      num_slots=3, block_size=16, max_seq_len=128,
+                      prefill_chunk=32, spec_k=spec_k), **kw)
+
+
+def test_spec_verify_step_replays_in_a_cuda_graph(dev):
+    """The verify dispatch as a step runner (greedy, accept and the
+    finite flag packed as int32 [B, S + 2]): replayed after new windows,
+    starts, valid counts and tables are written, it equals the eager
+    step bit for bit."""
+    from repro_torch.runtime.engine import Request
+    from repro_torch.runtime.step_graph import StepGraph
+
+    eng = _spec_engine(True)
+    eng.generate([Request(0, _tiny_prompts()[2], 4)])
+    rng = np.random.default_rng(9)
+    b, cols, width = 3, 4, 5
+    table = rng.permutation(np.arange(1, eng.cache.k_pages.shape[1]))[:b * cols]
+    inputs = {"table": (b, cols), "lengths": (b,), "start": (b,),
+              "n_tok": (b,), "tokens": (b, width)}
+    eager = StepGraph(inputs, dev, graphs=False)
+    run = StepGraph(inputs, dev, graphs=True)
+    for i in range(3):
+        start = rng.integers(0, 50, b)
+        vals = {"table": table.reshape(b, cols), "start": start,
+                "lengths": start, "n_tok": rng.integers(0, width + 1, b),
+                "tokens": rng.integers(0, 1024, (b, width))}
+        for r in (eager, run):
+            for k, a in vals.items():
+                r.host[k][...] = a
+        want = eager.step(eng._spec_step).clone()
+        got = run.step(eng._spec_step).clone()
+        assert got.dtype == torch.int32 and got.shape == (b, width + 2)
+        assert torch.equal(got, want), i
+        run.capture(eng._spec_step)
+    assert run.replays == 2
+
+
+@pytest.mark.parametrize("codes", [False, True])
+def test_spec_engine_replays_equal_eager_and_vanilla(dev, codes, tmp_path,
+                                                     monkeypatch):
+    """A speculating engine with the prefix cache on (repeating prompts,
+    two waves: the second hits the trie): graphs on and off give the
+    same streams and launch counts, one graph a ``("spec", cols)`` key,
+    and the vanilla engine's streams."""
+    from repro_torch.kernels import _build
+    from repro_torch.runtime.engine import Request
+
+    monkeypatch.setenv("REPRO_ACT_CALIB_CACHE", str(tmp_path / "calib.json"))
+    kw = dict(act_quant=7, kv_codes=True) if codes else {}
+    on = _spec_engine(True, **kw)
+    kw = dict(params=on.params, kv_codes=codes)
+    off = _spec_engine(False, **kw)
+    plain = _spec_engine(True, spec_k=0, **kw)
+    rng = np.random.default_rng(4)
+    prompts = [np.tile(rng.integers(0, 1024, n), 3).astype(np.int32)
+               for n in (5, 9, 13)]
+    streams, counts = [], []
+    for eng in (on, off, plain):
+        _build.reset_launch_counts()
+        streams.append([c.tokens.tolist() for wave in range(2)
+                        for c in eng.generate([Request(10 * wave + i, p, 12)
+                                               for i, p in enumerate(prompts)])])
+        counts.append(_build.launch_counts())
+        eng.check_partition()
+    assert streams[0] == streams[1] == streams[2]
+    assert counts[0] == counts[1]
+    assert on.spec_dispatches == off.spec_dispatches > 0
+    assert on.prefix_stats.hits > 0
+    spec = on.step_runners["spec"]
+    assert spec and all(r.graph is not None for r in spec.values())
+    assert len({key[:-1] for key in spec}) == len(spec)

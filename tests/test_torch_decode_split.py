@@ -300,7 +300,7 @@ def test_codes_split_order_encodes_once_after_the_merge(g, bs, hd):
     assert torch.all(out[0] == zero) and torch.all(ref[0] == zero)
     for want in (ref, jref):
         assert out.dtype == want.dtype == torch.uint8
-        assert bool(eq.codes_agree(out, want).all())
+        assert bool(eq.codes_agree(out, want, oq).all())
         assert int((out != want).sum()) <= 1e-3 * want.numel()
 
 

@@ -2,7 +2,9 @@
 tiny qwen3-1.7b size.
 
 Both servers hold the same weights (the reference's params converted
-with ``params_from_jax``) and run with ``prefix_cache=False``.  Greedy
+with ``params_from_jax``) and run with ``prefix_cache=False`` (the
+prefix cache is held to the reference by
+``tests/test_torch_prefix_cache.py``).  Greedy
 token streams must be equal on the ``test_engine.py`` scenarios.  So
 that equality is not luck, every token the port samples is checked to
 win by a top-2 logit gap larger than twice the logits tolerance the
@@ -147,7 +149,8 @@ def test_token_streams_equal_reference(name, quant):
     jsrv = _jax_server(quant, slots, bs, max_len)
     ref = jsrv.generate(_requests(jcfg, lens, news, JaxRequest))
     srv = InferenceServer(cfg, params=_port_params(jsrv), num_slots=slots,
-                          block_size=bs, max_len=max_len, device="cpu")
+                          block_size=bs, max_len=max_len, prefix_cache=False,
+                          device="cpu")
     out, rec, eng = _serve_port(srv, _requests(cfg, lens, news, Request))
     assert [c.uid for c in out] == [c.uid for c in ref]
     for a, b in zip(ref, out):
@@ -169,8 +172,8 @@ def test_bf16_kv_pages_token_streams_equal_reference():
                      kv_dtype="bfloat16")
     ref = jsrv.generate(_requests(jcfg, lens, news, JaxRequest))
     srv = InferenceServer(cfg, params=_port_params(jsrv), num_slots=slots,
-                          block_size=bs, max_len=max_len, device="cpu",
-                          kv_dtype="bfloat16")
+                          block_size=bs, max_len=max_len, prefix_cache=False,
+                          device="cpu", kv_dtype="bfloat16")
     out, rec, eng = _serve_port(srv, _requests(cfg, lens, news, Request))
     assert eng.cache.k_pages.dtype == torch.bfloat16
     for a, b in zip(ref, out):
@@ -286,7 +289,6 @@ def test_bf16_compute_logits_close_to_reference():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(prefix_cache=True), "item 7"), (dict(spec_k=2), "item 10"),
     (dict(max_queue=4), "item 11"), (dict(role="prefill"), "item 12"),
     (dict(drift_check_every=4), "item 12"),
 ])
@@ -294,6 +296,23 @@ def test_unported_engine_settings_raise(kw, item):
     _, cfg = _cfgs()
     with pytest.raises(NotImplementedError, match=item):
         Engine(cfg, device="cpu", engine=EngineConfig(**kw))
+
+
+def test_negative_spec_k_raises():
+    _, cfg = _cfgs()
+    with pytest.raises(ValueError, match="spec_k"):
+        Engine(cfg, device="cpu", engine=EngineConfig(spec_k=-1))
+
+
+def test_prefix_cache_and_speculation_are_served_by_default_settings():
+    """The reference's defaults: the prefix cache on, in the Engine and
+    the server; ``spec_k`` builds a drafter instead of raising."""
+    _, cfg = _cfgs()
+    assert EngineConfig().prefix_cache
+    eng = Engine(cfg, device="cpu", engine=EngineConfig(spec_k=2))
+    assert eng.prefix is not None and eng.drafter is not None
+    srv = InferenceServer(cfg, device="cpu")
+    assert srv.prefix_cache and srv.make_engine([]).prefix is not None
 
 
 @pytest.mark.parametrize("kw,item", [

@@ -274,9 +274,9 @@ def _within_gate(out, ref):
     assert err <= tol, (err, tol)
 
 
-def _codes_within_gate(out, ref):
+def _codes_within_gate(out, ref, qo):
     assert out.dtype == ref.dtype == torch.uint8
-    assert bool(eq.codes_agree(out, ref).all())
+    assert bool(eq.codes_agree(out, ref, qo).all())
     assert int((out != ref).sum()) <= max(1, 1e-3 * ref.numel())
 
 
@@ -291,8 +291,8 @@ def _check_against_references(out, x, ws, x_dtype, mode, act, bias, quant):
         qo = np.array(jeq.pack_qmeta(jeq.fit(jnp.asarray(ref.numpy()).reshape(-1), 7)))
         ref_c, jref_c = _references(x, ws, x_dtype, mode, act, bias, qo)
         out_c = eq.encode_meta(out, _t(qo))
-        _codes_within_gate(out_c, ref_c)
-        _codes_within_gate(out_c, jref_c)
+        _codes_within_gate(out_c, ref_c, _t(qo))
+        _codes_within_gate(out_c, jref_c, _t(qo))
 
 
 # --------------------------------------------------------------- tests --
@@ -503,3 +503,62 @@ def test_cheaper_bf16_splits_miss_the_gate(terms):
     cheap = _finish(emulate_tiled(xv, "codes", wd, k, terms), None, bias)
     assert (cheap - ref).abs().max().item() > 2 * tol
     _within_gate(_finish(emulate_tiled(xv, "codes", wd, k), None, bias), ref)
+
+
+# ------------------------------------------------------- codes_agree --
+
+def _old_rule(a, b):
+    """One rounding step as counted before the out table was consulted:
+    adjacent exponents of one sign, or exponent 0 under both signs."""
+    ea, eb = a & 0x7F, b & 0x7F
+    same_sign = (a >> 7) == (b >> 7)
+    return (a == b) | (same_sign & ((ea - eb).abs() == 1)) | (
+        ~same_sign & (ea == 0) & (eb == 0))
+
+
+def test_codes_agree_under_beta_at_least_zero_is_the_exponent_rule():
+    """With beta >= 0 zero's code is exponent 0, so neighbours in the
+    encoder's order are adjacent exponents of one sign and the two
+    smallest magnitudes: the rule as it was, over all 65,536 pairs."""
+    a = torch.arange(256).repeat_interleave(256)
+    b = torch.arange(256).repeat(256)
+    for beta in (0.0, 1e-4):
+        qm = torch.tensor([0.02, beta, 1.04, 7.0])
+        assert torch.equal(eq.codes_agree(a, b, qm), _old_rule(a, b))
+
+
+def test_codes_agree_accepts_the_sign_pair_either_side_of_zero():
+    """The pair a near-zero output lands on when two float sums disagree
+    on its sign.  The dual GEMM's prefill arithmetic (``emulate_tiled``)
+    and the plain version on the same inputs, out table fitted on the
+    plain output (beta < 0: zero lies between two codes above exponent
+    0): one output changes sign.  Its two codes, zero's code and its
+    negative twin, are neighbours in the encoder's order and agree; the
+    old rule counted them apart.  Every other output is within one step;
+    zero's code and the next exponent agree (though the table decodes
+    the twin between them), and codes two places apart are refused."""
+    m, k, n = 64, 2048, 1024
+    x, ws, _ = _inputs(m, k, n, 0, "codes", 1)
+    xv, wd = _operands(x, ws, "codes", "gather")
+    _, kps = gemm_plan(m, k, n, SMS, 1)
+    (emu,) = emulate_tiled(xv, "codes", wd, kps)
+    (c, lut, qm), = ws
+    xc, lx, qx = (_t(a) for a in x)
+    ref = lut_dequant_matmul_dual_ref(xc, _t(c), lx, _t(lut), qx, _t(qm))
+    qo = _t(jeq.pack_qmeta(jeq.fit(jnp.asarray(ref.numpy()).reshape(-1), 7)))
+    assert qo[1] < 0
+    flip = (emu * ref) < 0
+    assert int(flip.sum()) == 1
+    a, b = eq.encode_meta(emu, qo).int(), eq.encode_meta(ref, qo).int()
+    pa, pb = a[flip], b[flip]
+    assert torch.equal(pa >> 7, 1 - (pb >> 7))           # opposite signs
+    assert torch.equal(pa & 0x7F, pb & 0x7F) and int(pa[0] & 0x7F) > 0
+    assert not bool(_old_rule(pa, pb).any())
+    assert bool(eq.codes_agree(pa, pb, qo).all())
+    _codes_within_gate(a.to(torch.uint8), b.to(torch.uint8), qo)
+    # two places along: the next exponent of the other sign's twin, and
+    # two exponents up under one sign
+    pos, neg = (pa, pb) if int(pa[0]) < 128 else (pb, pa)
+    assert not bool(eq.codes_agree(neg, pos + 1, qo).any())
+    assert not bool(eq.codes_agree(pos, pos + 2, qo).any())
+    assert bool(eq.codes_agree(pos, pos + 1, qo).all())

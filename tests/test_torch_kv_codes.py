@@ -51,11 +51,11 @@ def _t(a):
     return torch.from_numpy(np.asarray(a).copy())
 
 
-def _codes_close(out, ref):
+def _codes_close(out, ref, qo):
     out, ref = _t(out), _t(ref)
     assert out.dtype == ref.dtype == torch.uint8
     assert out.shape == ref.shape
-    assert bool(eq.codes_agree(out, ref).all())
+    assert bool(eq.codes_agree(out, ref, _t(qo)).all())
     assert int((out != ref).sum()) <= 1e-3 * ref.numel()
 
 
@@ -99,8 +99,8 @@ def test_encode_kv_codes_matches_reference():
                                  for s, d in sites.items()})
     tk, tv = L.encode_kv_codes(_t(k), _t(v), {s: {n: _t(a) for n, a in d.items()}
                                               for s, d in sites.items()})
-    _codes_close(tk, jk)
-    _codes_close(tv, jv)
+    _codes_close(tk, jk, kq[:, None])
+    _codes_close(tv, jv, vq[:, None])
     with pytest.raises(ValueError, match="attn_q"):
         L.encode_kv_codes(_t(k), _t(v), {"attn_k": sites["attn_k"]})
 
@@ -133,7 +133,7 @@ def test_prefill_codes_matches_reference(g, bs):
     args = (qc, kc, vc, ql, kl, vl, out_qm, bt, q_start, kv_lens)
     ref = jprefill_codes(*map(jnp.asarray, args))
     out = flash_prefill_paged_codes(*map(_t, args))
-    _codes_close(out, ref)
+    _codes_close(out, ref, out_qm)
 
 
 @pytest.mark.parametrize("g,bs", [(1, 16), (2, 8)])
@@ -147,7 +147,7 @@ def test_decode_codes_matches_reference(g, bs):
     args = (qc, kc, vc, ql, kl, vl, out_qm, bt, lengths)
     ref = jdecode_codes(*map(jnp.asarray, args))
     out = decode_gqa_paged_codes(*map(_t, args))
-    _codes_close(out, ref)
+    _codes_close(out, ref, out_qm)
 
 
 # ------------------------------------------------------------- engines --
@@ -250,8 +250,11 @@ def test_step_logits_close_to_reference():
     scale = float(np.abs(np.asarray(jl)).max())
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0,
                                atol=1e-3 * scale)
-    _codes_close(tv.k_pages[:, 1:], np.asarray(jv.k_pages)[:, 1:])
-    _codes_close(tv.v_pages[:, 1:], np.asarray(jv.v_pages)[:, 1:])
+    aq = jparams["blocks"]["act_q"]      # per-(layer, head) K/V tables
+    for got, want, site in ((tv.k_pages, jv.k_pages, "attn_k"),
+                            (tv.v_pages, jv.v_pages, "attn_v")):
+        qm = np.asarray(aq[site]["qmeta"])[:, None, None, :, None]
+        _codes_close(got[:, 1:], np.asarray(want)[:, 1:], qm)
     jc.k_pages, jc.v_pages = jv.k_pages, jv.v_pages
     nxt = np.asarray(jl)[:, -1].argmax(-1).astype(np.int32)[:, None]
     for c in (jc, tc):
