@@ -90,7 +90,31 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
      prompts (and spec_k 4 eager, and on phase 5's codes tables): equal
      streams where the gap is clear, the launches exact through the
      replays, one graph a ("spec", cols) key, the acceptance rate, ms
-     and tokens a decode dispatch printed.
+     and tokens a decode dispatch printed;
+ 11. mixed-precision weights, the request lifecycle, faults and
+     telemetry, every step a CUDA graph, on phase 4's engine shape:
+     (a) the paper's Table VI at full width -- the float weights (seed
+     0) searched and quantized at 22, 28 and 34 dB on the card, the
+     widths of the layer-0 tensors against the CPU's (wk and wv at every
+     width, the rest where a width's SQNR lies within 0.05 dB of a
+     target), avg bits, quantized fraction, top-1 agreement and relative
+     logit RMSE against the float forward (2 x 32 tokens); the 22 dB tree
+     serves phase 4's requests with graphs and eager (equal streams,
+     exact launches, every request ok), and a 2-layer mixed tree's
+     card-vs-CPU path check (1e-4 of the logits' scale); (b) cancel while
+     queued, between prefill chunks and mid-decode, a deadline expiring
+     mid-decode, ``max_queue`` with both shed policies and
+     ``drain_queue``, a snapshot restored into a fresh engine (streams
+     against phase 4's where the top-2 gap is clear), the partition
+     every tick and the pool whole at the end; (c) NaN written in place
+     into a decoding row's page (that request alone fails, its lane
+     rests), the freed page taken again (#7 and #5 beside their plain
+     versions on such a page), one chaos corruption caught by the
+     checksum audit before the next dispatch (its ms a tick printed), a
+     chaos storm (every request terminal, no page leaked, ok streams
+     equal the chaos-free run's where the gap is clear); (d) traced
+     serving (the Chrome trace validated, decode ms a step traced
+     against untraced) and the drift guard on phase 5's tables.
 Phase 3 prints, for olmo-1b, minicpm-2b and qwen3-14b, the card-vs-CPU
 error after each layer beside the CPU's own spread under last-bit
 weight tables, at the prefill chunk and the first decode step.
@@ -1931,6 +1955,8 @@ def serve(counts_out: dict):
           f"{eng.total_decode_steps} decode steps, launches {counts}",
           flush=True)
     print_rates(eng, peak)
+    PHASE4_RATES.update(ms=1e3 * eng.decode_dispatch_s / eng.total_decode_steps,
+                        tok_s=eng.decode_tokens / eng.decode_dispatch_s)
     print(f"  first completion tokens {outs[0].tokens[:8].tolist()}", flush=True)
     pool = eng.cache.nbytes
     profile_decode(eng, cfg, "decode_gqa_paged")
@@ -2580,6 +2606,664 @@ def serve_speculative(params, codes_params) -> None:
           f"equal", flush=True)
 
 
+# ------------- phase 11: mixed widths, lifecycle, faults, telemetry --
+
+TABLE6_TARGETS = (22.0, 28.0, 34.0)
+SEARCH_BITS = (3, 4, 5, 6, 7)
+# the card's widths against the CPU's: wk and wv of layer 0 at every
+# width, the other tensors at each width whose card SQNR lies within
+# this margin of a target (the two differ by ~1e-5 dB; a CPU fit of a
+# 12.6M-element tensor takes about 16 s a width)
+WIDTH_MARGIN_DB = 0.05
+SQNR_RTOL = 1e-4
+# phase 4's engine shape
+PHASE11_EC = dict(num_slots=8, block_size=16, prefill_chunk=256)
+PHASE4_RATES: dict = {}
+REPLAYED: dict = {}     # decode ms a step with every step replayed
+
+
+def width_sqnrs(x) -> list[float]:
+    """``x``'s round-trip SQNR at every searched width, on its device."""
+    from repro_torch.core import exponential_quant as eq
+
+    return [float(eq.sqnr_db(x, eq.fit(x, b))) for b in SEARCH_BITS]
+
+
+def first_at(sqnrs, target) -> int:
+    """``search_bitwidth``'s choice from the SQNR at each width."""
+    return next((b for b, s in zip(SEARCH_BITS, sqnrs) if s >= target),
+                SEARCH_BITS[-1])
+
+
+def check_widths(dense) -> dict:
+    """11a's width gate on the layer-0 tensors of the float weights: the
+    SQNR at every width on the card, and on the CPU where
+    WIDTH_MARGIN_DB says; recomputed SQNRs
+    within SQNR_RTOL of the card's, and the widths at each target equal
+    unless the CPU's SQNR ties the target (printed).  Returns {path:
+    card widths at TABLE6_TARGETS}."""
+    from repro_torch.core import exponential_quant as eq
+
+    tree = dense.tree()
+    picks, worst, checked, cpu_s = {}, 0.0, 0, 0.0
+    for path in (("blocks", "attn", "wq"), ("blocks", "attn", "wk"),
+                 ("blocks", "attn", "wv"), ("blocks", "attn", "wo"),
+                 ("blocks", "mlp", "w_gate"), ("blocks", "mlp", "w_up"),
+                 ("blocks", "mlp", "w_down")):
+        x = tree
+        for k in path:
+            x = x[k]
+        x = x[0].float()
+        card = width_sqnrs(x)
+        picks[path] = [first_at(card, t) for t in TABLE6_TARGETS]
+        near = [i for i, s in enumerate(card)
+                if min(abs(s - t) for t in TABLE6_TARGETS) <= WIDTH_MARGIN_DB]
+        todo = (range(len(SEARCH_BITS)) if path[-1] in ("wk", "wv") else near)
+        margin = min(abs(s - t) for s in card for t in TABLE6_TARGETS)
+        cpu = list(card)
+        if todo:
+            t0 = time.perf_counter()
+            xc = x.cpu()
+            for i in todo:
+                cpu[i] = float(eq.sqnr_db(xc, eq.fit(xc, SEARCH_BITS[i])))
+                err = abs(cpu[i] - card[i])
+                worst = max(worst, err / abs(cpu[i]))
+                require(err <= SQNR_RTOL * abs(cpu[i]),
+                        f"11a: {path} at {SEARCH_BITS[i]} bits: card SQNR "
+                        f"{card[i]:.6f} dB, CPU {cpu[i]:.6f}")
+                checked += 1
+            cpu_s += time.perf_counter() - t0
+        for t, pick in zip(TABLE6_TARGETS, picks[path]):
+            want = first_at(cpu, t)
+            if want != pick:
+                tie = cpu[SEARCH_BITS.index(min(want, pick))]
+                print(f"  11a: {'.'.join(path)} at {t} dB: card {pick} bits, "
+                      f"CPU {want} (SQNR {tie:.6f} dB ties the target)",
+                      flush=True)
+                require(abs(tie - t) <= SQNR_RTOL * abs(tie),
+                        f"11a: {path} at {t} dB: card {pick} bits, CPU {want}")
+        print(f"  {'.'.join(path)} layer 0: SQNR at 3..7 bits "
+              + ", ".join(f"{s:.3f}" for s in card)
+              + f" dB; widths at {TABLE6_TARGETS} dB: {picks[path]}; "
+              f"{len(todo)} widths on the CPU; nearest target "
+              f"{margin:.3f} dB away", flush=True)
+    print(f"  width gate: {checked} widths recomputed on the CPU in "
+          f"{cpu_s:.1f} s, card against CPU SQNR at most {worst:.2e} of it",
+          flush=True)
+    return picks
+
+
+def table6_and_mixed_serving() -> None:
+    """Phase 11a: the paper's Table VI at full width, then serving a
+    mixed-width tree."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import lama_layers as ll
+    from repro_torch.kernels import _build
+    from repro_torch.models import api as mapi
+    from repro_torch.models.transformer import DecoderLM
+    from repro_torch.runtime.engine import Engine, EngineConfig, Request
+
+    cfg = get_config(ARCH)
+    api = mapi.get_model(cfg)
+    axes = api.logical_axes()
+    dense = api.init("cuda", seed=0)
+    picks = check_widths(dense)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 32)), device="cuda")
+    with torch.no_grad():
+        ref = api.forward(dense, toks, cfg)[0].float()
+    mixed = None
+    for target in TABLE6_TARGETS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qtree, rep = ll.quantize_tree_mixed(dense.tree(), target, axes=axes)
+        torch.cuda.synchronize()
+        t_search = time.perf_counter() - t0
+        model = DecoderLM(cfg, qtree, device="cuda")
+        with torch.no_grad():
+            got = api.forward(model, toks, cfg)[0].float()
+        agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+        rmse = ((got - ref).pow(2).mean().sqrt() / (ref.std() + 1e-9)).item()
+        i = TABLE6_TARGETS.index(target)
+        for path in picks:
+            require(rep[path][0] == picks[path][i], f"11a: {path} at "
+                    f"{target} dB: quantize_tree_mixed chose {rep[path][0]}, "
+                    f"the search {picks[path][i]}")
+        print(f"  Table VI at {target} dB: widths "
+              + ", ".join(f"{'.'.join(p[-1:] if p[0] == 'blocks' else p)} "
+                          f"{b}" for p, (b, _) in rep.items())
+              + f"; avg bits {ll.avg_bits(rep):.3f}, quantized fraction "
+              f"{ll.quantized_fraction(qtree):.6f}, search and fit "
+              f"{t_search:.2f} s; top-1 agreement with the float forward "
+              f"{agree:.4f}, relative logit RMSE {rmse:.4f} (2 x 32 tokens, "
+              f"seed 0; random weights)", flush=True)
+        if target == TABLE6_TARGETS[0]:
+            mixed = model
+        del model, qtree, got
+    del dense, ref
+
+    lens, reqs = serving_requests(cfg)
+    ec = EngineConfig(**PHASE11_EC, max_seq_len=int(max(lens)) + 32)
+    fresh_peak()
+    eng = Engine(cfg, params=mixed, engine=ec, device="cuda")
+    _build.reset_launch_counts()
+    outs = eng.generate(reqs)
+    counts = _build.launch_counts()
+    check_served(outs, reqs, cfg)
+    require_float_path(counts, eng, cfg, "11a mixed")
+    print(f"  22 dB tree, phase 4's 12 requests: launches {counts}", flush=True)
+    print_rates(eng, torch.cuda.max_memory_allocated() / 2**30)
+    p4 = PHASE4_RATES
+    print(f"  decode {1e3 * eng.decode_dispatch_s / eng.total_decode_steps:.2f}"
+          f" ms a step, {eng.decode_tokens / eng.decode_dispatch_s:.1f} tok/s "
+          f"beside phase 4's 7-bit {p4['ms']:.2f} ms, {p4['tok_s']:.1f} tok/s "
+          f"(each with its eager first ticks)", flush=True)
+    # a second pass, every decode step replayed (its prompts hit the trie);
+    # 11d serves 7-bit weights the same way
+    again = [Request(1000 + r.uid, r.prompt, r.max_new_tokens) for r in reqs]
+    _, d = engine_deltas(eng, lambda: serve_ticked(eng, again))
+    REPLAYED["22 dB mixed"] = 1e3 * d.decode_dispatch_s / d.total_decode_steps
+    print(f"  second pass: decode {REPLAYED['22 dB mixed']:.3f} ms a step, "
+          f"{d.decode_tokens / d.decode_dispatch_s:.1f} tok/s", flush=True)
+    # the engine forms no reference cycle: its pools and graphs go with
+    # its last reference, before the eager engine is built
+    pool = eng.cache.k_pages.nbytes + eng.cache.v_pages.nbytes
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    del eng
+    freed = held - torch.cuda.memory_allocated()
+    require(freed >= pool, f"11a: dropping the engine freed {freed} B, "
+            f"under its {pool} B of pages")
+    print(f"  dropped engine (no collection): {freed / 2**30:.3f} GiB "
+          f"freed, pages {pool / 2**30:.3f} GiB", flush=True)
+    off = Engine(cfg, params=mixed, engine=ec, device="cuda",
+                 cuda_graphs=False)
+    eager = off.generate(reqs)
+    check_served(eager, reqs, cfg)
+    require(all(np.array_equal(a.tokens, b.tokens)
+                for a, b in zip(outs, eager)),
+            "11a: the mixed tree's eager streams differ from its graphs'")
+    print_rates(off, torch.cuda.max_memory_allocated() / 2**30)
+    del off, mixed
+
+    # a 2-layer card-vs-CPU path check of a mixed tree (phase 3's rule)
+    cfg2 = cfg.replace(num_layers=2, compute_dtype="float32")
+    api2 = mapi.get_model(cfg2)
+    dense2 = api2.init("cuda", seed=1)
+    qtree, rep = ll.quantize_tree_mixed(dense2.tree(), TABLE6_TARGETS[0],
+                                        axes=api2.logical_axes())
+    del dense2
+    gpu = DecoderLM(cfg2, qtree, device="cuda")
+    cpu = copy.deepcopy(gpu).to("cpu")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in PATH_LENS]
+    on_card = paged_run(api2, cfg2, gpu, torch.device("cuda"), torch.float32,
+                        prompts)
+    on_cpu = paged_run(api2, cfg2, cpu, torch.device("cpu"), torch.float32,
+                       prompts)
+    compare(f"2-layer 22 dB tree (avg bits {ll.avg_bits(rep):.3f})", on_card,
+            on_cpu, 1e-4)
+
+
+def lifecycle_under_graphs(params, float_outs) -> None:
+    """Phase 11b: the request lifecycle with every step a CUDA graph, on
+    phase 4's weights, engine shape and requests."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.engine import (TERMINAL_STATUSES, Engine,
+                                            EngineConfig, Request)
+
+    cfg = get_config(ARCH)
+    lens, reqs = serving_requests(cfg)
+    max_seq = int(max(lens)) + 32
+    ec = dict(PHASE11_EC, max_seq_len=max_seq)
+    eng = Engine(cfg, params=params, device="cuda",
+                 engine=EngineConfig(**ec))
+    shift = [0.0]
+    clock = eng._clock
+    eng._clock = lambda: clock() + shift[0]     # a deadline's budget runs out
+    # 4 admissions a tick into 8 slots: request 11 waits; request 0's
+    # 598-token prompt takes three chunks of 256
+    longest, queued = 0, 11
+    require(lens[longest] > 2 * PHASE11_EC["prefill_chunk"],
+            "11b: request 0's prompt fits two chunks")
+    for r in reqs:
+        eng.submit(Request(r.uid, r.prompt, r.max_new_tokens,
+                           deadline_s=600.0 if r.uid == 2 else None))
+    ticks, done = 0, {}
+    events = []
+
+    def tick():
+        nonlocal ticks
+        for c in eng.step():
+            done[c.uid] = c
+        eng.check_partition()
+        ticks += 1
+
+    require(eng.cancel(queued), "11b: the queued request was not live")
+    events.append(f"cancelled {queued} while queued")
+    tick()
+    st = eng._states[longest]
+    require(not st.prefill_done and st.prefill_pos > 0,
+            f"11b: request {longest} ({lens[longest]} tokens) is not "
+            f"between prefill chunks")
+    require(eng.cancel(longest), "11b: the long prompt was not live")
+    events.append(f"cancelled {longest} after {st.prefill_pos} of "
+                  f"{lens[longest]} prompt tokens")
+    while not all(eng._states[u].prefill_done and len(eng._states[u].tokens) > 4
+                  for u in (1, 2) if eng._states[u].status != "finished"):
+        tick()
+    require(eng.cancel(1), "11b: request 1 was not live mid-decode")
+    events.append(f"cancelled 1 with {len(eng._states[1].tokens)} tokens")
+    shift[0] = 1000.0                            # past request 2's 600 s
+    tick()
+    require(eng._states[2].term == "deadline_exceeded",
+            "11b: request 2's deadline did not expire mid-decode")
+    events.append(f"request 2's deadline expired with "
+                  f"{len(eng._states[2].tokens)} tokens")
+    while eng.pending:
+        tick()
+    outs = eng.collect()
+    require(sorted(c.uid for c in outs) == list(range(12)),
+            "11b: not one completion a request")
+    by = {c.uid: c.status for c in outs}
+    require(all(s in TERMINAL_STATUSES for s in by.values()),
+            f"11b: statuses {by}")
+    want = {u: "ok" for u in range(12)}
+    want.update({queued: "cancelled", longest: "cancelled", 1: "cancelled",
+                 2: "deadline_exceeded"})
+    require(by == want, f"11b: statuses {by}, want {want}")
+    fs = eng.fault_stats()
+    require(fs["cancelled"] == 3 and fs["deadline_expired"] == 1,
+            f"11b: fault_stats {fs}")
+    ok = [i for i in range(12) if want[i] == "ok"]
+    apart = gate_streams("11b lifecycle", params, cfg, [reqs[i] for i in ok],
+                         [outs[i] for i in ok], [float_outs[i] for i in ok])
+    eng.prefix.evict(eng.prefix.num_pages)
+    eng.check_partition()
+    free, size = eng.cache.allocator.free_blocks, eng.cache.allocator.num_blocks
+    require(free == size - 1, f"11b: {free} pages free of {size - 1}")
+    print(f"  lifecycle ({ticks} ticks, graphs {eng.graph_captures()[0]}): "
+          + "; ".join(events) + f"; the other {len(ok)} streams against phase "
+          f"4's: {len(ok) - apart} equal, {apart} apart at a near-tie; "
+          f"statuses {by}; pool {free} of {size - 1} pages free once the "
+          f"trie is cleared", flush=True)
+    del eng
+
+    # backpressure: 12 submits against a queue of 2
+    for policy in ("reject-new", "shed-oldest"):
+        eng = Engine(cfg, params=params, device="cuda", engine=EngineConfig(
+            **ec, max_queue=2, shed_policy=policy))
+        for r in reqs:
+            eng.submit(r)
+        outs = serve_ticked(eng, [])
+        by = {c.uid: c.status for c in outs}
+        kept = [0, 1] if policy == "reject-new" else [10, 11]
+        require(by == {u: "ok" if u in kept else "rejected" for u in range(12)}
+                and eng.shed == 10, f"11b {policy}: {by}, shed {eng.shed}")
+        same = sum(np.array_equal(outs[u].tokens, float_outs[u].tokens)
+                   for u in kept)
+        print(f"  max_queue 2, {policy}: kept {kept}, 10 rejected; "
+              f"{same} of 2 streams equal phase 4's", flush=True)
+        del eng
+    eng = Engine(cfg, params=params, device="cuda", engine=EngineConfig(**ec))
+    for r in reqs:
+        eng.submit(r)
+    eng.step()
+    eng.step()                                   # 8 admitted, 4 queued
+    drained = eng.drain_queue()
+    outs = serve_ticked(eng, [])
+    by = {c.uid: c.status for c in outs}
+    require(drained == 4 and list(by.values()).count("rejected") == 4
+            and list(by.values()).count("ok") == 8,
+            f"11b drain_queue: {drained} drained, {by}")
+    print(f"  drain_queue after two ticks: {drained} queued requests rejected, "
+          f"8 running served", flush=True)
+    del eng
+
+    # snapshot mid-run, restore into a fresh engine on the same params
+    eng = Engine(cfg, params=params, device="cuda", engine=EngineConfig(**ec))
+    for r in reqs:
+        eng.submit(r)
+    for _ in range(6):
+        eng.step()
+    snap = json.loads(json.dumps(eng.snapshot()))
+    live = sum(not r["terminal"] for r in snap["requests"])
+    del eng
+    eng2 = Engine(cfg, params=params, device="cuda", engine=EngineConfig(**ec))
+    require(eng2.restore(snap) == live, "11b: restore re-queued a wrong count")
+    outs = serve_ticked(eng2, [])
+    check_served(outs, reqs, cfg)
+    apart = gate_streams("11b restore", params, cfg, reqs, outs, float_outs)
+    print(f"  snapshot after 6 ticks ({live} live, "
+          f"{sum(len(r['tokens']) for r in snap['requests'])} tokens), "
+          f"restored into a fresh engine: {12 - apart} of 12 streams equal "
+          f"phase 4's, {apart} apart at a near-tie", flush=True)
+    del eng2
+    torch.cuda.synchronize()
+
+
+def freed_page_kernels() -> tuple:
+    """#7 and #5 on the card against their plain versions on the CPU, at
+    qwen3-1.7b's head layout, for a row whose last page holds NaN past
+    its length (a page freed by a failed request and taken again): is
+    each output row finite?  Returns ((kernel, plain) for #7, for #5)."""
+    import torch
+
+    from repro_torch.kernels.decode_gqa import decode_gqa_paged
+    from repro_torch.kernels.decode_gqa.ref import decode_gqa_paged_ref
+    from repro_torch.kernels.flash_prefill import flash_prefill_paged
+    from repro_torch.kernels.flash_prefill.ref import flash_prefill_paged_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    n_kv, g, hd, bs = 8, 2, 128, 16
+    k = torch.randn(6, bs, n_kv, hd, generator=gen, device="cuda")
+    v = torch.randn(6, bs, n_kv, hd, generator=gen, device="cuda")
+    k[3, 5:] = float("nan")          # page 3: positions 5.. stale NaN
+    v[3, 5:] = float("nan")
+    table = torch.tensor([[1, 2, 3, 0]], dtype=torch.int32, device="cuda")
+    lengths = torch.tensor([2 * bs + 5], dtype=torch.int32, device="cuda")
+    q = torch.randn(1, n_kv, g, hd, generator=gen, device="cuda")
+    cpu = [t.cpu() for t in (q, k, v, table, lengths)]
+    dec = (bool(decode_gqa_paged(q, k, v, table, lengths).isfinite().all()),
+           bool(decode_gqa_paged_ref(*cpu).isfinite().all()))
+    qs = torch.randn(1, 4, n_kv, g, hd, generator=gen, device="cuda")
+    start = lengths - 4
+    args = (qs, k, v, table, start, lengths)
+    pre = (bool(flash_prefill_paged(*args).isfinite().all()),
+           bool(flash_prefill_paged_ref(*[t.cpu() for t in args])
+                .isfinite().all()))
+    return dec, pre
+
+
+def faults_under_graphs(params, float_outs) -> None:
+    """Phase 11c: a genuine device NaN, the checksum audit and a chaos
+    storm, with every step a CUDA graph."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.chaos import ChaosConfig
+    from repro_torch.runtime.engine import Engine, EngineConfig, Request
+
+    cfg = get_config(ARCH)
+    lens, reqs = serving_requests(cfg)
+    ec = dict(PHASE11_EC, max_seq_len=int(max(lens)) + 32)
+
+    # (i) NaN written in place into a decoding row's page between ticks
+    eng = Engine(cfg, params=params, device="cuda", engine=EngineConfig(**ec))
+    for r in reqs:
+        eng.submit(r)
+    decoding = lambda: [i for i, s in enumerate(eng._slots)   # noqa: E731
+                        if s is not None and s.prefill_done]
+    replayed = lambda: not eng.cuda_graphs or any(   # noqa: E731
+        r.replays for r in eng.step_runners["decode"].values())
+    for _ in range(40):
+        if len(decoding()) == 8 and replayed():
+            break
+        eng.step()
+    require(len(decoding()) == 8 and replayed(),
+            "11c: eight rows never decoded together under a replay")
+    row = decoding()[0]
+    victim = eng._slots[row].request.uid
+    page = int(eng.cache.block_tables[row, 0])
+    ptr = eng.cache.k_pages.data_ptr()
+    eng.cache.k_pages[:, page] = float("nan")
+    eng.cache.v_pages[:, page] = float("nan")
+    require(eng.cache.k_pages.data_ptr() == ptr, "11c: the poke moved the pool")
+    eng.step()
+    require(eng.result(victim) is not None
+            and eng.result(victim).status == "failed"
+            and eng.nan_rows_detected == 1 and row in eng._quarantined,
+            f"11c: the poked row {row} (request {victim}) did not fail alone: "
+            f"{eng.fault_stats()}")
+    # the failed request's pages went back to the free list, NaN and all
+    # (the poked page, and in layers 1.. the position it wrote as it
+    # failed): who takes them
+    c = eng.cache
+    finite = (c.k_pages.isfinite().flatten(2).all(-1).all(0)
+              & c.v_pages.isfinite().flatten(2).all(-1).all(0))
+    nan_pages = set(torch.nonzero(~finite).flatten().tolist()) - {0}
+    alloc, handed, took = c.allocator, [0], set()
+    take = alloc.alloc
+
+    def counted(n=1, *, reserved=True):
+        out = take(n, reserved=reserved)
+        handed[0] += len(nan_pages.intersection(out))
+        return out
+    alloc.alloc = counted
+
+    def drain_watched():
+        while eng.pending:
+            eng.step()
+            eng.check_partition()
+            took.update(s.request.uid for i, s in enumerate(eng._slots)
+                        if s is not None
+                        and nan_pages.intersection(c.slot_blocks[i]))
+        return eng.collect()
+    outs = drain_watched()
+    require(len(outs) == 12 and [c.uid for c in outs if c.status != "ok"]
+            == [victim], f"11c: statuses {[(c.uid, c.status) for c in outs]}")
+    others = [i for i in range(12) if i != victim]
+    apart = gate_streams("11c NaN", params, cfg, [reqs[i] for i in others],
+                         [outs[i] for i in others],
+                         [float_outs[i] for i in others])
+    art = eng.replay_artifacts[0]
+    print(f"  (i) NaN in page {page} of row {row} (request {victim}) under "
+          f"graphs: request {victim} failed ({art['kind']}, tick "
+          f"{art['tick']}, {len(art['flight_recorder'])} flight records), "
+          f"lane quarantined; the other 11 streams: {11 - apart} equal phase "
+          f"4's, {apart} apart at a near-tie", flush=True)
+    # 8 more requests take the freed pages, NaN page included
+    rng = np.random.default_rng(12)
+    more = [Request(100 + i, rng.integers(0, cfg.vocab_size, int(n))
+                    .astype(np.int32), max_new_tokens=16)
+            for i, n in enumerate(rng.integers(17, 200, 8))]
+    for r in more:
+        eng.submit(r)
+    later = {c.uid: c.status for c in drain_watched()}
+    dec, pre = freed_page_kernels()
+    print(f"  pages holding NaN after the fault {sorted(nan_pages)}: handed "
+          f"out {handed[0]} times, held by "
+          f"requests {sorted(took)}; the 8 more requests' statuses {later} "
+          f"({sum(a['kind'] == 'nan_logits' for a in eng.replay_artifacts) - 1}"
+          f" more nan_logits artifacts); a row whose last page holds NaN past "
+          f"its length: #7 finite {dec[0]} (kernel) / {dec[1]} (plain "
+          f"version), #5 finite {pre[0]} / {pre[1]}", flush=True)
+    del eng
+
+    # (ii) one corruption from chaos under the checksum audit (4 requests
+    # of 64 tokens: the audit re-reads every recorded page each tick)
+    audit = []
+    eng = Engine(cfg, params=params, device="cuda", chaos=ChaosConfig(seed=0),
+                 engine=EngineConfig(**ec, checksum_pages=True))
+    run_audit = eng._audit_pages
+
+    def timed_audit():
+        n = len(eng._page_crc)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_audit()
+        audit.append((time.perf_counter() - t0, n))
+    eng._audit_pages = timed_audit
+    small = [Request(i, np.random.default_rng(20 + i).integers(
+        0, cfg.vocab_size, 64).astype(np.int32), max_new_tokens=16)
+        for i in range(4)]
+    for r in small:
+        eng.submit(r)
+    for _ in range(4):
+        eng.step()
+    tokens = {r.uid: len(eng._states[r.uid].tokens) for r in small}
+    eng.chaos.cfg.corrupt_rate = 1.0     # one corruption, at this tick's end
+    eng.step()
+    eng.chaos.cfg.corrupt_rate = 0.0
+    require(eng.chaos.corrupt_faults == 1, "11c: no page was corrupted")
+    eng.step()
+    arts = [a for a in eng.replay_artifacts if a["kind"] == "kv_corruption"]
+    require(eng.corruptions_detected == 1 and len(arts) == 1,
+            f"11c: corruption not caught: {eng.fault_stats()}")
+    owner = arts[0]["uid"]
+    require(len(arts[0]["tokens"]) == tokens[owner] + 1,
+            "11c: the corrupt page's owner decoded past the audit")
+    outs = serve_ticked(eng, [])
+    require([c.uid for c in outs if c.status != "ok"] == [owner],
+            f"11c: statuses {[(c.uid, c.status) for c in outs]}")
+    ms = [1e3 * t for t, n in audit if n]
+    n_pages = np.mean([n for _, n in audit if n])
+    step_ms = 1e3 * eng.decode_dispatch_s / eng.total_decode_steps
+    print(f"  (ii) one chaos corruption under the audit: request {owner} "
+          f"failed at the next tick before its dispatch; audit "
+          f"{np.mean(ms):.2f} ms a tick (median {np.median(ms):.2f}, max "
+          f"{max(ms):.2f}, {len(ms)} ticks) over {n_pages:.1f} pages "
+          f"({eng.cache.bytes_per_block * n_pages / 2**20:.1f} MiB) against "
+          f"a decode step of {step_ms:.2f} ms", flush=True)
+    pages = list(range(1, 1 + min(368, eng.cache.allocator.num_blocks - 1)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.cache.page_checksums(pages)
+    t_full = time.perf_counter() - t0
+    print(f"  checksums of {len(pages)} pages "
+          f"({len(pages) * eng.cache.bytes_per_block / 2**30:.2f} GiB, phase "
+          f"4's traffic at its fullest) in one gather and copy: "
+          f"{1e3 * t_full:.1f} ms", flush=True)
+    del eng
+
+    # (iii) a storm soak (rate 0.03) against the chaos-free run
+    rng = np.random.default_rng(30)
+    soak = [Request(i, rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32),
+                    max_new_tokens=16) for i, n in enumerate(
+                        rng.integers(17, 129, 16))]
+    clean = serve_ticked(Engine(cfg, params=params, device="cuda",
+                                engine=EngineConfig(**ec)), soak)
+    eng = Engine(cfg, params=params, device="cuda",
+                 chaos=ChaosConfig.storm(7), engine=EngineConfig(
+                     **ec, quarantine_ticks=4))
+    t0 = time.perf_counter()
+    outs = serve_ticked(eng, soak)
+    t_soak = time.perf_counter() - t0
+    by = {c.uid: c.status for c in outs}
+    require(len(outs) == 16 and eng.failed == len(eng.replay_artifacts),
+            f"11c storm: {len(outs)} completions, failed {eng.failed}, "
+            f"{len(eng.replay_artifacts)} artifacts")
+    eng.prefix.evict(eng.prefix.num_pages)
+    eng.check_partition()
+    require(eng.cache.allocator.free_blocks == eng.cache.allocator.num_blocks - 1,
+            "11c storm: pages leaked")
+    ok = [i for i in range(16) if by[i] == "ok"]
+    apart = gate_streams("11c storm", params, cfg, [soak[i] for i in ok],
+                         [outs[i] for i in ok], [clean[i] for i in ok])
+    fs = eng.fault_stats()
+    print(f"  (iii) storm (seed 7, rate 0.03) over 16 requests in "
+          f"{t_soak:.2f} s: statuses {sorted(by.items())}; faults "
+          + ", ".join(f"{k} {v}" for k, v in fs.items()
+                      if k.startswith("chaos_") or k in (
+                          "failed", "alloc_faults_absorbed",
+                          "nan_rows_detected", "corruptions_detected",
+                          "quarantines", "slow_ticks"))
+          + f"; {len(ok) - apart} of {len(ok)} ok streams equal the "
+          f"chaos-free run's; no page leaked", flush=True)
+    del eng
+
+
+def telemetry_and_drift(params, codes_params) -> None:
+    """Phase 11d: traced serving and the drift guard."""
+    import warnings
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.runtime import calibration as cal
+    from repro_torch.runtime.engine import Engine, EngineConfig, Request
+    from repro_torch.runtime.telemetry import Telemetry, validate_chrome_trace
+
+    cfg = get_config(ARCH)
+    lens, reqs = serving_requests(cfg)
+    ec = EngineConfig(**PHASE11_EC, max_seq_len=int(max(lens)) + 32)
+    tel = Telemetry(tracing=False)
+    eng = Engine(cfg, params=params, device="cuda", engine=ec, telemetry=tel)
+    serve_ticked(eng, [Request(900 + r.uid, r.prompt, r.max_new_tokens)
+                       for r in reqs])        # captures every key
+    rates = {False: [], True: []}
+    ticks = {False: [], True: []}     # wall ms a tick: all of step()
+    for k, traced in enumerate((False, True, False, True)):
+        tel.tracer.enabled = traced
+        rs = [Request(100 * (k + 1) + r.uid, r.prompt, r.max_new_tokens)
+              for r in reqs]
+        n0, s0 = eng.tick_latency.count, eng.tick_latency.total_s
+        outs, d = engine_deltas(eng, lambda: serve_ticked(eng, rs))
+        check_served(outs, rs, cfg)
+        rates[traced].append(1e3 * d.decode_dispatch_s / d.total_decode_steps)
+        ticks[traced].append(1e3 * (eng.tick_latency.total_s - s0)
+                             / (eng.tick_latency.count - n0))
+    REPLAYED["7-bit"] = float(np.mean(rates[False]))
+    doc = tel.tracer.export()
+    st = validate_chrome_trace(doc)
+    require(st["requests"] == 24 and len(tel.traces) == 24,
+            f"11d: {st['requests']} request spans, {len(tel.traces)} traces")
+    print(f"  traced serving: {len(doc['traceEvents'])} events "
+          f"({st['spans']} spans on {st['tracks']} tracks, "
+          f"{tel.tracer.dropped} dropped), trace valid; decode ms a step "
+          f"(every step replayed, prefix hits) untraced "
+          + " / ".join(f"{x:.3f}" for x in rates[False]) + ", traced "
+          + " / ".join(f"{x:.3f}" for x in rates[True]) + "; wall ms a "
+          "tick (all of step(), from the engine's tick latency) untraced "
+          + " / ".join(f"{x:.3f}" for x in ticks[False]) + ", traced "
+          + " / ".join(f"{x:.3f}" for x in ticks[True]) + "; replayed "
+          "decode ms a step, 7-bit against 11a's 22 dB tree: "
+          f"{REPLAYED['7-bit']:.3f} / {REPLAYED['22 dB mixed']:.3f}",
+          flush=True)
+    reg = eng.metrics
+    print("  registry: " + ", ".join(
+        f"{k} {reg.value(k)}" for k in (
+            "engine.decode.steps", "engine.prefill.chunks",
+            "engine.lifecycle.failed", "engine.pages.peak",
+            "engine.tick.p50_s", "engine.tick.p99_s")), flush=True)
+    del eng
+
+    drift = Engine(cfg, params=codes_params, act_quant=7, kv_codes=True,
+                   device="cuda", engine=EngineConfig(
+                       **PHASE11_EC, max_seq_len=int(max(lens)) + 32,
+                       drift_check_every=8))
+    require(drift.act_report is not None, "11d: no calibration report")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        outs = serve_ticked(drift, reqs)
+    check_served(outs, reqs, cfg)
+    sites = set(cal.report_means(drift.act_report))
+    keys = set(drift.telemetry.registry.keys())
+    require(drift.drift_checks > 0 and all(
+        f"calib.drift.{s}_db" in keys and f"calib.drift.{s}_delta_db" in keys
+        for s in sites), f"11d: {drift.drift_checks} checks, gauges "
+        f"{sorted(k for k in keys if k.startswith('calib.drift'))}")
+    warned = [w for w in caught if "calibration drift" in str(w.message)]
+    print(f"  drift guard every 8 ticks: {drift.drift_checks} checks, "
+          f"{drift.drift_warnings} warnings ({len(warned)} raised); serving "
+          f"SQNR minus the report per site (dB): " + ", ".join(
+              f"{s} {drift._drift_delta_db[s]:+.2f}" for s in sorted(sites))
+          + " (random weights: printed, not gated)", flush=True)
+    del drift
+
+
+def lifecycle_phase(params, codes_params, float_outs) -> None:
+    t0 = time.perf_counter()
+    print("  11a: Table VI at full width, and a mixed-width tree served",
+          flush=True)
+    table6_and_mixed_serving()
+    print("  11b: the lifecycle under graphs", flush=True)
+    lifecycle_under_graphs(params, float_outs)
+    print("  11c: faults under graphs", flush=True)
+    faults_under_graphs(params, float_outs)
+    print("  11d: telemetry and the drift guard", flush=True)
+    telemetry_and_drift(params, codes_params)
+    print(f"  phase 11 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 # ----------------------------------------- phase 7: Lama primitives --
 
 def lama_primitives(counts_out: dict) -> None:
@@ -2804,6 +3488,8 @@ def main() -> int:
         phase("phase 10: the prefix cache and speculative decoding")
         serve_prefix_traffic(params)
         serve_speculative(params, codes_params)
+        phase("phase 11: mixed widths, the lifecycle, faults and telemetry")
+        lifecycle_phase(params, codes_params, float_outs)
         phase("all phases passed")
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -328,6 +328,21 @@ def sqnr_db(x: torch.Tensor, params: ExpQuantParams,
     return 10.0 * torch.log10(num / den + 1e-30)
 
 
+def search_bitwidth(x: torch.Tensor, min_sqnr_db: float = 22.0,
+                    bit_range: Sequence[int] = (3, 4, 5, 6, 7)
+                    ) -> tuple[int, ExpQuantParams]:
+    """Per-tensor bit width (the paper's Table VI "avg bit"): the
+    smallest width in ``bit_range`` whose round-trip SQNR reaches
+    ``min_sqnr_db``, else the widest, with its fit."""
+    chosen = None
+    for b in bit_range:
+        params = fit(x, b)
+        if float(sqnr_db(x, params)) >= min_sqnr_db:
+            return b, params
+        chosen = params
+    return bit_range[-1], chosen
+
+
 # ------------------------------------------------------------ carriers --
 
 def pack_qtensor(codes: torch.Tensor, params: ExpQuantParams,

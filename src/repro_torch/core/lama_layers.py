@@ -365,3 +365,61 @@ def quantize_tree(params: dict, bits: int = 7,
         return eq.pack_qtensor(codes, qp, lut_dtype)
 
     return visit(params, axes, ()), report
+
+
+def quantize_tree_mixed(params: dict, min_sqnr_db: float = 22.0,
+                        predicate: Callable = default_predicate,
+                        lut_dtype=F32, axes: dict | None = None):
+    """:func:`quantize_tree` with a bit width searched per tensor
+    (:func:`~repro_torch.core.exponential_quant.search_bitwidth`, the
+    paper's Table VI).  A layer-stacked weight is searched on layer 0
+    and every layer is then fit at that width.  Returns (new_tree,
+    report{path: (bits, sqnr_db)})."""
+    report = {}
+
+    def visit(node, ax, path):
+        if isinstance(node, dict):
+            return {k: visit(v, (ax or {}).get(k), path + (k,))
+                    for k, v in node.items()}
+        if eq.is_qtensor(node) or not predicate(path, node):
+            return node
+        x = node.to(F32)
+        if ax and ax[0] == "layers":
+            bits, _ = eq.search_bitwidth(x[0], min_sqnr_db)
+            packed, sqnr = _quantize_stacked(node, bits, lut_dtype)
+            report[path] = (bits, sqnr)
+            return packed
+        bits, qp = eq.search_bitwidth(x, min_sqnr_db)
+        report[path] = (bits, float(eq.sqnr_db(x, qp)))
+        return eq.pack_qtensor(eq.encode(x, qp), qp, lut_dtype)
+
+    return visit(params, axes, ()), report
+
+
+def quantized_fraction(params) -> float:
+    """Fraction of the parameters' elements held as uint8 codes (a tree
+    of dicts, a :class:`~repro_torch.models.transformer.DecoderLM`'s
+    ``tree()`` included)."""
+    q = tot = 0
+
+    def walk(node):
+        nonlocal q, tot
+        if isinstance(node, dict):
+            for v in node.values():
+                walk(v)
+        elif eq.is_qtensor(node):
+            q += node.codes.numel()
+            tot += node.codes.numel()
+        elif isinstance(node, torch.Tensor):
+            tot += node.numel()
+
+    walk(params)
+    return q / max(tot, 1)
+
+
+def avg_bits(report: dict) -> float:
+    """Mean searched bit width of a quantization report (Table VI's
+    "Avg bit")."""
+    if not report:
+        return 0.0
+    return sum(b for b, _ in report.values()) / len(report)

@@ -42,9 +42,11 @@ def decode_gqa_ref(q, k_cache, v_cache, lengths,
 def decode_gqa_paged_ref(q, k_pages, v_pages, block_tables, lengths,
                          out_dtype=torch.float32) -> torch.Tensor:
     """q [B, n_kv, g, hd]; pages [N, bs, n_kv, hd]; block_tables
-    [B, max_blk]; lengths [B].  Returns [B, n_kv, g, hd]."""
+    [B, max_blk]; lengths [B].  Returns [B, n_kv, g, hd].  A NaN score
+    gives the row NaN, as the reference's dense softmax does."""
     out = flash_prefill_paged_ref(q[:, None], k_pages, v_pages, block_tables,
-                                  lengths - 1, lengths, out_dtype=out_dtype)
+                                  lengths - 1, lengths, out_dtype=out_dtype,
+                                  keep_nan=True)
     return out[:, 0]
 
 

@@ -20,12 +20,14 @@ F32 = torch.float32
 
 
 def flash_prefill_paged_ref(q, k_pages, v_pages, block_tables, q_start,
-                            kv_lens, out_dtype=F32) -> torch.Tensor:
+                            kv_lens, out_dtype=F32,
+                            keep_nan: bool = False) -> torch.Tensor:
     """q [B, S, n_kv, g, hd]; pages [N, bs, n_kv, hd]; block_tables
-    [B, max_blk]; q_start/kv_lens [B].  Returns [B, S, n_kv, g, hd]."""
+    [B, max_blk]; q_start/kv_lens [B].  Returns [B, S, n_kv, g, hd].
+    ``keep_nan``: see :func:`_page_scan`."""
     out = _page_scan(q.to(F32), lambda t: k_pages[t].to(F32),
                      lambda t: v_pages[t].to(F32), k_pages.shape[1],
-                     block_tables, q_start, kv_lens)
+                     block_tables, q_start, kv_lens, keep_nan)
     return out.to(out_dtype)
 
 
@@ -44,10 +46,16 @@ def flash_prefill_paged_codes_ref(q_codes, k_pages, v_pages, q_lut, k_lut,
 
 
 def _page_scan(qf, k_page, v_page, bs, block_tables, q_start,
-               kv_lens) -> torch.Tensor:
+               kv_lens, keep_nan: bool = False) -> torch.Tensor:
     """The recurrence over float32 q [B, S, n_kv, g, hd]; ``k_page(t)``/
     ``v_page(t)`` give the float32 pages ``t`` [B] as [B, bs, n_kv, hd].
-    Returns float32 [B, S, n_kv, g, hd]."""
+    Returns float32 [B, S, n_kv, g, hd].
+
+    A NaN score makes the running max NaN, and the flush's ``m > -5e29``
+    test then gives the row zeros, as the reference's prefill oracle
+    does.  ``keep_nan`` keeps such a row NaN instead: the reference's
+    paged decode oracle is one dense softmax, through which a NaN score
+    reaches the output."""
     b, s, n_kv, g, hd = qf.shape
     max_blk = block_tables.shape[1]
     dev = qf.device
@@ -74,6 +82,8 @@ def _page_scan(qf, k_page, v_page, bs, block_tables, q_start,
         acc = acc * corr[..., None] + torch.einsum("bngst,btnh->bngsh", p, v)
         m = m_new
     seen = m > -5e29
+    if keep_nan:
+        seen = seen | torch.isnan(m)
     out = acc / torch.clamp_min(l, 1e-30)[..., None]
     out = torch.where(seen[..., None], out, torch.zeros((), dtype=F32, device=dev))
     return out.permute(0, 3, 1, 2, 4)

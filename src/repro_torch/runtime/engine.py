@@ -64,21 +64,49 @@ KV pages as codes (``kv_codes``: uint8 pages under per-head tables) and
 narrow KV pages (``kv_dtype="float8_e4m3fn"``: cast at the write as the
 reference casts, upcast in the attention kernels after the load) are
 served; the engine counts the attention boundary's traffic from shapes
-(``attn_bytes_read``, ``attn_act_bytes``, ``attn_dequants``).
+(``attn_bytes_read``, ``attn_act_bytes``, ``attn_dequants``).  Weights
+of mixed bit widths (``core.lama_layers.quantize_tree_mixed``) serve
+through the same kernels: a code's width travels in its table.
 
-Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item that brings it: bounded queues and load shedding,
-deadlines, chaos, checksums and the handling of non-finite rows (11:
-until then a non-finite row raises, an f8 page's NaN included),
-disaggregation roles and the calibration drift guard, which reports
-through the metrics registry (12).
+Request lifecycle, as the reference's: every request ends in exactly one
+terminal status -- ``ok``, ``cancelled`` (:meth:`Engine.cancel`, queued,
+between prefill chunks or mid-decode), ``deadline_exceeded``
+(``Request.deadline_s``, a budget from submit), ``rejected`` (a bounded
+queue, ``max_queue``, sheds by ``shed_policy``; :meth:`drain_queue`) or
+``failed``.  A non-finite logits row (the step's per-row flag) fails
+its request alone: a replay artifact is kept (and written under
+``replay_dir``), the lane rests ``quarantine_ticks`` ticks, the batch
+keeps running.  ``checksum_pages`` records a CRC of every page a
+dispatch writes and verifies them at the top of the next tick, so a
+corrupt page fails its readers (and drops its trie subtree) before any
+dispatch attends it.  A seeded chaos injector
+(:class:`~repro_torch.runtime.chaos.ChaosInjector`) forces each fault at
+the reference's sites.
+:meth:`snapshot` / :meth:`restore` rebuild the bookkeeping after a
+crash: live requests re-prefill prompt plus tokens so far.
+
+Telemetry (:mod:`~repro_torch.runtime.telemetry`): the counters are
+views over one metrics registry (``metrics``, ``fault_stats``), gauges
+read the live state, a flight recorder keeps the last ticks for the
+replay artifacts, and ``Telemetry(tracing=True)`` records per-request
+traces and a Chrome trace.  The calibration drift guard
+(``drift_check_every``) re-measures the act-quant sites' SQNR on a live
+prompt every N ticks and warns past ``drift_threshold_db``.
+
+Not ported yet, and refused with ``NotImplementedError``: the
+disaggregation roles (``role`` other than ``"unified"``), whose KV
+handoffs belong to the cluster (ROADMAP Queue 1 item 12).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
+import os
 import time
+import warnings
+import weakref
 from collections import deque
 from typing import Iterator, Sequence
 
@@ -91,12 +119,25 @@ from repro_torch.core import lama_layers as ll
 from repro_torch.models import api as mapi
 from repro_torch.models.transformer import DecoderLM
 from repro_torch.runtime import calibration as cal
+from repro_torch.runtime.chaos import ChaosConfig, ChaosInjector
 from repro_torch.runtime.drafter import PromptLookupDrafter
+from repro_torch.runtime.fault_tolerance import LatencyTracker, StragglerWatchdog
 from repro_torch.runtime.paged_cache import PagedKVCache
 from repro_torch.runtime.prefix_cache import PrefixCache, PrefixNode
 from repro_torch.runtime.step_graph import StepGraph
+from repro_torch.runtime.telemetry import (REQUESTS_PID, SCHED_TID,
+                                           FlightRecorder, Telemetry, Trace,
+                                           lane_tid)
 
+# terminal statuses: every request ends in exactly one of these
 ST_OK = "ok"
+ST_CANCELLED = "cancelled"
+ST_DEADLINE = "deadline_exceeded"
+ST_REJECTED = "rejected"
+ST_FAILED = "failed"
+TERMINAL_STATUSES = (ST_OK, ST_CANCELLED, ST_DEADLINE, ST_REJECTED,
+                     ST_FAILED)
+SHED_POLICIES = ("reject-new", "shed-oldest")
 KV_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
              "float8_e4m3fn": torch.float8_e4m3fn}
 
@@ -107,7 +148,7 @@ class Request:
     prompt: np.ndarray            # [S] int32
     max_new_tokens: int = 16
     stop_token: int | None = None
-    deadline_s: float | None = None  # lifecycle: ROADMAP item 11
+    deadline_s: float | None = None  # wall-clock budget from submit()
 
 
 @dataclasses.dataclass
@@ -119,7 +160,7 @@ class Completion:
     decode_steps: int = 0
     ttft_s: float = 0.0           # submit -> first token available
     queue_wait_s: float = 0.0     # submit -> first admission into a slot
-    status: str = ST_OK
+    status: str = ST_OK           # terminal status (TERMINAL_STATUSES)
 
 
 @dataclasses.dataclass
@@ -133,25 +174,22 @@ class EngineConfig:
     prefix_cache: bool = True     # radix-trie KV reuse across requests
     max_batched_prefill: int = 4  # admissions per scheduler tick
     prefill_chunk: int = 256      # max prompt tokens advanced per row/tick
-    max_queue: int | None = None  # ROADMAP item 11
-    shed_policy: str = "reject-new"  # ROADMAP item 11
+    max_queue: int | None = None  # waiting-queue bound; None: unbounded
+    shed_policy: str = "reject-new"  # overload: reject-new | shed-oldest
     max_preemptions: int = 3      # starvation guard: never a victim after N
-    checksum_pages: bool = False  # ROADMAP item 11
-    quarantine_ticks: int = 8     # ROADMAP item 11
-    replay_dir: str | None = None  # ROADMAP item 11
-    role: str = "unified"         # ROADMAP item 12
+    checksum_pages: bool = False  # per-tick KV page CRC audit
+    quarantine_ticks: int = 8     # lane rest after a non-finite dispatch
+    replay_dir: str | None = None  # where failed requests' artifacts land
+    role: str = "unified"         # prefill | decode: ROADMAP item 12
     spec_k: int = 0               # drafted tokens a slot a tick; 0: off
     spec_max_ngram: int = 3       # longest n-gram the drafter matches
     spec_min_ngram: int = 1       # shortest n-gram worth proposing from
-    drift_check_every: int = 0    # ROADMAP item 12
+    drift_check_every: int = 0    # drift-guard period in ticks; 0: off
     drift_threshold_db: float = 6.0
 
 
 # field -> (default, ROADMAP item that brings the feature)
-_UNPORTED = {"max_queue": (None, 11),
-             "shed_policy": ("reject-new", 11), "checksum_pages": (False, 11),
-             "replay_dir": (None, 11), "role": ("unified", 12),
-             "drift_check_every": (0, 12)}
+_UNPORTED = {"role": ("unified", 12)}
 
 
 def _not_ported(what: str, item: int):
@@ -185,6 +223,7 @@ class _SeqState:
     request: Request
     seq_no: int = 0               # submission order (preemption priority)
     status: str = _QUEUED
+    term: str = ST_OK             # terminal status once status == _FINISHED
     slot: int = -1
     tokens: list[int] = dataclasses.field(default_factory=list)
     next_token: int = 0
@@ -202,6 +241,7 @@ class _SeqState:
     # the trie match kept across ticks: (trie generation, prompt
     # length, match); valid while neither changes
     match_cache: tuple | None = None
+    trace: Trace | None = None    # the request's stamp timeline
 
     def full_prompt(self) -> np.ndarray:
         """Prompt plus tokens generated before a preemption: greedy
@@ -219,7 +259,7 @@ class _SeqState:
                 if self.admit_t is not None else 0.0)
         return Completion(self.request.uid, np.asarray(self.tokens, np.int32),
                           self.prefill_s, self.decode_s, self.decode_steps,
-                          ttft_s=ttft, queue_wait_s=wait)
+                          ttft_s=ttft, queue_wait_s=wait, status=self.term)
 
 
 class Engine:
@@ -235,31 +275,50 @@ class Engine:
 
     ``cuda_graphs`` (on the card): replay each tick's step as a CUDA
     graph, one per shape key, captured after the key's first (eager)
-    tick; False runs every tick eagerly.  Meaningless on the CPU."""
+    tick; False runs every tick eagerly.  Meaningless on the CPU.
+
+    ``chaos`` (a :class:`~repro_torch.runtime.chaos.ChaosConfig` or an
+    injector) forces faults at the reference's sites; ``telemetry`` is
+    the :class:`~repro_torch.runtime.telemetry.Telemetry` bundle (one is
+    made when None), ``worker_name`` the engine's key prefix in its
+    registry and ``worker_id`` its process row in the trace."""
 
     def __init__(self, cfg: ModelConfig, params: DecoderLM | None = None,
                  rng_seed: int = 0, quant_bits: int | None = None,
                  act_quant: int | None = None, calib_prompts=None,
                  engine: EngineConfig | None = None,
-                 kv_dtype="float32", kv_codes: bool = False, chaos=None,
+                 kv_dtype="float32", kv_codes: bool = False,
+                 chaos: ChaosConfig | ChaosInjector | None = None,
+                 telemetry: Telemetry | None = None,
+                 worker_name: str = "", worker_id: int = 0,
                  device=None, cuda_graphs: bool = True):
         self.device = resolve_device(device)
         self.cuda_graphs = bool(cuda_graphs) and self.device.type == "cuda"
-        if chaos is not None:
-            raise _not_ported("chaos injection", 11)
         self.cfg = cfg
         self.api = mapi.get_model(cfg)
         self.engine_cfg = ec = engine or EngineConfig()
+        if ec.prefill_chunk < 1:
+            raise ValueError(f"prefill_chunk must be >= 1, got "
+                             f"{ec.prefill_chunk}")
+        if ec.shed_policy not in SHED_POLICIES:
+            raise ValueError(f"shed_policy must be one of {SHED_POLICIES}, "
+                             f"got {ec.shed_policy!r}")
         for field, (default, item) in _UNPORTED.items():
             if getattr(ec, field) != default:
                 raise _not_ported(f"EngineConfig.{field}="
                                   f"{getattr(ec, field)!r}", item)
-        if ec.prefill_chunk < 1:
-            raise ValueError(f"prefill_chunk must be >= 1, got "
-                             f"{ec.prefill_chunk}")
         if ec.spec_k < 0:
             raise ValueError(f"spec_k must be >= 0 (0 disables "
                              f"speculation), got {ec.spec_k}")
+        if ec.drift_check_every < 0:
+            raise ValueError(f"drift_check_every must be >= 0 (0 "
+                             f"disables), got {ec.drift_check_every}")
+        self.chaos: ChaosInjector | None = (
+            ChaosInjector(chaos) if isinstance(chaos, ChaosConfig) else chaos)
+        # the audit detects page corruption: armed whenever chaos can
+        # corrupt pages, else by the config
+        self._checksum = ec.checksum_pages or (
+            self.chaos is not None and self.chaos.cfg.corrupt_rate > 0)
         self.kv_codes = bool(kv_codes)
         # codes mode: pages hold uint8 codes (1 B per element)
         self.kv_dtype = torch.uint8 if self.kv_codes else kv_dtype_of(kv_dtype)
@@ -313,25 +372,52 @@ class Engine:
         self._slots: list[_SeqState | None] = [None] * ec.num_slots
         self._states: dict[int, _SeqState] = {}
         self._seq_counter = 0
-        self._clock = time.monotonic
-        self.total_decode_steps = 0
+
+        # telemetry: the counters of _ENGINE_COUNTERS live in the
+        # registry (int properties over it, below the class); a cluster
+        # would hand every worker one bundle
+        self.telemetry = telemetry or Telemetry()
+        self.worker_name = worker_name
+        self.worker_id = worker_id
+        self._scope = self.telemetry.registry.scope(worker_name)
+        self.tracer = self.telemetry.tracer
+        self._c = {attr: self._scope.counter(key, help=hint)
+                   for attr, (key, hint) in _ENGINE_COUNTERS.items()}
+        self.tracer.process_name(worker_id, worker_name or "engine")
+        self.tracer.process_name(REQUESTS_PID, "requests")
+        self.tracer.thread_name(worker_id, SCHED_TID, "scheduler")
+        for i in range(ec.num_slots):
+            self.tracer.thread_name(worker_id, lane_tid(i), f"slot{i}")
+        self.flight = FlightRecorder()
+        # port-only, outside the registry: tokens decoded, and the wall
+        # time inside prefill / decode dispatches (each ends with the
+        # host transfer that waits for the device)
         self.decode_tokens = 0
-        self.prefill_tokens_computed = 0
-        self.prefill_batches = 0
-        self.preemptions = 0
-        self.admission_reorders = 0   # prefix hits admitted past the head
-        self.trie_match_reuses = 0    # trie matches kept across ticks
-        self.spec_dispatches = 0      # verify dispatches run
-        self.spec_proposed = 0        # drafted tokens sent to verify
-        self.spec_accepted = 0        # drafted tokens accepted
-        # wall time inside prefill / decode dispatches (each ends with
-        # the host transfer that waits for the device)
         self.prefill_dispatch_s = 0.0
         self.decode_dispatch_s = 0.0
-        # the attention boundary's traffic, from shapes (_attn_accounting)
-        self.attn_bytes_read = 0
-        self.attn_act_bytes = 0
-        self.attn_dequants = 0
+
+        # lifecycle and faults: one monotonic clock for deadlines, the
+        # TTFT stamps and the trace (replaceable in tests)
+        self._clock = self.telemetry.clock
+        self._tick_no = 0
+        self._tick_tokens = 0
+        self.replay_artifacts: list[dict] = []
+        self._quarantined: dict[int, int] = {}   # slot -> release tick
+        self._chaos_blocked = False   # an admission faulted this tick
+        self._page_crc: dict[int, int] = {}      # page -> CRC32 (audit)
+        self.watchdog = StragglerWatchdog(threshold=3.0)
+        self.tick_latency = LatencyTracker()
+        self._register_gauges()
+        if self.chaos is not None:
+            self.telemetry.bind_chaos(self.chaos)
+
+        # drift guard: the newest prompt at one fixed length, and the
+        # per-site results behind its gauges
+        self._drift_probe: np.ndarray | None = None
+        self._drift_db: dict[str, float] = {}
+        self._drift_delta_db: dict[str, float] = {}
+        self._drift_registered: set[str] = set()
+
         # the step runners, by shape key (and policy): decode (cols,),
         # prefill (chunk width, cols), spec (cols,) at width spec_k + 1;
         # every graph shares one pool, as each replay's output is copied
@@ -341,35 +427,196 @@ class Engine:
         self._pool = (torch.cuda.graph_pool_handle() if self.cuda_graphs
                       else None)
 
+    def _register_gauges(self) -> None:
+        """Callback gauges over the live state, read when the registry
+        is read (a replaced ``watchdog`` or ``tick_latency`` is
+        followed).  They hold the engine weakly: the engine owns its
+        registry, and a gauge that held it would make a cycle that keeps
+        a dropped engine's pools and graphs until a cyclic collection."""
+        s, g = self._scope, _weak_reader(self)
+        s.gauge("engine.ticks", g(lambda e: e._tick_no),
+                help="scheduler ticks run")
+        s.gauge("engine.queue.depth", g(lambda e: len(e._queue)),
+                help="requests waiting for admission")
+        s.gauge("engine.slots.live", g(lambda e: e.live_slots),
+                help="occupied decode lanes")
+        s.gauge("engine.tick.p50_s",
+                g(lambda e: e.tick_latency.percentile(50)))
+        s.gauge("engine.tick.p99_s",
+                g(lambda e: e.tick_latency.percentile(99)))
+        s.gauge("engine.tick.mean_s", g(lambda e: e.tick_latency.mean_s))
+        s.gauge("engine.spec.accept_rate",
+                g(lambda e: (e.spec_accepted / e.spec_proposed
+                             if e.spec_proposed else 0.0)),
+                help="drafted tokens accepted / drafted tokens verified")
+        self.cache.register_metrics(s)
+        if self.prefix is not None:
+            for name in ("queries", "hits", "hit_rate", "token_hit_rate",
+                         "tokens_reused", "evicted_pages", "cow_copies"):
+                s.gauge(f"engine.prefix.{name}",
+                        g(lambda e, a=name: getattr(e.prefix.stats, a)))
+            s.gauge("engine.prefix.pages", g(lambda e: e.prefix.num_pages))
+
     # ---------------------------------------------------------------- api
     def submit(self, request: Request) -> int:
-        """Enqueue a request; returns its handle (the uid)."""
+        """Enqueue a request; returns its handle (the uid).  With
+        ``max_queue`` set, a submit past the bound sheds: ``reject-new``
+        makes this request terminal ``rejected`` (its handle still
+        answers), ``shed-oldest`` rejects the oldest queued request and
+        enqueues this one.  A malformed request raises."""
         if request.uid in self._states:
             raise ValueError(f"duplicate uid {request.uid}")
-        if request.deadline_s is not None:
-            raise _not_ported("Request.deadline_s", 11)
         plen = len(request.prompt)
-        if plen + request.max_new_tokens > self.engine_cfg.max_seq_len:
+        ec = self.engine_cfg
+        if plen + request.max_new_tokens > ec.max_seq_len:
             raise ValueError(
                 f"request {request.uid}: prompt {plen} + max_new "
                 f"{request.max_new_tokens} exceeds max_seq_len "
-                f"{self.engine_cfg.max_seq_len}")
+                f"{ec.max_seq_len}")
         st = _SeqState(request, seq_no=self._seq_counter,
                        submit_t=self._clock())
+        st.trace = Trace(request.uid, st.submit_t)
+        if ec.drift_check_every and plen:
+            # the drift guard probes live traffic: the newest prompt,
+            # resized to one length
+            self._drift_probe = np.resize(
+                np.asarray(request.prompt, np.int32), 32)
         self._seq_counter += 1
         self._states[request.uid] = st
+        if ec.max_queue is not None and len(self._queue) >= ec.max_queue:
+            self.shed += 1
+            if ec.shed_policy == "reject-new":
+                st.status, st.term = _FINISHED, ST_REJECTED
+                self._finish_trace(st, ST_REJECTED)
+                return request.uid
+            self._terminate(self._queue[0], ST_REJECTED)  # shed-oldest
         self._queue.append(st)
         return request.uid
+
+    def cancel(self, handle: int) -> bool:
+        """Cancel a live request wherever it is -- queued, between
+        prefill chunks (its pages freed, its trie pins dropped) or
+        mid-decode.  True if it was live (now ``cancelled``, its tokens
+        kept), False if terminal already or unknown."""
+        st = self._states.get(handle)
+        if st is None or st.status == _FINISHED:
+            return False
+        self._terminate(st, ST_CANCELLED)
+        self.cancelled += 1
+        return True
+
+    def drain_queue(self, status: str = ST_REJECTED) -> int:
+        """Make every queued (not yet admitted) request terminal with
+        ``status`` while the running slots keep decoding; returns how
+        many."""
+        n = 0
+        while self._queue:
+            self._terminate(self._queue[0], status)
+            self.shed += status == ST_REJECTED
+            n += 1
+        return n
+
+    # ------------------------------------------------- crash recovery
+    def snapshot(self) -> dict:
+        """The request bookkeeping as a JSON-serializable record: each
+        request's prompt, tokens so far and stamps, terminal ones with
+        their status.  No KV: a crash loses it, and greedy decoding
+        re-prefills prompt plus tokens to the same stream."""
+        reqs = []
+        for st in sorted(self._states.values(), key=lambda s: s.seq_no):
+            r = st.request
+            reqs.append({
+                "uid": int(r.uid),
+                "prompt": np.asarray(r.prompt, np.int32).tolist(),
+                "max_new_tokens": int(r.max_new_tokens),
+                "stop_token": (None if r.stop_token is None
+                               else int(r.stop_token)),
+                "deadline_s": r.deadline_s,
+                "tokens": [int(t) for t in st.tokens],
+                "terminal": st.status == _FINISHED,
+                "term": st.term,
+                "preemptions": st.preemptions,
+                "decode_steps": st.decode_steps,
+                "submit_t": st.submit_t,
+            })
+        return {"version": 1, "requests": reqs}
+
+    def restore(self, snap: dict) -> int:
+        """Rebuild the bookkeeping of :meth:`snapshot` into this engine,
+        which must have no live request: terminal requests keep their
+        status, the others re-queue (prompt plus tokens so far; a warm
+        trie serves what it holds).  Deadlines keep their submit stamp.
+        Returns the number re-queued."""
+        if self.pending:
+            raise RuntimeError(
+                "restore() needs an engine with no live requests: drain "
+                "or cancel in-flight work first")
+        if snap.get("version") != 1:
+            raise ValueError(f"unknown snapshot version {snap.get('version')}")
+        for rec in snap["requests"]:
+            if rec["uid"] in self._states:
+                raise ValueError(
+                    f"snapshot uid {rec['uid']} collides with an "
+                    f"uncollected completion; collect() first")
+        requeued = 0
+        for rec in snap["requests"]:
+            req = Request(rec["uid"], np.asarray(rec["prompt"], np.int32),
+                          max_new_tokens=rec["max_new_tokens"],
+                          stop_token=rec["stop_token"],
+                          deadline_s=rec["deadline_s"])
+            st = _SeqState(req, seq_no=self._seq_counter,
+                           submit_t=rec["submit_t"])
+            self._seq_counter += 1
+            st.tokens = list(rec["tokens"])
+            if st.tokens:
+                st.next_token = st.tokens[-1]
+            st.preemptions = rec["preemptions"]
+            st.decode_steps = rec["decode_steps"]
+            self._states[req.uid] = st
+            if rec["terminal"]:
+                st.status, st.term = _FINISHED, rec["term"]
+            else:
+                self._queue.append(st)
+                requeued += 1
+        return requeued
 
     @property
     def pending(self) -> bool:
         return bool(self._queue) or any(s is not None for s in self._slots)
 
+    @property
+    def queue_depth(self) -> int:
+        """Requests waiting for admission."""
+        return len(self._queue)
+
+    @property
+    def live_slots(self) -> int:
+        """Occupied decode lanes."""
+        return sum(s is not None for s in self._slots)
+
     def step(self) -> list[Completion]:
-        """One scheduler tick: admit, advance prefills by one chunk,
-        decode once, retire.  Returns the completions of this tick."""
+        """One scheduler tick: expire deadlines, audit the checksums,
+        admit, advance prefills by one chunk, decode once, retire.
+        Returns the completions of this tick."""
+        t_tick = self._clock()
+        self._tick_no += 1
+        self._tick_tokens = 0         # prefill + decode tokens this tick
+        self._chaos_blocked = False
+        if self.chaos is not None:
+            delay = self.chaos.tick_delay()
+            if delay > 0.0:
+                time.sleep(delay)
+        self._expire_deadlines()
+        self._audit_pages()
+        ec = self.engine_cfg
+        if ec.drift_check_every and self._tick_no % ec.drift_check_every == 0:
+            self._drift_check()
+        for slot in [s for s, until in self._quarantined.items()
+                     if until <= self._tick_no]:
+            del self._quarantined[slot]
         self._admit()
-        if self._queue and all(s is None for s in self._slots):
+        if (self._queue and all(s is None for s in self._slots)
+                and not self._chaos_blocked and not self._quarantined):
             raise RuntimeError(
                 "no admissible request: head of queue needs more KV "
                 "blocks than the pool can ever free")
@@ -378,6 +625,37 @@ class Engine:
                   if s is not None and s.prefill_done]
         if active:
             finished += self._decode_tick(active)
+        # chaos: corrupt one checksummed page at the end of the tick;
+        # the next tick's audit must catch it before any dispatch
+        if self.chaos is not None and self._page_crc:
+            page = self.chaos.corrupt_page(sorted(self._page_crc))
+            if page is not None:
+                self.cache.corrupt_page(page)
+        t_end = self._clock()
+        dt_tick = t_end - t_tick
+        self.tick_latency.observe(dt_tick)
+        if self.watchdog.observe(self._tick_no, dt_tick):
+            self.slow_ticks += 1
+        # the flight recorder: one small record a tick into a bounded
+        # ring, dumped with every replay artifact
+        self.flight.record(tick=self._tick_no, t=t_tick, dt_s=dt_tick,
+                           queue_depth=len(self._queue),
+                           live_slots=self.live_slots,
+                           free_pages=self.cache.allocator.free_blocks,
+                           finished=len(finished))
+        if self.tracer.enabled:
+            pid = self.worker_id
+            self.tracer.complete(pid, SCHED_TID, "tick", t_tick, t_end,
+                                 tick=self._tick_no)
+            self.tracer.counter(pid, "queue_depth", t_end,
+                                depth=len(self._queue))
+            self.tracer.counter(pid, "live_slots", t_end,
+                                live=self.live_slots)
+            self.tracer.counter(pid, "free_pages", t_end,
+                                free=self.cache.allocator.free_blocks)
+            if dt_tick > 0:
+                self.tracer.counter(pid, "tok_s", t_end,
+                                    tok_s=self._tick_tokens / dt_tick)
         return finished
 
     def stream(self, handle: int) -> Iterator[int]:
@@ -393,6 +671,12 @@ class Engine:
             if st.status == _FINISHED:
                 return
             self.step()
+
+    def result(self, handle: int) -> Completion | None:
+        """The completion of a terminal request not yet collected, else
+        None."""
+        st = self._states.get(handle)
+        return st.completion() if st and st.status == _FINISHED else None
 
     def collect(self) -> list[Completion]:
         """Pop every finished request's completion, sorted by uid."""
@@ -425,16 +709,229 @@ class Engine:
         else:
             self.cache.audit_partition(set(), {})
 
+    @property
+    def metrics(self):
+        """This engine's scope of the metrics registry: the one store of
+        its counters and gauges."""
+        return self._scope
+
+    def fault_stats(self) -> dict:
+        """Lifecycle, fault and tick-latency figures (the reference's
+        dict, read from the registry), plus the injector's counts."""
+        d = {"ticks": self._tick_no,
+             "cancelled": self.cancelled,
+             "deadline_expired": self.deadline_expired,
+             "shed": self.shed,
+             "failed": self.failed,
+             "starvation_pins": self.starvation_pins,
+             "alloc_faults_absorbed": self.alloc_faults_absorbed,
+             "nan_rows_detected": self.nan_rows_detected,
+             "corruptions_detected": self.corruptions_detected,
+             "quarantines": self.quarantines,
+             "slow_ticks": self.slow_ticks,
+             "tick_p50_s": self.tick_latency.percentile(50),
+             "tick_p99_s": self.tick_latency.percentile(99),
+             "tick_mean_s": self.tick_latency.mean_s}
+        if self.chaos is not None:
+            d.update(self.chaos.stats())
+        return d
+
     def graph_captures(self) -> tuple[int, float]:
         """(CUDA graphs captured, seconds spent capturing them)."""
         done = [r for d in self.step_runners.values() for r in d.values()
                 if r.graph is not None]
         return len(done), sum(r.capture_s for r in done)
 
+    # ----------------------------------------------------------- tracing
+    def _finish_trace(self, st: _SeqState, status: str) -> None:
+        """Close a request's trace with its one terminal stamp, archive
+        it, and (tracing on) emit its spans on its own row of the
+        ``requests`` process: the whole request, and queued / prefill /
+        decode inside it."""
+        tr = st.trace
+        if tr is None:
+            return
+        st.trace = None
+        t = self._clock()
+        tr.stamp("terminal", t, status=status)
+        tr.status = status
+        self.telemetry.finish_trace(tr)
+        if not self.tracer.enabled:
+            return
+        uid = tr.uid
+        t_sub = tr.submit_t
+        self.tracer.thread_name(REQUESTS_PID, uid, f"req{uid}")
+        self.tracer.complete(REQUESTS_PID, uid, "request", t_sub, t,
+                             uid=uid, status=status)
+        admit, first = st.admit_t, st.first_token_t
+        self.tracer.complete(REQUESTS_PID, uid, "queued", t_sub,
+                             admit if admit is not None else t, uid=uid)
+        if admit is not None:
+            self.tracer.complete(REQUESTS_PID, uid, "prefill", admit,
+                                 first if first is not None else t, uid=uid)
+        if first is not None:
+            self.tracer.complete(REQUESTS_PID, uid, "decode", first, t,
+                                 uid=uid, tokens=len(st.tokens))
+
+    # ------------------------------------------------------ failure model
+    def _terminate(self, st: _SeqState, status: str) -> None:
+        """The one transition to a terminal status other than ``ok``,
+        from any live state: a running request's owned pages go back to
+        the free list and its trie pins drop; a queued one leaves the
+        queue.  Its tokens so far stay in its completion."""
+        assert status in TERMINAL_STATUSES, status
+        if st.status == _RUNNING:
+            slot = st.slot
+            self._slots[slot] = None
+            self.cache.release_slot(slot)
+            if self.prefix is not None:
+                self.prefix.unpin(st.pinned)
+            st.pinned = []
+            st.slot = -1
+        elif st.status == _QUEUED:
+            try:
+                self._queue.remove(st)
+            except ValueError:
+                pass    # mid-submit: not enqueued yet
+        st.status, st.term = _FINISHED, status
+        self._finish_trace(st, status)
+
+    def _fault(self, st: _SeqState, kind: str) -> None:
+        """Fail one request on a detected fault: its replay artifact
+        first (a fault stamp naming it lands on the trace), then the
+        terminal status."""
+        art_name = (f"replay_uid{int(st.request.uid)}_"
+                    f"tick{self._tick_no}.json")
+        if st.trace is not None:
+            st.trace.stamp("fault", self._clock(), kind=kind,
+                           artifact=art_name)
+        self.tracer.instant(self.worker_id, SCHED_TID, f"fault:{kind}",
+                            uid=int(st.request.uid), artifact=art_name)
+        self._replay_artifact(st, kind)
+        self.failed += 1
+        self._terminate(st, ST_FAILED)
+
+    def _quarantine(self, slot: int) -> None:
+        """Rest a lane after a non-finite dispatch: admission skips it
+        until the release tick."""
+        self._quarantined[slot] = (self._tick_no
+                                   + self.engine_cfg.quarantine_ticks)
+        self.quarantines += 1
+
+    def _replay_artifact(self, st: _SeqState, kind: str) -> None:
+        art = {"kind": kind,
+               "tick": self._tick_no,
+               "uid": int(st.request.uid),
+               "prompt": np.asarray(st.request.prompt, np.int32).tolist(),
+               "tokens": [int(t) for t in st.tokens],
+               "seq_no": st.seq_no,
+               "preemptions": st.preemptions,
+               "chaos": None if self.chaos is None else self.chaos.stats(),
+               # the last ticks of this engine, and the request's stamps
+               "flight_recorder": self.flight.dump(),
+               "trace": None if st.trace is None else st.trace.to_dict()}
+        self.replay_artifacts.append(art)
+        rd = self.engine_cfg.replay_dir
+        if rd:
+            os.makedirs(rd, exist_ok=True)
+            path = os.path.join(rd, f"replay_uid{art['uid']}_"
+                                    f"tick{art['tick']}.json")
+            with open(path, "w") as f:
+                json.dump(art, f)
+
+    def _expire_deadlines(self) -> None:
+        """Requests past their deadline go terminal wherever they are."""
+        now = self._clock()
+        for st in list(self._states.values()):
+            d = st.request.deadline_s
+            if (d is not None and st.status != _FINISHED
+                    and now - st.submit_t > d):
+                self._terminate(st, ST_DEADLINE)
+                self.deadline_expired += 1
+
+    def _record_crcs(self, pages) -> None:
+        """Record the checksums of pages a dispatch wrote (in order)."""
+        for page, crc in zip(pages, self.cache.page_checksums(pages)):
+            self._page_crc[page] = crc
+
+    def _audit_pages(self) -> None:
+        """Verify the recorded page checksums before this tick's
+        dispatches (all pages in one transfer).  A mismatch fails every
+        sequence whose table holds the page; a cached page drops its
+        trie subtree (whose prefixes run through it)."""
+        if not self._checksum or not self._page_crc:
+            return
+        live: set[int] = set()
+        for i, st in enumerate(self._slots):
+            if st is not None:
+                live.update(self.cache.slot_blocks[i])
+        trie_pages = (self.prefix.pages() if self.prefix is not None
+                      else set())
+        live |= trie_pages
+        for page in [p for p in self._page_crc if p not in live]:
+            del self._page_crc[page]    # freed since recorded
+        recorded = list(self._page_crc.items())
+        now = self.cache.page_checksums([p for p, _ in recorded])
+        for (page, crc), cur in zip(recorded, now):
+            if cur == crc:
+                continue
+            self.corruptions_detected += 1
+            for i, st in enumerate(list(self._slots)):
+                if st is not None and page in self.cache.slot_blocks[i]:
+                    self._fault(st, "kv_corruption")
+            if self.prefix is not None and page in trie_pages:
+                for freed in self.prefix.drop_subtree(page):
+                    self._page_crc.pop(freed, None)
+            self._page_crc.pop(page, None)
+
+    def _drift_check(self) -> None:
+        """The calibration drift guard: re-measure each act-quant site's
+        round-trip SQNR on a live prompt under the attached tables and
+        compare with the calibration report's mean.  A site more than
+        ``drift_threshold_db`` below it warns and counts in
+        ``drift_warnings``; refitting stays manual.  The results back
+        the ``calib.drift.<site>_db`` / ``_delta_db`` gauges, registered
+        on first sight."""
+        aq = self.params.tree()["blocks"].get("act_q")
+        if (not isinstance(aq, dict) or self._drift_probe is None
+                or self.api.collect_act_calibration is None):
+            return
+        probe = torch.as_tensor(self._drift_probe[None, :], device=self.device)
+        with torch.no_grad():
+            samples = self.api.collect_act_calibration(self.params, probe,
+                                                       self.cfg)
+        cur = cal.measure_sqnr(samples, aq)
+        ref = cal.report_means(self.act_report)
+        self.drift_checks += 1
+        thr = self.engine_cfg.drift_threshold_db
+        for site, db in cur.items():
+            self._drift_db[site] = db
+            delta = db - ref[site] if site in ref else 0.0
+            self._drift_delta_db[site] = delta
+            if site not in self._drift_registered:
+                self._drift_registered.add(site)
+                g = _weak_reader(self)
+                self._scope.gauge(
+                    f"calib.drift.{site}_db",
+                    g(lambda e, s=site: e._drift_db.get(s, 0.0)),
+                    help="serving-time round-trip SQNR at this site")
+                self._scope.gauge(
+                    f"calib.drift.{site}_delta_db",
+                    g(lambda e, s=site: e._drift_delta_db.get(s, 0.0)),
+                    help="serving SQNR minus the calibration-report mean")
+            if site in ref and delta < -thr:
+                self.drift_warnings += 1
+                warnings.warn(
+                    f"calibration drift at {site}: serving SQNR "
+                    f"{db:.1f} dB is {-delta:.1f} dB below the "
+                    f"calibration report ({ref[site]:.1f} dB) -- "
+                    f"consider refitting the act-quant tables")
+
     # ---------------------------------------------------------- scheduler
     def _free_slot(self) -> int | None:
+        """The lowest free lane that is not quarantined."""
         for i, s in enumerate(self._slots):
-            if s is None:
+            if s is None and i not in self._quarantined:
                 return i
         return None
 
@@ -460,6 +957,7 @@ class Engine:
             self.prefix.unpin(st.pinned)
             st.pinned = []
         st.status = _FINISHED
+        self._finish_trace(st, st.term)
         return st.completion()
 
     def _preempt(self, slot: int) -> None:
@@ -477,7 +975,12 @@ class Engine:
         st.slot = -1
         st.status = _QUEUED
         st.preemptions += 1
+        if st.trace is not None:
+            st.trace.stamp("preempt", self._clock(), n=st.preemptions)
         self.preemptions += 1
+        if st.preemptions == self.engine_cfg.max_preemptions:
+            # the starvation guard: no longer a victim of _make_room
+            self.starvation_pins += 1
         self._queue.appendleft(st)
 
     def _make_room(self, need: int, seq_no: int, *,
@@ -511,6 +1014,13 @@ class Engine:
         st = self._slots[slot]
         pos = int(self.cache.lengths[slot])
         if pos == len(self.cache.slot_blocks[slot]) * self.engine_cfg.block_size:
+            # chaos: the growth allocation fails -- preempt this
+            # sequence (its recompute gives the same tokens)
+            if self.chaos is not None and self.chaos.alloc_fault():
+                self.alloc_faults_absorbed += 1
+                self._chaos_blocked = True
+                self._preempt(slot)
+                return
             if not self._make_room(1, st.seq_no):
                 if any(s is not None and s is not st for s in self._slots):
                     self._preempt(slot)
@@ -599,6 +1109,14 @@ class Engine:
         need = need_total - len(nodes) + (1 if cow else 0)
         if self.prefix is not None:
             self.prefix.pin(nodes)      # safe from eviction in _make_room
+        # chaos: the allocation fails -- the request stays queued
+        if (need > 0 and self.chaos is not None
+                and self.chaos.alloc_fault()):
+            if self.prefix is not None:
+                self.prefix.unpin(nodes)
+            self.alloc_faults_absorbed += 1
+            self._chaos_blocked = True
+            return False
         if not self._make_room(need, st.seq_no, allow_preempt=allow_preempt):
             if self.prefix is not None:
                 self.prefix.unpin(nodes)
@@ -625,6 +1143,9 @@ class Engine:
         st.prefill_done = False
         if st.admit_t is None:
             st.admit_t = self._clock()
+            if st.trace is not None:
+                st.trace.stamp("admit", st.admit_t, slot=slot,
+                               prefix_len=prefix_len)
         self._slots[slot] = st
         return True
 
@@ -720,12 +1241,6 @@ class Engine:
             v["tokens"], v["mask"] != 0, self.cfg)
         return _greedy(logits)
 
-    def _check_finite(self, ok, rows) -> None:
-        bad = [self._slots[i].request.uid for i in rows if not ok[i]]
-        if bad:
-            raise _not_ported(f"non-finite logits for requests {bad}; "
-                              f"failing them alone", 11)
-
     # ------------------------------------------------------ chunk prefill
     def _prefill_tick(self) -> list[Completion]:
         """Advance every prefilling slot by one chunk in ONE full-width
@@ -763,23 +1278,54 @@ class Engine:
             h["tokens"][i, :take] = st.full_prompt()[s0:s0 + take]
             h["start"][i] = s0
             self.prefill_tokens_computed += take
+            self._tick_tokens += take
             self._attn_accounting(take, s0 + take)
         nxt, ok = run.run(self._prefill_step)
-        dt = self._clock() - t0
+        t1 = self._clock()
+        dt = t1 - t0
         self.prefill_dispatch_s += dt
         run.capture(self._prefill_step)
 
+        # the pages each row wrote, taken before a retire or a fault
+        # changes the tables
+        row_pages: dict[int, list[int]] = {}
+        if self._checksum:
+            for i, st in pref:
+                s0 = st.prefix_len + st.prefill_pos
+                if takes[i]:
+                    row_pages[i] = [
+                        int(self.cache.block_tables[i, c])
+                        for c in range(s0 // bs, (s0 + takes[i] - 1) // bs + 1)]
+        # only rows completing their prompt consume the logits
         completing = [i for i, st in pref
                       if st.prefix_len + st.prefill_pos + takes[i]
                       >= len(st.full_prompt())
                       and st.request.max_new_tokens > 0]
-        self._check_finite(ok, completing)
+        if self.chaos is not None:
+            bad = self.chaos.nan_slot(completing)
+            if bad is not None:
+                ok[bad] = 0         # the path a device NaN takes
         finished: list[Completion] = []
+        faulted: set[int] = set()
         for i, st in pref:
             st.prefill_s += dt      # coalesced rows share the stamp
             st.prefill_pos += takes[i]
+            if self.tracer.enabled and takes[i]:
+                self.tracer.complete(self.worker_id, lane_tid(i),
+                                     "prefill_chunk", t0, t1,
+                                     uid=st.request.uid, tokens=takes[i])
+                if st.trace is not None:
+                    st.trace.stamp("prefill_chunk", t1, slot=i,
+                                   tokens=takes[i])
             if st.prefix_len + st.prefill_pos < len(st.full_prompt()):
                 continue            # more chunks to go
+            if i in completing and not ok[i]:
+                # non-finite logits: fail this request, rest the lane
+                self.nan_rows_detected += 1
+                self._quarantine(i)
+                self._fault(st, "nan_logits")
+                faulted.add(i)
+                continue
             st.prefill_done = True
             r = st.request
             if r.max_new_tokens > 0 and len(st.tokens) < r.max_new_tokens:
@@ -787,8 +1333,13 @@ class Engine:
                 st.next_token = st.tokens[-1]
             if st.first_token_t is None and st.tokens:
                 st.first_token_t = self._clock()
+                if st.trace is not None:
+                    st.trace.stamp("first_token", st.first_token_t)
             if self._should_stop(st):
                 finished.append(self._retire(i))
+        if row_pages:   # a faulted row's pages were freed
+            self._record_crcs([p for i, pages in row_pages.items()
+                               if i not in faulted for p in pages])
         return finished
 
     # ------------------------------------------------------------- decode
@@ -823,21 +1374,46 @@ class Engine:
             h["mask"][i] = 1
             self._attn_accounting(1, int(self.cache.lengths[i]) + 1)
         nxt, ok = run.run(self._decode_step)
-        dt = self._clock() - t0
+        t1 = self._clock()
+        dt = t1 - t0
         self.decode_dispatch_s += dt
         run.capture(self._decode_step)
         self.total_decode_steps += 1
-        self.decode_tokens += len(active)
-        self._check_finite(ok, [i for i, _ in active])
+        if self.chaos is not None:
+            bad = self.chaos.nan_slot([i for i, _ in active])
+            if bad is not None:
+                ok[bad] = 0         # the path a device NaN takes
+        bs = self.engine_cfg.block_size
+        written: list[int] = []     # the page each row wrote, for the audit
         finished: list[Completion] = []
         for i, st in active:
-            self.cache.lengths[i] += 1
+            if not ok[i]:
+                # non-finite logits: fail this request, rest the lane,
+                # keep the batch running
+                self.nan_rows_detected += 1
+                self._quarantine(i)
+                self._fault(st, "nan_logits")
+                continue
+            pos = int(self.cache.lengths[i])
+            self.cache.lengths[i] = pos + 1
             st.decode_steps += 1
             st.decode_s += dt
-            st.tokens.append(int(nxt[i]))
-            st.next_token = st.tokens[-1]
+            tok = int(nxt[i])
+            st.tokens.append(tok)
+            st.next_token = tok
+            self.decode_tokens += 1
+            self._tick_tokens += 1
+            if self.tracer.enabled:
+                self.tracer.complete(self.worker_id, lane_tid(i), "decode",
+                                     t0, t1, uid=st.request.uid, token=tok)
+                if st.trace is not None:
+                    st.trace.stamp("decode_tick", t1, slot=i)
+            if self._checksum:
+                written.append(int(self.cache.block_tables[i, pos // bs]))
             if self._should_stop(st):
                 finished.append(self._retire(i))
+        if written:
+            self._record_crcs(written)
         return finished
 
     # ------------------------------------------------- speculative decode
@@ -902,15 +1478,25 @@ class Engine:
             pre_pos[i] = int(self.cache.lengths[i])
             self._attn_accounting(n, pre_pos[i] + n)
         out = run.run(self._spec_step)
-        dt = self._clock() - t0
+        t1 = self._clock()
+        dt = t1 - t0
         self.decode_dispatch_s += dt
         run.capture(self._spec_step)
         self.total_decode_steps += 1
         self.spec_dispatches += 1
         greedy, acc, ok = out[:, :width], out[:, width], out[:, width + 1]
-        self._check_finite(ok, [i for i, _ in active])
+        if self.chaos is not None:
+            bad = self.chaos.nan_slot([i for i, _ in active])
+            if bad is not None:
+                ok[bad] = 0         # the path a device NaN takes
+        written: list[int] = []     # the pages each window wrote
         finished: list[Completion] = []
         for i, st in active:
+            if not ok[i]:
+                self.nan_rows_detected += 1
+                self._quarantine(i)
+                self._fault(st, "nan_logits")
+                continue
             d = drafts.get(i)
             a = int(acc[i]) if d is not None else 0
             self.spec_accepted += a
@@ -927,10 +1513,127 @@ class Engine:
             # the commit is the rewind: only committed positions count
             self.cache.lengths[i] = pre_pos[i] + len(committed)
             self.decode_tokens += len(committed)
+            self._tick_tokens += len(committed)
+            if self.tracer.enabled:
+                self.tracer.complete(self.worker_id, lane_tid(i),
+                                     "spec_decode", t0, t1,
+                                     uid=st.request.uid,
+                                     tokens=len(committed), accepted=a)
+                if st.trace is not None:
+                    st.trace.stamp(
+                        "spec_verify", t1, slot=i, accepted=a,
+                        proposed=(len(d) if d is not None else 0))
+            if self._checksum:
+                # every page the window wrote, accepted or not: the
+                # rejected tail's bytes stay until overwritten
+                n = int(h["n_tok"][i])
+                written.extend(int(self.cache.block_tables[i, c]) for c in
+                               range(pre_pos[i] // bs,
+                                     (pre_pos[i] + n - 1) // bs + 1))
             if self._should_stop(st):
                 finished.append(self._retire(i))
+        if written:
+            self._record_crcs(written)
         return finished
 
 
+def _weak_reader(obj):
+    """Wrap ``fn(obj)`` as a gauge callback that holds ``obj`` weakly
+    (it reads 0 once ``obj`` is gone, as a shared registry may outlive
+    it)."""
+    ref = weakref.ref(obj)
+
+    def reader(fn):
+        def read():
+            o = ref()
+            return 0 if o is None else fn(o)
+        return read
+    return reader
+
+
+# The engine's counters live in the metrics registry, under the
+# reference's keys; the attribute names stay, as int properties over the
+# registered Counter.  The handoff counters belong to the cluster (ROADMAP
+# item 12) and stay 0 here; they are registered so that the registry holds
+# the reference engine's keys (tests/test_torch_telemetry.py compares them).
+_ENGINE_COUNTERS = {
+    "total_decode_steps":
+        ("engine.decode.steps", "batched decode dispatches run"),
+    "prefill_tokens_computed":
+        ("engine.prefill.tokens", "prompt tokens actually computed"),
+    "prefill_batches":
+        ("engine.prefill.chunks", "chunked prefill dispatches issued"),
+    "preemptions":
+        ("engine.sched.preemptions", "sequences preempted for pages"),
+    "admission_reorders":
+        ("engine.sched.reorders", "prefix hits admitted past a blocked head"),
+    "trie_match_reuses":
+        ("engine.sched.trie_reuses", "memoized trie matches served"),
+    "starvation_pins":
+        ("engine.sched.starvation_pins", "sequences pinned by the guard"),
+    "handoffs":
+        ("engine.handoff.exported", "prefill role: requests exported"),
+    "handoff_bytes":
+        ("engine.handoff.exported_bytes", "KV bytes copied out for migration"),
+    "imported_handoffs":
+        ("engine.handoff.imported", "decode role: migrations admitted"),
+    "imported_bytes":
+        ("engine.handoff.imported_bytes", "KV bytes scattered into this pool"),
+    "cancelled":
+        ("engine.lifecycle.cancelled", "Engine.cancel() terminations"),
+    "deadline_expired":
+        ("engine.lifecycle.deadline_expired", "deadline_s budgets blown"),
+    "shed":
+        ("engine.lifecycle.shed", "backpressure rejections"),
+    "failed":
+        ("engine.lifecycle.failed", "NaN/corruption terminations"),
+    "alloc_faults_absorbed":
+        ("engine.faults.alloc_absorbed", "injected alloc failures survived"),
+    "nan_rows_detected":
+        ("engine.faults.nan_rows", "non-finite logits rows quarantined"),
+    "corruptions_detected":
+        ("engine.faults.corruptions", "CRC mismatches caught"),
+    "attn_bytes_read":
+        ("engine.attn.bytes_read", "attention kernel input bytes "
+                                   "(q + KV pages), analytic"),
+    "attn_act_bytes":
+        ("engine.attn.bytes_act", "activation bytes crossing the "
+                                  "attention boundary (q in, ctx out)"),
+    "attn_dequants":
+        ("engine.attn.dequants", "elements LUT-decoded inside the "
+                                 "attention kernels (codes mode)"),
+    "slow_ticks":
+        ("engine.faults.slow_ticks", "watchdog-flagged scheduler ticks"),
+    "quarantines":
+        ("engine.faults.quarantines", "slot lanes rested after a fault"),
+    "spec_dispatches":
+        ("engine.spec.dispatches", "speculative verify dispatches run"),
+    "spec_proposed":
+        ("engine.spec.proposed", "drafted tokens sent for verification"),
+    "spec_accepted":
+        ("engine.spec.accepted", "drafted tokens accepted by greedy "
+                                 "verification"),
+    "drift_checks":
+        ("calib.drift.checks", "drift-guard SQNR probes run"),
+    "drift_warnings":
+        ("calib.drift.warnings", "site probes past drift_threshold_db"),
+}
+
+
+def _install_counter_views(cls, mapping) -> None:
+    for attr in mapping:
+        def _get(self, _a=attr):
+            return self._c[_a].value
+
+        def _set(self, v, _a=attr):
+            self._c[_a]._value = int(v)
+
+        setattr(cls, attr, property(_get, _set))
+
+
+_install_counter_views(Engine, _ENGINE_COUNTERS)
+
+
 __all__ = ["Engine", "EngineConfig", "Request", "Completion", "ST_OK",
-           "kv_dtype_of"]
+           "ST_CANCELLED", "ST_DEADLINE", "ST_REJECTED", "ST_FAILED",
+           "TERMINAL_STATUSES", "SHED_POLICIES", "kv_dtype_of"]

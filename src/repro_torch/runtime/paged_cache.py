@@ -21,11 +21,19 @@ of them each step (``view``, or ``fill`` into a step's own buffers and
 ``bind``).  Pools are float32, bfloat16 or float8_e4m3fn, or uint8 in
 codes mode (each element a DNA-TEQ code under its layer's per-head
 table).
+
+The engine's checksum audit reads pages through ``page_checksums``: the
+reference's CRC32 of a page's K bytes then V bytes (the pools have its
+layout, so byte-equal pages give its CRC), all pages of a call in one
+gather and one copy to the host.  ``corrupt_page`` (chaos) writes in
+place, so a captured step sees it.
 """
 
 from __future__ import annotations
 
 import math
+import weakref
+import zlib
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -145,6 +153,7 @@ class PagedKVCache:
         # the subset of slot_blocks[i] pinned from the prefix trie:
         # read-only for the slot, written only after cow_slot_page
         self.slot_shared: list[set[int]] = [set() for _ in range(num_slots)]
+        self._crc_host: torch.Tensor | None = None   # page_checksums' buffer
 
     @property
     def nbytes(self) -> int:
@@ -153,6 +162,34 @@ class PagedKVCache:
 
     def blocks_for(self, tokens: int) -> int:
         return max(1, math.ceil(tokens / self.block_size))
+
+    @property
+    def bytes_per_block(self) -> int:
+        """Bytes of one page: K and V, every layer."""
+        l, _, bs, kv, hd = self.k_pages.shape
+        return 2 * l * bs * kv * hd * self.k_pages.element_size()
+
+    def kv_bytes_in_use(self) -> int:
+        return self.allocator.blocks_in_use * self.bytes_per_block
+
+    def peak_kv_bytes(self) -> int:
+        return self.allocator.peak_in_use * self.bytes_per_block
+
+    def register_metrics(self, scope) -> None:
+        """Register the allocator's gauges under ``engine.pages.*`` in a
+        metrics scope (a ``telemetry.Scope``; this module does not
+        import it).  Callback-backed: a read sees the live free list.  The
+        byte gauges hold the cache weakly (0 once it is gone), so a
+        registry that outlives its engine does not keep the pools."""
+        a, ref = self.allocator, weakref.ref(self)
+        scope.gauge("engine.pages.free", lambda: a.free_blocks,
+                    help="pages on the free list")
+        scope.gauge("engine.pages.in_use", lambda: a.blocks_in_use)
+        scope.gauge("engine.pages.peak", lambda: a.peak_in_use)
+        scope.gauge("engine.pages.bytes_in_use",
+                    lambda: 0 if ref() is None else ref().kv_bytes_in_use())
+        scope.gauge("engine.pages.peak_bytes",
+                    lambda: 0 if ref() is None else ref().peak_kv_bytes())
 
     # ------------------------------------------------------------ slot ops
     def bind_slot(self, slot: int, prompt_tokens: int,
@@ -225,6 +262,50 @@ class PagedKVCache:
         self.block_tables[slot, :] = TRASH_PAGE
         self.lengths[slot] = 0
         return blocks
+
+    # ------------------------------------------------------- checksums
+    def page_checksums(self, pages: Sequence[int]) -> list[int]:
+        """CRC32 of each page's K bytes then V bytes, all layers (the
+        reference's ``page_checksum``: the pools have its layout, so
+        byte-equal pages give its CRC).  The pages cross to the host in
+        one gather and one copy, whatever their number."""
+        if not len(pages):
+            return []
+        idx = torch.as_tensor(list(pages), dtype=torch.long,
+                              device=self.k_pages.device)
+        # through bytes (no CPU e4m3 gather), page-major: [n, 2, L, ...]
+        both = torch.stack([p.view(torch.uint8).index_select(1, idx)
+                            for p in (self.k_pages, self.v_pages)], 1)
+        both = both.transpose(0, 2).contiguous()
+        host = both
+        if both.is_cuda:
+            # one pinned staging buffer, kept and grown as needed
+            if self._crc_host is None or self._crc_host.numel() < both.numel():
+                self._crc_host = torch.empty(both.numel(), dtype=torch.uint8,
+                                             pin_memory=True)
+            host = self._crc_host[:both.numel()].view(both.shape)
+            host.copy_(both)
+        buf = host.numpy()
+        return [zlib.crc32(buf[j]) for j in range(len(pages))]
+
+    def page_checksum(self, page: int) -> int:
+        """CRC32 over one page's K and V bytes, all layers: what the
+        engine's checksum audit records after every write to a page and
+        verifies before the next dispatch."""
+        return self.page_checksums([page])[0]
+
+    def corrupt_page(self, page: int) -> None:
+        """Chaos helper: set one stored element of ``page`` (layer 0,
+        position 0, head 0, lane 0 of K) to a value it does not hold
+        (7 -> 11, else 7), so the page's checksum changes in every pool
+        dtype.  In place, through that element's bytes: a captured step
+        reads the corrupt page, and the bytes are the reference's."""
+        assert page != TRASH_PAGE, "corrupting the trash page is a no-op"
+        cur = float(self.k_pages[0, page, 0, 0, 0].float())
+        bad = torch.tensor([11.0 if cur == 7 else 7.0]).to(self.dtype)
+        n = self.k_pages.element_size()
+        raw = self.k_pages.view(torch.uint8)
+        raw[0, page, 0, 0, :n].copy_(bad.view(torch.uint8))
 
     # ------------------------------------------------------------ audit
     def audit_partition(self, trie_pages: set[int] = frozenset(),

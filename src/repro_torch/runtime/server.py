@@ -66,8 +66,8 @@ class InferenceServer:
         ``generate`` calls, and so does the trie (False: the cold-path
         baseline).  ``spec_k`` turns on speculative decoding
         (prompt-lookup drafts, up to ``spec_k`` verified a tick); the
-        served tokens are the same either way.  ``max_queue`` is
-        refused by the Engine until ROADMAP item 11 lands.  With
+        served tokens are the same either way.  ``max_queue`` bounds
+        each Engine's waiting queue, shedding by ``shed_policy``.  With
         ``quant_bits`` the weights are quantized by the port's
         ``quantize_tree`` on the device.  ``act_quant`` (bits) serves
         activations as codes, calibrated by each Engine the server

@@ -1590,3 +1590,177 @@ def test_spec_engine_replays_equal_eager_and_vanilla(dev, codes, tmp_path,
     spec = on.step_runners["spec"]
     assert spec and all(r.graph is not None for r in spec.values())
     assert len({key[:-1] for key in spec}) == len(spec)
+
+
+# ------------------------------------------ lifecycle and faults --
+
+def _fault_engine(graphs, **ec):
+    from repro_torch.runtime.engine import Engine, EngineConfig
+
+    return Engine(_tiny_card_cfg(), quant_bits=7, device="cuda", rng_seed=3,
+                  cuda_graphs=graphs, engine=EngineConfig(
+                      num_slots=3, block_size=16, max_seq_len=128,
+                      prefill_chunk=32, prefix_cache=False, **ec))
+
+
+def _until_replayed(eng, reqs):
+    """Submit ``reqs`` and tick until every slot decodes and 8 decode
+    steps have run (the same tick with graphs on or off); with graphs
+    on, some of them replays."""
+    for r in reqs:
+        eng.submit(r)
+    for _ in range(60):
+        live = [s for s in eng._slots if s is not None]
+        if (len(live) == 3 and all(s.prefill_done for s in live)
+                and eng.total_decode_steps >= 8):
+            break
+        eng.step()
+    else:
+        raise AssertionError("the slots never decoded together")
+    assert not eng.cuda_graphs or any(
+        r.replays for r in eng.step_runners["decode"].values())
+
+
+def test_nan_poke_under_a_replayed_graph_fails_one_row(dev):
+    """NaN written in place into a decoding row's first page between two
+    ticks: the replayed step reads it (the pool is the storage the graph
+    captured), that row's finite flag falls and its request alone fails
+    with its lane quarantined; graphs on and off give the same statuses
+    and streams."""
+    from repro_torch.runtime.engine import Request
+
+    results = []
+    for graphs in (True, False):
+        eng = _fault_engine(graphs)
+        reqs = [Request(i, p, 24) for i, p in enumerate(_tiny_prompts()[:3])]
+        _until_replayed(eng, reqs)
+        ptr = eng.cache.k_pages.data_ptr()
+        page = int(eng.cache.block_tables[1, 0])
+        victim = eng._slots[1].request.uid
+        eng.cache.k_pages[:, page] = float("nan")
+        eng.cache.v_pages[:, page] = float("nan")
+        assert eng.cache.k_pages.data_ptr() == ptr
+        eng.step()
+        assert eng.result(victim).status == "failed"
+        assert eng.nan_rows_detected == 1 and 1 in eng._quarantined
+        assert eng.replay_artifacts[0]["kind"] == "nan_logits"
+        out = eng.run()
+        eng.check_partition()
+        assert [c.uid for c in out if c.status != "ok"] == [victim]
+        results.append([(c.uid, c.status, c.tokens.tolist()) for c in out])
+    assert results[0] == results[1]
+
+
+def test_corrupt_page_in_place_is_caught_under_graphs(dev):
+    """``corrupt_page`` writes one element in place through its bytes (the
+    pool keeps its storage); with ``checksum_pages`` the next tick's
+    audit fails the owner before its dispatch, and the other rows keep
+    decoding under their replayed steps."""
+    from repro_torch.runtime.engine import Request
+
+    eng = _fault_engine(True, checksum_pages=True)
+    reqs = [Request(i, p, 24) for i, p in enumerate(_tiny_prompts()[:3])]
+    _until_replayed(eng, reqs)
+    ptr = eng.cache.k_pages.data_ptr()
+    page = int(eng.cache.block_tables[2, 0])
+    owner = eng._slots[2].request.uid
+    tokens = list(eng._states[owner].tokens)
+    assert page in eng._page_crc
+    before = eng.cache.k_pages[0, page, 0, 0, 0].item()
+    eng.cache.corrupt_page(page)
+    assert eng.cache.k_pages.data_ptr() == ptr
+    assert eng.cache.k_pages[0, page, 0, 0, 0].item() == (
+        11.0 if before == 7.0 else 7.0)
+    eng.step()
+    c = eng.result(owner)
+    assert c.status == "failed" and c.tokens.tolist() == tokens
+    assert eng.corruptions_detected == 1
+    out = eng.run()
+    eng.check_partition()
+    assert [c.uid for c in out if c.status != "ok"] == [owner]
+
+
+@pytest.mark.parametrize("graphs", [True, False], ids=["graphs", "eager"])
+def test_dropped_engine_returns_its_pool_without_a_collection(dev, graphs):
+    """An engine that served (its steps replayed, or eager), with tracing
+    and chaos on, goes with its last reference, the cyclic collector
+    off: the device memory it held comes back, at least its page
+    pools."""
+    import gc
+    import weakref
+
+    from repro_torch.runtime.chaos import ChaosConfig
+    from repro_torch.runtime.engine import Engine, EngineConfig, Request
+    from repro_torch.runtime.telemetry import Telemetry
+
+    eng = Engine(_tiny_card_cfg(), quant_bits=7, device="cuda", rng_seed=3,
+                 cuda_graphs=graphs, telemetry=Telemetry(tracing=True),
+                 chaos=ChaosConfig(seed=5, nan_rate=0.1),
+                 engine=EngineConfig(num_slots=3, block_size=16,
+                                     max_seq_len=128, prefill_chunk=32))
+    out = eng.generate([Request(i, p, 12)
+                        for i, p in enumerate(_tiny_prompts())])
+    assert len(out) == 4
+    assert not graphs or eng.graph_captures()[0] > 0
+    pool = eng.cache.k_pages.nbytes + eng.cache.v_pages.nbytes
+    alive = weakref.ref(eng)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    gc.disable()
+    try:
+        del eng
+        assert alive() is None
+        torch.cuda.synchronize()
+        assert held - torch.cuda.memory_allocated() >= pool
+    finally:
+        gc.enable()
+
+
+def _nan_pages(dev, where):
+    """Random float32 pages at qwen3-1.7b's head layout (n_kv 8, g 2, hd
+    128, bs 16) for one row of 37 positions over pages 1, 2, 3; NaN in K
+    and V of page 3 at positions 5.. (``"past"``: stale, past the
+    length), or of page 1 at position 2 (``"valid"``: before every
+    query)."""
+    gen = _gen(dev, 11)
+    k = torch.randn(6, 16, 8, 128, generator=gen, device=dev)
+    v = torch.randn(6, 16, 8, 128, generator=gen, device=dev)
+    page, sl = (3, slice(5, None)) if where == "past" else (1, slice(2, 3))
+    k[page, sl] = float("nan")
+    v[page, sl] = float("nan")
+    table = torch.tensor([[1, 2, 3, 0]], dtype=torch.int32, device=dev)
+    lengths = torch.tensor([37], dtype=torch.int32, device=dev)
+    return k, v, table, lengths
+
+
+def _finite(x) -> bool:
+    return bool(x.isfinite().all())
+
+
+def test_f4_stale_nan_past_the_length_kernels_against_plain(dev):
+    """ROADMAP Queue 3's F4, pinned as it stands.  NaN past a row's length
+    (a page freed by a failed request, taken again and filled only in
+    part): #7 and #5 never read a position past the length (the decode
+    kernel clamps it to the last live one, the prefill kernel zero-fills
+    it) and give finite rows; their plain versions, as the reference's
+    oracles and TPU kernels, weigh the position by 0 and 0 x NaN is NaN.
+    NaN at a valid position: #7 and its plain version both give NaN (the
+    reference's dense decode softmax); #5 gives NaN where its plain
+    version and the reference's prefill oracle give the row zeros (the
+    running max turns NaN and the flush's test takes the row as unseen).
+    Closing F4 changes these assertions to equality."""
+    q = torch.randn(1, 8, 2, 128, generator=_gen(dev, 12), device=dev)
+    qs = torch.randn(1, 4, 8, 2, 128, generator=_gen(dev, 13), device=dev)
+    for where in ("past", "valid"):
+        k, v, table, lengths = _nan_pages(dev, where)
+        cpu = lambda *a: [t.cpu() for t in a]       # noqa: E731
+        dec = (_finite(decode_gqa_paged(q, k, v, table, lengths)),
+               _finite(decode_gqa_paged_ref(*cpu(q, k, v, table, lengths))))
+        args = (qs, k, v, table, lengths - 4, lengths)
+        pre = (_finite(flash_prefill_paged(*args)),
+               _finite(flash_prefill_paged_ref(*cpu(*args))))
+        if where == "past":
+            assert dec == (True, False) and pre == (True, False)
+        else:
+            assert dec == (False, False) and pre == (False, True)
+

@@ -31,6 +31,7 @@ from repro_torch.configs import get_config
 from repro.runtime.paged_cache import PagedKVCache as JaxCache
 from repro_torch.convert import params_from_jax
 from repro_torch.models import api as torch_api
+from repro_torch.runtime.chaos import ChaosConfig, ChaosInjector
 from repro_torch.runtime.engine import Engine, EngineConfig, Request
 from repro_torch.runtime.paged_cache import PagedKVCache as TorchCache
 from repro_torch.runtime.server import InferenceServer
@@ -289,11 +290,19 @@ def test_bf16_compute_logits_close_to_reference():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(max_queue=4), "item 11"), (dict(role="prefill"), "item 12"),
-    (dict(drift_check_every=4), "item 12"),
+    pytest.param(dict(max_queue=4), None, id="kw0-item 11"),
+    pytest.param(dict(role="prefill"), "item 12", id="kw1-item 12"),
+    pytest.param(dict(drift_check_every=4), None, id="kw2-item 12"),
 ])
 def test_unported_engine_settings_raise(kw, item):
+    """Only the disaggregation roles (item 12's cluster) still raise;
+    the bounded queue (item 11) and the drift guard (item 12's
+    single-engine half) are served."""
     _, cfg = _cfgs()
+    if item is None:
+        eng = Engine(cfg, device="cpu", engine=EngineConfig(**kw))
+        assert all(getattr(eng.engine_cfg, k) == v for k, v in kw.items())
+        return
     with pytest.raises(NotImplementedError, match=item):
         Engine(cfg, device="cpu", engine=EngineConfig(**kw))
 
@@ -316,11 +325,15 @@ def test_prefix_cache_and_speculation_are_served_by_default_settings():
 
 
 @pytest.mark.parametrize("kw,item", [
-    pytest.param(dict(chaos=object()), "item 11", id="kw1-item 11")])
+    pytest.param(dict(chaos=ChaosConfig(seed=0, nan_rate=0.5)), "item 11",
+                 id="kw1-item 11")])
 def test_unported_serving_options_raise(kw, item):
+    """Chaos injection (item 11) is served: the engine takes a
+    ``ChaosConfig`` and builds its injector."""
     _, cfg = _cfgs()
-    with pytest.raises(NotImplementedError, match=item):
-        Engine(cfg, device="cpu", **kw)
+    eng = Engine(cfg, device="cpu", **kw)
+    assert isinstance(eng.chaos, ChaosInjector)
+    assert eng.chaos.cfg == kw["chaos"]
 
 
 def test_f8_kv_dtype_builds_f8_pools():

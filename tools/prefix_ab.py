@@ -35,20 +35,22 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("prefix_ab: needs a CUDA card", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    from chip_smoke import serving_requests
+    import repro_torch
     from repro_torch.configs import get_config
     from repro_torch.runtime.engine import Engine, EngineConfig, Request
     from repro_torch.runtime.server import InferenceServer
 
+    print(f"repro_torch from {os.path.dirname(repro_torch.__file__)}",
+          flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
     cfg = get_config("qwen3-1.7b")
     params = InferenceServer(cfg, quant_bits=7, device="cuda",
                              rng_seed=0).params
-    lens, _ = serving_requests(cfg)
+    # chip_smoke.py's phase-4 prompt lengths (not imported from it: it
+    # puts its own checkout's src first on sys.path)
+    lens = np.random.default_rng(0).integers(17, 701, 12)
     draws = iter(range(1, 1 << 20))
 
     def fresh():
