@@ -75,8 +75,9 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
      pools a quarter of phase 4's, the float path's launches exact, the
      token agreement with phase 4 printed; then one 4-row bucket of
      ``generate_bucketed`` on an f8 contiguous cache (#9 = 28 x steps);
-  9. the other dense decoders: olmo-1b (16 layers), minicpm-2b (40) and
-     qwen3-14b (8 of its 40 layers) at full width, 7-bit random weights,
+  9. the other dense decoders: olmo-1b (8 of its 16 layers),
+     minicpm-2b (10 of 40) and qwen3-14b (4 of 40), depth cut to keep
+     the script's time with phase 12, at full width, 7-bit random weights,
      8 requests each through ``generate`` with float32 pages, every
      request ``ok`` and the float path's launches exact (qwen3-14b's
      untied unembedding through #1's plain layout);
@@ -108,13 +109,35 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
      against phase 4's where the top-2 gap is clear), the partition
      every tick and the pool whole at the end; (c) NaN written in place
      into a decoding row's page (that request alone fails, its lane
-     rests), the freed page taken again (#7 and #5 beside their plain
-     versions on such a page), one chaos corruption caught by the
+     rests), the freed page taken again (#7 and #5 give their plain
+     versions' NaN masks on such a page, and the same traffic on a
+     2-layer model ends with the CPU's statuses on the card), one chaos
+     corruption caught by the
      checksum audit before the next dispatch (its ms a tick printed), a
      chaos storm (every request terminal, no page leaked, ok streams
      equal the chaos-free run's where the gap is clear); (d) traced
      serving (the Chrome trace validated, decode ms a step traced
-     against untraced) and the drift guard on phase 5's tables.
+     against untraced) and the drift guard on phase 5's tables;
+ 12. the disaggregated cluster at full width: phase 4's weights through
+     ``Cluster`` with 2 prefill and 2 decode workers and CUDA graphs --
+     (a) phase 4's 12 requests: every request ok, streams equal phase
+     4's where the top-2 gap is clear, the partition of every pool after
+     every tick, each worker's launches exact (no #7 on a prefill
+     worker, no #5 on a decode worker), one handoff a request that
+     outlived its first token, the workers' weights the same tensors;
+     handoff bytes, export and import ms and GB/s, graphs a worker,
+     decode ms a step, peak memory printed; (b) phase 10a's
+     shared-prefix traffic: the router's hit rate and steered count,
+     the fleet's prefill tokens against phase 10a's; (c) (a)'s requests
+     under migration chaos (seed 11, rate 0.5): drops, streams equal
+     (a)'s, the trace valid with every flow closed; (d) phase 5's codes
+     tables (``act_quant=7, kv_codes=True``): one fingerprint on every
+     handoff, streams against phase 5's; (e) ``spec_k=4`` on the decode
+     workers, streams against (a)'s; (f) ``python -m
+     repro_torch.launch.serve --prefill-workers 2 --decode-workers 2
+     --requests 8 --quant 7`` (qwen3-1.7b at full size: the tiny
+     config's head_dim 16 is none the kernels take) as a subprocess, on
+     the card.
 Phase 3 prints, for olmo-1b, minicpm-2b and qwen3-14b, the card-vs-CPU
 error after each layer beside the CPU's own spread under last-bit
 weight tables, at the prefill chunk and the first decode step.
@@ -1609,8 +1632,10 @@ def path_check() -> None:
 
 # the other dense decoders the port serves, and the layers phase 9 keeps
 # (None: all): qwen3-14b's 40 layers of random float32 weights (56 GB)
-# would not fit beside their codes, and 8 of them hold the step's shape
-OTHER_DECODERS = (("olmo-1b", None), ("minicpm-2b", None), ("qwen3-14b", 8))
+# would not fit beside their codes, and a few of them hold the step's
+# shape; each is cut to about a quarter of its depth so that the script,
+# phase 12 included, stays within its time
+OTHER_DECODERS = (("olmo-1b", 8), ("minicpm-2b", 10), ("qwen3-14b", 4))
 
 
 def path_check_configs() -> None:
@@ -1956,7 +1981,8 @@ def serve(counts_out: dict):
           flush=True)
     print_rates(eng, peak)
     PHASE4_RATES.update(ms=1e3 * eng.decode_dispatch_s / eng.total_decode_steps,
-                        tok_s=eng.decode_tokens / eng.decode_dispatch_s)
+                        tok_s=eng.decode_tokens / eng.decode_dispatch_s,
+                        peak_gib=peak)
     print(f"  first completion tokens {outs[0].tokens[:8].tolist()}", flush=True)
     pool = eng.cache.nbytes
     profile_decode(eng, cfg, "decode_gqa_paged")
@@ -2043,6 +2069,7 @@ def serve_codes(counts_out: dict, float_outs, float_pool: int,
           f"weights: printed, not gated); attention counters: bytes read "
           f"{eng.attn_bytes_read}, activation bytes {eng.attn_act_bytes}, "
           f"dequants {eng.attn_dequants}", flush=True)
+    PHASE5["outs"] = outs
     profile_decode(eng, cfg, "decode_gqa_paged_codes")
     time_encodes(eng.params, cfg)
     served = (eng.params, eng.engine_cfg, eng.kv_codes, eng.kv_dtype)
@@ -2483,6 +2510,8 @@ def serve_prefix_traffic(params) -> None:
                     f"{plens} - {d.tokens_reused} reused")
             require(d.cow_copies == d.hits >= 16,
                     f"{d.cow_copies} copies for {d.hits} hits")
+            PHASE10A.update(reqs=reqs, outs=outs,
+                            computed=d.prefill_tokens_computed)
         runs[on] = outs
         del eng
     apart = gate_streams("prefix on vs off", params, cfg, reqs[1:], runs[True],
@@ -2619,6 +2648,10 @@ SQNR_RTOL = 1e-4
 # phase 4's engine shape
 PHASE11_EC = dict(num_slots=8, block_size=16, prefill_chunk=256)
 PHASE4_RATES: dict = {}
+# what phase 12 compares with: phase 5's streams, phase 10a's prefix-on
+# streams and prefill tokens computed
+PHASE5: dict = {}
+PHASE10A: dict = {}
 REPLAYED: dict = {}     # decode ms a step with every step replayed
 
 
@@ -2952,8 +2985,10 @@ def lifecycle_under_graphs(params, float_outs) -> None:
 def freed_page_kernels() -> tuple:
     """#7 and #5 on the card against their plain versions on the CPU, at
     qwen3-1.7b's head layout, for a row whose last page holds NaN past
-    its length (a page freed by a failed request and taken again): is
-    each output row finite?  Returns ((kernel, plain) for #7, for #5)."""
+    its length (a page freed by a failed request and taken again): the
+    NaN elements of each output, kernel and plain version.  Returns
+    ((kernel, plain) for #7, for #5), each a count of NaN elements, and
+    requires the NaN masks equal (F4: the reference's 0 x NaN)."""
     import torch
 
     from repro_torch.kernels.decode_gqa import decode_gqa_paged
@@ -2971,15 +3006,88 @@ def freed_page_kernels() -> tuple:
     lengths = torch.tensor([2 * bs + 5], dtype=torch.int32, device="cuda")
     q = torch.randn(1, n_kv, g, hd, generator=gen, device="cuda")
     cpu = [t.cpu() for t in (q, k, v, table, lengths)]
-    dec = (bool(decode_gqa_paged(q, k, v, table, lengths).isfinite().all()),
-           bool(decode_gqa_paged_ref(*cpu).isfinite().all()))
+
+    def masks(label, out, ref):
+        a, b = torch.isnan(out.cpu()), torch.isnan(ref)
+        require(torch.equal(a, b), f"11c: {label} NaN mask {int(a.sum())} "
+                f"elements, its plain version's {int(b.sum())}")
+        return int(a.sum()), int(b.sum())
+    dec = masks("#7", decode_gqa_paged(q, k, v, table, lengths),
+                decode_gqa_paged_ref(*cpu))
     qs = torch.randn(1, 4, n_kv, g, hd, generator=gen, device="cuda")
     start = lengths - 4
     args = (qs, k, v, table, start, lengths)
-    pre = (bool(flash_prefill_paged(*args).isfinite().all()),
-           bool(flash_prefill_paged_ref(*[t.cpu() for t in args])
-                .isfinite().all()))
+    pre = masks("#5", flash_prefill_paged(*args),
+                flash_prefill_paged_ref(*[t.cpu() for t in args]))
     return dec, pre
+
+
+def freed_nan_statuses() -> None:
+    """11c's freed NaN pages, card against CPU: a 2-layer qwen3-1.7b at
+    full width but for a vocabulary of 4096 (float32 compute, the same
+    7-bit weights on both sides, phase 3's recipe; the CPU decodes every
+    weight table a dispatch, and the vocabulary does not touch the
+    pages) serves 12 requests of 17..200 tokens (8 new each) with 8
+    slots;
+    NaN is written into a decoding row's first page (every layer, K and
+    V) between two ticks, and 8 more requests take the freed pages.
+    Every status, on the card (the kernels) and on the CPU (the plain
+    versions, the reference's semantics), must be equal."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.engine import Engine, EngineConfig, Request
+
+    cfg = get_config(ARCH).replace(num_layers=2, compute_dtype="float32",
+                                   vocab_size=4096)
+    _, gpu = quantized_model(cfg, seed=3)
+    cpu = copy.deepcopy(gpu).to("cpu")
+    rng = np.random.default_rng(13)
+    first = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+             for n in rng.integers(17, 201, 12)]
+    more = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+            for n in rng.integers(17, 201, 8)]
+
+    def run(model, dev):
+        eng = Engine(cfg, params=model, device=dev, engine=EngineConfig(
+            num_slots=8, block_size=16, prefill_chunk=256, max_seq_len=216))
+        for i, p in enumerate(first):
+            eng.submit(Request(i, p, max_new_tokens=8))
+        decoding = lambda: [i for i, s in enumerate(eng._slots)   # noqa
+                            if s is not None and s.prefill_done]
+        for _ in range(60):
+            if len(decoding()) == 8:
+                break
+            eng.step()
+        require(len(decoding()) == 8, "11c: eight rows never decoded")
+        row = decoding()[0]
+        page = int(eng.cache.block_tables[row, 0])
+        eng.cache.k_pages[:, page] = float("nan")
+        eng.cache.v_pages[:, page] = float("nan")
+        while eng.pending:
+            eng.step()
+            eng.check_partition()
+        for i, p in enumerate(more):
+            eng.submit(Request(100 + i, p, max_new_tokens=8))
+        while eng.pending:
+            eng.step()
+            eng.check_partition()
+        return {c.uid: c.status for c in eng.collect()}, row, page
+
+    t0 = time.perf_counter()
+    card = run(gpu, "cuda")
+    t1 = time.perf_counter()
+    on_cpu = run(cpu, "cpu")
+    t2 = time.perf_counter()
+    failed = lambda st: sorted(u for u, s in st[0].items()  # noqa: E731
+                               if s != "ok")
+    print(f"  freed NaN pages, 2 layers, vocabulary 4096: NaN in page "
+          f"{card[2]} of row {card[1]}; failed on the card {failed(card)}, "
+          f"on the CPU {failed(on_cpu)} ({t1 - t0:.1f} s / {t2 - t1:.1f} s)",
+          flush=True)
+    require(card == on_cpu, f"11c: the card's statuses {card} != the "
+            f"CPU's {on_cpu}")
 
 
 def faults_under_graphs(params, float_outs) -> None:
@@ -3038,6 +3146,14 @@ def faults_under_graphs(params, float_outs) -> None:
         handed[0] += len(nan_pages.intersection(out))
         return out
     alloc.alloc = counted
+    fault = eng._fault
+
+    def noted(st, kind):
+        # a row that grows into a freed NaN page fails in that same tick
+        if st.slot >= 0 and nan_pages.intersection(c.slot_blocks[st.slot]):
+            took.add(st.request.uid)
+        fault(st, kind)
+    eng._fault = noted
 
     def drain_watched():
         while eng.pending:
@@ -3048,9 +3164,17 @@ def faults_under_graphs(params, float_outs) -> None:
                         and nan_pages.intersection(c.slot_blocks[i]))
         return eng.collect()
     outs = drain_watched()
-    require(len(outs) == 12 and [c.uid for c in outs if c.status != "ok"]
-            == [victim], f"11c: statuses {[(c.uid, c.status) for c in outs]}")
-    others = [i for i in range(12) if i != victim]
+    # the reference's semantics (F4): a request that takes a freed page
+    # and leaves its stale NaN past its length fails too; every failure
+    # is a non-finite logits row with its artifact
+    failed = [c.uid for c in outs if c.status != "ok"]
+    arts = {a["uid"]: a["kind"] for a in eng.replay_artifacts}
+    require(len(outs) == 12 and victim in failed
+            and all(c.status in ("ok", "failed") for c in outs)
+            and all(arts.get(u) == "nan_logits" for u in failed),
+            f"11c: statuses {[(c.uid, c.status) for c in outs]}, "
+            f"artifacts {arts}")
+    others = [i for i in range(12) if i not in failed]
     apart = gate_streams("11c NaN", params, cfg, [reqs[i] for i in others],
                          [outs[i] for i in others],
                          [float_outs[i] for i in others])
@@ -3058,8 +3182,10 @@ def faults_under_graphs(params, float_outs) -> None:
     print(f"  (i) NaN in page {page} of row {row} (request {victim}) under "
           f"graphs: request {victim} failed ({art['kind']}, tick "
           f"{art['tick']}, {len(art['flight_recorder'])} flight records), "
-          f"lane quarantined; the other 11 streams: {11 - apart} equal phase "
-          f"4's, {apart} apart at a near-tie", flush=True)
+          f"lane quarantined; failed {failed} (NaN pages held by "
+          f"{sorted(took)}); the {len(others)} ok streams: "
+          f"{len(others) - apart} equal phase 4's, {apart} apart at a "
+          f"near-tie", flush=True)
     # 8 more requests take the freed pages, NaN page included
     rng = np.random.default_rng(12)
     more = [Request(100 + i, rng.integers(0, cfg.vocab_size, int(n))
@@ -3074,9 +3200,10 @@ def faults_under_graphs(params, float_outs) -> None:
           f"requests {sorted(took)}; the 8 more requests' statuses {later} "
           f"({sum(a['kind'] == 'nan_logits' for a in eng.replay_artifacts) - 1}"
           f" more nan_logits artifacts); a row whose last page holds NaN past "
-          f"its length: #7 finite {dec[0]} (kernel) / {dec[1]} (plain "
-          f"version), #5 finite {pre[0]} / {pre[1]}", flush=True)
+          f"its length: #7 {dec[0]} NaN elements (kernel) / {dec[1]} (plain "
+          f"version), #5 {pre[0]} / {pre[1]}", flush=True)
     del eng
+    freed_nan_statuses()
 
     # (ii) one corruption from chaos under the checksum audit (4 requests
     # of 64 tokens: the audit re-reads every recorded page each tick)
@@ -3262,6 +3389,338 @@ def lifecycle_phase(params, codes_params, float_outs) -> None:
     print("  11d: telemetry and the drift guard", flush=True)
     telemetry_and_drift(params, codes_params)
     print(f"  phase 11 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+# ------------------------------- phase 12: the disaggregated cluster --
+
+PHASE12_CC = (2, 2)       # prefill, decode workers
+
+
+def weight_ptrs(eng) -> list[int]:
+    return [t.data_ptr() for t in eng.params.buffers()]
+
+
+class WorkerCounts:
+    """Each worker's kernel launches: a worker's ``step`` is wrapped to
+    add the launch counters' change across it (replays included) to its
+    own tally."""
+
+    def __init__(self, clu):
+        from repro_torch.kernels import _build
+
+        self.by: dict[str, dict[str, int]] = {}
+        for eng in clu.prefill + clu.decode:
+            tally = self.by.setdefault(eng.worker_name, {})
+            step = eng.step
+
+            def counted(step=step, tally=tally):
+                before = _build.launch_counts()
+                out = step()
+                for k, v in _build.launch_counts().items():
+                    if v != before.get(k, 0):
+                        tally[k] = tally.get(k, 0) + v - before.get(k, 0)
+                return out
+            eng.step = counted
+
+
+class HandoffTimes:
+    """CUDA events and wall time around every ``export_slot`` of the
+    prefill workers and every ``import_slot`` of the decode workers (the
+    events bracket the call, the wall time ends after a synchronise, so
+    each is the handoff's whole cost); the fingerprints the exports
+    carry."""
+
+    def __init__(self, clu):
+        import torch
+
+        self.rows = {"export": [], "import": []}
+
+        def wrap(cache, kind):
+            fn = getattr(cache, f"{kind}_slot")
+
+            def timed(*a, **kw):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                e0.record()
+                out = fn(*a, **kw)
+                e1.record()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                nbytes = (len(out) * cache.bytes_per_block
+                          if kind == "import" else out[0].nbytes * 2)
+                self.rows[kind].append((e0.elapsed_time(e1), 1e3 * wall,
+                                        nbytes))
+                return out
+            setattr(cache, f"{kind}_slot", timed)
+        for eng in clu.prefill:
+            wrap(eng.cache, "export")
+        for eng in clu.decode:
+            wrap(eng.cache, "import")
+
+    def line(self, kind: str, start: int = 0) -> str:
+        """Mean figures of the handoffs from the ``start``-th on."""
+        import numpy as np
+
+        rows = self.rows[kind][start:]
+        if not rows:
+            return f"{kind}: none"
+        ev, wall, nb = (np.array(c, float) for c in zip(*rows))
+        return (f"{kind} {len(rows)}: {np.mean(nb) / 2**20:.1f} MiB, "
+                f"{np.mean(ev):.3f} ms (events) / {np.mean(wall):.3f} ms "
+                f"(wall) a handoff, {np.sum(nb) / np.sum(ev) / 1e6:.2f} / "
+                f"{np.sum(nb) / np.sum(wall) / 1e6:.2f} GB/s")
+
+
+def pinned_costs(nbytes: int) -> None:
+    """Where an export's time goes: a pinned host allocation of a
+    handoff's size, a second one of that size (the caching host
+    allocator's), and one device-to-host copy into pinned memory."""
+    import torch
+
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        times.append(time.perf_counter() - t0)
+        del host
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    host.copy_(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host.copy_(dev)
+    torch.cuda.synchronize()
+    t_copy = time.perf_counter() - t0
+    print(f"  a handoff's {nbytes / 2**20:.1f} MiB: pinned allocation "
+          f"{1e3 * times[0]:.2f} ms first, {1e3 * times[1]:.2f} ms second; "
+          f"device-to-pinned copy {1e3 * t_copy:.3f} ms "
+          f"({nbytes / t_copy / 1e9:.2f} GB/s)", flush=True)
+
+
+def drain_cluster(clu, reqs) -> list:
+    """``reqs`` through the cluster tick by tick, every worker's page
+    partition audited after every tick; completions by uid."""
+    for r in reqs:
+        clu.submit(r)
+    done = []
+    while clu.pending:
+        done += clu.step()
+        clu.check_partition()
+    return sorted(done, key=lambda c: c.uid)
+
+
+def make_cluster(params, ec, **kw):
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.cluster import Cluster, ClusterConfig
+    from repro_torch.runtime.engine import EngineConfig
+
+    return Cluster(get_config(ARCH), params=params, device="cuda",
+                   cluster=ClusterConfig(*PHASE12_CC),
+                   engine=EngineConfig(**ec), **kw)
+
+
+def cluster_full_width(params, float_outs) -> dict:
+    """12a: phase 4's 12 requests through 2 prefill and 2 decode workers
+    with graphs; returns the completions."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(ARCH)
+    lens, reqs = serving_requests(cfg)
+    ec = dict(PHASE11_EC, max_seq_len=int(max(lens)) + 32)
+    fresh_peak()
+    base = torch.cuda.memory_allocated()
+    clu = make_cluster(params, ec)
+    ptrs = weight_ptrs(clu.prefill[0])
+    require(all(weight_ptrs(e) == ptrs for e in clu.prefill + clu.decode),
+            "12a: the workers hold separate weight tensors")
+    pools = sum(e.cache.nbytes for e in clu.prefill + clu.decode)
+    counts, times = WorkerCounts(clu), HandoffTimes(clu)
+    t0 = time.perf_counter()
+    outs = drain_cluster(clu, reqs)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    check_served(outs, reqs, cfg)
+    want = sum(r.max_new_tokens > 1 for r in reqs)
+    require(clu.handoffs == want and clu.migration_faults == 0,
+            f"12a: {clu.handoffs} handoffs, want {want}")
+    for eng in clu.prefill + clu.decode:
+        got = counts.by[eng.worker_name]
+        require_float_path(got, eng, cfg, f"12a {eng.worker_name}")
+    require(all(counts.by[e.worker_name].get("decode_gqa_paged", 0) == 0
+                for e in clu.prefill)
+            and all(counts.by[e.worker_name].get("flash_prefill_paged", 0)
+                    == 0 for e in clu.decode),
+            f"12a: a worker launched the other role's attention: {counts.by}")
+    require(all(e.prefill_tokens_computed == 0 for e in clu.decode)
+            and not any(e.step_runners["decode"] for e in clu.prefill)
+            and not any(e.step_runners["prefill"] for e in clu.decode),
+            "12a: a worker ran the other role's step")
+    apart = gate_streams("12a", params, cfg, reqs, outs, float_outs)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    dec_s = sum(e.decode_dispatch_s for e in clu.decode)
+    dec_n = sum(e.total_decode_steps for e in clu.decode)
+    st = clu.stats()
+    print(f"  (a) 12 requests on {PHASE12_CC[0]}P/{PHASE12_CC[1]}D in "
+          f"{t_run:.2f} s over {clu.ticks} ticks: {12 - apart} of 12 streams "
+          f"equal phase 4's, {apart} apart at a near-tie; handoffs "
+          f"{clu.handoffs}, {clu.handoff_bytes} B "
+          f"({clu.handoff_bytes / clu.handoffs / 2**20:.1f} MiB a handoff)",
+          flush=True)
+    print(f"  {times.line('export')}; {times.line('import')}", flush=True)
+    pinned_costs(clu.handoff_bytes // clu.handoffs)
+    # a second pass of the same requests (new uids): every decode step
+    # replays, the prompts hit the prefill workers' tries
+    again = drain_cluster(clu, [dataclasses.replace(r, uid=100 + r.uid)
+                                for r in reqs])
+    require([c.tokens.tolist() for c in again]
+            == [c.tokens.tolist() for c in outs],
+            "12a: the second pass's streams differ from the first's")
+    dec_s2 = sum(e.decode_dispatch_s for e in clu.decode) - dec_s
+    dec_n2 = sum(e.total_decode_steps for e in clu.decode) - dec_n
+    print(f"  second pass, pinned blocks cached: "
+          f"{times.line('export', len(reqs))}; "
+          f"{times.line('import', len(reqs))}", flush=True)
+    graphs = {e.worker_name: e.graph_captures()[0]
+              for e in clu.prefill + clu.decode}
+    print(f"  graphs captured {graphs}; decode workers {1e3 * dec_s / dec_n:.2f}"
+          f" ms a step over {dec_n} steps, eager first ticks included (phase "
+          f"4: {PHASE4_RATES.get('ms', float('nan')):.2f}), "
+          f"{1e3 * dec_s2 / dec_n2:.3f} over the second pass's {dec_n2} "
+          f"(every step replayed); prefill tokens "
+          f"{st['prefill_tokens_computed']}; launches {counts.by}", flush=True)
+    print(f"  peak {peak:.2f} GiB (phase 4, one engine: "
+          f"{PHASE4_RATES.get('peak_gib', float('nan')):.2f} GiB), "
+          f"{pools / 2**30:.2f} GiB of pools in 4 workers, "
+          f"{(torch.cuda.memory_allocated() - base) / 2**30:.2f} GiB held "
+          f"beyond the weights; weights once ({len(ptrs)} tensors, every "
+          f"worker's the same)", flush=True)
+    del clu
+    return outs
+
+
+def cluster_phase(params, codes_params, float_outs) -> None:
+    """Phase 12: the disaggregated cluster at full width."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.runtime import calibration as cal
+    from repro_torch.runtime.chaos import ChaosConfig
+    from repro_torch.runtime.telemetry import Telemetry, validate_chrome_trace
+
+    cfg = get_config(ARCH)
+    lens, reqs = serving_requests(cfg)
+    ec = dict(PHASE11_EC, max_seq_len=int(max(lens)) + 32)
+    outs_a = cluster_full_width(params, float_outs)
+
+    # (b) phase 10a's shared-prefix traffic
+    fresh_peak()
+    pre = PHASE10A["reqs"]
+    clu = make_cluster(params, dict(PHASE10_EC, max_seq_len=768))
+    outs = drain_cluster(clu, pre[:1])
+    outs = drain_cluster(clu, pre[1:])
+    check_served(outs, pre[1:], cfg)
+    st, rs = clu.stats(), clu.router.stats
+    apart = gate_streams("12b", params, cfg, pre[1:], outs, PHASE10A["outs"])
+    require(rs.prefix_hits >= 16, f"12b: {rs.prefix_hits} prefix hits")
+    print(f"  (b) 17 requests sharing a 500-token prompt: router hit rate "
+          f"{rs.cross_worker_hit_rate:.4f} ({rs.prefix_hits} of {rs.routed}), "
+          f"steered {rs.steered}; prefill tokens computed across the fleet "
+          f"{st['prefill_tokens_computed']} (phase 10a, one engine with "
+          f"the prefix cache: {PHASE10A['computed']}); shard pages "
+          f"{st['shard_pages']}; {16 - apart} of 16 streams equal phase "
+          f"10a's", flush=True)
+    del clu
+
+    # (c) migration chaos, traced
+    fresh_peak()
+    tel = Telemetry(tracing=True)
+    clu = make_cluster(params, ec, telemetry=tel,
+                       chaos=ChaosConfig(seed=11, migration_fail_rate=0.5))
+    t0 = time.perf_counter()
+    outs = drain_cluster(clu, reqs)
+    t_run = time.perf_counter() - t0
+    check_served(outs, reqs, cfg)
+    require(clu.migration_faults > 0, "12c: no migration fault fired")
+    require(clu.handoffs == len(reqs), f"12c: {clu.handoffs} handoffs")
+    apart = gate_streams("12c", params, cfg, reqs, outs, outs_a)
+    doc = tel.tracer.export()
+    tr = validate_chrome_trace(doc, require_boundary=True)
+    drops = sum(e["ph"] == "f" and bool(e["args"].get("dropped"))
+                for e in doc["traceEvents"])
+    require(drops == clu.migration_faults, f"12c: {drops} dropped flows")
+    print(f"  (c) migration chaos (seed 11, rate 0.5): {clu.migration_faults} "
+          f"drops re-queued, {clu.handoffs} handoffs delivered, "
+          f"{12 - apart} of 12 streams equal (a)'s; {t_run:.2f} s; trace "
+          f"{len(doc['traceEvents'])} events valid, {tr['flows']} flows "
+          f"closed ({drops} at a drop)", flush=True)
+    del clu, tel
+
+    # (d) codes: phase 5's tables, no second calibration
+    fresh_peak()
+    clu = make_cluster(codes_params, ec, kv_codes=True)
+    fp = cal.kv_tables_fingerprint(codes_params.tree()["blocks"]["act_q"])
+    fps = []
+    for eng in clu.prefill:
+        export = eng._export_handoff
+
+        def noted(slot, st, export=export, eng=eng):
+            export(slot, st)
+            fps.append(eng.outbox[-1].kv_fingerprint)
+        eng._export_handoff = noted
+    outs = drain_cluster(clu, reqs)
+    check_served(outs, reqs, cfg)
+    require(len(fps) == len(reqs) and set(fps) == {fp},
+            f"12d: handoff fingerprints {set(fps)}, the tables' {fp}")
+    apart = gate_streams("12d codes", codes_params, cfg, reqs, outs,
+                         PHASE5["outs"], floor=1e-3)
+    print(f"  (d) codes (act_quant 7, kv_codes, phase 5's tables): "
+          f"{clu.handoffs} handoffs of one fingerprint ({fp:#010x}), "
+          f"{clu.handoff_bytes / clu.handoffs / 2**20:.1f} MiB a handoff; "
+          f"{12 - apart} of 12 streams equal phase 5's", flush=True)
+    del clu
+
+    # (e) speculating decode workers
+    fresh_peak()
+    clu = make_cluster(params, dict(ec, spec_k=4))
+    outs = drain_cluster(clu, reqs)
+    check_served(outs, reqs, cfg)
+    spec = sum(e.spec_dispatches for e in clu.decode)
+    require(spec > 0 and all(e.spec_dispatches == 0 for e in clu.prefill),
+            f"12e: verify dispatches {spec} on the decode workers")
+    apart = gate_streams("12e spec_k 4", params, cfg, reqs, outs, outs_a)
+    acc = (sum(e.spec_accepted for e in clu.decode)
+           / max(1, sum(e.spec_proposed for e in clu.decode)))
+    print(f"  (e) spec_k 4 on the decode workers: {spec} verify dispatches, "
+          f"acceptance {acc:.3f}; {12 - apart} of 12 streams equal (a)'s",
+          flush=True)
+    del clu
+
+    # (f) the launcher, as a user runs it, at qwen3-1.7b's full size
+    # (its tiny config's head_dim 16 is none the kernels take)
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve",
+           "--prefill-workers", "2", "--decode-workers", "2",
+           "--requests", "8", "--quant", "7"]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    name = torch.cuda.get_device_name(0)
+    require(res.returncode == 0, f"12f: the launcher exited "
+            f"{res.returncode}: {res.stderr[-2000:]}")
+    require(f"device: {name}" in res.stdout,
+            f"12f: the launcher did not run on {name}: {res.stdout[:500]}")
+    served = [ln for ln in res.stdout.splitlines() if ln.startswith("served")]
+    require(len(served) == 1 and served[0].startswith("served 8 requests"),
+            f"12f: {served}")
+    print(f"  (f) {' '.join(cmd[1:])}: exit 0 on {name} in "
+          f"{time.perf_counter() - t0:.1f} s; {served[0]}", flush=True)
 
 
 # ----------------------------------------- phase 7: Lama primitives --
@@ -3490,6 +3949,8 @@ def main() -> int:
         serve_speculative(params, codes_params)
         phase("phase 11: mixed widths, the lifecycle, faults and telemetry")
         lifecycle_phase(params, codes_params, float_outs)
+        phase("phase 12: the disaggregated cluster")
+        cluster_phase(params, codes_params, float_outs)
         phase("all phases passed")
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -14,9 +14,17 @@ _MODULES = (olmo_1b, qwen3_14b, qwen3_1_7b, minicpm_2b)
 
 ARCHS = {m.ARCH: m for m in _MODULES}
 ARCH_NAMES = tuple(ARCHS)
+# the reference's other architectures: MoE, hybrid, vlm, rwkv and
+# encoder-decoder families, ROADMAP Queue 1 item 13
+NOT_PORTED = ("recurrentgemma-2b", "seamless-m4t-medium", "paligemma-3b",
+              "rwkv6-3b", "llama4-scout-17b-a16e", "grok-1-314b")
 
 
 def get_config(name: str, tiny: bool = False) -> ModelConfig:
+    if name in NOT_PORTED:
+        raise NotImplementedError(
+            f"arch {name!r} is not ported yet (ROADMAP Queue 1 item 13); "
+            f"available: {ARCH_NAMES}")
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; available: {ARCH_NAMES}")
     mod = ARCHS[name]

@@ -83,6 +83,19 @@
 // cuts the row into virtual pages of 64 positions.  Everything else (the
 // batches, the register softmax, the merge) is the paged body's, and the
 // same instantiations serve both.
+// Past the length (F4): the reference's oracles and TPU kernels weigh
+// every position of the block-table columns passed (of the cache, for
+// #9) at or past lengths[b] by 0, and 0 x NaN (or 0 x inf) is NaN.  So an
+// output lane d of a row with a live position is NaN exactly when V[., h,
+// d] is not finite at one of those positions; every other element keeps
+// its value bit for bit.  Each partition scans V over its positions at
+// or past the length after its own loop (tail_bits: V only, NB loads a
+// warp in flight, a column skipped when its page is the previous whole
+// column's, as the engine's trash columns all are), and leaves one bit a
+// dim in the workspace's flag words; the merge ORs the flags of the
+// partitions from the length on and flushes such a lane as NaN.  With
+// one partition the block scans and flushes itself.  The lengths stay on
+// the device, so a call can still be captured.
 // Codes instantiation (#8; uint8 q and pages): the block copies the q
 // table and its KV head's K and V tables (3 x 256 floats) into shared
 // memory once, and decodes q, K and V through them right after each
@@ -209,8 +222,11 @@ __device__ __forceinline__ void unpack(const Vec<N>& r, float (&o)[V],
 // then the encode for codes.
 template <bool CODES>
 __device__ __forceinline__ void flush(void* out, size_t i, float m, float l,
-                                      float acc, const float* out_qmeta) {
-  const float o = m > -5e29f ? acc / fmaxf(l, 1e-30f) : 0.0f;
+                                      float acc, bool tail_nan,
+                                      const float* out_qmeta) {
+  const float o = m > -5e29f ? (tail_nan ? __int_as_float(0x7fc00000)
+                                         : acc / fmaxf(l, 1e-30f))
+                             : 0.0f;
   if constexpr (CODES) {
     static_cast<uint8_t*>(out)[i] = dnateq::encode(o, out_qmeta);
   } else {
@@ -218,10 +234,63 @@ __device__ __forceinline__ void flush(void* out, size_t i, float m, float l,
   }
 }
 
+// F4: bit i of the result is set when dim V*lane + i of V is not finite
+// at one of positions [lo, hi) of row b, KV head h (paged through bt_row,
+// or contiguous when it is null).  A warp takes NB positions at a time,
+// their loads all issued before the first check, as the main loop does
+// (twice the main loop's batch: only V is loaded, and the loop's K and V
+// registers are free by now).
+// A position whose column and the column before it both lie whole in
+// [lo, hi) and name the same page is not loaded again.
+template <int HD, typename PT>
+__device__ unsigned tail_bits(const PT* __restrict__ v_pages,
+                              const int* __restrict__ bt_row, int b, int h,
+                              int n_kv, int bs, int cap, int lo, int hi,
+                              int warp, int lane, const float* s_vl) {
+  constexpr int V = HD / 32;
+  constexpr int NB = 2 * (HD > 128 ? BATCH_WIDE : BATCH);
+  static_assert(NB <= 32, "one lane a position of a batch");
+  unsigned bad = 0;
+  for (int t0 = lo + warp * NB; t0 < hi; t0 += WARPS * NB) {
+    int row = -1;
+    const int t = t0 + lane;
+    if (lane < NB && t < hi) {
+      if (bt_row) {
+        const int c = t / bs;
+        const int pg = __ldg(bt_row + c);
+        if (!(c > 0 && (c - 1) * bs >= lo && __ldg(bt_row + c - 1) == pg))
+          row = pg * bs + (t - c * bs);
+      } else {
+        row = b * cap + t;
+      }
+    }
+    Raw<PT, V> vr[NB];
+    int rows[NB];
+#pragma unroll
+    for (int u = 0; u < NB; ++u) {
+      rows[u] = __shfl_sync(FULL, row, u);
+      if (rows[u] >= 0)
+        vr[u] = load<PT, V>(v_pages + ((size_t)rows[u] * n_kv + h) * HD +
+                            V * lane);
+    }
+#pragma unroll
+    for (int u = 0; u < NB; ++u) {
+      if (rows[u] < 0) continue;
+      float vf[V];
+      unpack<PT>(vr[u], vf, s_vl);
+#pragma unroll
+      for (int i = 0; i < V; ++i)
+        if (!isfinite(vf[i])) bad |= 1u << i;
+    }
+  }
+  return bad;
+}
+
 // q [B, n_kv, g, HD]; pages [N, bs, n_kv, HD] with block_tables
 // [B, cap / bs], or (block_tables null) a contiguous cache [B, cap, n_kv,
 // HD]; lengths [B]; work [B, n_kv, n_split, g, HD + 2] (unused when
-// n_split = 1); out [B, n_kv, g, HD] float32, or uint8 for codes.
+// n_split = 1) and after it flags [B, n_kv, n_split, 32] (tail_bits of
+// each lane); out [B, n_kv, g, HD] float32, or uint8 for codes.
 // Grid (B, n_kv * row groups, n_split): block y holds rows gs * (y % row
 // groups) .. + gs - 1 of KV head y / row groups (fewer in the last
 // group).
@@ -231,8 +300,9 @@ split_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pages,
              const PT* __restrict__ v_pages,
              const int* __restrict__ block_tables,
              const int* __restrict__ lengths, float* __restrict__ work,
-             void* __restrict__ out, int n_kv, int g, int gs, int bs,
-             int cap, int part, float scale, Codes codes) {
+             unsigned* __restrict__ flags, void* __restrict__ out, int n_kv,
+             int g, int gs, int bs, int cap, int part, float scale,
+             Codes codes) {
   constexpr bool CODES = std::is_same_v<PT, uint8_t>;
   constexpr int V = HD / 32;        // dims a lane holds
   constexpr int NB = HD > 128 ? BATCH_WIDE : BATCH;
@@ -240,6 +310,7 @@ split_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pages,
   __shared__ float s_lut[CODES ? 3 * 256 : 1];     // q, K, V tables
   __shared__ float s_m[WARPS][G], s_l[WARPS][G];
   __shared__ __align__(16) float s_acc[WARPS][G][HD];
+  __shared__ unsigned s_tail[32];   // the block's tail_bits, a lane each
 
   const int b = blockIdx.x, z = blockIdx.z;
   const int n_rg = gridDim.y / n_kv, n_split = gridDim.z;
@@ -249,8 +320,16 @@ split_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pages,
   // the lengths' one clamp, here and in the merge: the wrapper has none
   const int kvl = max(0, min(lengths[b], cap));
   const int t_begin = z * part;
-  if (n_split > 1 && t_begin >= kvl) return;   // the merge skips it
   const int t_end = min(t_begin + part, kvl);
+  // F4: this partition's positions at or past the length, scanned when
+  // the row has a live position (a zero-length row flushes zeros); with
+  // more than one partition only row group 0 scans, for every group
+  const int tail_lo = max(t_begin, kvl), tail_hi = min(t_begin + part, cap);
+  const bool scan = kvl > 0 && tail_lo < tail_hi &&
+                    (n_split == 1 || blockIdx.y % n_rg == 0);
+  const bool live = t_begin < kvl;
+  if (n_split > 1 && !live && !scan) return;   // the merge skips it
+  if (tid < 32) s_tail[tid] = 0u;
 
   const float* s_ql = s_lut;
   const float* s_kl = s_lut + (CODES ? 256 : 0);
@@ -271,7 +350,7 @@ split_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pages,
     for (int i = 0; i < V; ++i) qv[r][i] = acc[r][i] = 0.0f;
     m[r] = -1e30f;
     l[r] = 0.0f;
-    if (r < gr)
+    if (r < gr && live)
       unpack<QT>(load<QT, V>(q + (((size_t)b * n_kv + h) * g + r0 + r) * HD +
                              V * lane),
                  qv[r], s_ql);
@@ -344,6 +423,19 @@ split_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pages,
     }
   }
 
+  if (scan) {
+    const unsigned bad = tail_bits<HD>(v_pages, bt_row, b, h, n_kv, bs, cap,
+                                       tail_lo, tail_hi, warp, lane, s_vl);
+    __syncthreads();   // s_tail zeroed
+    atomicOr(&s_tail[lane], bad);
+    __syncthreads();
+    if (n_split > 1 && warp == 0)
+      flags[(((size_t)b * n_kv + h) * n_split + z) * 32 + lane] = s_tail[lane];
+  }
+  // a partition wholly past the length leaves flags only (one partition
+  // still flushes its zeros)
+  if (n_split > 1 && !live) return;
+
   // the block's warps, merged once; thread tid then owns element tid
   // (row, dim) of each THREADS-wide slice of [g, HD]
 #pragma unroll
@@ -373,7 +465,7 @@ split_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pages,
     }
     if (n_split == 1) {
       flush<CODES>(out, (((size_t)b * n_kv + h) * g + r0 + r) * HD + d, mb,
-                   lb, ab, codes.out_qmeta);
+                   lb, ab, (s_tail[d / V] >> (d % V)) & 1u, codes.out_qmeta);
     } else {
       float* wr =
           work + ((((size_t)b * n_kv + h) * n_split + z) * g + r0 + r) * WS;
@@ -388,16 +480,29 @@ split_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pages,
 
 // The merge pass: grid (B, n_kv); thread tid folds element tid (row,
 // dim) of each THREADS-wide slice of [g, HD] over the partitions that
-// start before lengths[b], then flushes.
+// start before lengths[b], ORs the tail flags of the partitions from the
+// length on (F4), then flushes.
 template <int HD, bool CODES>
 __global__ void __launch_bounds__(THREADS)
-merge_kernel(const float* __restrict__ work, const int* __restrict__ lengths,
-             void* __restrict__ out, int g, int cap, int part, int n_split,
+merge_kernel(const float* __restrict__ work,
+             const unsigned* __restrict__ flags,
+             const int* __restrict__ lengths, void* __restrict__ out, int g,
+             int cap, int part, int n_split,
              const float* __restrict__ out_qmeta) {
   constexpr int WS = HD + 2;
+  constexpr int V = HD / 32;
+  __shared__ unsigned s_tail[32];
   const int b = blockIdx.x, h = blockIdx.y, n_kv = gridDim.y;
   const int kvl = max(0, min(lengths[b], cap));
   const int n_live = min((kvl + part - 1) / part, n_split);
+  if (threadIdx.x < 32) {
+    unsigned bad = 0u;
+    if (kvl > 0 && kvl < cap)
+      for (int z = kvl / part; z < n_split; ++z)
+        bad |= flags[(((size_t)b * n_kv + h) * n_split + z) * 32 + threadIdx.x];
+    s_tail[threadIdx.x] = bad;
+  }
+  __syncthreads();
   const float* w0 = work + ((size_t)b * n_kv + h) * n_split * g * WS;
   for (int e = threadIdx.x; e < g * HD; e += THREADS) {
     const int r = e / HD, d = e % HD;
@@ -412,7 +517,7 @@ merge_kernel(const float* __restrict__ work, const int* __restrict__ lengths,
       aa += wi[d] * c;
     }
     flush<CODES>(out, (((size_t)b * n_kv + h) * g + r) * HD + d, mm, ll, aa,
-                 out_qmeta);
+                 (s_tail[d / V] >> (d % V)) & 1u, out_qmeta);
   }
 }
 
@@ -431,17 +536,21 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   constexpr bool CODES = std::is_same_v<PT, uint8_t>;
   const int n_split = (s.cap + s.part - 1) / s.part;
   const int* ln = static_cast<const int*>(lengths);
+  float* wk = static_cast<float*>(work);
+  // the flag words follow the partials
+  unsigned* fl = n_split == 1 ? nullptr
+                              : reinterpret_cast<unsigned*>(
+                                    wk + (size_t)s.B * s.n_kv * n_split * s.g *
+                                             (HD + 2));
   split_kernel<HD, G, QT, PT>
       <<<dim3(s.B, s.n_kv * n_rg, n_split), THREADS, 0, st>>>(
           static_cast<const QT*>(q), static_cast<const PT*>(k),
-          static_cast<const PT*>(v), static_cast<const int*>(bt), ln,
-          static_cast<float*>(work), out, s.n_kv, s.g, gs, s.bs, s.cap,
-          s.part, scale, codes);
+          static_cast<const PT*>(v), static_cast<const int*>(bt), ln, wk, fl,
+          out, s.n_kv, s.g, gs, s.bs, s.cap, s.part, scale, codes);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || n_split == 1) return e;
   merge_kernel<HD, CODES><<<dim3(s.B, s.n_kv), THREADS, 0, st>>>(
-      static_cast<const float*>(work), ln, out, s.g, s.cap, s.part, n_split,
-      codes.out_qmeta);
+      wk, fl, ln, out, s.g, s.cap, s.part, n_split, codes.out_qmeta);
   return cudaGetLastError();
 }
 
@@ -510,8 +619,8 @@ cudaError_t launch_float(int kv_kind, const void* q, const void* k,
 // 1..16, any bs); block_tables [B, max_blk] and lengths [B] int32 (any
 // values: the kernels clamp them to [0, max_blk * bs]); work float32
 // [B, n_kv, n_split, g, hd + 2] with n_split = ceil(max_blk / part_pages)
-// (may be null when that is 1); out float32 of q's shape.  Zero-length
-// rows get zeros.
+// followed by [B, n_kv, n_split, 32] flag words (may be null when
+// n_split is 1); out float32 of q's shape.  Zero-length rows get zeros.
 extern "C" int decode_gqa_paged_launch(
     const void* q, int q_bf16, const void* k_pages, const void* v_pages,
     int kv_kind, const void* block_tables, const void* lengths, void* work,
@@ -557,8 +666,9 @@ extern "C" int decode_gqa_paged_codes_launch(
 // v_cache [B, S, n_kv, hd] float32, bfloat16 or float8_e4m3fn (kv_kind
 // as above); lengths [B] int32 (any values: the kernels clamp them to
 // [0, S]); partitions of `part` positions; work float32
-// [B, n_kv, ceil(S / part), g, hd + 2] (may be null when that is 1); out
-// float32 of q's shape.  Zero-length rows get zeros.
+// [B, n_kv, ceil(S / part), g, hd + 2] and the flag words, as above (may
+// be null when that is 1); out float32 of q's shape.  Zero-length rows
+// get zeros.
 extern "C" int decode_gqa_launch(
     const void* q, int q_bf16, const void* k_cache, const void* v_cache,
     int kv_kind, const void* lengths, void* work, void* out, int B, int S,

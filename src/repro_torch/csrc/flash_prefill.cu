@@ -85,6 +85,20 @@
 // - e4m3 pages: staged at 1 B per element as codes are, and converted
 //   into the same float32 tiles (two values at a time through half2:
 //   exact, NaN stays NaN); exact in TF32, so K and V take one pass.
+// - Non-finite values (F4), the reference's semantics: its oracle and
+//   TPU kernel fold every position of the block-table columns passed,
+//   a masked one with weight 0, and 0 x NaN (or 0 x inf) is NaN.  A
+//   position the tile loop stages and masks reaches the row through
+//   P = 0 in the PV product as it is.  The positions the loop does not
+//   stage -- past the last one a row of the block may see, up to
+//   max_blk * bs -- are scanned after the loop (V only, a column skipped
+//   when its page is the previous whole column's, as the engine's trash
+//   columns all are), and a lane d where V is not finite at one of them
+//   is flushed as NaN for every row that saw a position.  A NaN logit at
+//   a valid position turns the reference's running max NaN, and its
+//   flush then takes the row as unseen (zeros); fmaxf drops a NaN, so
+//   each row carries a flag instead, set by such a logit and read at
+//   the flush.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -269,6 +283,49 @@ __device__ __forceinline__ void decode_rows(float* dst, const PT* src,
   }
 }
 
+// F4: OR into s_bad (bit d % 32 of word d / 32) the dims d of KV head h
+// where V is not finite at one of positions [lo, hi) of the row.  Thread
+// tid takes the 4 dims 4 * (tid % (HD / 4)).. of every THREADS / (HD / 4)
+// -th position, U positions' loads in flight; a position whose column
+// and the column before it both lie whole in [lo, hi) and name the same
+// page is not loaded again.
+template <int HD, typename PT>
+__device__ void tail_scan(unsigned* s_bad, const PT* __restrict__ v_pages,
+                          const int* __restrict__ bt_row, int lo, int hi,
+                          int bs, int n_kv, int h, const float* s_vl,
+                          int tid) {
+  constexpr int CH = HD / 4;              // 4-dim chunks a position
+  constexpr int PPS = THREADS / CH;       // positions a sweep
+  constexpr int U = HD > 128 ? 2 : 8;     // sweeps in flight
+  const int ch = tid % CH;
+  unsigned bad = 0;
+  for (int t = lo + tid / CH; t < hi; t += U * PPS) {
+    float4 x[U];
+    bool on[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int tu = t + u * PPS;
+      int row = -1;
+      if (tu < hi) {
+        const int c = tu / bs;
+        const int pg = __ldg(bt_row + c);
+        if (!(c > 0 && (c - 1) * bs >= lo && __ldg(bt_row + c - 1) == pg))
+          row = pg * bs + (tu - c * bs);
+      }
+      on[u] = row >= 0;
+      if (on[u])
+        x[u] = load4(v_pages + ((size_t)row * n_kv + h) * HD + 4 * ch, s_vl);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (!on[u]) continue;
+      bad |= (isfinite(x[u].x) ? 0u : 1u) | (isfinite(x[u].y) ? 0u : 2u) |
+             (isfinite(x[u].z) ? 0u : 4u) | (isfinite(x[u].w) ? 0u : 8u);
+    }
+  }
+  if (bad) atomicOr(s_bad + (4 * ch) / 32, bad << ((4 * ch) % 32));
+}
+
 // q [B, S, n_kv, g, HD] (QT float, bf16, or uint8 codes); pages
 // [N, bs, n_kv, HD] (PT float, bf16, e4m3, or uint8 codes); block_tables
 // [B, max_blk]; out [B, S, n_kv, g, HD] float32, or uint8 for codes.
@@ -319,7 +376,10 @@ prefill_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pages,
   const int n_pos = kvl > 0 ? min(kvl, qs + q_last + 1) : 0;
   const int n_tiles = (n_pos + KT - 1) / KT;
 
+  __shared__ unsigned s_bad[HD / 32];   // F4: lanes not finite unstaged
+  if (tid < HD / 32) s_bad[tid] = 0u;
   float m0 = -1e30f, m1 = -1e30f, l0 = 0.0f, l1 = 0.0f;
+  int nan0 = 0, nan1 = 0;   // F4: a NaN logit at a position the row sees
   float o[HD / 8][4];
 #pragma unroll
   for (int n = 0; n < HD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
@@ -417,8 +477,11 @@ prefill_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pages,
         for (int e = 0; e < 2; ++e) {
           const int t = t0 + n * 8 + 2 * lt + e;
           const bool live = t < kvl;
-          sc[n][e] = live && t <= qp0 ? sc[n][e] * scale : -1e30f;
-          sc[n][2 + e] = live && t <= qp1 ? sc[n][2 + e] * scale : -1e30f;
+          const bool v0 = live && t <= qp0, v1 = live && t <= qp1;
+          nan0 |= v0 && isnan(sc[n][e]);
+          nan1 |= v1 && isnan(sc[n][2 + e]);
+          sc[n][e] = v0 ? sc[n][e] * scale : -1e30f;
+          sc[n][2 + e] = v1 ? sc[n][2 + e] * scale : -1e30f;
           mx0 = fmaxf(mx0, sc[n][e]);
           mx1 = fmaxf(mx1, sc[n][2 + e]);
         }
@@ -473,9 +536,18 @@ prefill_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pages,
       }
     }
     cp_async_wait<0>();
+    // F4: the positions the loop did not stage, up to the table's end
+    __syncthreads();   // s_bad zeroed
+    tail_scan<HD>(s_bad, v_pages, bt_row, n_pos, max_blk * bs, bs, n_kv, h,
+                  s_vl, tid);
+    __syncthreads();
   }
 
   // flush: o[n][e] is row r0 (e < 2) or r1 at dim 8n + 2*lt + (e & 1)
+  nan0 |= __shfl_xor_sync(FULL, nan0, 1);
+  nan0 |= __shfl_xor_sync(FULL, nan0, 2);
+  nan1 |= __shfl_xor_sync(FULL, nan1, 1);
+  nan1 |= __shfl_xor_sync(FULL, nan1, 2);
   l0 += __shfl_xor_sync(FULL, l0, 1);
   l0 += __shfl_xor_sync(FULL, l0, 2);
   l1 += __shfl_xor_sync(FULL, l1, 1);
@@ -485,14 +557,20 @@ prefill_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pages,
     const int r = half ? r1 : r0;
     const int qi = qi0 + r / g, gi = r % g;
     if (qi >= S || (half ? qp1 : qp0) == PAD) continue;
-    const bool seen = (half ? m1 : m0) > -5e29f;
+    // a NaN logit makes the reference's running max NaN: unseen, zeros
+    const bool seen = (half ? m1 : m0) > -5e29f && !(half ? nan1 : nan0);
     const float den = fmaxf(half ? l1 : l0, 1e-30f);
     const size_t base =
         ((((size_t)b * S + qi) * n_kv + h) * g + gi) * HD + 2 * lt;
+    const float qnan = __int_as_float(0x7fc00000);
 #pragma unroll
     for (int n = 0; n < HD / 8; ++n) {
-      const float x0 = seen ? o[n][2 * half] / den : 0.0f;
-      const float x1 = seen ? o[n][2 * half + 1] / den : 0.0f;
+      const int d = n * 8 + 2 * lt;   // even: d and d + 1 share a word
+      const unsigned bad = s_bad[d / 32] >> (d % 32);
+      const float x0 =
+          seen ? ((bad & 1u) ? qnan : o[n][2 * half] / den) : 0.0f;
+      const float x1 =
+          seen ? ((bad & 2u) ? qnan : o[n][2 * half + 1] / den) : 0.0f;
       if constexpr (CODES) {
         *reinterpret_cast<uchar2*>(static_cast<uint8_t*>(out) + base + n * 8) =
             make_uchar2(dnateq::encode(x0, codes.out_qmeta),

@@ -86,13 +86,15 @@ def _lib():
 
 
 def _workspace(q, n_split: int):
-    """The partials' workspace [B, n_kv, n_split, g, hd + 2], or None
-    when one partition covers a row."""
+    """The partials' workspace, flat float32: [B, n_kv, n_split, g,
+    hd + 2] (acc, m, l), then [B, n_kv, n_split, 32] words of the tail
+    flags (a bit a dim not finite past the length); None when one
+    partition covers a row."""
     if n_split == 1:
         return None
     b, n_kv, g, hd = q.shape
-    return torch.empty((b, n_kv, n_split, g, hd + 2), dtype=torch.float32,
-                       device=q.device)
+    return torch.empty((b * n_kv * n_split * (g * (hd + 2) + 32),),
+                       dtype=torch.float32, device=q.device)
 
 
 def _check_split(q, k_pages, v_pages, block_tables):

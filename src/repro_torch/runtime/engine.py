@@ -93,9 +93,15 @@ traces and a Chrome trace.  The calibration drift guard
 (``drift_check_every``) re-measures the act-quant sites' SQNR on a live
 prompt every N ticks and warns past ``drift_threshold_db``.
 
-Not ported yet, and refused with ``NotImplementedError``: the
-disaggregation roles (``role`` other than ``"unified"``), whose KV
-handoffs belong to the cluster (ROADMAP Queue 1 item 12).
+Disaggregation roles (``EngineConfig.role``, the reference's): a
+``"unified"`` engine interleaves prefill and decode; a ``"prefill"``
+engine runs prompts only, and when a request's last chunk lands and its
+first token is sampled it exports the slot's KV pages as a
+:class:`KVHandoff` (``take_handoffs``) instead of decoding; a
+``"decode"`` engine takes handoffs through :meth:`Engine.inject_prefilled`,
+whose admission imports the pages into its own pool and enters the
+decode loop at once.  :class:`~repro_torch.runtime.cluster.Cluster` runs
+the two roles side by side.
 """
 
 from __future__ import annotations
@@ -138,6 +144,7 @@ ST_FAILED = "failed"
 TERMINAL_STATUSES = (ST_OK, ST_CANCELLED, ST_DEADLINE, ST_REJECTED,
                      ST_FAILED)
 SHED_POLICIES = ("reject-new", "shed-oldest")
+ENGINE_ROLES = ("unified", "prefill", "decode")   # see the module docstring
 KV_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
              "float8_e4m3fn": torch.float8_e4m3fn}
 
@@ -180,7 +187,7 @@ class EngineConfig:
     checksum_pages: bool = False  # per-tick KV page CRC audit
     quarantine_ticks: int = 8     # lane rest after a non-finite dispatch
     replay_dir: str | None = None  # where failed requests' artifacts land
-    role: str = "unified"         # prefill | decode: ROADMAP item 12
+    role: str = "unified"         # unified | prefill | decode (cluster)
     spec_k: int = 0               # drafted tokens a slot a tick; 0: off
     spec_max_ngram: int = 3       # longest n-gram the drafter matches
     spec_min_ngram: int = 1       # shortest n-gram worth proposing from
@@ -188,13 +195,40 @@ class EngineConfig:
     drift_threshold_db: float = 6.0
 
 
-# field -> (default, ROADMAP item that brings the feature)
-_UNPORTED = {"role": ("unified", 12)}
+@dataclasses.dataclass
+class KVHandoff:
+    """One finished prefill leaving a prefill worker: the request, the
+    tokens sampled so far (the first one), and the KV page content in
+    block-table order, host-resident (``PagedKVCache.export_slot``) --
+    what the decode worker's ``import_slot`` scatters into its pool.
+    The lifecycle stamps ride along, so the completion reports
+    end-to-end TTFT and queue wait across the two workers."""
 
+    request: Request
+    tokens: list[int]             # sampled so far (the first token)
+    length: int                   # KV tokens written (the prompt)
+    k_pages: torch.Tensor         # [L, n_pages, bs, n_kv, hd], host
+    v_pages: torch.Tensor
+    block_size: int
+    submit_t: float = 0.0
+    admit_t: float | None = None
+    first_token_t: float | None = None
+    prefill_s: float = 0.0
+    preemptions: int = 0
+    source: int | None = None     # the cluster's prefill worker index
+    # codes pages decode only under the tables they were written with:
+    # the exporter's table fingerprint (None for float pages), checked
+    # by inject_prefilled
+    kv_fingerprint: int | None = None
+    # the request's trace crosses with the handoff; flow_id pairs the
+    # export's flow arrow with the import's
+    trace: Trace | None = None
+    flow_id: int = 0
 
-def _not_ported(what: str, item: int):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
+    @property
+    def nbytes(self) -> int:
+        """Bytes a deployment would move across the interconnect."""
+        return self.k_pages.nbytes + self.v_pages.nbytes
 
 
 def kv_dtype_of(kv_dtype) -> torch.dtype:
@@ -241,6 +275,9 @@ class _SeqState:
     # the trie match kept across ticks: (trie generation, prompt
     # length, match); valid while neither changes
     match_cache: tuple | None = None
+    # a migrated prefill waiting for its import (decode role); dropped
+    # once the pages are in this pool
+    handoff: KVHandoff | None = None
     trace: Trace | None = None    # the request's stamp timeline
 
     def full_prompt(self) -> np.ndarray:
@@ -303,10 +340,9 @@ class Engine:
         if ec.shed_policy not in SHED_POLICIES:
             raise ValueError(f"shed_policy must be one of {SHED_POLICIES}, "
                              f"got {ec.shed_policy!r}")
-        for field, (default, item) in _UNPORTED.items():
-            if getattr(ec, field) != default:
-                raise _not_ported(f"EngineConfig.{field}="
-                                  f"{getattr(ec, field)!r}", item)
+        if ec.role not in ENGINE_ROLES:
+            raise ValueError(f"role must be one of {ENGINE_ROLES}, "
+                             f"got {ec.role!r}")
         if ec.spec_k < 0:
             raise ValueError(f"spec_k must be >= 0 (0 disables "
                              f"speculation), got {ec.spec_k}")
@@ -375,7 +411,7 @@ class Engine:
 
         # telemetry: the counters of _ENGINE_COUNTERS live in the
         # registry (int properties over it, below the class); a cluster
-        # would hand every worker one bundle
+        # hands every worker one bundle, each under its own scope
         self.telemetry = telemetry or Telemetry()
         self.worker_name = worker_name
         self.worker_id = worker_id
@@ -389,6 +425,7 @@ class Engine:
         for i in range(ec.num_slots):
             self.tracer.thread_name(worker_id, lane_tid(i), f"slot{i}")
         self.flight = FlightRecorder()
+        self.outbox: list[KVHandoff] = []   # prefill role: exports ready
         # port-only, outside the registry: tokens decoded, and the wall
         # time inside prefill / decode dispatches (each ends with the
         # host transfer that waits for the device)
@@ -515,6 +552,66 @@ class Engine:
             self.shed += status == ST_REJECTED
             n += 1
         return n
+
+    # -------------------------------------------------- disaggregation
+    def inject_prefilled(self, handoff: KVHandoff) -> int:
+        """Take a migrated prefill (the decode worker's side of the
+        handoff): the request queues with its exported pages, and its
+        admission imports them into this pool (``import_slot``) instead
+        of prefilling; the slot enters the decode loop at once.  The
+        prefill worker's stamps carry over.  Returns the handle (uid)."""
+        req = handoff.request
+        if req.uid in self._states:
+            raise ValueError(f"duplicate uid {req.uid}")
+        if handoff.block_size != self.engine_cfg.block_size:
+            raise ValueError(
+                f"handoff block_size {handoff.block_size} != engine "
+                f"block_size {self.engine_cfg.block_size}")
+        if handoff.kv_fingerprint != self._kv_fingerprint:
+            raise ValueError(
+                f"request {req.uid}: handoff KV table fingerprint "
+                f"{handoff.kv_fingerprint} != this worker's "
+                f"{self._kv_fingerprint} -- codes pages decode only "
+                f"under the tables they were encoded with")
+        if handoff.length + req.max_new_tokens > self.engine_cfg.max_seq_len:
+            raise ValueError(
+                f"request {req.uid}: prefilled {handoff.length} + max_new "
+                f"{req.max_new_tokens} exceeds max_seq_len "
+                f"{self.engine_cfg.max_seq_len}")
+        st = _SeqState(req, seq_no=self._seq_counter,
+                       submit_t=handoff.submit_t)
+        self._seq_counter += 1
+        st.tokens = list(handoff.tokens)
+        if st.tokens:
+            st.next_token = st.tokens[-1]
+        st.admit_t = handoff.admit_t
+        st.first_token_t = handoff.first_token_t
+        st.prefill_s = handoff.prefill_s
+        st.preemptions = handoff.preemptions
+        st.handoff = handoff
+        # the trace crossed inside the handoff: stamp the import on the
+        # same timeline and close the export's flow arrow
+        st.trace, handoff.trace = handoff.trace, None
+        if st.trace is not None:
+            t = self._clock()
+            st.trace.stamp("handoff_import", t,
+                           worker=self.worker_name or str(self.worker_id),
+                           nbytes=handoff.nbytes)
+            self.tracer.flow_end(self.worker_id, SCHED_TID, "kv_handoff",
+                                 handoff.flow_id, t, uid=req.uid)
+            self.tracer.instant(self.worker_id, SCHED_TID, "handoff_import",
+                                t, uid=req.uid)
+        self._states[req.uid] = st
+        self._queue.append(st)
+        return req.uid
+
+    def take_handoffs(self) -> list[KVHandoff]:
+        """Drain the prefill role's outbox: every request whose last
+        prompt chunk landed since the last call, with its pages.  The
+        caller delivers them; a dropped one is submitted again (its
+        state left this engine at the export, so the uid is free)."""
+        out, self.outbox = self.outbox, []
+        return out
 
     # ------------------------------------------------- crash recovery
     def snapshot(self) -> dict:
@@ -960,6 +1057,42 @@ class Engine:
         self._finish_trace(st, st.term)
         return st.completion()
 
+    def _export_handoff(self, slot: int, st: _SeqState) -> None:
+        """Prefill role: the request's last chunk landed -- copy its KV
+        pages out for migration, retire the slot (its pages go into the
+        trie, warm for the next shared prefix and for a cheap re-prefill
+        if the handoff drops) and drop the request's state: the handoff
+        owns it now, and the uid is free for a re-queue."""
+        length = int(self.cache.lengths[slot])
+        k, v = self.cache.export_slot(slot)
+        h = KVHandoff(request=st.request, tokens=list(st.tokens),
+                      length=length, k_pages=k, v_pages=v,
+                      block_size=self.engine_cfg.block_size,
+                      submit_t=st.submit_t, admit_t=st.admit_t,
+                      first_token_t=st.first_token_t,
+                      prefill_s=st.prefill_s, preemptions=st.preemptions,
+                      kv_fingerprint=self._kv_fingerprint)
+        # the trace moves into the handoff before the retire: the request
+        # goes on elsewhere, so no terminal span here; a flow arrow ties
+        # the two workers' timelines (closed at the import, or where a
+        # migration fault drops it)
+        h.trace, st.trace = st.trace, None
+        if h.trace is not None:
+            t = self._clock()
+            h.flow_id = self.tracer.next_flow_id()
+            h.trace.stamp("handoff_export", t,
+                          worker=self.worker_name or str(self.worker_id),
+                          nbytes=h.nbytes)
+            self.tracer.flow_start(self.worker_id, SCHED_TID, "kv_handoff",
+                                   h.flow_id, t, uid=int(st.request.uid))
+            self.tracer.instant(self.worker_id, SCHED_TID, "handoff_export",
+                                t, uid=int(st.request.uid))
+        self._retire(slot)
+        del self._states[st.request.uid]
+        self.outbox.append(h)
+        self.handoffs += 1
+        self.handoff_bytes += h.nbytes
+
     def _preempt(self, slot: int) -> None:
         """Release a running sequence's pages and re-queue it at the
         front; prompt plus tokens so far re-prefill on re-admission."""
@@ -1159,6 +1292,12 @@ class Engine:
             # pop before placing: _try_place may preempt a victim onto
             # the queue front
             st = self._queue.popleft()
+            if st.handoff is not None:
+                if self._place_import(st):
+                    admitted += 1
+                    continue
+                self._queue.appendleft(st)  # wait for pages
+                break
             match = self._trie_match(st) if self.prefix is not None else None
             if self._try_place(st, match=match):
                 admitted += 1
@@ -1167,6 +1306,43 @@ class Engine:
             self._admit_reordered(
                 self.engine_cfg.max_batched_prefill - admitted)
             break
+
+    def _place_import(self, st: _SeqState) -> bool:
+        """Admit a migrated prefill: make room for its pages, scatter the
+        handoff's KV into this pool and enter the decode loop directly
+        (``prefill_done`` from the first tick).  False when the pages
+        cannot be freed (the import waits)."""
+        h = st.handoff
+        need = self.cache.blocks_for(h.length)
+        if need > self.cache.max_blocks_per_seq:
+            raise RuntimeError(
+                f"request {st.request.uid} needs {need} blocks > "
+                f"max_blocks_per_seq {self.cache.max_blocks_per_seq}")
+        # chaos: the import's allocation fails -- the handoff waits a
+        # tick (latency, never tokens)
+        if self.chaos is not None and self.chaos.alloc_fault():
+            self.alloc_faults_absorbed += 1
+            self._chaos_blocked = True
+            return False
+        if not self._make_room(need, st.seq_no):
+            return False
+        slot = self._free_slot()
+        blocks = self.cache.import_slot(slot, h.length, h.k_pages, h.v_pages)
+        st.slot, st.status = slot, _RUNNING
+        st.prefix_len = 0
+        st.prefill_pos = h.length
+        st.prefill_done = True
+        if st.admit_t is None:
+            st.admit_t = self._clock()
+        if st.trace is not None:
+            st.trace.stamp("import_admit", self._clock(), slot=slot)
+        self._slots[slot] = st
+        self.imported_handoffs += 1
+        self.imported_bytes += h.nbytes
+        st.handoff = None       # adopted: the host copy can go
+        if self._checksum:
+            self._record_crcs(blocks)
+        return True
 
     def _admit_reordered(self, budget: int) -> None:
         """The queue head is blocked on pages: scan the next four waiting
@@ -1337,6 +1513,9 @@ class Engine:
                     st.trace.stamp("first_token", st.first_token_t)
             if self._should_stop(st):
                 finished.append(self._retire(i))
+            elif ec.role == "prefill":
+                # this worker's part ends at the first token: export
+                self._export_handoff(i, st)
         if row_pages:   # a faulted row's pages were freed
             self._record_crcs([p for i, pages in row_pages.items()
                                if i not in faulted for p in pages])
@@ -1553,9 +1732,7 @@ def _weak_reader(obj):
 
 # The engine's counters live in the metrics registry, under the
 # reference's keys; the attribute names stay, as int properties over the
-# registered Counter.  The handoff counters belong to the cluster (ROADMAP
-# item 12) and stay 0 here; they are registered so that the registry holds
-# the reference engine's keys (tests/test_torch_telemetry.py compares them).
+# registered Counter.
 _ENGINE_COUNTERS = {
     "total_decode_steps":
         ("engine.decode.steps", "batched decode dispatches run"),
@@ -1634,6 +1811,7 @@ def _install_counter_views(cls, mapping) -> None:
 _install_counter_views(Engine, _ENGINE_COUNTERS)
 
 
-__all__ = ["Engine", "EngineConfig", "Request", "Completion", "ST_OK",
+__all__ = ["Engine", "EngineConfig", "KVHandoff", "Request", "Completion",
+           "ENGINE_ROLES", "ST_OK",
            "ST_CANCELLED", "ST_DEADLINE", "ST_REJECTED", "ST_FAILED",
            "TERMINAL_STATUSES", "SHED_POLICIES", "kv_dtype_of"]

@@ -22,6 +22,15 @@ of them each step (``view``, or ``fill`` into a step's own buffers and
 codes mode (each element a DNA-TEQ code under its layer's per-head
 table).
 
+Migration (the disaggregated cluster's KV handoff): ``export_slot``
+gathers a slot's pages on the device in block-table order and copies
+them to pinned host memory -- the handoff is host-resident, a host copy
+standing in for an inter-host link, as in the reference -- and
+``import_slot`` copies such pages to the device and scatters them in
+place into fresh pages of another pool, binding the slot as if it had
+prefilled there.  Pools, block tables and lengths are all written in
+place: captured steps hold their pointers.
+
 The engine's checksum audit reads pages through ``page_checksums``: the
 reference's CRC32 of a page's K bytes then V bytes (the pools have its
 layout, so byte-equal pages give its CRC), all pages of a call in one
@@ -261,6 +270,73 @@ class PagedKVCache:
         self.slot_shared[slot] = set()
         self.block_tables[slot, :] = TRASH_PAGE
         self.lengths[slot] = 0
+        return blocks
+
+    # ------------------------------------------------------- migration
+    def export_slot(self, slot: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """Copy a slot's KV pages out of the pool for migration to another
+        worker's pool: host tensors ``[L, n_pages, bs, n_kv, hd]`` for K
+        and V in the pool's dtype, in block-table order -- what
+        :meth:`import_slot` scatters into a peer pool.  Shared (trie)
+        pages are exported too: the importer gets private copies.  The
+        positions past ``lengths[slot]`` in the last page ride along as
+        they are, as in the reference; the attention kernels give them
+        the reference's weight 0.  One gather a pool on the device, then
+        one copy of both into pinned host memory (on the card)."""
+        blocks = self.slot_blocks[slot]
+        assert blocks, f"slot {slot} has no pages to export"
+        dev = self.k_pages.device
+        idx = torch.as_tensor(blocks, dtype=torch.long, device=dev)
+        l, _, bs, kv, hd = self.k_pages.shape
+        # through bytes: index_select has no CPU kernel for e4m3
+        raw = [p.view(torch.uint8) if p.dtype == F8 else p
+               for p in (self.k_pages, self.v_pages)]
+        shape = (2, l, len(blocks), bs, kv, hd)
+        both = torch.empty(shape, dtype=raw[0].dtype, device=dev)
+        for i, r in enumerate(raw):
+            torch.index_select(r, 1, idx, out=both[i])
+        if both.is_cuda:
+            host = torch.empty(shape, dtype=both.dtype, pin_memory=True)
+            host.copy_(both)
+            both = host
+        if self.dtype == F8:
+            both = both.view(F8)
+        return both[0], both[1]
+
+    def import_slot(self, slot: int, length: int, k_pages: torch.Tensor,
+                    v_pages: torch.Tensor, *, reserved: bool = False
+                    ) -> list[int]:
+        """Adopt migrated KV content into this pool: allocate fresh
+        pages, copy the exported pages to the device and scatter them in
+        place, and bind the slot as if it had prefilled here (owned
+        pages, none shared; its table row and length written in place).
+        Only content and block-table order migrate; the page ids are
+        this pool's.  Returns the new block list."""
+        assert not self.slot_blocks[slot], "slot already bound"
+        l, n, bs, kv, hd = k_pages.shape
+        el, _, ebs, ekv, ehd = self.k_pages.shape
+        assert (l, bs, kv, hd) == (el, ebs, ekv, ehd), (
+            f"page geometry mismatch: import {(l, bs, kv, hd)} vs pool "
+            f"{(el, ebs, ekv, ehd)}")
+        assert n == self.blocks_for(length), (n, length, self.block_size)
+        assert n <= self.max_blocks_per_seq, (n, self.max_blocks_per_seq)
+        if k_pages.dtype != self.dtype or v_pages.dtype != self.dtype:
+            raise TypeError(f"handoff pages {k_pages.dtype} into a "
+                            f"{self.dtype} pool")
+        blocks = self.allocator.alloc(n, reserved=reserved)
+        dev = self.k_pages.device
+        idx = torch.as_tensor(blocks, dtype=torch.long, device=dev)
+        for pool, pages in ((self.k_pages, k_pages), (self.v_pages, v_pages)):
+            # through bytes: index_copy_ has no CPU kernel for e4m3
+            raw = pool.view(torch.uint8) if pool.dtype == F8 else pool
+            src = pages.view(torch.uint8) if pages.dtype == F8 else pages
+            src = src.to(dev, non_blocking=src.is_pinned())
+            raw.index_copy_(1, idx, src)
+        self.slot_blocks[slot] = list(blocks)
+        self.slot_shared[slot] = set()
+        self.block_tables[slot, :] = TRASH_PAGE
+        self.block_tables[slot, :n] = blocks
+        self.lengths[slot] = length
         return blocks
 
     # ------------------------------------------------------- checksums

@@ -29,6 +29,8 @@ each by one rounding step (``eq.codes_agree``), since a last-bit float
 difference moves a value across a rounding boundary now and then.
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -1625,13 +1627,16 @@ def test_nan_poke_under_a_replayed_graph_fails_one_row(dev):
     """NaN written in place into a decoding row's first page between two
     ticks: the replayed step reads it (the pool is the storage the graph
     captured), that row's finite flag falls and its request alone fails
-    with its lane quarantined; graphs on and off give the same statuses
-    and streams."""
-    from repro_torch.runtime.engine import Request
+    at that tick, with its lane quarantined; graphs on and off give the
+    same statuses and streams.  The failed request's pages go back to
+    the free list, NaN and all, and a row that grows into one later
+    leaves its stale NaN past its length, which the reference's
+    semantics (F4) weigh by 0: that request fails too.  Every status
+    equals the same engine's on the CPU (the plain versions), on the
+    same weights."""
+    from repro_torch.runtime.engine import Engine, Request
 
-    results = []
-    for graphs in (True, False):
-        eng = _fault_engine(graphs)
+    def scenario(eng):
         reqs = [Request(i, p, 24) for i, p in enumerate(_tiny_prompts()[:3])]
         _until_replayed(eng, reqs)
         ptr = eng.cache.k_pages.data_ptr()
@@ -1646,9 +1651,19 @@ def test_nan_poke_under_a_replayed_graph_fails_one_row(dev):
         assert eng.replay_artifacts[0]["kind"] == "nan_logits"
         out = eng.run()
         eng.check_partition()
-        assert [c.uid for c in out if c.status != "ok"] == [victim]
+        assert victim in [c.uid for c in out if c.status != "ok"]
+        return out
+
+    results = []
+    for graphs in (True, False):
+        eng = _fault_engine(graphs)
+        out = scenario(eng)
         results.append([(c.uid, c.status, c.tokens.tolist()) for c in out])
     assert results[0] == results[1]
+    cpu = Engine(eng.cfg, params=copy.deepcopy(eng.params).to("cpu"),
+                 device="cpu", engine=eng.engine_cfg)
+    on_cpu = scenario(cpu)
+    assert [(c.uid, c.status) for c in on_cpu] == [r[:2] for r in results[0]]
 
 
 def test_corrupt_page_in_place_is_caught_under_graphs(dev):
@@ -1716,51 +1731,252 @@ def test_dropped_engine_returns_its_pool_without_a_collection(dev, graphs):
         gc.enable()
 
 
-def _nan_pages(dev, where):
-    """Random float32 pages at qwen3-1.7b's head layout (n_kv 8, g 2, hd
-    128, bs 16) for one row of 37 positions over pages 1, 2, 3; NaN in K
-    and V of page 3 at positions 5.. (``"past"``: stale, past the
-    length), or of page 1 at position 2 (``"valid"``: before every
-    query)."""
+def _f4_case(dev, case, pdt, n_rows=3, max_blk=40):
+    """Pages at qwen3-1.7b's head layout (n_kv 8, g 2, hd 128, bs 16) for
+    ``n_rows`` rows of lengths 37, 300, 3 (the trash page 0 past each
+    row's live pages; 40 columns: several partitions for #7) with a bad
+    value placed per ``case``: NaN (or +inf, ``"inf"``) in V of KV head
+    3, lane 7, in the rest of row 0's last page (``"tail"``, K NaN too),
+    in the trash page (``"trash"``, read by every row), at row 1's
+    position 250 (``"masked"``: inside its length, past the prefill
+    chunk's first queries), or NaN in K at row 1's position 2
+    (``"score"``).  Returns (k, v, table, lengths)."""
     gen = _gen(dev, 11)
-    k = torch.randn(6, 16, 8, 128, generator=gen, device=dev)
-    v = torch.randn(6, 16, 8, 128, generator=gen, device=dev)
-    page, sl = (3, slice(5, None)) if where == "past" else (1, slice(2, 3))
-    k[page, sl] = float("nan")
-    v[page, sl] = float("nan")
-    table = torch.tensor([[1, 2, 3, 0]], dtype=torch.int32, device=dev)
-    lengths = torch.tensor([37], dtype=torch.int32, device=dev)
-    return k, v, table, lengths
+    n = 1 + n_rows * max_blk
+    lens = [37, 300, 3][:n_rows]
+    k, v = (torch.randn(n, 16, 8, 128, generator=gen, device=dev)
+            for _ in range(2))
+    table = torch.zeros((n_rows, max_blk), dtype=torch.int32)
+    nxt = 1
+    for r, ln in enumerate(lens):
+        cols = -(-ln // 16)
+        table[r, :cols] = torch.arange(nxt, nxt + cols)
+        nxt += cols
+    table = table.to(dev)
+    bad = float("inf") if case == "inf" else float("nan")
+    row, pos = {"tail": (0, 45), "trash": (0, 330), "inf": (0, 45),
+                "masked": (1, 250), "score": (1, 2)}[case]
+    page, slot = int(table[row, pos // 16]), pos % 16
+    if case == "score":
+        k[page, slot, 3] = bad
+    else:
+        v[page, slot, 3, 7] = bad
+        if case == "tail":
+            k[page, slot, 3] = bad
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return k.to(pdt), v.to(pdt), table, lengths
 
 
-def _finite(x) -> bool:
-    return bool(x.isfinite().all())
+def _same_nan(out, ref):
+    """Equal NaN masks, and the finite values within the float gate."""
+    out, ref = out.float().cpu(), ref.float().cpu()
+    mask = torch.isnan(ref)
+    assert torch.equal(torch.isnan(out), mask), (
+        int(torch.isnan(out).sum()), int(mask.sum()))
+    _close(out[~mask], ref[~mask])
+    return mask
 
 
-def test_f4_stale_nan_past_the_length_kernels_against_plain(dev):
-    """ROADMAP Queue 3's F4, pinned as it stands.  NaN past a row's length
-    (a page freed by a failed request, taken again and filled only in
-    part): #7 and #5 never read a position past the length (the decode
-    kernel clamps it to the last live one, the prefill kernel zero-fills
-    it) and give finite rows; their plain versions, as the reference's
-    oracles and TPU kernels, weigh the position by 0 and 0 x NaN is NaN.
-    NaN at a valid position: #7 and its plain version both give NaN (the
-    reference's dense decode softmax); #5 gives NaN where its plain
-    version and the reference's prefill oracle give the row zeros (the
-    running max turns NaN and the flush's test takes the row as unseen).
-    Closing F4 changes these assertions to equality."""
-    q = torch.randn(1, 8, 2, 128, generator=_gen(dev, 12), device=dev)
-    qs = torch.randn(1, 4, 8, 2, 128, generator=_gen(dev, 13), device=dev)
-    for where in ("past", "valid"):
-        k, v, table, lengths = _nan_pages(dev, where)
-        cpu = lambda *a: [t.cpu() for t in a]       # noqa: E731
-        dec = (_finite(decode_gqa_paged(q, k, v, table, lengths)),
-               _finite(decode_gqa_paged_ref(*cpu(q, k, v, table, lengths))))
-        args = (qs, k, v, table, lengths - 4, lengths)
-        pre = (_finite(flash_prefill_paged(*args)),
-               _finite(flash_prefill_paged_ref(*cpu(*args))))
-        if where == "past":
-            assert dec == (True, False) and pre == (True, False)
-        else:
-            assert dec == (False, False) and pre == (False, True)
+F4_CASES = ["tail", "trash", "inf", "masked", "score"]
 
+
+@pytest.mark.parametrize("case,pdt", [
+    (c, dt) for c in F4_CASES
+    for dt in (torch.float32, torch.bfloat16, torch.float8_e4m3fn)
+    if not (c == "inf" and dt == torch.float8_e4m3fn)])   # e4m3fn: no inf
+def test_f4_kernels_give_the_plain_nan_masks(dev, case, pdt):
+    """ROADMAP Queue 3's F4, closed: #7 and #5 give their plain versions'
+    (and so the reference's) NaN masks.  A value that is not finite in V
+    at or past a row's length -- the rest of the last page, a trash
+    column -- weighs in by 0, and 0 x NaN (0 x inf) is NaN: the lane is
+    NaN in every query row of its KV head, every other element as
+    before; a NaN V inside the prefill's kv_lens reaches the earlier
+    queries through P = 0 in the PV product; a NaN score at a valid
+    position gives #7 the row NaN (the dense decode softmax) and #5 the
+    row zeros (the prefill oracle's NaN running max).  #7 runs with
+    several partitions (40 columns) and with one (3 columns)."""
+    k, v, table, lengths = _f4_case(dev, case, pdt)
+    cpu = lambda *a: [t.cpu() for t in a]   # noqa: E731
+    q = torch.randn(3, 8, 2, 128, generator=_gen(dev, 12),
+                    device=dev).to(torch.bfloat16)
+    dec = _same_nan(decode_gqa_paged(q, k, v, table, lengths),
+                    decode_gqa_paged_ref(*cpu(q, k, v, table, lengths)))
+    if case != "masked":
+        assert bool(dec.any())
+    short = table[:, :3].contiguous()
+    if case in ("tail", "inf", "score"):
+        _same_nan(decode_gqa_paged(q[:1], k, v, short[:1], lengths[:1]),
+                  decode_gqa_paged_ref(*cpu(q[:1], k, v, short[:1],
+                                            lengths[:1])))
+    qs = torch.randn(3, 64, 8, 2, 128, generator=_gen(dev, 13),
+                     device=dev).to(torch.bfloat16)
+    starts = torch.clamp(lengths - 64, min=0).to(torch.int32)
+    # row 1's chunk starts at 200: positions 200..263 of 300
+    starts[1] = 200
+    ends = torch.minimum(starts + 64, lengths).to(torch.int32)
+    args = (qs, k, v, table, starts, ends)
+    pre = _same_nan(flash_prefill_paged(*args),
+                    flash_prefill_paged_ref(*cpu(*args)))
+    if case == "masked":
+        # position 250 is past queries 200..249 of the chunk
+        assert bool(pre[1, :50, 3, :, 7].all())
+    if case == "score":
+        assert not pre.any()
+
+
+@pytest.mark.parametrize("case", ["tail", "trash", "valid"])
+def test_f4_codes_kernels_give_the_plain_codes(dev, case):
+    """#8 and #6 on codes pages whose V table holds NaN at one code
+    (finite tables cannot show the rule): placed past row 0's length, in
+    the trash page, or at a valid position; every code equal to the
+    plain version's but for the gate's one-step flips, the NaN lane's
+    (the code of NaN) exactly."""
+    gen = _gen(dev, 21)
+    k, v, table, lengths = _f4_case(dev, "tail", torch.float32)
+    kc, kl, _ = _act_codes(k.shape, dev, gen)
+    vx = torch.randn(k.shape, generator=gen, device=dev)
+    vfit = eq.fit(vx, 7)
+    vc, vl = eq.encode(vx, vfit), eq.decode_table(vfit)
+    kl, vl = kl.expand(8, 256).contiguous(), vl.expand(8, 256).clone()
+    bad = 200
+    vl[3, bad] = float("nan")
+    vc[vc == bad] = 201
+    page, slot = {"tail": (int(table[0, 2]), 13), "trash": (0, 4),
+                  "valid": (int(table[0, 0]), 1)}[case]
+    vc[page, slot, 3, 7] = bad
+    qc, ql, _ = _act_codes((3, 8, 2, 128), dev, gen)
+    qo = _out_qmeta(torch.randn(4096, generator=gen, device=dev) * 0.5)
+    cpu = lambda *a: [t.cpu() for t in a]   # noqa: E731
+    dargs = (qc, kc, vc, ql, kl, vl, qo, table, lengths)
+    out = decode_gqa_paged_codes(*dargs)
+    ref = decode_gqa_paged_codes_ref(*cpu(*dargs))
+    _codes_close(out.cpu(), ref, qo.cpu())
+    assert torch.equal(out.cpu()[..., 3, :, 7], ref[..., 3, :, 7])
+    nan_code = eq.encode_meta(torch.tensor(float("nan")), qo.cpu())
+    assert bool((ref[0, 3, :, 7] == nan_code).all())
+    qsc, _, _ = _act_codes((3, 64, 8, 2, 128), dev, gen)
+    starts = torch.clamp(lengths - 64, min=0).to(torch.int32)
+    pargs = (qsc, kc, vc, ql, kl, vl, qo, table, starts, lengths)
+    out = flash_prefill_paged_codes(*pargs)
+    ref = flash_prefill_paged_codes_ref(*cpu(*pargs))
+    _codes_close(out.cpu(), ref, qo.cpu())
+    assert torch.equal(out.cpu()[..., 3, :, 7], ref[..., 3, :, 7])
+
+
+@pytest.mark.parametrize("kdt", [torch.float32, torch.bfloat16,
+                                 torch.float8_e4m3fn])
+def test_f4_contiguous_kernel_gives_the_plain_nan_mask(dev, kdt):
+    """#9 over a [B, S, n_kv, hd] cache: NaN (+inf where the dtype has
+    it) in V from lengths[b] to S makes its lane NaN, as the plain
+    version (and the reference's kernel over its padded cache) gives it;
+    S = 768 (12 partitions) and S = 40 (one)."""
+    from repro_torch.kernels.decode_gqa import decode_gqa
+    from repro_torch.kernels.decode_gqa.ref import decode_gqa_ref
+    gen = _gen(dev, 31)
+    bad = float("nan") if kdt == torch.float8_e4m3fn else float("inf")
+    for s, lens in ((768, [5, 300, 700, 0]), (40, [5, 17, 40, 0])):
+        k = torch.randn(4, s, 8, 128, generator=gen, device=dev)
+        v = torch.randn(4, s, 8, 128, generator=gen, device=dev)
+        v[0, s - 1, 2, 9] = bad           # past row 0's length, at the end
+        v[1, 20, 5, 0] = float("nan")     # past row 1's on 768, inside on 40
+        v[3, 3, 1, 1] = float("nan")      # a zero-length row: zeros
+        k, v = k.to(kdt), v.to(kdt)
+        q = torch.randn(4, 8, 2, 128, generator=gen, device=dev)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        out = decode_gqa(q, k, v, lengths)
+        ref = decode_gqa_ref(q.cpu(), k.cpu(), v.cpu(), lengths.cpu())
+        mask = _same_nan(out, ref)
+        assert bool(mask[0, 2, :, 9].all()) and bool(mask[1, 5, :, 0].all())
+        assert not bool(mask[3].any()) and bool((out[3] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float8_e4m3fn, torch.uint8])
+def test_export_import_bytes_on_the_card(dev, dtype):
+    """``export_slot`` / ``import_slot`` on pools on the card whose every
+    byte is random: the export is pinned host memory holding the slot's
+    pages byte for byte, in block-table order, as a CPU pool's export of
+    the same bytes; the import scatters them into fresh pages of another
+    card pool in place (the pool tensors keep their storage), and no
+    other page changes."""
+    from repro_torch.runtime.paged_cache import PagedKVCache
+
+    geo = dict(num_layers=3, num_kv_heads=2, head_dim=128, num_slots=2,
+               block_size=16, num_blocks=9, max_blocks_per_seq=4,
+               dtype=dtype)
+    src, cpu = PagedKVCache(**geo, device=dev), PagedKVCache(**geo,
+                                                             device="cpu")
+    gen = _gen(dev, 18)
+    for pool, twin in ((src.k_pages, cpu.k_pages), (src.v_pages, cpu.v_pages)):
+        raw = pool.view(torch.uint8)
+        raw.copy_(torch.randint(0, 256, raw.shape, generator=gen, device=dev,
+                                dtype=torch.uint8))
+        twin.view(torch.uint8).copy_(raw.cpu())
+    for c in (src, cpu):
+        c.allocator.alloc(1, reserved=False)    # page 1 skipped
+        c.bind_slot(0, 40, reserved=False)      # pages 2, 3, 4
+    k, v = src.export_slot(0)
+    ck, cv = cpu.export_slot(0)
+    assert k.is_pinned() and v.is_pinned() and k.device.type == "cpu"
+    assert k.shape == (3, 3, 16, 2, 128) and k.dtype == dtype
+    for a, b in ((k, ck), (v, cv)):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    dst = PagedKVCache(**geo, device=dev)
+    ptrs = (dst.k_pages.data_ptr(), dst.v_pages.data_ptr())
+    dst.allocator.alloc(2, reserved=False)
+    blocks = dst.import_slot(1, 40, k, v)
+    torch.cuda.synchronize()
+    assert (dst.k_pages.data_ptr(), dst.v_pages.data_ptr()) == ptrs
+    assert list(dst.block_tables[1, :3]) == blocks and dst.lengths[1] == 40
+    for pool, want in ((dst.k_pages, k), (dst.v_pages, v)):
+        raw = pool.view(torch.uint8)
+        assert torch.equal(raw[:, blocks].cpu(), want.view(torch.uint8))
+        rest = [p for p in range(raw.shape[1]) if p not in blocks]
+        assert not raw[:, rest].any()
+
+
+def test_imports_under_captured_decode_graphs(dev):
+    """A 1-prefill / 1-decode cluster on the card with CUDA graphs: the
+    decode worker captures its steps on the first wave's handoffs, and
+    the second wave's imports write its pool, tables and lengths in
+    place under the captured graphs, whose replays read them.  The
+    streams equal an eager unified engine's on the same weights; the
+    decode worker captured decode keys only, the prefill worker prefill
+    keys only, and neither launched the other role's attention kernel."""
+    from repro_torch.kernels import _build
+    from repro_torch.runtime.cluster import Cluster, ClusterConfig
+    from repro_torch.runtime.engine import Engine, EngineConfig, Request
+
+    cfg = _tiny_card_cfg()
+    ec = EngineConfig(num_slots=4, block_size=16, max_seq_len=128,
+                      prefill_chunk=32)
+    base = Engine(cfg, quant_bits=7, device=dev, engine=ec,
+                  cuda_graphs=False)
+    prompts = _tiny_prompts()
+    rng = np.random.default_rng(1)
+    prompts += [rng.integers(0, 1024, n).astype(np.int32)
+                for n in (9, 33, 50, 21)]
+    waves = (prompts[:4], prompts[4:])
+    want = base.generate([Request(i, p, 12) for i, p in enumerate(prompts)])
+    clu = Cluster(cfg, params=base.params, device=dev,
+                  cluster=ClusterConfig(1, 1), engine=ec)
+    got = []
+    for w, ps in enumerate(waves):
+        for i, p in enumerate(ps):
+            clu.submit(Request(4 * w + i, p, 12))
+        if w == 1:
+            assert clu.decode[0].graph_captures()[0] > 0
+            _build.reset_launch_counts()
+        while clu.pending:
+            got += clu.step()
+            clu.check_partition()
+    got = sorted(got, key=lambda c: c.uid)
+    assert [c.tokens.tolist() for c in got] == [c.tokens.tolist()
+                                                for c in want]
+    assert clu.handoffs == 8
+    dec, pre = clu.decode[0], clu.prefill[0]
+    assert set(dec.step_runners["prefill"]) == set()
+    assert set(pre.step_runners["decode"]) == set()
+    assert dec.imported_handoffs == 8 and dec.prefill_tokens_computed == 0
+    n = _build.launch_counts()
+    assert n.get("decode_gqa_paged", 0) > 0

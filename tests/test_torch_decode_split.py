@@ -9,7 +9,10 @@ positions (batches w, w + WARPS, ...) into its own online softmax
 (m, l, acc); the block merges its warps, writes a partial, and a merge
 pass folds the partials of the partitions that start before the row's
 length (M = max m_i, l = sum l_i exp(m_i - M), acc likewise) and
-flushes: acc / max(l, 1e-30), zeros where M <= -5e29.  Codes are
+flushes: acc / max(l, 1e-30), zeros where M <= -5e29.  Past the length
+(F4) each partition scans V over its positions at or past it, one bit a
+dim not finite, and the merge flushes a flagged lane of a row with a
+live position as NaN, as the reference's 0 x NaN does.  Codes are
 decoded through the tables before the arithmetic and the context is
 encoded once, after the merge.  The emulation below follows that order
 in float32 and is held against the port's plain versions and the JAX
@@ -148,7 +151,31 @@ def emulate(q, k, v, lengths, part, n_split, cap):
         live = torch.stack([z * part < kvl for z in range(n_split)])
         mm, ll, aa = merge(partials, live)
     out = aa / torch.clamp_min(ll, 1e-30)[..., None]
-    return torch.where((mm > -5e29)[..., None], out, torch.zeros(()))
+    seen = (mm > -5e29)[..., None]
+    bad = tail_flags(v, kvl, part, n_split, cap)[:, :, None]
+    out = torch.where(bad, torch.tensor(float("nan")), out)
+    return torch.where(seen, out, torch.zeros(()))
+
+
+def tail_flags(v, kvl, part, n_split, cap):
+    """The kernels' F4 flags, [B, n_kv, hd]: partition z scans V over
+    [max(z * part, kvl), min((z + 1) * part, cap)) when the row has a
+    live position; the merge ORs partitions kvl // part on (one
+    partition: its own scan)."""
+    b = v.shape[0]
+    t = torch.arange(cap)
+    bad = torch.zeros((b, *v.shape[2:]), dtype=torch.bool)
+    for z in range(n_split):
+        lo = torch.clamp(kvl, min=z * part)                      # [B]
+        hi = min((z + 1) * part, cap)
+        rng = (t[None] >= lo[:, None]) & (t[None] < hi)          # [B, cap]
+        scan = (kvl > 0) & (lo < hi)
+        if n_split > 1:
+            # the merge reads partitions kvl // part on, when kvl < cap
+            scan &= (z >= kvl // part) & (kvl < cap)
+        nf = (~torch.isfinite(v) & rng[:, :, None, None]).any(1)
+        bad |= nf & scan[:, None, None]
+    return bad
 
 
 def _gather(pages, bt):
@@ -342,3 +369,41 @@ def test_contiguous_split_order_matches_the_plain_version_and_jax(g, hd, s,
         jnp.asarray(q), jnp.asarray(k, jd), jnp.asarray(v, jd),
         jnp.asarray(lengths)))
     assert np.abs(out.numpy() - jref).max() <= tol
+
+
+# (position of the bad V, value): the rest of row 1's last page, a trash
+# column past row 2's live pages, a partition wholly past row 3's
+# length, and +inf there; row 0 (length 0) reads none of them
+@pytest.mark.parametrize("pdt", ["float32", F8])
+@pytest.mark.parametrize("bs", [16, 48])
+def test_split_tail_scan_follows_the_reference(bs, pdt):
+    """F4 on the split order: V not finite at or past a row's length
+    (in a live page's tail, a trash column, a partition no live position
+    reaches) makes that lane NaN in every query row of its KV head, as
+    the plain version and the JAX package's oracle give it; a zero-length
+    row stays zeros."""
+    lengths = [0, bs + 5, 2 * bs, 3]
+    q, kp, vp, bt, lens = _inputs(2, bs, lengths, seed=bs + 3, pdt=pdt)
+    bt[2, 2:] = 0                              # row 2's trash columns
+    for row, pos, val in ((1, bs + 9, np.nan), (2, 3 * bs + 1, np.nan),
+                          (3, 5 * bs - 2, np.inf if pdt != F8 else np.nan)):
+        page, slot = bt[row, pos // bs], pos % bs
+        vp[page, slot, 1, 7] = val
+        kp[page, slot, 1, :] = np.nan          # K past the length: no matter
+    tq, tk, tv, tbt, tl = (torch.from_numpy(a) for a in (q, kp, vp, bt, lens))
+    part, n_split, cap = paged_plan(len(lens), MAX_BLK, bs)
+    out = emulate(tq, _gather(tk, tbt), _gather(tv, tbt), tl, part, n_split,
+                  cap)
+    td = getattr(torch, pdt)
+    ref = decode_gqa_paged_ref(tq.to(torch.bfloat16), tk.to(td), tv.to(td),
+                               tbt, tl)
+    jref = np.asarray(jdec.decode_gqa_paged(
+        jnp.asarray(q, jnp.bfloat16), jnp.asarray(kp, pdt),
+        jnp.asarray(vp, pdt), jnp.asarray(bt), jnp.asarray(lens)))
+    nan = torch.isnan(out)
+    assert torch.equal(nan, torch.isnan(ref))
+    assert np.array_equal(nan.numpy(), np.isnan(jref))
+    assert bool(nan[1:, 1, :, 7].all()) and int(nan.sum()) == 3 * 2
+    assert torch.all(out[0] == 0)
+    tol = GATE * max(1.0, ref[~nan].abs().max().item())
+    assert (out[~nan] - ref[~nan]).abs().max().item() <= tol

@@ -291,13 +291,14 @@ def test_bf16_compute_logits_close_to_reference():
 
 @pytest.mark.parametrize("kw,item", [
     pytest.param(dict(max_queue=4), None, id="kw0-item 11"),
-    pytest.param(dict(role="prefill"), "item 12", id="kw1-item 12"),
+    pytest.param(dict(role="prefill"), None, id="kw1-item 12"),
     pytest.param(dict(drift_check_every=4), None, id="kw2-item 12"),
 ])
 def test_unported_engine_settings_raise(kw, item):
-    """Only the disaggregation roles (item 12's cluster) still raise;
-    the bounded queue (item 11) and the drift guard (item 12's
-    single-engine half) are served."""
+    """The settings of the items once parked are all served now: the
+    bounded queue (item 11), the disaggregation roles (item 12's
+    cluster half) and the drift guard (item 12's single-engine half);
+    ``item`` names one that would still raise."""
     _, cfg = _cfgs()
     if item is None:
         eng = Engine(cfg, device="cpu", engine=EngineConfig(**kw))

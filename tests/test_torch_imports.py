@@ -34,6 +34,8 @@ def test_no_jax_or_reference_import(path):
 
 def test_port_files_found():
     assert len(PORT_FILES) > 20
+    for rel in ("runtime/cluster.py", "launch/serve.py", "launch/__init__.py"):
+        assert ROOT / "src" / "repro_torch" / rel in PORT_FILES, rel
 
 
 def _tiny():
@@ -42,21 +44,38 @@ def _tiny():
     return get_config("qwen3-1.7b", tiny=True)
 
 
-@pytest.mark.parametrize("entry", ["InferenceServer", "Engine", "DecoderLM"])
+@pytest.mark.parametrize("entry", ["InferenceServer", "Engine", "DecoderLM",
+                                   "Cluster"])
 def test_entry_points_default_to_the_card(entry):
     """Without ``device=`` an entry point asks for the card; with no
     card it raises instead of running on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")
     from repro_torch.models.transformer import DecoderLM
+    from repro_torch.runtime.cluster import Cluster
     from repro_torch.runtime.engine import Engine
     from repro_torch.runtime.server import InferenceServer
 
     cls = {"InferenceServer": InferenceServer, "Engine": Engine,
-           "DecoderLM": DecoderLM}[entry]
+           "DecoderLM": DecoderLM, "Cluster": Cluster}[entry]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cls(_tiny())
     cls(_tiny(), device="cpu")     # the explicit CPU request works
+
+
+@pytest.mark.parametrize("path", [[], ["--bucketed"],
+                                  ["--prefill-workers", "1",
+                                   "--decode-workers", "1"]],
+                         ids=["engine", "bucketed", "cluster"])
+def test_launcher_defaults_to_the_card(path):
+    """``python -m repro_torch.launch.serve`` asks for the card unless
+    ``--device cpu`` is given, on each of its paths."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    from repro_torch.launch import serve
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--tiny", "--requests", "1", *path])
 
 
 REPLACED = {

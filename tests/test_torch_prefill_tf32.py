@@ -19,7 +19,12 @@ head_dim 128, 64 and 256, g 2, 5, 6, 10 and 16, float32, bfloat16 and
 float8_e4m3fn pages (the last two with one K/V pass), blocks of 16 and
 128 positions, a 64-query chunk over 1000 positions and a cold 64-query
 chunk; and single-pass TF32 is shown to miss that bound, which is why
-the kernel splits.
+the kernel splits.  Non-finite values (F4) follow the kernel's order
+too: a block stages positions up to the last one its rows may see (the
+rest of its last tile zero-filled), scans V past them to the table's
+end and flushes a lane where it is not finite as NaN, and a NaN logit at
+a valid position makes its row zeros; held to the plain version's and
+the JAX oracle's NaN masks.
 """
 
 import math
@@ -119,26 +124,44 @@ def emulate(q, k_pages, v_pages, block_tables, q_start, kv_lens,
     qf = torch.where(zero[None, None, ..., None], torch.zeros(()), qf)
     scale = 1.0 / math.sqrt(hd)
     qpos = torch.where(pad, -1, q_start.long()[:, None, None] + pos)
+    # the positions a block stages: up to the last one its rows may see
+    kvl = kv_lens.long().clamp(max=t_all)
+    q_last = torch.clamp(pos.amax(1), max=s - 1)                 # [Z]
+    n_pos = torch.where(kvl[:, None] > 0,
+                        torch.minimum(kvl[:, None],
+                                      q_start.long()[:, None] + q_last + 1),
+                        torch.zeros(()).long())                  # [B, Z]
     m = torch.full(qf.shape[:-1], -1e30)
     l = torch.zeros(qf.shape[:-1])
     acc = torch.zeros(qf.shape)
+    nan_row = torch.zeros(qf.shape[:-1], dtype=torch.bool)
     for t0 in range(0, t_all, kv_tile):
         kk, vv = k[:, t0:t0 + kv_tile], v[:, t0:t0 + kv_tile]
+        kvpos = t0 + torch.arange(kk.shape[1])
+        # a position past the block's staging is zero-filled
+        staged = kvpos < n_pos[..., None]                        # [B, Z, T]
+        vz = torch.where(staged[..., None, None], vv[:, None], torch.zeros(()))
         logit = tf32_product(qf, kk, split_q, split_k,
                              "bnzrh,btnh->bnzrt") * scale
-        kvpos = t0 + torch.arange(kk.shape[1])
         valid = ((kvpos <= qpos[..., None])
                  & (kvpos < kv_lens.long()[:, None, None, None]))
+        nan_row |= (torch.isnan(logit) & valid[:, None]).any(-1)
         logit = torch.where(valid[:, None], logit, torch.tensor(-1e30))
         m_new = torch.maximum(m, logit.amax(-1))
         p = torch.exp(logit - m_new[..., None])
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(-1)
-        acc = acc * corr[..., None] + tf32_product(p, vv, split_p, split_v,
-                                                   "bnzrt,btnh->bnzrh")
+        acc = acc * corr[..., None] + tf32_product(p, vz, split_p, split_v,
+                                                   "bnzrt,bztnh->bnzrh")
         m = m_new
     rows = acc / torch.clamp_min(l, 1e-30)[..., None]
-    rows = torch.where((m > -5e29)[..., None], rows, torch.zeros(()))
+    # the scan past the staged positions: a flagged lane is NaN
+    tail = torch.arange(t_all) >= n_pos[..., None]               # [B, Z, T]
+    bad = (~torch.isfinite(v[:, None]) & tail[..., None, None]).any(2)
+    bad = bad.permute(0, 2, 1, 3)[:, :, :, None]                 # [B, n, Z, 1, hd]
+    rows = torch.where(bad, torch.tensor(float("nan")), rows)
+    seen = (m > -5e29) & ~nan_row
+    rows = torch.where(seen[..., None], rows, torch.zeros(()))
     # the stored rows, each (position, head) once, into [B, S, n_kv, g, hd]
     out = torch.full((b, s, n_kv, g, hd), float("nan"))
     out[:, pos[stored], :, head[stored]] = rows[:, :, stored].permute(2, 0, 1, 3)
@@ -249,3 +272,47 @@ def test_single_pass_tf32_misses_the_gate(dtype):
                            split_v=not split_qk, split_p=not split_qk)
                    - ref).abs().max().item()
             assert err > 2 * GATE, (split_qk, err)
+
+
+# (case): NaN V in the rest of row 1's last page, NaN V in row 0's
+# trash column, +inf V there, NaN V at a position inside row 1's kv_lens
+# past its first queries (staged by the later blocks, past the earlier
+# ones' staging), a NaN score (K) at a position every query of row 1
+# sees
+@pytest.mark.parametrize("case,dtype", [
+    pytest.param(c, dt, id=f"{c}-{dt}")
+    for c in ("tail", "trash", "inf", "masked", "score")
+    for dt in ("float32", "bfloat16", "float8_e4m3fn")
+    if not (c == "inf" and dt == "float8_e4m3fn")])   # e4m3fn has no inf
+def test_nonfinite_values_follow_the_reference(case, dtype):
+    q, kp, vp, bt, qs, kl = _inputs(dtype, 7, g=5)
+    kl = np.array([CTX - 3, S - 20], np.int32)       # row 1: 44 of 64
+    bt[0, -1] = 0                                    # row 0's trash column
+    nan, inf = np.float32(np.nan), np.float32(np.inf)
+    where = {"tail": (1, S - 18, nan), "trash": (0, CTX + 5, nan),
+             "inf": (0, CTX + 5, inf), "masked": (1, 30, nan),
+             "score": (1, 2, nan)}
+    row, pos, val = where[case]
+    page, slot = bt[row, pos // BS], pos % BS
+    if case == "score":
+        kp[page, slot, 1, :] = val
+    else:
+        vp[page, slot, 1, 5] = val
+    args = _torch((q, kp, vp, bt, qs, kl), dtype)
+    out = emulate(*args)
+    ref = flash_prefill_paged_ref(*args)
+    jd = DTYPES[dtype][0]
+    jref = np.asarray(jpre.flash_prefill_paged(
+        jnp.asarray(q, jnp.bfloat16), jnp.asarray(kp, jd), jnp.asarray(vp, jd),
+        jnp.asarray(bt), jnp.asarray(qs), jnp.asarray(kl)))
+    mask = torch.isnan(out)
+    assert torch.equal(mask, torch.isnan(ref))
+    assert np.array_equal(mask.numpy(), np.isnan(jref))
+    if case == "score":
+        # the queries at positions 2.. see the NaN score: zeros
+        assert not mask.any() and bool((out[1, 2:, 1] == 0).all())
+        assert bool((out[1, :2, 1] != 0).any(-1).all())
+    else:
+        assert bool(mask[row, :, 1, :, 5].all()) and int(mask.sum()) == S * 5
+    err = (out[~mask] - ref[~mask]).abs().max().item()
+    assert err <= GATE, err

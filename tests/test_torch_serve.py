@@ -1,0 +1,99 @@
+"""The port's serving launcher (``repro_torch.launch.serve``) against the
+JAX package's (``repro.launch.serve``), on the CPU.
+
+Each case runs both ``main``s with the same flags (the port's with
+``--device cpu``) on the engine, ``--bucketed`` and cluster paths, with
+``--trace`` and ``--metrics-json`` where the path takes them, and holds
+equal: the served request and token counts, the integer values of the
+metrics snapshot (wall-time keys left out), and the number of trace
+events.  The two packages draw their random weights differently, so no
+token is compared here (``tests/test_torch_cluster.py`` and the engine
+tests do that on shared weights); what the launcher counts does not
+depend on the weights.  An architecture the port lacks raises its
+not-ported error.
+"""
+
+import json
+import re
+import sys
+
+import pytest
+import torch
+
+from repro.launch import serve as jserve
+from repro_torch.configs import NOT_PORTED
+from repro_torch.launch import serve as tserve
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+_TIMED = ("engine.tick.", "engine.faults.slow_ticks")
+
+
+def _run(main, argv, capsys, monkeypatch):
+    """One ``main`` under ``argv``; returns (requests, tokens, integer
+    metrics, trace events, printed text)."""
+    monkeypatch.setattr(sys, "argv", ["serve", *argv])
+    main()
+    text = capsys.readouterr().out
+    m = re.search(r"served (\d+) requests, (\d+) tokens", text)
+    assert m, text
+    return int(m.group(1)), int(m.group(2)), text
+
+
+def _metrics(path):
+    with open(path) as f:
+        rec = json.loads(f.readlines()[-1])["metrics"]
+    return {k: v for k, v in rec.items()
+            if isinstance(v, int) and not isinstance(v, bool)
+            and not any(t in k for t in _TIMED)}
+
+
+PATHS = {"engine": [],
+         "bucketed": ["--bucketed"],
+         "cluster": ["--prefill-workers", "2", "--decode-workers", "2",
+                     "--shared-prefix", "16"]}
+
+
+@pytest.mark.parametrize("path", list(PATHS))
+def test_launcher_counts_equal_the_reference(path, tmp_path, capsys,
+                                             monkeypatch):
+    monkeypatch.setenv("REPRO_ACT_CALIB_CACHE", str(tmp_path / "calib.json"))
+    flags = ["--tiny", "--requests", "5", "--new-tokens", "6", "--quant", "7",
+             "--prompt-len", "20", *PATHS[path]]
+    seen = []
+    for name, main, extra in (("ref", jserve.main, []),
+                              ("port", tserve.main, ["--device", "cpu"])):
+        trace = tmp_path / f"{name}.trace.json"
+        met = tmp_path / f"{name}.metrics.jsonl"
+        argv = flags + extra + ["--trace", str(trace),
+                                "--metrics-json", str(met)]
+        n_req, n_tok, text = _run(main, argv, capsys, monkeypatch)
+        traced = path != "bucketed"
+        assert trace.exists() == traced and met.exists() == traced
+        metrics = _metrics(met) if traced else {}
+        events = (len(json.loads(trace.read_text())["traceEvents"])
+                  if traced else 0)
+        seen.append((n_req, n_tok, metrics, events))
+        if name == "port":
+            assert "device: cpu" in text
+    assert seen[0] == seen[1]
+    n_req, n_tok, metrics, _ = seen[1]
+    assert (n_req, n_tok) == (5, 30)
+    if path == "cluster":
+        assert metrics["cluster.handoff.delivered"] == 5
+        assert metrics["router.routed"] == 5
+
+
+@pytest.mark.parametrize("arch", NOT_PORTED)
+def test_archs_the_port_lacks_raise_not_ported(arch, monkeypatch):
+    monkeypatch.setattr(sys, "argv", ["serve", "--arch", arch, "--tiny",
+                                      "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="item 13"):
+        tserve.main()
