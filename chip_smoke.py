@@ -137,7 +137,28 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
      repro_torch.launch.serve --prefill-workers 2 --decode-workers 2
      --requests 8 --quant 7`` (qwen3-1.7b at full size: the tiny
      config's head_dim 16 is none the kernels take) as a subprocess, on
-     the card.
+     the card;
+ 13. the MoE decoders at full width (d_model, heads, d_ff, experts and
+     vocabulary as published), llama4-scout at 4 of its 48 layers and
+     grok-1 at 2 of its 64: (k) #1, #3 and #2 against their plain
+     versions at the expert shapes (M the capacity rows, K x N d_model
+     x d_ff and back) at phase 2's 1e-4; random weights (seed 0) drawn
+     and quantized to 7 bits on the card layer by layer: phase 4's
+     engine shape serves
+     phase 9's 8 requests with the routed dispatch (the configs'
+     default) -- every request ``ok``, the launches exact (one LUT GEMM
+     an expert an einsum), the same streams and launches eagerly, the
+     replayed decode step, capacity drops per routed call; (b)
+     llama4-scout's dense mixture against the routed dispatch on
+     prefill chunks of 16 (128 slots, the least capacity: nothing
+     dropped), streams equal where the top-2 gap is clear; (d) grok-1
+     in codes mode (``act_quant=7, kv_codes=True``, calibrated on the
+     card), graphs and eager; (c) card against CPU on the first 2
+     layers (1 of grok-1), the routing compared first (a token whose
+     top-k margin clears twice the router probabilities' difference
+     must pick the same experts; rows with a near-tie choice left out
+     and counted), then the logits as phase 3 holds them, within the
+     card's spread under weight tables jittered by phase 2's 1e-4.
 Phase 3 prints, for olmo-1b, minicpm-2b and qwen3-14b, the card-vs-CPU
 error after each layer beside the CPU's own spread under last-bit
 weight tables, at the prefill chunk and the first decode step.
@@ -1356,13 +1377,15 @@ PATH_LENS, PATH_CHUNK, PATH_STEPS, PATH_BS = (100, 37), 128, 3, 16
 
 
 def paged_run(api, cfg, model, dev, kv_dtype, prompts, feed=None,
-              pages=None):
-    """A 2-row prefill chunk of ``prompts`` and PATH_STEPS decode steps
+              pages=None, steps: int = PATH_STEPS, drops=None):
+    """A 2-row prefill chunk of ``prompts`` and ``steps`` decode steps
     through the paged entry points on ``dev``; returns the logits of the
     chunk and of each step (on the CPU).  The decode steps take
     ``feed[i]`` as their tokens when given (the CPU's greedy tokens),
     else this run's own argmax.  ``pages``, a list, receives the K and V
-    page pools at the end (on the CPU)."""
+    page pools at the end (on the CPU); ``drops``, a list, the slots the
+    MoE layers' routed dispatch dropped in each dispatch (the cache's
+    capacity tally)."""
     import numpy as np
     import torch
 
@@ -1380,9 +1403,14 @@ def paged_run(api, cfg, model, dev, kv_dtype, prompts, feed=None,
     logits, _ = api.prefill_into_cache(
         model, torch.as_tensor(toks, device=dev), cache.view(cols=8), cfg)
     outs = [logits[:, -1].float().cpu()]
+
+    def tally():
+        if drops is not None:
+            drops.append(int(cache.moe_counts[2]) - sum(drops))
+    tally()
     nxt = logits[:, -1].argmax(-1)
     active = torch.ones(2, dtype=torch.bool, device=dev)
-    for step in range(PATH_STEPS):
+    for step in range(steps):
         if feed is not None:
             nxt = feed[step].to(dev)
         for i in range(2):
@@ -1392,6 +1420,7 @@ def paged_run(api, cfg, model, dev, kv_dtype, prompts, feed=None,
             active, cfg)
         cache.lengths[:] = view.lengths.cpu().numpy()
         outs.append(logits[:, -1].float().cpu())
+        tally()
         nxt = logits[:, -1].argmax(-1)
     if pages is not None:
         pages.extend((cache.k_pages.cpu(), cache.v_pages.cpu()))
@@ -1734,6 +1763,50 @@ def print_layer_errors(name, n_layers, card, cpu, nudged) -> None:
             print(f"  {name} {label} layer {layer}: card vs CPU {err:.3e}, CPU "
                   f"spread {own:.3e} ({err / max(own, 1e-30):.1f}x) of the "
                   f"layer's scale {scale:.3e}", flush=True)
+
+
+def gemm_difference(w) -> float:
+    """#1 on the card against a float32 product (TF32 off) of the same
+    decoded weight ``w`` (2-D codes, or its leading axis against the
+    rest), 256 rows of seed-5 normal x: the largest difference over the
+    product's largest magnitude."""
+    import torch
+
+    from repro_torch.kernels.lut_dequant_matmul import lut_dequant_matmul
+
+    codes = w.codes.reshape(w.codes.shape[0], -1).contiguous()
+    gen = torch.Generator(device=codes.device).manual_seed(5)
+    x = torch.randn(256, codes.shape[0], generator=gen, device=codes.device)
+    ref = x @ w.lut[codes.long()]
+    out = lut_dequant_matmul(x, codes, w.lut, w.qmeta)
+    return ((out - ref).abs().max() / ref.abs().max()).item()
+
+
+def _jittered(model, rel: float):
+    """``model`` with each weight table's entries scaled by ``1 + rel`` or
+    ``1 - rel``, the signs drawn from seed 0 (a perturbation of each
+    weight that the next norm does not undo, as it undoes a uniform
+    scale)."""
+    import torch
+
+    from repro_torch.core.exponential_quant import QWeight
+
+    gen = torch.Generator().manual_seed(0)
+
+    def walk(tree):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = walk(v)
+            elif isinstance(v, QWeight):
+                sign = torch.randint(0, 2, v.lut.shape, generator=gen) * 2 - 1
+                out[k] = QWeight(v.codes, v.lut * (1 + rel * sign.to(
+                    v.lut.device, v.lut.dtype)), v.qmeta)
+            else:
+                out[k] = v
+        return out
+
+    return model.with_tree(walk(model.tree()))
 
 
 def _nudged(model, rel: float = 2 ** -22):
@@ -3864,6 +3937,622 @@ def profile_decode(eng, cfg, kernel: str) -> None:
               f"{e.key[:90]}", flush=True)
 
 
+# ------------------------------------------- phase 13: the MoE decoders --
+
+# (arch, layers served, layers of the card-vs-CPU path check): the depth
+# cut to keep the script's time and the card's memory (the expert codes
+# alone are 2.01 GB a layer of llama4-scout, 4.83 GB of grok-1); widths
+# as published
+MOE_DECODERS = (("llama4-scout-17b-a16e", 4, 2), ("grok-1-314b", 2, 1))
+# each table of phase 13's random weights is fit on at most this many
+# leading elements of its tensor, and an expert stack's on expert 0's
+# matrix: every element of a tensor is drawn alike, and one fit over
+# grok-1's 1.6 G-element layer stack would hold tens of GB
+MOE_FIT_ELEMS = 2 ** 26
+# 13c's decode steps after its prefill chunk: each costs the CPU a full
+# expert pass (capacity 128 whatever the tokens), about 3 s a layer of
+# llama4-scout and 7 s of grok-1 (the CPU's time sets grok-1's 1 layer)
+MOE_PATH_STEPS = 2
+# 8 slots x 16 positions = 128 slots a prefill dispatch (top-1), at most
+# the routed dispatch's least capacity: no token can be dropped
+MOE_ROOMY_CHUNK = 16
+# 13c's weight-table jitter: phase 2's gate on the LUT GEMMs (1e-4 of the
+# product's largest magnitude), which 13k holds #1, #2 and #3 to at the
+# MoE path's own shapes, and which #1's difference from float32 on the
+# served model's layer-0 wq must not exceed; 13c's tolerance is the
+# card's spread under it
+MOE_JITTER = 1e-4
+# 13c: the least share of the router's tokens that must route the same on
+# the card and on the CPU (1.0 in every run so far)
+MOE_ROUTE_SHARE = 0.9
+PHASE13: dict = {}
+
+
+def moe_gemm_checks(cfg, card) -> None:
+    """13k: the LUT GEMMs at the MoE path's own shapes, each held to its
+    plain version on the card at phase 2's gate (1e-4 of the plain
+    version's largest magnitude).  The routed dispatch runs each expert
+    einsum at M = the capacity rows (128 at a decode step and at 13b's
+    chunks of 8 x 16; 256 for llama4-scout and 640 for grok-1 at 13a's
+    chunks of 8 x 256): #1 at K x N = d_model x d_ff (gate, up) and d_ff
+    x d_model (down), x in the served bfloat16 and in 13b / 13c's
+    float32; #3 at d_model x d_ff (codes mode's gate and up).  The dense
+    mixture (13b, llama4-scout) runs #2 an expert at M = 8 and 128.
+    Weights of std 0.02 fit and encoded by the port's quantizer, passed
+    with their table and metadata as the path passes them.  Prints each
+    shape's kernel and plain-version times beside the card; none enters
+    the kernels line (phase 2's shapes make it)."""
+    import torch
+
+    from repro_torch.core import exponential_quant as eq
+    from repro_torch.kernels.lut_dequant_matmul import (
+        lut_dequant_matmul, lut_dequant_matmul_dual, lut_dequant_matmul_gated)
+    from repro_torch.kernels.lut_dequant_matmul.ref import (
+        lut_dequant_matmul_dual_ref, lut_dequant_matmul_gated_ref,
+        lut_dequant_matmul_ref)
+    from repro_torch.models import moe as M
+    from repro_torch.runtime.calibration import ACT_BASES
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    d, f = cfg.d_model, cfg.d_ff
+    rows = sorted({M._capacity(cfg, t) for t in (8, 8 * MOE_ROOMY_CHUNK,
+                                                  8 * 256)})
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def qweight(k, n):
+        codes, p = eq.quantize(rnd(k, n, scale=0.02), 7)
+        return codes, eq.decode_table(p), eq.pack_qmeta(p)
+
+    def gate(label, kernel, plain):
+        out, ref = kernel(), plain()
+        tol = 1e-4 * max(1.0, ref.abs().max().item())
+        err = (out - ref).abs().max().item()
+        print(f"    {label}: err {err:.3e} (tol {tol:.3e}), kernel "
+              f"{time_ms(kernel, flush=flush):.4f} ms, plain "
+              f"{time_ms(plain, flush=flush):.4f} ms", flush=True)
+        require(err <= tol, f"13k {cfg.name} {label}: max err {err} > {tol}")
+
+    print(f"  13k {cfg.name}: the LUT GEMMs at the expert shapes, M = "
+          f"{rows} capacity rows [{card}]", flush=True)
+    for k, n in ((d, f), (f, d)):
+        c, lut, qm = qweight(k, n)
+        for m in rows:
+            for dt in (torch.bfloat16, torch.float32):
+                x = rnd(m, k).to(dt)
+                gate(f"#1 M={m} K={k} N={n} x {str(dt)[6:]}",
+                     lambda: lut_dequant_matmul(x, c, lut, qm,
+                                                out_dtype=torch.float32),
+                     lambda: lut_dequant_matmul_ref(x, c, lut, qm))
+            if (k, n) == (d, f):
+                xs = rnd(m, k)
+                px = eq.fit(xs, 7, bases=ACT_BASES)
+                args = (eq.encode(xs, px), c, eq.decode_table(px), lut,
+                        eq.pack_qmeta(px), qm)
+                gate(f"#3 M={m} K={k} N={n} x codes",
+                     lambda: lut_dequant_matmul_dual(*args),
+                     lambda: lut_dequant_matmul_dual_ref(*args))
+        del c, lut, qm
+    if cfg.name.startswith("llama4"):
+        (cg, lg, qg), (cu, lu, qu) = qweight(d, f), qweight(d, f)
+        for m in (8, 8 * MOE_ROOMY_CHUNK):
+            x = rnd(m, d)
+            gate(f"#2 M={m} K={d} N={f} x float32 ({cfg.activation})",
+                 lambda: lut_dequant_matmul_gated(
+                     x, cg, cu, lg, lu, qg, qu, activation=cfg.activation,
+                     out_dtype=torch.float32),
+                 lambda: lut_dequant_matmul_gated_ref(
+                     x, cg, cu, lg, lu, qg, qu, activation=cfg.activation))
+    del flush
+    torch.cuda.empty_cache()
+
+
+def moe_random_model(cfg, seed: int):
+    """A card model of ``cfg`` with random weights drawn on the card from
+    ``seed`` and the matmul weights quantized to 7 bits as they are drawn:
+    a layer-stacked leaf layer by layer, an expert stack expert by expert
+    (one table a layer, shared by its experts, as ``quantize_tree``
+    lays it out), so no float tensor larger than one expert's matrix or
+    one embedding table is ever held.  The stds are ``init_params``'s;
+    the router and the norms stay float."""
+    import torch
+
+    from repro_torch.core import exponential_quant as eq
+    from repro_torch.core import lama_layers as ll
+    from repro_torch.models import params as P
+    from repro_torch.models.transformer import DecoderLM, model_specs
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(shape, std):
+        return torch.randn(shape, generator=gen, device=dev).mul_(std)
+
+    def fit(x):
+        return eq.fit(x.reshape(-1)[:MOE_FIT_ELEMS], 7)
+
+    def quantized(spec):
+        std = P.spec_std(spec)
+        stacked = spec.axes[0] == "layers"
+        shape = spec.shape[1:] if stacked else spec.shape
+        n = spec.shape[0] if stacked else 1
+        codes = torch.empty((n,) + shape, dtype=torch.uint8, device=dev)
+        luts, metas = [], []
+        for i in range(n):
+            if spec.axes[int(stacked)] == "experts":
+                qp = None
+                for e in range(shape[0]):
+                    x = draw(shape[1:], std)
+                    qp = qp or fit(x)
+                    codes[i, e] = eq.encode(x, qp)
+            else:
+                x = draw(shape, std)
+                qp = fit(x)
+                codes[i] = eq.encode(x, qp)
+            del x
+            luts.append(eq.decode_table(qp))
+            metas.append(eq.pack_qmeta(qp))
+        if stacked:
+            return eq.QWeight(codes, torch.stack(luts), torch.stack(metas))
+        return eq.QWeight(codes[0], luts[0], metas[0])
+
+    def build(node, path):
+        if isinstance(node, dict):
+            return {k: build(v, path + (k,)) for k, v in node.items()}
+        if ll.default_predicate(path, torch.empty(node.shape, device="meta")):
+            return quantized(node)
+        return P._init_leaf(node, gen, dev, torch.float32)
+
+    return DecoderLM(cfg, build(model_specs(cfg), ()), device="cuda")
+
+
+def moe_launches(eng, cfg, codes: bool = False) -> dict:
+    """The MoE path's launches, exactly: a routed layer runs one GEMM an
+    expert an einsum -- float, #1 for gate, up and down (3E); codes,
+    #3 for gate and up (2E, the buffer encoded once at mlp_in) and #1
+    for down (E) -- beside the attention's four projections (#1, or #3
+    on codes); the dense mixture runs #2 (gate and up) and #1 (down)
+    an expert; the untied unembedding #1; #5 / #6 L times a prefill
+    dispatch and #7 / #8 L times a decode step."""
+    n, e = cfg.num_layers, cfg.num_experts
+    pre, dec = eng.prefill_batches, eng.total_decode_steps
+    disp = pre + dec
+    if codes:
+        want = {"lut_dequant_matmul_dual": (4 + 2 * e) * n * disp,
+                "lut_dequant_matmul": (e * n + 1) * disp,
+                "flash_prefill_paged_codes": n * pre,
+                "decode_gqa_paged_codes": n * dec}
+    elif cfg.moe_impl == "dense_mixture":
+        want = {"lut_dequant_matmul_gated": e * n * disp,
+                "lut_dequant_matmul": ((4 + e) * n + 1) * disp,
+                "flash_prefill_paged": n * pre, "decode_gqa_paged": n * dec}
+    else:
+        want = {"lut_dequant_matmul": ((4 + 3 * e) * n + 1) * disp,
+                "flash_prefill_paged": n * pre, "decode_gqa_paged": n * dec}
+    return {k: v for k, v in want.items() if v}
+
+
+def moe_requests(cfg):
+    """Phase 9's traffic: 8 requests, prompts 17..400 (seed 3), 16 new
+    tokens each."""
+    import numpy as np
+
+    from repro_torch.runtime.server import Request
+
+    rng = np.random.default_rng(3)
+    return [Request(i, rng.integers(0, cfg.vocab_size, int(n))
+                    .astype(np.int32), max_new_tokens=16)
+            for i, n in enumerate(rng.integers(17, 401, 8))]
+
+
+def serve_moe_engine(label, cfg, model, reqs, ec, codes=False, graphs=True,
+                     act_quant=None):
+    """``reqs`` through a fresh Engine on ``model`` (graphs on or off);
+    every request ``ok`` and the launches exact.  Returns (completions,
+    the engine, launches, its capacity tally, peak GiB, seconds)."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.runtime.engine import Engine, EngineConfig
+
+    fresh_peak()
+    eng = Engine(cfg, params=model, engine=EngineConfig(**ec),
+                 act_quant=act_quant, kv_codes=codes, device="cuda",
+                 cuda_graphs=graphs)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = eng.generate(reqs)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_served(outs, reqs, cfg, 16)
+    want = moe_launches(eng, cfg, codes)
+    require(launches == want, f"{label}: launches {launches}, want {want}")
+    return outs, eng, launches, eng.cache.moe_capacity(), peak, t_run
+
+
+def print_moe_run(label, eng, launches, cap, peak, t_run, card) -> None:
+    """A phase-13 run's launches, then its rates, peak memory, page-pool
+    bytes and capacity drops (a dispatch: the routed calls of all its
+    layers) beside the card."""
+    steps, n = eng.total_decode_steps, eng.cfg.num_layers
+    graphs, capture_s = eng.graph_captures()
+    drops = (f"{cap['dropped']} of {cap['slots']} slots dropped in "
+             f"{cap['calls']} routed calls, "
+             f"{cap['dropped'] * n / cap['calls']:.1f} a dispatch"
+             if cap["calls"] else "no routed call")
+    print(f"  {label}: launches {launches}; {eng.prefill_batches} prefill "
+          f"dispatches, {steps} decode steps in {t_run:.2f} s; {graphs} "
+          f"graphs captured in {capture_s:.2f} s", flush=True)
+    print(f"    decode {1e3 * eng.decode_dispatch_s / steps:.2f} ms a step "
+          f"(eager first ticks in), prefill "
+          f"{eng.prefill_tokens_computed / eng.prefill_dispatch_s:.1f} "
+          f"tok/s, peak {peak:.2f} GiB, page pools {eng.cache.nbytes} B "
+          f"({eng.cache.k_pages.dtype}), capacity: {drops} [{card}]",
+          flush=True)
+
+
+def moe_replayed_ms(eng, reqs) -> float:
+    """Decode ms a step of ``reqs`` served again on ``eng`` (new uids; its
+    decode keys captured by the first pass, so every step replays)."""
+    import dataclasses as dc
+
+    again = [dc.replace(r, uid=r.uid + 1000) for r in reqs]
+    _, d = engine_deltas(eng, lambda: eng.generate(again))
+    return 1e3 * d.decode_dispatch_s / d.total_decode_steps
+
+
+def serve_moe_decoder(name: str, layers: int, check_layers: int,
+                      card: str) -> None:
+    """Phase 13 for one MoE config: 13k, its LUT GEMMs at the expert
+    shapes; then full width, ``layers`` deep, random weights (seed 0)
+    quantized on the card; phase 4's engine shape (8
+    slots, block 16, chunk 256, graphs, prefix cache on) serves phase
+    9's 8 requests -- every request ``ok``, the launches exact, the same
+    streams and launches eagerly; the replayed decode step; then, for
+    llama4-scout, the dense mixture against the routed dispatch where
+    capacity cannot bind, for grok-1, codes mode; then the card-vs-CPU
+    path check on the first ``check_layers`` layers."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(name)
+    print(f"  {name}: {layers} of its {cfg.num_layers} layers (depth cut; "
+          f"widths as published: d_model {cfg.d_model}, d_ff {cfg.d_ff}, "
+          f"{cfg.num_experts} experts top-{cfg.experts_per_token}, "
+          f"{cfg.num_heads} / {cfg.num_kv_heads} heads of "
+          f"{cfg.resolved_head_dim}, vocab {cfg.vocab_size})", flush=True)
+    cfg = cfg.replace(num_layers=layers)
+    moe_gemm_checks(cfg, card)
+    fresh_peak()
+    t0 = time.perf_counter()
+    model = moe_random_model(cfg, 0)
+    torch.cuda.synchronize()
+    nbytes = sum(b.numel() * b.element_size() for b in model.buffers())
+    print(f"    weights drawn and quantized on the card in "
+          f"{time.perf_counter() - t0:.1f} s: {nbytes / 1e9:.2f} GB, set-up "
+          f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    reqs = moe_requests(cfg)
+    ec = dict(num_slots=8, block_size=16, prefill_chunk=256,
+              max_seq_len=max(len(r.prompt) for r in reqs) + 16)
+    outs, eng, launches, cap, peak, t_run = serve_moe_engine(
+        "13a", cfg, model, reqs, ec)
+    print_moe_run(f"13a {name} [graphs]", eng, launches, cap, peak, t_run,
+                  card)
+    ms = moe_replayed_ms(eng, reqs)
+    print(f"    decode {ms:.3f} ms a step replayed (second pass) [{card}]",
+          flush=True)
+    PHASE13[name] = dict(ms=ms, peak=peak, cap=cap, launches=launches,
+                         steps=eng.total_decode_steps,
+                         prefill=eng.prefill_batches)
+    del eng
+    eager, eng, launches_e, cap_e, peak_e, t_e = serve_moe_engine(
+        "13a eager", cfg, model, reqs, ec, graphs=False)
+    require(launches_e == launches and cap_e == cap,
+            f"13a {name}: eager launches {launches_e} / capacity {cap_e}, "
+            f"graphs {launches} / {cap}")
+    require(all(np.array_equal(a.tokens, b.tokens)
+                for a, b in zip(outs, eager)),
+            f"13a {name}: cuda_graphs=False gave other token streams")
+    print_moe_run(f"13a {name} [eager, streams equal the graphs']", eng,
+                  launches_e, cap_e, peak_e, t_e, card)
+    del eng
+    if name.startswith("llama4"):
+        moe_dense_vs_routed(cfg, model, reqs, ec, card)
+    else:
+        moe_codes(cfg, model, reqs, ec, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_path_check(name, cfg, model, check_layers)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_dense_vs_routed(cfg, model, reqs, ec, card) -> None:
+    """13b: the dense mixture (every expert on every token) against the
+    routed dispatch, both on an engine whose prefill dispatch holds 8 x
+    MOE_ROOMY_CHUNK = 128 slots, the least capacity, so no token is
+    dropped (the counter shows none): streams equal wherever the top-2
+    gap is clear.  Float32 compute on both: the two round their bf16
+    activations at other places (the gated kernel's product against
+    three GEMMs), which a random model's small logit gaps turn into
+    other tokens within a few steps."""
+    roomy = dict(ec, prefill_chunk=MOE_ROOMY_CHUNK)
+    cfg = cfg.replace(compute_dtype="float32")
+    routed, eng, launches, cap, peak, t_r = serve_moe_engine(
+        "13b routed", cfg, model, reqs, roomy)
+    require(cap["dropped"] == 0, f"13b: {cap['dropped']} slots dropped")
+    print_moe_run(f"13b routed, chunk {MOE_ROOMY_CHUNK}", eng, launches, cap,
+                  peak, t_r, card)
+    del eng
+    dcfg = cfg.replace(moe_impl="dense_mixture")
+    dense, eng, launches, cap, peak, t_d = serve_moe_engine(
+        "13b dense mixture", dcfg, model, reqs, roomy)
+    print_moe_run(f"13b dense mixture, chunk {MOE_ROOMY_CHUNK}", eng,
+                  launches, cap, peak, t_d, card)
+    del eng
+    apart = gate_streams("13b", model, cfg, reqs, dense, routed)
+    print(f"  13b: {len(reqs) - apart} of {len(reqs)} dense-mixture streams "
+          f"equal the routed ones, {apart} apart at a near-tie", flush=True)
+
+
+def moe_codes(cfg, model, reqs, ec, card) -> None:
+    """13d: codes mode (``act_quant=7, kv_codes=True``), calibrated afresh
+    on the card: every request ``ok``, the codes launches exact, and the
+    same streams eagerly."""
+    import numpy as np
+    import torch
+
+    path = os.path.join(ROOT, "build", "chip_smoke_moe_calib.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if os.path.exists(path):
+        os.unlink(path)
+    os.environ["REPRO_ACT_CALIB_CACHE"] = path
+    t0 = time.perf_counter()
+    outs, eng, launches, cap, peak, t_run = serve_moe_engine(
+        "13d codes", cfg, model, reqs, ec, codes=True, act_quant=7)
+    require(os.path.exists(path), "13d: calibration wrote no cache entry")
+    require(eng.cache.k_pages.dtype == torch.uint8, "13d: pages not uint8")
+    print(f"  13d codes (act_quant 7, kv_codes, calibrated on the card; "
+          f"{time.perf_counter() - t0:.1f} s with the run):", flush=True)
+    print_moe_run(f"13d {cfg.name} codes [graphs]", eng, launches, cap, peak,
+                  t_run, card)
+    params = eng.params
+    del eng
+    eager, eng, launches_e, cap_e, peak_e, t_e = serve_moe_engine(
+        "13d codes eager", cfg, params, reqs, ec, codes=True,
+        graphs=False)
+    require(launches_e == launches, f"13d: eager launches {launches_e}")
+    require(all(np.array_equal(a.tokens, b.tokens)
+                for a, b in zip(outs, eager)),
+            "13d: cuda_graphs=False gave other token streams")
+    print_moe_run(f"13d {cfg.name} codes [eager, streams equal]", eng,
+                  launches_e, cap_e, peak_e, t_e, card)
+
+
+def moe_path_check(name, cfg, model, n_layers: int) -> None:
+    """13c: card against CPU on the first ``n_layers`` layers at full
+    width (float32 compute, float32 pages): one 2-row prefill chunk and
+    MOE_PATH_STEPS decode steps (phase 3's ``paged_run``), both sides
+    decoding the CPU's greedy tokens.  The CPU holds the weights decoded
+    to float32 once (the values the kernels' plain versions decode on
+    every call; the embedding stays codes, a row gather).
+
+    The routing rule: every router call's choices are compared first
+    (:func:`moe_routing`).  At least MOE_ROUTE_SHARE of the router's
+    tokens must route the same; a token whose top-k margin clears twice
+    the call's largest card-vs-CPU router-probability difference must;
+    a row leaves the comparison from the dispatch in which one of its
+    tokens routed apart on (and every row does if that dispatch dropped
+    slots on either side), and at least one row must stay at every
+    dispatch.  The logits of the rows left are held as phase 3 holds
+    them: within the tolerance of their scale, greedy tokens equal where
+    the top-2 gap is clear.  The tolerance is 1e-4 or, if larger, the
+    card's own spread under weight tables jittered by MOE_JITTER (each
+    entry scaled by 1 +- 1e-4, the whole of phase 2's gate, which 13k
+    holds the GEMMs to at these shapes; #1's difference from float32 on
+    layer 0's ``wq`` is held within it here, so the spread is what a
+    GEMM at its gate could do, and no factor is added to it).  A
+    last-bit change would not do: these random models draw ``wq``/``wk``
+    with the fan-in of their heads axis and have no qk-norm, so
+    attention scores reach ~1e3 and the softmax turns the GEMMs' ~1e-5
+    difference into ~1e-3 of a layer's scale."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.exponential_quant import QWeight
+    from repro_torch.models import api as mapi
+    from repro_torch.models import moe as M
+    from repro_torch.models.transformer import DecoderLM
+
+    cfg2 = cfg.replace(num_layers=n_layers, compute_dtype="float32")
+    api = mapi.get_model(cfg2)
+
+    def head(v):
+        if isinstance(v, QWeight):
+            return QWeight(v.codes[:n_layers], v.lut[:n_layers],
+                           v.qmeta[:n_layers])
+        return v[:n_layers]
+
+    tree = model.tree()
+    tree["blocks"] = {k: ({kk: head(vv) for kk, vv in v.items()}
+                          if isinstance(v, dict) else head(v))
+                      for k, v in tree["blocks"].items()}
+    gpu = DecoderLM(cfg2, tree, device="cuda")
+    t0 = time.perf_counter()
+
+    def decoded(w: QWeight, experts: bool) -> torch.Tensor:
+        """``w`` decoded to float32 on the CPU, a layer (and an expert) a
+        table gather on the card at a time."""
+        out = torch.empty(w.codes.shape, dtype=torch.float32)
+        stacked = w.lut.ndim == 2
+        for i in range(w.codes.shape[0] if stacked else 1):
+            codes, lut = (w.codes[i], w.lut[i]) if stacked else (w.codes,
+                                                                  w.lut)
+            dst = out[i] if stacked else out
+            for c, d in (zip(codes, dst) if experts else ((codes, dst),)):
+                d.copy_(lut[c.long()])
+        return out
+
+    def to_cpu(node, path=()):
+        if isinstance(node, dict):
+            return {k: to_cpu(v, path + (k,)) for k, v in node.items()}
+        if not isinstance(node, QWeight):
+            return node.cpu()
+        if path == ("embed", "tokens"):
+            return QWeight(node.codes.cpu(), node.lut.cpu(), node.qmeta.cpu())
+        return decoded(node, "moe" in path)
+
+    cpu = DecoderLM(cfg2, to_cpu(tree), device="cpu")
+    t_copy = time.perf_counter() - t0
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in PATH_LENS]
+    router = M._router
+
+    def routed_run(model, dev, feed=None):
+        """(logits, layer states, router calls (probs, choices), slots
+        dropped a dispatch)."""
+        calls, drops = [], []
+
+        def rec(p, xf, c):
+            out = router(p, xf, c)
+            calls.append((out[0].float().cpu(), out[2].cpu()))
+            return out
+        M._router = rec
+        try:
+            outs, states = layer_states(lambda: paged_run(
+                api, cfg2, model, dev, torch.float32, prompts, feed,
+                steps=MOE_PATH_STEPS, drops=drops))
+        finally:
+            M._router = router
+        return outs, states, calls, drops
+
+    t0 = time.perf_counter()
+    on_cpu, cpu_states, cpu_run, cpu_drops = routed_run(
+        cpu, torch.device("cpu"))
+    t_cpu = time.perf_counter() - t0
+    feed = [o.argmax(-1) for o in on_cpu[:-1]]
+    on_card, card_states, card_run, card_drops = routed_run(
+        gpu, torch.device("cuda"), feed)
+    jitter = gemm_difference(gpu.layer(0)["attn"]["wq"])
+    require(jitter <= MOE_JITTER, f"13c {name}: #1 differs from float32 by "
+            f"{jitter:.3e} of its output on layer 0's wq > {MOE_JITTER}")
+    nudged, _, nudged_run, nudged_drops = routed_run(
+        _jittered(gpu, MOE_JITTER), torch.device("cuda"), feed)
+    require(len(card_run) == len(cpu_run) == n_layers * (1 + MOE_PATH_STEPS),
+            f"13c {name}: {len(card_run)} / {len(cpu_run)} router calls")
+
+    def kept_spread(outs, refs, off_rows):
+        require(not any(off.all() for off in off_rows), f"13c {name}: the "
+                f"jitter routed every row apart")
+        return max((a - r)[~off].abs().max().item()
+                   / max(1.0, r[~off].abs().max().item())
+                   for a, r, off in zip(outs, refs, off_rows))
+
+    # the card's own spread under jittered weight tables, on the rows whose
+    # routing the jitter left alone
+    own = moe_routing(f"13c {name} jittered", cfg2, nudged_run, nudged_drops,
+                      card_run, card_drops)
+    spread = kept_spread(nudged, on_card, own["rows"])
+    tol = max(1e-4, spread)
+    rt = moe_routing(f"13c {name}", cfg2, card_run, card_drops, cpu_run,
+                     cpu_drops, gate=True)
+    off_rows = rt["rows"]
+    print(f"  13c {name}: {n_layers} layers; routing equal on {rt['same']} "
+          f"of {rt['same'] + rt['apart']} router tokens (at least "
+          f"{MOE_ROUTE_SHARE:.0%} required), router probabilities apart by "
+          f"at most {rt['delta']:.3e} (a clear margin: over twice that "
+          f"in its call; {rt['clear']} tokens clear); slots dropped a "
+          f"dispatch card {card_drops}, CPU {cpu_drops}; rows left out of "
+          f"the logits {[o.nonzero().flatten().tolist() for o in off_rows]}; "
+          f"#1's difference from float32 on layer 0's wq {jitter:.3e} of "
+          f"its output (at most {MOE_JITTER}); the card's own spread under "
+          f"tables jittered by {MOE_JITTER} {spread:.3e}, tol {tol:.3e}; the "
+          f"CPU's copy {t_copy:.1f} s, its run {t_cpu:.1f} s", flush=True)
+    # each layer's output on the rows kept (the chunk's valid positions),
+    # at the prefill chunk and the first decode step
+    valid = (torch.arange(PATH_CHUNK)[None, :]
+             < torch.tensor(PATH_LENS)[:, None])
+    for i, (a, r) in enumerate(zip(card_states[:2 * n_layers],
+                                   cpu_states[:2 * n_layers])):
+        step, layer = divmod(i, n_layers)
+        keep = ~off_rows[step]
+        mask = (valid & keep[:, None]) if step == 0 else keep[:, None]
+        scale = r[mask].abs().max().item()
+        err = (a[mask] - r[mask]).abs().max().item() / scale
+        print(f"  13c {name} {'prefill' if step == 0 else 'decode step 0'} "
+              f"layer {layer}: card vs CPU {err:.3e} of the layer's scale "
+              f"{scale:.3e}", flush=True)
+    for step, (a, r, off) in enumerate(zip(on_card, on_cpu, off_rows)):
+        compare(f"13c {name} (dispatch {step})", [a[~off]], [r[~off]], tol)
+    del gpu, cpu
+
+
+def moe_routing(label, cfg, calls_a, drops_a, calls_b, drops_b,
+                gate: bool = False) -> dict:
+    """Side a's router calls against side b's (b the reference), over
+    ``paged_run``'s 2 rows, ``cfg.num_layers`` calls a dispatch.  In each
+    call, delta is the largest difference between the two sides' router
+    probabilities on the rows still compared; a token of those rows whose
+    top-k margin on b (the k-th probability over the next) exceeds twice
+    delta cannot legitimately route apart.  A row leaves the comparison
+    from the dispatch in which one of its tokens routed apart on, and
+    every row does if that dispatch dropped slots on either side (a
+    changed choice moves which slots a full expert drops).  With
+    ``gate``, requires equal choices on every clear token, at least
+    MOE_ROUTE_SHARE of the tokens routed the same, and a row compared at
+    every dispatch.  Returns the rows left out after each dispatch
+    (``rows``) and the counts of tokens routed the same, apart and
+    clear, and the largest delta."""
+    import torch
+
+    n, k = cfg.num_layers, cfg.experts_per_token
+    out = torch.zeros(2, dtype=torch.bool)
+    apart = torch.zeros(2, dtype=torch.bool)     # in this dispatch
+    rows, same_n, apart_n, clear_n, delta_max = [], 0, 0, 0, 0.0
+    for c, ((pa, ea), (pb, eb)) in enumerate(zip(calls_a, calls_b)):
+        live = ~out.repeat_interleave(pa.shape[0] // 2)
+        same = (torch.sort(ea, -1).values == torch.sort(eb, -1).values
+                ).all(-1)
+        if live.any():
+            delta = (pa - pb)[live].abs().max().item()
+            top = torch.sort(pb, -1, descending=True).values
+            clear = live & ((top[:, k - 1] - top[:, k]) > 2 * delta)
+            bad = int((clear & ~same).sum())
+            require(not gate or bad == 0, f"{label}: {bad} tokens with a "
+                    f"clear top-k margin routed apart at router call {c}")
+            delta_max = max(delta_max, delta)
+            clear_n += int(clear.sum())
+        same_n += int(same.sum())
+        apart_n += int((~same).sum())
+        apart |= ~same.reshape(2, -1).all(-1)
+        out |= apart
+        if c % n == n - 1:
+            d = c // n
+            if apart.any() and max(drops_a[d], drops_b[d]) > 0:
+                out[:] = True
+            apart[:] = False
+            rows.append(out.clone())
+            require(not gate or not out.all(), f"{label}: no row left to "
+                    f"compare after dispatch {c // n}")
+    share = same_n / max(1, same_n + apart_n)
+    require(not gate or share >= MOE_ROUTE_SHARE, f"{label}: routing equal "
+            f"on {share:.3f} of the router's tokens < {MOE_ROUTE_SHARE}")
+    return {"rows": rows, "same": same_n, "apart": apart_n,
+            "clear": clear_n, "delta": delta_max}
+
+
 def main() -> int:
     try:
         import torch
@@ -3951,6 +4640,9 @@ def main() -> int:
         lifecycle_phase(params, codes_params, float_outs)
         phase("phase 12: the disaggregated cluster")
         cluster_phase(params, codes_params, float_outs)
+        phase("phase 13: the MoE decoders llama4-scout and grok-1")
+        for name, layers, check in MOE_DECODERS:
+            serve_moe_decoder(name, layers, check, card)
         phase("all phases passed")
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

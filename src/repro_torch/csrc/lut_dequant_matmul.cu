@@ -68,9 +68,11 @@
 //   codes (4 columns) a k row and uses its bytes as the B fragments of 4
 //   n8 tiles, the columns of tile j being 4g + j.  Activation codes are
 //   decoded once a tile into a tile of bf16 pairs that all warps read.
-//   Split-K (a workspace and the reduce pass) only when the tiles fill
+//   Split-K (a workspace and the reduce pass) when the tiles fill
 //   under half the SMs, up to the blocks the SMs hold (two a SM at
-//   NW = 1, one at 2).
+//   NW = 1, one at 2), and whenever K passes 4096 rows: the mma's
+//   float32 accumulate is not round-to-nearest, so a longer chain
+//   misses the gate (gemm_plan's MAX_K_CHAIN).
 //
 // Codes [N, K] (the tied unembedding, #1 only):
 // - Decode (M <= 8), mm_stream_t: bound by the K*N code bytes (311 MB,

@@ -37,6 +37,13 @@ STREAM_COLS = 128    # columns of a decode block, codes [N, K]
 # prefill blocks an SM holds: the registers and shared memory of one
 # weight's tile leave room for two
 TILED_BLOCKS_PER_SM = {1: 2, 2: 1}
+# prefill: the most k rows one accumulator sums on the tensor cores.  An
+# mma's float32 accumulate is not round-to-nearest (the error of a
+# chain grows with its k steps and its passes): one chain over K 32768
+# missed the 1e-4 gate (3.0e-3 against 1.9e-3 at M 640, N 6144, bf16 x,
+# an H100), while chains of at most 8192 rows held it.  Longer K splits,
+# and the reduce pass adds the splits in float32 on the CUDA cores.
+MAX_K_CHAIN = 4096
 PATHS = {"skinny": 0, "tiled": 1, "stream_t": 2, "tiled_t": 3}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -77,8 +84,9 @@ def gemm_plan(m: int, k: int, n: int, sms: int, nw: int,
     128 x 128 tiles fill under half the SMs, to one wave of the blocks
     the SMs hold (``TILED_BLOCKS_PER_SM``: two of one weight's tiles an
     SM, one of two weights') with 256 rows of each weight a split at
-    least; a reduce pass sums.  k_per_split is a multiple of the
-    pipeline stage (32 rows)."""
+    least, and always into splits of at most ``MAX_K_CHAIN`` rows; a
+    reduce pass sums.  k_per_split is a multiple of the pipeline stage
+    (32 rows)."""
     splits = 1
     if m <= _SKINNY_M:
         if transposed:
@@ -92,6 +100,7 @@ def gemm_plan(m: int, k: int, n: int, sms: int, nw: int,
         if 2 * blocks <= sms:
             splits = max(1, min(TILED_BLOCKS_PER_SM[nw] * sms // blocks,
                                 k // (256 * nw)))
+        splits = max(splits, math.ceil(k / MAX_K_CHAIN))
     kps = math.ceil(math.ceil(k / splits) / K_STEP) * K_STEP
     return math.ceil(k / kps), kps
 

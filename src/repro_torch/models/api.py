@@ -1,5 +1,6 @@
 """Model API (port of the JAX package's ``models/api.py``): one entry per
-architecture family; only the ``decoder`` family is ported.  Its
+architecture family; only the ``decoder`` family is ported, with dense
+or MoE blocks (``models/moe.py``: llama4-scout, grok-1).  Its
 contiguous-cache entry points (``forward``, ``prefill``,
 ``decode_step``, ``init_cache``) serve ``generate_bucketed``; the paged
 ones (``prefill_into_cache``, ``decode_step_paged`` and

@@ -54,6 +54,20 @@ def logical_axes(specs):
     return _map(lambda s: s.axes, specs)
 
 
+def spec_std(spec: ParamSpec) -> float:
+    """The standard deviation a ``normal``, ``embed`` or ``scaled`` leaf is
+    drawn with.  ``fan_in_axis`` indexes the spec's shape as given, so
+    a layer-stacked spec counts it one axis further left, as the
+    reference does (an ``[L, E, d, f]`` expert stack: the experts)."""
+    if spec.init in ("normal", "embed"):
+        return spec.scale if spec.scale is not None else 0.02
+    if spec.init == "scaled":
+        fan_axis = spec.fan_in_axis if spec.fan_in_axis is not None else -2
+        fan_in = spec.shape[fan_axis] if len(spec.shape) > 1 else spec.shape[0]
+        return (spec.scale or 1.0) / math.sqrt(max(fan_in, 1))
+    raise ValueError(f"unknown init {spec.init}")
+
+
 def _init_leaf(spec: ParamSpec, gen: torch.Generator, device,
                dtype) -> torch.Tensor:
     dtype = spec.dtype or dtype
@@ -61,14 +75,7 @@ def _init_leaf(spec: ParamSpec, gen: torch.Generator, device,
         return torch.zeros(spec.shape, dtype=dtype, device=device)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=dtype, device=device)
-    if spec.init in ("normal", "embed"):
-        std = spec.scale if spec.scale is not None else 0.02
-    elif spec.init == "scaled":
-        fan_axis = spec.fan_in_axis if spec.fan_in_axis is not None else -2
-        fan_in = spec.shape[fan_axis] if len(spec.shape) > 1 else spec.shape[0]
-        std = (spec.scale or 1.0) / math.sqrt(max(fan_in, 1))
-    else:
-        raise ValueError(f"unknown init {spec.init}")
+    std = spec_std(spec)
     x = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
                     device=device)
     return x.mul_(std).to(dtype)

@@ -1,6 +1,6 @@
 """Decoder-only transformer LM (port of the JAX package's
-``models/transformer.py``, dense decoder family): the contiguous-cache
-entry points and the paged serving entry points.
+``models/transformer.py``, the decoder family with dense or MoE blocks):
+the contiguous-cache entry points and the paged serving entry points.
 
 ``forward``, ``prefill`` and ``decode_step`` are the legacy contiguous
 path (``InferenceServer.generate_bucketed``): one ``[L, B, max_len,
@@ -15,7 +15,10 @@ The loop over the layer index takes the place of the reference's
 by calibration) switch its activations to codes; uint8 pages store K/V
 as codes, encoded at the write; float8_e4m3fn pages and caches store
 them cast as the reference casts them (:func:`cache_cast`).
-``collect_act_calibration`` is the calibration hook.
+``collect_act_calibration`` is the calibration hook.  An MoE block
+(``cfg.is_moe``) holds ``moe`` in place of ``mlp`` and runs
+:func:`repro_torch.models.moe.apply_moe` where a dense block runs
+:func:`~repro_torch.models.layers.apply_mlp`.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import lama_layers as ll
 from repro_torch.core.exponential_quant import QWeight
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models.params import (ParamTree, init_params, layer_slice,
                                        stack_specs)
 
@@ -38,11 +42,13 @@ F8_LIMIT = 464.0   # past it e4m3fn's round to nearest even leaves 448
 
 
 def block_specs(cfg: ModelConfig) -> dict:
+    s = {"ln1": L.norm_specs(cfg), "attn": L.attention_specs(cfg),
+         "ln2": L.norm_specs(cfg)}
     if cfg.is_moe:
-        raise NotImplementedError("MoE blocks are not ported yet "
-                                  "(ROADMAP Queue 1 item 13)")
-    return {"ln1": L.norm_specs(cfg), "attn": L.attention_specs(cfg),
-            "ln2": L.norm_specs(cfg), "mlp": L.mlp_specs(cfg)}
+        s["moe"] = M.moe_specs(cfg)
+    else:
+        s["mlp"] = L.mlp_specs(cfg)
+    return s
 
 
 def model_specs(cfg: ModelConfig) -> dict:
@@ -142,10 +148,7 @@ def _copy_at(cache: torch.Tensor, at: torch.Tensor, new: torch.Tensor) -> None:
     cache.index_copy_(1, at, new)
 
 
-def _check_dense(cfg: ModelConfig, prefix_embeds) -> None:
-    if cfg.is_moe:
-        raise NotImplementedError("MoE blocks are not ported yet "
-                                  "(ROADMAP Queue 1 item 13)")
+def _check_prefix(prefix_embeds) -> None:
     if prefix_embeds is not None:
         raise NotImplementedError("prefix embeddings (the vlm stub "
                                   "frontend) are not ported yet (ROADMAP "
@@ -164,9 +167,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             "v": torch.zeros(shape, dtype=dtype, device=dev), "pos": 0}
 
 
+def _ffn(lp: dict, h, cfg: ModelConfig, act_q, moe_counts=None):
+    """The block's feed-forward half on the ln2 output: (y, aux), the MoE
+    layer's load-balancing loss or None for a dense MLP.  ``moe_counts``:
+    the capacity tally a routed dispatch adds to (a paged view's)."""
+    if cfg.is_moe:
+        return M.apply_moe(lp["moe"], h, cfg, act_q=act_q, counts=moe_counts)
+    return L.apply_mlp(lp["mlp"], h, cfg, act_q=act_q), None
+
+
 def _block(lp: dict, x, cfg: ModelConfig, positions, mask):
-    """One block over a contiguous sequence; returns (y, (k, v)) with
-    this sequence's K (normed, roped) and V for the cache.  The
+    """One block over a contiguous sequence; returns (y, aux, (k, v))
+    with this sequence's K (normed, roped) and V for the cache.  The
     attention takes those same K/V (the reference's ``mha`` derives them
     again from the same inputs: equal values)."""
     aq = lp.get("act_q")
@@ -174,21 +186,26 @@ def _block(lp: dict, x, cfg: ModelConfig, positions, mask):
     kv = L.self_kv(lp["attn"], h, cfg, positions, act_q=aq)
     x = x + L.mha(lp["attn"], h, cfg, positions, mask, kv=kv, act_q=aq)
     h = L.apply_norm(lp["ln2"], x, cfg)
-    return x + L.apply_mlp(lp["mlp"], h, cfg, act_q=aq), kv
+    y, aux = _ffn(lp, h, cfg, aq)
+    return x + y, aux, kv
 
 
 def forward(params: DecoderLM, tokens: torch.Tensor, cfg: ModelConfig,
             prefix_embeds=None):
     """Full-sequence causal forward.  Returns (logits [B, S, V], the
-    auxiliary loss: 0.0, as for every dense block)."""
-    _check_dense(cfg, prefix_embeds)
+    auxiliary loss: the MoE layers' load-balancing loss averaged over
+    the layers, 0.0 for dense blocks)."""
+    _check_prefix(prefix_embeds)
     x = L.embed_tokens(params["embed"], tokens, cfg)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.num_layers):
-        x, _ = _block(params.layer(i), x, cfg, positions, ("causal", None))
+        x, a, _ = _block(params.layer(i), x, cfg, positions, ("causal", None))
+        if a is not None:
+            aux = aux + a
     x = L.apply_norm(params["ln_f"], x, cfg)
-    return L.logits_fn(params, x, cfg), torch.zeros((), device=x.device)
+    return L.logits_fn(params, x, cfg), aux / max(cfg.num_layers, 1)
 
 
 def prefill(params: DecoderLM, tokens: torch.Tensor, cfg: ModelConfig,
@@ -196,7 +213,7 @@ def prefill(params: DecoderLM, tokens: torch.Tensor, cfg: ModelConfig,
     """Run the prompts ``tokens`` [B, S] and build a contiguous cache of
     ``max_len`` positions holding their K/V.  Returns (logits [B, 1, V]
     at the last position, the cache with ``pos = S``)."""
-    _check_dense(cfg, prefix_embeds)
+    _check_prefix(prefix_embeds)
     x = L.embed_tokens(params["embed"], tokens, cfg)
     b, s, _ = x.shape
     if s > max_len:
@@ -204,8 +221,8 @@ def prefill(params: DecoderLM, tokens: torch.Tensor, cfg: ModelConfig,
     positions = torch.arange(s, device=x.device).expand(b, s)
     cache = init_cache(cfg, b, max_len, cache_dtype, device=x.device)
     for i in range(cfg.num_layers):
-        x, (k, v) = _block(params.layer(i), x, cfg, positions,
-                           ("causal", None))
+        x, _, (k, v) = _block(params.layer(i), x, cfg, positions,
+                              ("causal", None))
         cache["k"][i, :, :s] = cache_cast(k, cache_dtype)
         cache["v"][i, :, :s] = cache_cast(v, cache_dtype)
     x = L.apply_norm(params["ln_f"], x, cfg)
@@ -226,7 +243,6 @@ def decode_step(params: DecoderLM, cache: dict, tokens: torch.Tensor,
     reference's traced position): then nothing here reads it on the
     host, so a captured step replays at whatever position the tensor
     holds, and the caller checks that the cache has room."""
-    _check_dense(cfg, None)
     x = L.embed_tokens(params["embed"], tokens, cfg)
     b, s, _ = x.shape
     pos = cache["pos"]
@@ -266,7 +282,7 @@ def decode_step(params: DecoderLM, cache: dict, tokens: torch.Tensor,
                          kv=(kc.to(x.dtype), vc.to(x.dtype)), act_q=aq)
         x = x + attn
         h = L.apply_norm(lp["ln2"], x, cfg)
-        x = x + L.apply_mlp(lp["mlp"], h, cfg, act_q=aq)
+        x = x + _ffn(lp, h, cfg, aq)[0]
     x = L.apply_norm(params["ln_f"], x, cfg)
     return L.logits_fn(params, x, cfg), {**cache, "pos": pos + 1}
 
@@ -274,10 +290,11 @@ def decode_step(params: DecoderLM, cache: dict, tokens: torch.Tensor,
 # ------------------------------------------------------- paged serving --
 
 def _paged_block(lp: dict, x, cfg: ModelConfig, positions, k_pages, v_pages,
-                 page, off, attend):
+                 page, off, attend, moe_counts=None):
     """One block: scatter this step's K/V into the pages (encoded to
     codes first when the pages are uint8), then attend through
-    ``attend``, then the MLP."""
+    ``attend``, then the MLP or MoE layer (its capacity tally
+    ``moe_counts``)."""
     aq = lp.get("act_q")
     h = L.apply_norm(lp["ln1"], x, cfg)
     k_new, v_new = L.self_kv(lp["attn"], h, cfg, positions, act_q=aq)
@@ -289,7 +306,7 @@ def _paged_block(lp: dict, x, cfg: ModelConfig, positions, k_pages, v_pages,
     v_pages.index_put_((page, off), cache_cast(v_new, v_pages.dtype))
     x = x + attend(lp["attn"], h, k_pages, v_pages, aq)
     h = L.apply_norm(lp["ln2"], x, cfg)
-    return x + L.apply_mlp(lp["mlp"], h, cfg, act_q=aq)
+    return x + _ffn(lp, h, cfg, aq, moe_counts)[0]
 
 
 def _window_layers(params: DecoderLM, x, view, cfg: ModelConfig, start,
@@ -317,7 +334,8 @@ def _window_layers(params: DecoderLM, x, view, cfg: ModelConfig, start,
 
     for i in range(cfg.num_layers):
         x = _paged_block(params.layer(i), x, cfg, positions,
-                         view.k_pages[i], view.v_pages[i], page, off, attend)
+                         view.k_pages[i], view.v_pages[i], page, off, attend,
+                         view.moe_counts)
     return L.apply_norm(params["ln_f"], x, cfg)
 
 
@@ -409,7 +427,8 @@ def decode_step_paged(params: DecoderLM, view, tokens: torch.Tensor,
 
     for i in range(cfg.num_layers):
         x = _paged_block(params.layer(i), x, cfg, positions,
-                         view.k_pages[i], view.v_pages[i], blk, off, attend)
+                         view.k_pages[i], view.v_pages[i], blk, off, attend,
+                         view.moe_counts)
     x = L.apply_norm(params["ln_f"], x, cfg)
     logits = L.logits_fn(params, x, cfg)
     new_lengths = torch.where(active, pos + 1, pos).to(torch.int32)
@@ -424,8 +443,10 @@ def collect_act_calibration(params: DecoderLM, tokens: torch.Tensor,
     per layer the float activation at every site of
     :data:`~repro_torch.models.layers.ACT_SITES`: attn_in (ln1 output),
     attn_out (the attention context before ``wo``), mlp_in (ln2 output),
-    mlp_mid (the MLP intermediate), attn_q (the roped query), attn_k /
-    attn_v (the roped keys and the values a page stores).  Attention is
+    mlp_mid (the MLP intermediate; dense blocks only: an MoE expert's
+    intermediate stays float, as in the reference), attn_q (the roped
+    query), attn_k / attn_v (the roped keys and the values a page
+    stores).  Attention is
     causal over the prompt, through the contiguous
     :func:`~repro_torch.models.layers.mha` as in the reference; the
     projections go through the usual dispatch.  No act-quant table is
@@ -434,7 +455,8 @@ def collect_act_calibration(params: DecoderLM, tokens: torch.Tensor,
     x = L.embed_tokens(params["embed"], tokens, cfg)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
-    samples: dict[str, list] = {site: [] for site in L.ACT_SITES}
+    samples: dict[str, list] = {site: [] for site in L.ACT_SITES
+                                if site != "mlp_mid" or not cfg.is_moe}
     for i in range(cfg.num_layers):
         lp = params.layer(i)
         h1 = L.apply_norm(lp["ln1"], x, cfg)
@@ -443,11 +465,15 @@ def collect_act_calibration(params: DecoderLM, tokens: torch.Tensor,
         x = x + attn
         h2 = L.apply_norm(lp["ln2"], x, cfg)
         k_cal, v_cal = L.self_kv(lp["attn"], h1, cfg, positions)
-        y, mid = L.apply_mlp(lp["mlp"], h2, cfg, return_mid=True)
-        for site, t in (("attn_in", h1), ("attn_out", ctx), ("mlp_in", h2),
-                        ("mlp_mid", mid),
-                        ("attn_q", L.roped_q(lp["attn"], h1, cfg, positions)),
-                        ("attn_k", k_cal), ("attn_v", v_cal)):
+        sites = {"attn_in": h1, "attn_out": ctx, "mlp_in": h2,
+                 "attn_q": L.roped_q(lp["attn"], h1, cfg, positions),
+                 "attn_k": k_cal, "attn_v": v_cal}
+        if cfg.is_moe:
+            y, _ = M.apply_moe(lp["moe"], h2, cfg)
+        else:
+            y, sites["mlp_mid"] = L.apply_mlp(lp["mlp"], h2, cfg,
+                                              return_mid=True)
+        for site, t in sites.items():
             samples[site].append(t)
         x = x + y
     return {site: torch.stack(ts) for site, ts in samples.items()}

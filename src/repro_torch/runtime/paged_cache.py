@@ -58,12 +58,15 @@ class PagedView(NamedTuple):
     k_pages/v_pages: [L, num_blocks, block_size, n_kv, hd]
     block_tables:    [B, cols] int32 physical page ids
     lengths:         [B] int32 tokens already present per sequence
+    moe_counts:      [3] int64 the cache's MoE capacity tally, or None
+                     (:attr:`PagedKVCache.moe_counts`)
     """
 
     k_pages: torch.Tensor
     v_pages: torch.Tensor
     block_tables: torch.Tensor
     lengths: torch.Tensor
+    moe_counts: torch.Tensor | None = None
 
     @property
     def block_size(self) -> int:
@@ -163,11 +166,24 @@ class PagedKVCache:
         # read-only for the slot, written only after cow_slot_page
         self.slot_shared: list[set[int]] = [set() for _ in range(num_slots)]
         self._crc_host: torch.Tensor | None = None   # page_checksums' buffer
+        # the MoE layers' capacity tally (routed calls, slots routed,
+        # slots dropped past capacity), added to on the device by every
+        # routed dispatch through this cache's views: allocated with the
+        # pools, so a captured step's adds land here as long as the
+        # graphs that write the pools live
+        self.moe_counts = torch.zeros(3, dtype=torch.int64, device=device)
 
     @property
     def nbytes(self) -> int:
         """Device bytes of both page pools."""
         return self.k_pages.nbytes + self.v_pages.nbytes
+
+    def moe_capacity(self) -> dict:
+        """The MoE capacity tally (a host read): routed calls, slots
+        routed and slots dropped, over every dispatch through this
+        cache."""
+        calls, slots, dropped = self.moe_counts.tolist()
+        return {"calls": calls, "slots": slots, "dropped": dropped}
 
     def blocks_for(self, tokens: int) -> int:
         return max(1, math.ceil(tokens / self.block_size))
@@ -434,7 +450,8 @@ class PagedKVCache:
              lengths: torch.Tensor) -> PagedView:
         """The page pools under device tables and lengths the caller
         owns (a step's static input buffers)."""
-        return PagedView(self.k_pages, self.v_pages, block_tables, lengths)
+        return PagedView(self.k_pages, self.v_pages, block_tables, lengths,
+                         self.moe_counts)
 
     def view(self, cols: int | None = None) -> PagedView:
         """Device view of every slot.  ``cols`` trims the block table to
@@ -446,4 +463,5 @@ class PagedKVCache:
         dev = self.k_pages.device
         return PagedView(self.k_pages, self.v_pages,
                          torch.as_tensor(np.ascontiguousarray(bt), device=dev),
-                         torch.as_tensor(np.ascontiguousarray(ln), device=dev))
+                         torch.as_tensor(np.ascontiguousarray(ln), device=dev),
+                         self.moe_counts)

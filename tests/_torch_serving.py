@@ -72,13 +72,14 @@ def jax_tree(node):
 
 
 @functools.lru_cache(maxsize=None)
-def weights(kind: str = "float"):
+def weights(kind: str = "float", arch: str = "qwen3-1.7b"):
     """(reference params, the port's DecoderLM on the CPU, act-quant
-    report or None): the reference's float weights of seed 0; for
-    ``codes`` those quantized to 7 bits with act-quant tables (per-head
-    attn_k/attn_v included) fit by the port on 4 prompts of 32 tokens
-    (seed 0), handed to both sides, and the fit's report."""
-    jcfg, cfg = cfgs(kind)
+    report or None): the reference's float weights of seed 0 for
+    ``arch``; for ``codes`` those quantized to 7 bits with act-quant
+    tables (per-head attn_k/attn_v included) fit by the port on 4
+    prompts of 32 tokens (seed 0), handed to both sides, and the fit's
+    report."""
+    jcfg, cfg = cfgs(kind, arch)
     params = jax_api.get_model(jcfg).init(jax.random.PRNGKey(0),
                                           dtype=jnp.float32)
     model = params_from_jax(jax.tree_util.tree_map(np.asarray, params), cfg,
@@ -109,17 +110,17 @@ class Side:
         self.ft = jft if ref else tft
         self.name = "reference" if ref else "port"
 
-    def cfg(self, kind: str = "float"):
-        return cfgs(kind)[0 if self.ref else 1]
+    def cfg(self, kind: str = "float", arch: str = "qwen3-1.7b"):
+        return cfgs(kind, arch)[0 if self.ref else 1]
 
     def engine(self, kind: str = "float", *, ec: dict | None = None,
-               chaos: dict | None = None, **kw):
-        jp, tp, report = weights(kind)
+               chaos: dict | None = None, arch: str = "qwen3-1.7b", **kw):
+        jp, tp, report = weights(kind, arch)
         if chaos is not None:
             kw["chaos"] = self.chaos.ChaosConfig(**chaos)
         if not self.ref:
             kw["device"] = "cpu"
-        eng = self.E.Engine(self.cfg(kind), params=jp if self.ref else tp,
+        eng = self.E.Engine(self.cfg(kind, arch), params=jp if self.ref else tp,
                             engine=self.E.EngineConfig(**(ec or {})), **kw)
         if report is not None:
             eng.act_report = report     # what its calibration reports

@@ -18,8 +18,11 @@ unembedding, the contiguous
 decode at every group size and head_dim, lengths 0 and past its cache,
 and replayed in a CUDA graph (#1-#9, each alone), the engine and the
 bucketed server with their steps replayed as CUDA graphs against the same
-steps run eagerly, and the Lama primitives (bulk LUT op, signed
-histogram) on their vector and scalar paths, with out-of-range codes.
+steps run eagerly, the Lama primitives (bulk LUT op, signed
+histogram) on their vector and scalar paths, with out-of-range codes,
+and the MoE layers: a routed layer replayed in a CUDA graph, the kernel
+path against the plain path under the routing rule, and a small MoE
+engine with graphs and eagerly.
 The Lama primitives and the histogram are held to exact equality
 (integers, and sums of +-1 in float32).
 Tolerance: 1e-4 of the reference's largest magnitude for float outputs
@@ -1980,3 +1983,163 @@ def test_imports_under_captured_decode_graphs(dev):
     assert dec.imported_handoffs == 8 and dec.prefill_tokens_computed == 0
     n = _build.launch_counts()
     assert n.get("decode_gqa_paged", 0) > 0
+
+
+# ------------------------------------------------------------------ MoE --
+
+MOE_ARCHS = ("grok-1-314b", "llama4-scout-17b-a16e")
+
+
+def _moe_card_cfg(arch):
+    """The arch's experts, top-k and activation at a head_dim the kernels
+    take, small."""
+    from repro_torch.configs import get_config
+
+    return get_config(arch).replace(
+        num_layers=2, d_model=256, num_heads=2, num_kv_heads=1, head_dim=128,
+        d_ff=512, vocab_size=1024, compute_dtype="float32")
+
+
+def _moe_layer(arch, dev, codes):
+    """(cfg, 7-bit layer-0 MoE params on ``dev``, x [3, 40, d], act_q or
+    None): weights from seed 5, x from seed 6, an mlp_in table fit on x."""
+    from repro_torch.core import lama_layers as ll
+    from repro_torch.models import api as mapi
+    from repro_torch.models.transformer import DecoderLM
+    from repro_torch.runtime import calibration as cal
+
+    cfg = _moe_card_cfg(arch)
+    api = mapi.get_model(cfg)
+    dense = api.init("cpu", seed=5)
+    qtree, _ = ll.quantize_tree(dense.tree(), 7, axes=api.logical_axes())
+    p = DecoderLM(cfg, qtree, device=dev).layer(0)["moe"]
+    x = torch.randn(3, 40, cfg.d_model, generator=_gen(torch.device("cpu"), 6))
+    aq = None
+    if codes:
+        act_q, _ = cal.fit_sites({"mlp_in": x[None]}, 7)
+        aq = {"mlp_in": {k: v[0].to(dev) for k, v in act_q["mlp_in"].items()}}
+    return cfg, p, x.to(dev), aq
+
+
+@pytest.mark.parametrize("codes", [False, True], ids=["float", "codes"])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_routed_moe_layer_replays_in_a_cuda_graph(dev, arch, codes):
+    """The routed dispatch reads nothing on the host: captured into a
+    CUDA graph and replayed on new tokens it gives what an eager call
+    gives (the same kernels in the same order: equal, exactly), and
+    launches one GEMM an expert an einsum (#1 three times, or #3 twice
+    and #1 once, E times)."""
+    from repro_torch.kernels import _build
+    from repro_torch.models import moe as M
+
+    cfg, p, x, aq = _moe_layer(arch, dev, codes)
+    counts = torch.zeros(3, dtype=torch.int64, device=dev)
+    static = x.clone()
+    M.apply_moe_routed(p, static, cfg, act_q=aq, counts=counts)  # warm-up
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out, aux = M.apply_moe_routed(p, static, cfg, act_q=aq,
+                                      counts=counts)
+    fresh = torch.randn(x.shape, generator=_gen(dev, 9), device=dev)
+    static.copy_(fresh)
+    counts.zero_()
+    _build.reset_launch_counts()
+    g.replay()
+    torch.cuda.synchronize()
+    e = cfg.num_experts
+    want = ({"lut_dequant_matmul_dual": 2 * e, "lut_dequant_matmul": e}
+            if codes else {"lut_dequant_matmul": 3 * e})
+    assert _build.launch_counts() == {}           # a replay calls no wrapper
+    # the replay's own call added to the tally the capture bound
+    assert counts.tolist()[:2] == [1, x.shape[0] * x.shape[1]
+                                   * cfg.experts_per_token]
+    _build.reset_launch_counts()
+    eager, eager_aux = M.apply_moe_routed(p, fresh, cfg, act_q=aq)
+    assert _build.launch_counts() == want
+    assert torch.equal(out, eager) and torch.equal(aux, eager_aux)
+
+
+def test_moe_router_refuses_tf32(dev):
+    """The router's float32 matmul must not run as TF32 (it would move
+    top-k choices): with TF32 turned on the routed layer raises."""
+    from repro_torch.models import moe as M
+
+    cfg, p, x, _ = _moe_layer(MOE_ARCHS[0], dev, False)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="allow_tf32"):
+            M.apply_moe_routed(p, x, cfg)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.parametrize("codes", [False, True], ids=["float", "codes"])
+@pytest.mark.parametrize("impl", ["routed", "dense_mixture"])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_kernel_path_equals_the_plain_path(dev, arch, impl, codes):
+    """The layer on the card (#1/#2 kernels, or #3/#1 and #4/#1 with the
+    mlp_in site as codes; the router's float32 matmul with TF32 off)
+    against the same layer on the CPU (the plain versions), under the
+    routing rule: the expert choices are compared first, and every
+    token whose top-k margin (the k-th probability over the next)
+    clears 1e-4 must pick the same experts; outputs are held within
+    1e-4 of their scale on the tokens whose choices agree (codes: 1e-3,
+    the codes path checks' floor, as each side encodes x and a
+    last-bit difference flips a code at a rounding boundary now and
+    then; none is dropped: 120 tokens under a capacity of 128)."""
+    from repro_torch.models import moe as M
+
+    cfg, p, x, aq = _moe_layer(arch, dev, codes)
+    cfg = cfg.replace(moe_impl=impl)
+    p_cpu = {k: (v.to("cpu") if isinstance(v, torch.Tensor)
+                 else eq.QWeight(v.codes.cpu(), v.lut.cpu(), v.qmeta.cpu()))
+             for k, v in p.items()}
+    aq_cpu = (None if aq is None else
+              {"mlp_in": {k: v.cpu() for k, v in aq["mlp_in"].items()}})
+    xf = x.reshape(-1, cfg.d_model)
+    probs, _, te, _ = M._router(p, xf, cfg)
+    probs_c, _, te_c, _ = M._router(p_cpu, xf.cpu(), cfg)
+    k = cfg.experts_per_token
+    top = torch.sort(probs_c, -1, descending=True).values
+    clear = (top[:, k - 1] - top[:, k]) > 1e-4
+    same = (torch.sort(te.cpu(), -1).values
+            == torch.sort(te_c, -1).values).all(-1)
+    assert bool(same[clear].all()), "a token with a clear margin was routed apart"
+    y, _ = M.apply_moe(p, x, cfg, act_q=aq)
+    y_c, _ = M.apply_moe(p_cpu, x.cpu(), cfg, act_q=aq_cpu)
+    keep = same.reshape(x.shape[:2])
+    out, ref = y.cpu()[keep], y_c[keep]
+    tol = (1e-3 if codes else 1e-4) * max(1.0, ref.abs().max().item())
+    assert (out - ref).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_engine_graphs_equal_eager_on_the_card(dev, arch):
+    """A small MoE decoder served with every tick replayed and eagerly:
+    the same token streams and launch counts, the MoE launches as
+    counted (#1 (4 + 3E) L + 1 a dispatch)."""
+    from repro_torch.kernels import _build
+    from repro_torch.runtime.engine import Engine, EngineConfig, Request
+
+    cfg = _moe_card_cfg(arch)
+    ec = EngineConfig(num_slots=3, block_size=16, max_seq_len=96,
+                      prefill_chunk=32)
+    on = Engine(cfg, quant_bits=7, engine=ec, device="cuda", rng_seed=3)
+    off = Engine(cfg, params=on.params, engine=ec, device="cuda",
+                 cuda_graphs=False)
+    reqs = lambda: [Request(i, p, 10) for i, p in enumerate(_tiny_prompts())]
+    _build.reset_launch_counts()
+    a = on.generate(reqs())
+    counts_on = _build.launch_counts()
+    _build.reset_launch_counts()
+    b = off.generate(reqs())
+    assert _build.launch_counts() == counts_on
+    for x, y in zip(a, b):
+        assert x.status == "ok"
+        np.testing.assert_array_equal(x.tokens, y.tokens)
+    n, e = cfg.num_layers, cfg.num_experts
+    disp = on.prefill_batches + on.total_decode_steps
+    assert counts_on == {"lut_dequant_matmul": ((4 + 3 * e) * n + 1) * disp,
+                         "flash_prefill_paged": n * on.prefill_batches,
+                         "decode_gqa_paged": n * on.total_decode_steps}

@@ -39,7 +39,8 @@ from repro.core import exponential_quant as jeq
 from repro.kernels.lut_dequant_matmul import ops as jops
 from repro_torch.core import exponential_quant as eq
 from repro_torch.kernels.lut_dequant_matmul.lut_dequant_matmul import (
-    K_STEP, MAX_CLUSTER, SLAB_COLS, gemm_plan, pass_kind, passes)
+    K_STEP, MAX_CLUSTER, MAX_K_CHAIN, SLAB_COLS, gemm_plan, pass_kind,
+    passes)
 from repro_torch.kernels.lut_dequant_matmul.ref import (
     apply_activation, decode_weight, lut_dequant_matmul_dual_gated_ref,
     lut_dequant_matmul_dual_ref, lut_dequant_matmul_gated_ref,
@@ -360,6 +361,11 @@ def test_passes_skip_only_the_exact_x_lo():
     (256, 2048, 2048, 1, (8, 256)),     # 32 tiles: 264 blocks at most
     (256, 2048, 1024, 1, (8, 256)),     # 16 tiles: 256 rows a split
     (256, 6144, 2048, 1, (8, 768)),
+    # K past MAX_K_CHAIN splits whatever the tiles: chains of <= 4096 rows
+    (2048, 6144, 2048, 1, (2, 3072)),
+    (640, 32768, 6144, 1, (8, 4096)),   # grok-1's expert down projection
+    (128, 32768, 6144, 1, (8, 4096)),
+    (2048, 5120, 8192, 2, (2, 2560)),
     (200, 2048, 64, 1, (8, 256)),
 ])
 def test_gated_plan(m, k, n, nw, want):
@@ -562,3 +568,55 @@ def test_codes_agree_accepts_the_sign_pair_either_side_of_zero():
     assert not bool(eq.codes_agree(neg, pos + 1, qo).any())
     assert not bool(eq.codes_agree(pos, pos + 2, qo).any())
     assert bool(eq.codes_agree(pos, pos + 1, qo).all())
+
+
+def _rz32(v: np.ndarray) -> np.ndarray:
+    """float64 to float32 rounded toward zero."""
+    r = v.astype(np.float32)
+    over = np.abs(r.astype(np.float64)) > np.abs(v)
+    r[over] = np.nextafter(r[over], np.float32(0))
+    return r
+
+
+@pytest.mark.parametrize("x_dtype", ["bfloat16", "float32"])
+def test_truncating_accumulate_needs_the_chain_cap(x_dtype):
+    """The prefill body's float32 accumulate on the tensor cores modelled
+    as truncating (each mma adds its exact 8-row products to the
+    accumulator and rounds toward zero, as Fasi et al. 2021 measured for
+    NVIDIA tensor cores): one chain over grok-1's expert down projection
+    (K 32768) misses the 1e-4 gate by about twice (as 13k measured on an
+    H100: 3.0e-3 against 1.9e-3), while the plan's chains of at most
+    ``MAX_K_CHAIN`` rows, added in float32 by the reduce pass, hold it
+    with room.  16 x 64 outputs against a float64 product of the same
+    TF32 operands."""
+    m, k, n = 16, 32768, 64
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32))
+    if x_dtype == "bfloat16":
+        x = x.to(torch.bfloat16).to(F32)
+    w = torch.from_numpy((0.02 * rng.normal(size=(k, n))).astype(np.float32))
+    xh, xl = split(x)
+    wh, wl = split(w)
+    pairs = [(xh, wh), (xh, wl)] + ([(xl, wh)] if x_dtype == "float32"
+                                    else [])
+    pairs = [(a.numpy().astype(np.float64), b.numpy().astype(np.float64))
+             for a, b in pairs]
+    ref = x.double().numpy() @ w.double().numpy()
+
+    def chain(k0, k1):
+        acc = np.zeros((m, n), np.float32)
+        for kk in range(k0, k1, 8):
+            for a, b in pairs:
+                acc = _rz32(acc + a[:, kk:kk + 8] @ b[kk:kk + 8])
+        return acc
+
+    splits, kps = gemm_plan(640, k, 6144, SMS, 1)
+    assert splits * kps == k and kps <= MAX_K_CHAIN
+    capped = np.zeros((m, n), np.float32)
+    for s in range(splits):
+        capped = capped + chain(s * kps, (s + 1) * kps)
+    scale = np.abs(ref).max()
+    one_err = np.abs(chain(0, k) - ref).max() / scale
+    cap_err = np.abs(capped - ref).max() / scale
+    assert one_err > GATE
+    assert cap_err < GATE / 2

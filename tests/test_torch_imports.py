@@ -34,7 +34,9 @@ def test_no_jax_or_reference_import(path):
 
 def test_port_files_found():
     assert len(PORT_FILES) > 20
-    for rel in ("runtime/cluster.py", "launch/serve.py", "launch/__init__.py"):
+    for rel in ("runtime/cluster.py", "launch/serve.py", "launch/__init__.py",
+                "models/moe.py", "configs/grok_1_314b.py",
+                "configs/llama4_scout_17b_a16e.py"):
         assert ROOT / "src" / "repro_torch" / rel in PORT_FILES, rel
 
 

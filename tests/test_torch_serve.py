@@ -61,12 +61,9 @@ PATHS = {"engine": [],
                      "--shared-prefix", "16"]}
 
 
-@pytest.mark.parametrize("path", list(PATHS))
-def test_launcher_counts_equal_the_reference(path, tmp_path, capsys,
-                                             monkeypatch):
+def _both_launchers(flags, path, tmp_path, capsys, monkeypatch):
+    """Both ``main``s under ``flags``; returns what each saw."""
     monkeypatch.setenv("REPRO_ACT_CALIB_CACHE", str(tmp_path / "calib.json"))
-    flags = ["--tiny", "--requests", "5", "--new-tokens", "6", "--quant", "7",
-             "--prompt-len", "20", *PATHS[path]]
     seen = []
     for name, main, extra in (("ref", jserve.main, []),
                               ("port", tserve.main, ["--device", "cpu"])):
@@ -83,12 +80,36 @@ def test_launcher_counts_equal_the_reference(path, tmp_path, capsys,
         seen.append((n_req, n_tok, metrics, events))
         if name == "port":
             assert "device: cpu" in text
+    return seen
+
+
+@pytest.mark.parametrize("path", list(PATHS))
+def test_launcher_counts_equal_the_reference(path, tmp_path, capsys,
+                                             monkeypatch):
+    flags = ["--tiny", "--requests", "5", "--new-tokens", "6", "--quant", "7",
+             "--prompt-len", "20", *PATHS[path]]
+    seen = _both_launchers(flags, path, tmp_path, capsys, monkeypatch)
     assert seen[0] == seen[1]
     n_req, n_tok, metrics, _ = seen[1]
     assert (n_req, n_tok) == (5, 30)
     if path == "cluster":
         assert metrics["cluster.handoff.delivered"] == 5
         assert metrics["router.routed"] == 5
+
+
+@pytest.mark.parametrize("path", ["engine", "cluster"])
+@pytest.mark.parametrize("arch", ["grok-1-314b", "llama4-scout-17b-a16e"])
+def test_moe_archs_launch_as_the_reference(arch, path, tmp_path, capsys,
+                                           monkeypatch):
+    """``--arch`` takes the MoE decoders: the counts the reference's
+    launcher gives, with codes activations and KV pages on the engine."""
+    extra = (["--act-quant", "7", "--kv-codes"] if path == "engine"
+             else PATHS[path])
+    flags = ["--arch", arch, "--tiny", "--requests", "4", "--new-tokens", "5",
+             "--quant", "7", "--prompt-len", "12", *extra]
+    seen = _both_launchers(flags, path, tmp_path, capsys, monkeypatch)
+    assert seen[0] == seen[1]
+    assert seen[1][:2] == (4, 20)
 
 
 @pytest.mark.parametrize("arch", NOT_PORTED)
