@@ -140,7 +140,7 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
      the card;
  13. the MoE decoders at full width (d_model, heads, d_ff, experts and
      vocabulary as published), llama4-scout at 4 of its 48 layers and
-     grok-1 at 2 of its 64: (k) #1, #3 and #2 against their plain
+     grok-1 at 2 of its 64: (k) #1, #3, #2 and #4 against their plain
      versions at the expert shapes (M the capacity rows, K x N d_model
      x d_ff and back) at phase 2's 1e-4; random weights (seed 0) drawn
      and quantized to 7 bits on the card layer by layer: phase 4's
@@ -158,7 +158,22 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
      top-k margin clears twice the router probabilities' difference
      must pick the same experts; rows with a near-tie choice left out
      and counted), then the logits as phase 3 holds them, within the
-     card's spread under weight tables jittered by phase 2's 1e-4.
+     card's spread under weight tables jittered by phase 2's 1e-4;
+ 14. the policy's A/B modes and the LUT GEMMs' autotuner (every other
+     phase runs the default policy, whose LUT GEMMs launch the shape
+     plans; here ``autotune=True`` tunes them into
+     ``build/chip_smoke_tune.json``, made afresh each run): (a) #1-#4 at
+     phase 2's shapes, the shape plan and the tuned plan with their
+     device times, both held to the plain version at phase 2's gate,
+     and a second autotuner on the same file reading every tuned plan
+     back; (b) phase 4's weights and engine shape serve 8 of its
+     requests (16 new tokens, the prefix cache off) under the default
+     (shape plans), ``autotune=True``, ``mode="materialize"`` and
+     ``fuse_epilogues=False``: every request ``ok``,
+     launches exact (no #1-#4 in materialize mode, no #2 without fused
+     epilogues), streams against the default's where the top-2 gap is
+     clear, then a second, replayed pass for the decode ms a step and
+     the prefill tok/s; the tuner's seconds are printed.
 Phase 3 prints, for olmo-1b, minicpm-2b and qwen3-14b, the card-vs-CPU
 error after each layer beside the CPU's own spread under last-bit
 weight tables, at the prefill chunk and the first decode step.
@@ -3977,7 +3992,9 @@ def moe_gemm_checks(cfg, card) -> None:
     chunks of 8 x 256): #1 at K x N = d_model x d_ff (gate, up) and d_ff
     x d_model (down), x in the served bfloat16 and in 13b / 13c's
     float32; #3 at d_model x d_ff (codes mode's gate and up).  The dense
-    mixture (13b, llama4-scout) runs #2 an expert at M = 8 and 128.
+    mixture (13b, llama4-scout) runs #2 an expert at M = 8 and 128, and
+    #4 at the same shapes in codes mode (activation codes in, float
+    out, as ``apply_moe_dense`` calls it).
     Weights of std 0.02 fit and encoded by the port's quantizer, passed
     with their table and metadata as the path passes them.  Prints each
     shape's kernel and plain-version times beside the card; none enters
@@ -3986,10 +4003,11 @@ def moe_gemm_checks(cfg, card) -> None:
 
     from repro_torch.core import exponential_quant as eq
     from repro_torch.kernels.lut_dequant_matmul import (
-        lut_dequant_matmul, lut_dequant_matmul_dual, lut_dequant_matmul_gated)
+        lut_dequant_matmul, lut_dequant_matmul_dual,
+        lut_dequant_matmul_dual_gated, lut_dequant_matmul_gated)
     from repro_torch.kernels.lut_dequant_matmul.ref import (
-        lut_dequant_matmul_dual_ref, lut_dequant_matmul_gated_ref,
-        lut_dequant_matmul_ref)
+        lut_dequant_matmul_dual_gated_ref, lut_dequant_matmul_dual_ref,
+        lut_dequant_matmul_gated_ref, lut_dequant_matmul_ref)
     from repro_torch.models import moe as M
     from repro_torch.runtime.calibration import ACT_BASES
 
@@ -4046,6 +4064,15 @@ def moe_gemm_checks(cfg, card) -> None:
                      out_dtype=torch.float32),
                  lambda: lut_dequant_matmul_gated_ref(
                      x, cg, cu, lg, lu, qg, qu, activation=cfg.activation))
+            xs = rnd(m, d)
+            px = eq.fit(xs, 7, bases=ACT_BASES)
+            args = (eq.encode(xs, px), cg, cu, eq.decode_table(px), lg, lu,
+                    eq.pack_qmeta(px), qg, qu)
+            gate(f"#4 M={m} K={d} N={f} x codes ({cfg.activation})",
+                 lambda: lut_dequant_matmul_dual_gated(
+                     *args, activation=cfg.activation),
+                 lambda: lut_dequant_matmul_dual_gated_ref(
+                     *args, activation=cfg.activation))
     del flush
     torch.cuda.empty_cache()
 
@@ -4553,6 +4580,251 @@ def moe_routing(label, cfg, calls_a, drops_a, calls_b, drops_b,
             "clear": clear_n, "delta": delta_max}
 
 
+# ---------------------- phase 14: the policy's A/B modes and the tuner --
+
+# 14b's settings: the default (fused, the shape plans), tuned plans,
+# decode-then-matmul, and the kernels without their epilogues
+POLICY_AB = (("auto", {}), ("autotune=True", dict(autotune=True)),
+             ("materialize", dict(mode="materialize")),
+             ("fuse_epilogues=False", dict(fuse_epilogues=False)))
+POLICY_REQUESTS = 8
+
+
+def tuner_ops():
+    return importlib.import_module("repro_torch.kernels.lut_dequant_matmul.ops")
+
+
+def tuned_vs_shape_plans(card: str) -> None:
+    """14a: #1-#4 at phase 2's shapes: each shape's shape plan (the
+    default) and tuned plan (``autotune=True``, tuned at its first call)
+    with their device times, both held to the plain version at phase 2's
+    gate; the sums a kernel; then a second ``Autotuner`` on the same
+    file reads every tuned plan back."""
+    import torch
+
+    from repro_torch.core import exponential_quant as eq
+    from repro_torch.kernels.lut_dequant_matmul import (
+        lut_dequant_matmul, lut_dequant_matmul_dual,
+        lut_dequant_matmul_dual_gated, lut_dequant_matmul_gated)
+    from repro_torch.kernels.lut_dequant_matmul.ref import (
+        lut_dequant_matmul_dual_gated_ref, lut_dequant_matmul_dual_ref,
+        lut_dequant_matmul_gated_ref, lut_dequant_matmul_ref)
+    from repro_torch.runtime.calibration import ACT_BASES
+
+    ops, lk = tuner_ops(), lut_launch_module()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(14)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    f32, bf, u8 = torch.float32, torch.bfloat16, torch.uint8
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def qweight(k, n):
+        codes, p = eq.quantize(rnd(k, n, scale=0.02), 7)
+        return codes, eq.decode_table(p), eq.pack_qmeta(p)
+
+    def act_codes(m, k):
+        x = rnd(m, k)
+        p = eq.fit(x, 7, bases=ACT_BASES)
+        return eq.encode(x, p), eq.decode_table(p), eq.pack_qmeta(p)
+
+    def out_table(y):
+        return eq.pack_qmeta(eq.fit(y, 7, bases=ACT_BASES))
+
+    sums: dict = {}
+    keys = []
+
+    def one(kind, m, k, n, x_dtype, call, plain, qo=None, **extra):
+        """``call(autotune)`` runs the wrapper; ``plain()`` the plain
+        version."""
+        transposed = bool(extra.get("transposed", False))
+        nw = 2 if kind in ("gated", "dual_gated") else 1
+        label = (f"{kind} M={m} K={k} N={n}" + (" transposed" if transposed
+                                                else "")
+                 + (" u8 out" if qo is not None else ""))
+        shape = lk.gemm_plan(m, k, n, sms, nw, transposed)
+        tuned_out = call(True)
+        key = ops.plan_key(kind, m, k, n, x_dtype, dev, **extra)
+        tuned = ops._TUNER.peek(key) or shape
+        ref = plain()
+        for name, out in (("tuned", tuned_out), ("shape", call(None))):
+            if qo is None:
+                require_close(kind, f"14a {label} {name} plan", out, ref)
+            else:
+                codes_err(out, ref, qo, f"14a {label} {name} plan")
+        t_shape = time_ms(lambda: call(None), flush=flush)
+        t_tuned = time_ms(lambda: call(True), flush=flush)
+        acc = sums.setdefault(kind, [0.0, 0.0])
+        acc[0] += t_shape
+        acc[1] += t_tuned
+        n_cands = len(lk.candidate_plans(m, k, n, sms, nw, transposed))
+        if n_cands > 1:
+            keys.append(key)
+        print(f"  14a {label:40s} shape plan {str(shape):12s} {t_shape:8.4f} "
+              f"ms, tuned {str(tuned):12s} {t_tuned:8.4f} ms "
+              f"({n_cands} candidates)", flush=True)
+
+    for m in (8, 256, 2048):
+        for k, n in ((2048, 2048), (2048, 1024), (6144, 2048)):
+            x = rnd(m, k).to(bf)
+            c, lut, _ = qweight(k, n)
+            one("plain", m, k, n, bf,
+                lambda a: lut_dequant_matmul(x, c, lut, out_dtype=f32,
+                                             autotune=a),
+                lambda: lut_dequant_matmul_ref(x, c, lut))
+    m, k, n = 8, 2048, 151936
+    x = rnd(m, k).to(bf)
+    c, lut, _ = qweight(n, k)
+    one("plain", m, k, n, bf,
+        lambda a: lut_dequant_matmul(x, c, lut, transpose_codes=True,
+                                     out_dtype=f32, autotune=a),
+        lambda: lut_dequant_matmul_ref(x, c, lut, transpose_codes=True),
+        transposed=True)
+    del c
+    for m in (8, 256, 2048):
+        k, n = 2048, 6144
+        x = rnd(m, k).to(bf)
+        (cg, lg, _), (cu, lu, _) = qweight(k, n), qweight(k, n)
+        one("gated", m, k, n, bf,
+            lambda a: lut_dequant_matmul_gated(x, cg, cu, lg, lu,
+                                               out_dtype=f32, autotune=a),
+            lambda: lut_dequant_matmul_gated_ref(x, cg, cu, lg, lu))
+    for m in (8, 256, 2048):
+        for k, n in ((2048, 2048), (2048, 1024), (6144, 2048)):
+            xc, lx, qx = act_codes(m, k)
+            c, lw, qw = qweight(k, n)
+            args = (xc, c, lx, lw, qx, qw)
+            one("dual", m, k, n, u8,
+                lambda a: lut_dequant_matmul_dual(*args, autotune=a),
+                lambda: lut_dequant_matmul_dual_ref(*args))
+            if (k, n) == (2048, 2048):
+                qo = out_table(lut_dequant_matmul_dual_ref(*args))
+                one("dual", m, k, n, u8,
+                    lambda a: lut_dequant_matmul_dual(*args, out_qmeta=qo,
+                                                      autotune=a),
+                    lambda: lut_dequant_matmul_dual_ref(*args, out_qmeta=qo),
+                    qo=qo, out_quant=True)
+    for m in (8, 256, 2048):
+        k, n = 2048, 6144
+        xc, lx, qx = act_codes(m, k)
+        (cg, lg, qg), (cu, lu, qu) = qweight(k, n), qweight(k, n)
+        args = (xc, cg, cu, lx, lg, lu, qx, qg, qu)
+        qo = out_table(lut_dequant_matmul_dual_gated_ref(*args))
+        one("dual_gated", m, k, n, u8,
+            lambda a: lut_dequant_matmul_dual_gated(*args, out_qmeta=qo,
+                                                    autotune=a),
+            lambda: lut_dequant_matmul_dual_gated_ref(*args, out_qmeta=qo),
+            qo=qo, out_quant=True)
+    del flush
+    for kind, (a, b) in sums.items():
+        print(f"  14a {kind}: phase 2's shapes summed, shape plans {a:.4f} "
+              f"ms, tuned {b:.4f} ms ({b / a:.3f}x) [{card}]", flush=True)
+    tuner = ops._TUNER
+    again = ops.Autotuner(tuner.path)
+    for key in keys:
+        plan = tuner.peek(key)
+        require(plan is not None and again.peek(key) == plan,
+                f"14a: {key}: a second tuner read {again.peek(key)}, the "
+                f"first holds {plan}")
+    with open(tuner.path) as f:
+        entries = json.load(f)["entries"]
+    print(f"  14a: a second Autotuner on {os.path.relpath(tuner.path, ROOT)} "
+          f"read back all {len(keys)} tuned plans; the file holds "
+          f"{len(entries)} plans", flush=True)
+    print_tuner("14a")
+
+
+def print_tuner(label: str) -> None:
+    t = tuner_ops()._TUNER
+    print(f"  {label}: the autotuner spent {t.seconds:.2f} s in this process "
+          f"so far, {t.fallbacks} fallbacks to the shape plan, {t.dropped} "
+          f"candidates dropped", flush=True)
+
+
+def policy_launches(eng, cfg, kw: dict) -> dict:
+    """The launches a policy's run must make: the float path's
+    attention always; #1 5L + 1 and #2 L times a dispatch when fused,
+    #1 7L + 1 (the gated MLP as two dense calls) and no #2 without
+    fused epilogues, no LUT GEMM in materialize mode."""
+    n = cfg.num_layers
+    disp = eng.prefill_batches + eng.total_decode_steps
+    want = {"flash_prefill_paged": n * eng.prefill_batches,
+            "decode_gqa_paged": n * eng.total_decode_steps}
+    if kw.get("mode", "auto") != "materialize":
+        fused_ep = kw.get("fuse_epilogues", True)
+        want["lut_dequant_matmul"] = ((5 if fused_ep else 7) * n + 1) * disp
+        if fused_ep:
+            want["lut_dequant_matmul_gated"] = n * disp
+    return {k: v for k, v in want.items() if v}
+
+
+def serve_policies(params, card: str) -> None:
+    """14b: phase 4's weights and engine shape (8 slots, block 16, chunk
+    256, graphs; the prefix cache off, so the second pass recomputes
+    every prompt) serve phase 4's first POLICY_REQUESTS requests, 16 new
+    tokens each, under each of POLICY_AB, each on an Engine made and run
+    inside its policy: every request ok, the launches exact, the streams
+    against the default's where the top-2 gap is clear; then the same
+    requests again on that engine (every step replayed) for the decode
+    ms a step and the prefill tok/s."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import lama_layers as ll
+    from repro_torch.kernels import _build
+    from repro_torch.runtime.engine import Engine, EngineConfig
+
+    cfg = get_config(ARCH)
+    _, reqs = serving_requests(cfg)
+    reqs = [dc.replace(r, max_new_tokens=16) for r in reqs[:POLICY_REQUESTS]]
+    ec = EngineConfig(num_slots=8, block_size=16, prefill_chunk=256,
+                      max_seq_len=max(len(r.prompt) for r in reqs) + 16,
+                      prefix_cache=False)
+    first, rows = None, []
+    for label, kw in POLICY_AB:
+        fresh_peak()
+        with ll.policy(**kw):
+            eng = Engine(cfg, params=params, engine=ec, device="cuda")
+            _build.reset_launch_counts()
+            outs = eng.generate(reqs)
+            torch.cuda.synchronize()
+            counts = _build.launch_counts()
+            want = policy_launches(eng, cfg, kw)
+            again = [dc.replace(r, uid=r.uid + 1000) for r in reqs]
+            outs2, d = engine_deltas(eng, lambda: eng.generate(again))
+            torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check_served(outs, reqs, cfg, 16)
+        require(counts == want, f"14b {label}: launches {counts}, want {want}")
+        require(all(np.array_equal(a.tokens, b.tokens)
+                    for a, b in zip(outs, outs2)),
+                f"14b {label}: the replayed pass gave other streams")
+        graphs, capture_s = eng.graph_captures()
+        ms = 1e3 * d.decode_dispatch_s / d.total_decode_steps
+        tok_s = d.prefill_tokens_computed / d.prefill_dispatch_s
+        apart = (0 if first is None else
+                 gate_streams(f"14b {label}", params, cfg, reqs, outs, first))
+        first = outs if first is None else first
+        rows.append((label, ms, tok_s))
+        print(f"  14b {label:21s} launches {counts}; {graphs} graphs in "
+              f"{capture_s:.2f} s; replayed: decode {ms:.3f} ms a step "
+              f"({d.total_decode_steps} steps), prefill {tok_s:.1f} tok/s "
+              f"({d.prefill_tokens_computed} tokens); peak {peak:.2f} GiB; "
+              f"{apart} streams apart from the default's at an unclear "
+              f"top-2 gap [{card}]", flush=True)
+        del eng, outs2
+    base_ms, base_tok = rows[0][1], rows[0][2]
+    for label, ms, tok_s in rows[1:]:
+        print(f"  14b {label}: decode {ms / base_ms:.3f}x the default's ms a "
+              f"step, prefill {tok_s / base_tok:.3f}x its tok/s", flush=True)
+    print_tuner("14b")
+
+
 def main() -> int:
     try:
         import torch
@@ -4571,6 +4843,13 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # every run tunes the LUT GEMMs' plans afresh: no cache from an
+    # earlier run decides a gate
+    tune_cache = os.path.join(ROOT, "build", "chip_smoke_tune.json")
+    os.makedirs(os.path.dirname(tune_cache), exist_ok=True)
+    if os.path.exists(tune_cache):
+        os.unlink(tune_cache)
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = tune_cache
 
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -4643,6 +4922,9 @@ def main() -> int:
         phase("phase 13: the MoE decoders llama4-scout and grok-1")
         for name, layers, check in MOE_DECODERS:
             serve_moe_decoder(name, layers, check, card)
+        phase("phase 14: the policy's A/B modes and the LUT GEMMs' autotuner")
+        tuned_vs_shape_plans(card)
+        serve_policies(params, card)
         phase("all phases passed")
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

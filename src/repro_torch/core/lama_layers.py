@@ -1,13 +1,25 @@
-"""Quantized dense layers (port of the JAX package's ``core/lama_layers.py``,
-fused dispatch only).
+"""Quantized dense layers (port of the JAX package's ``core/lama_layers.py``).
 
 Every matmul of the model funnels through :func:`dense` /
-:func:`dense_general`.  A weight is either a float tensor or a
-:class:`~repro_torch.core.exponential_quant.QWeight` (uint8 codes + a
-256-entry table).  Quantized weights always take the fused kernel: any
-einsum spec the zoo uses is canonicalized to ``[M, K] @ [K, N]`` (codes
-reshaped as bytes, never decoded outside the kernel), and the tied
-unembedding ``'bsd,vd->bsv'`` runs the kernel's transposed-codes layout.
+:func:`dense_general` / :func:`gated_mlp`.  A weight is either a float
+tensor or a :class:`~repro_torch.core.exponential_quant.QWeight` (uint8
+codes + a 256-entry table).  A :class:`FusedPolicy` (context-scoped,
+:func:`policy`) picks the execution per call:
+
+* ``mode="auto"`` (the default) or ``"fused"``: quantized weights take
+  the fused kernel.  Any einsum spec the zoo uses is canonicalized to
+  ``[M, K] @ [K, N]`` (codes reshaped as bytes, never decoded outside the
+  kernel), and the tied unembedding ``'bsd,vd->bsv'`` runs the kernel's
+  transposed-codes layout.  ``fuse_epilogues=False`` launches the plain
+  and dual kernels without their bias, activation and quantize
+  epilogues, which then run in torch, and splits the gated MLP into two
+  dense calls.  ``autotune`` goes to the LUT GEMM wrappers: ``True``
+  tunes their plans on the card, ``None`` and ``False`` launch the shape
+  plans.
+* ``mode="materialize"``: the reference's baseline outside any kernel:
+  the weight is decoded to the compute dtype (:func:`materialize`), then
+  ``torch.matmul``/``torch.einsum`` in float32, the epilogue in torch.
+
 Float weights go to ``torch.matmul``/``torch.einsum`` in float32, as the
 reference leaves them to XLA.
 
@@ -17,12 +29,10 @@ kernel's quantize epilogue).  Against quantized weights it takes the
 dual-LUT kernels, and ``out_quant`` returns the result as codes too, so
 consecutive quantized matmuls are code-in/code-out.
 
-Of the reference's ``FusedPolicy``, ``decode_mode`` (``gather``, the
-default, or ``alu``), ``act_quant`` (the A/B switch for calibrated
-activation tables) and ``flash_decode`` (the contiguous decode step
-through the flash-decode kernel, or the dense masked attend) are
-ported; the materialize and unfused-epilogue A/B modes are later
-ROADMAP items.
+The policy's other fields: ``decode_mode`` (``gather``, the default, or
+``alu``), ``act_quant`` (the A/B switch for calibrated activation
+tables) and ``flash_decode`` (the contiguous decode step through the
+flash-decode kernel, or the dense masked attend).
 """
 
 from __future__ import annotations
@@ -42,14 +52,37 @@ from repro_torch.kernels.lut_dequant_matmul.ref import apply_activation
 F32 = torch.float32
 
 
+MODES = ("auto", "fused", "materialize")
+
+
 @dataclasses.dataclass(frozen=True)
 class FusedPolicy:
+    """Per-context policy for quantized matmul execution.
+
+    mode:
+      * ``"auto"`` -- fused kernel wherever the spec canonicalizes (the
+        default).
+      * ``"fused"`` -- synonym of auto, for call sites that state intent.
+      * ``"materialize"`` -- decode the weight, then a float32 matmul,
+        everywhere (the A/B baseline).
+    """
+
+    mode: str = "auto"              # auto | fused | materialize
     decode_mode: str = "gather"     # gather | alu
+    fuse_epilogues: bool = True     # act/bias/gate/quantize epilogues
+                                    # in-kernel
+    flash_decode: bool = True       # contiguous decode_step: flash-decode
+                                    # kernel (False: dense masked attend)
+    autotune: bool | None = None    # LUT GEMM plan autotuner (True: on;
+                                    # None, False: the shape plans)
     act_quant: bool = True          # honor act-quant tables when present
                                     # (False A/B-disables encoding without
                                     # re-calibrating)
-    flash_decode: bool = True       # contiguous decode_step: flash-decode
-                                    # kernel (False: dense masked attend)
+
+    def __post_init__(self):
+        if self.mode not in MODES:
+            raise ValueError(f"mode must be one of {MODES}, got "
+                             f"{self.mode!r}")
 
 
 _POLICY = FusedPolicy()
@@ -59,9 +92,14 @@ def get_policy() -> FusedPolicy:
     return _POLICY
 
 
+def set_policy(p: FusedPolicy) -> None:
+    global _POLICY
+    _POLICY = p
+
+
 @contextlib.contextmanager
 def policy(**overrides):
-    """Scoped override: ``with ll.policy(decode_mode="alu"): ...``"""
+    """Scoped override: ``with ll.policy(mode="materialize"): ...``"""
     global _POLICY
     prev = _POLICY
     _POLICY = dataclasses.replace(prev, **overrides)
@@ -69,6 +107,18 @@ def policy(**overrides):
         yield _POLICY
     finally:
         _POLICY = prev
+
+
+def use_pallas_kernel(enable: bool = True) -> None:
+    """The reference's pre-policy switch, under its name: the fused CUDA
+    kernels (``mode="fused"``) or decode-then-matmul
+    (``mode="materialize"``)."""
+    set_policy(dataclasses.replace(
+        _POLICY, mode="fused" if enable else "materialize"))
+
+
+def _fused_enabled() -> bool:
+    return _POLICY.mode in ("auto", "fused")
 
 
 def materialize(w, dtype=torch.bfloat16) -> torch.Tensor:
@@ -178,15 +228,16 @@ def _fused_einsum(x, w: eq.QWeight, plan: _EinsumPlan, spec: str,
                   math.prod(k_shape), math.prod(n_shape))
     xt = _maybe_permute(xarr, plan.x_perm)
     ct = codes if kernel_transpose else _maybe_permute(codes, plan.w_perm)
+    pol = _POLICY
     if x_is_q:
         call = functools.partial(_ops.lut_dequant_matmul_dual, lut_x=x.lut,
                                  lut_w=w.lut, qmeta_x=x.qmeta, qmeta_w=w.qmeta,
-                                 decode_mode=_POLICY.decode_mode)
+                                 decode_mode=pol.decode_mode,
+                                 autotune=pol.autotune)
     else:
         call = functools.partial(_ops.lut_dequant_matmul, lut=w.lut,
-                                 qmeta=w.qmeta,
-                                 decode_mode=_POLICY.decode_mode,
-                                 out_dtype=F32)
+                                 qmeta=w.qmeta, decode_mode=pol.decode_mode,
+                                 out_dtype=F32, autotune=pol.autotune)
     if plan.batch:
         x3 = xt.reshape(b, m, k)
         c3 = ct.reshape(b, k, n)
@@ -209,6 +260,13 @@ def _finish_out(out: torch.Tensor, out_quant: dict | None):
     return out
 
 
+def _epilogue(out: torch.Tensor, epilogue: str | None, bias) -> torch.Tensor:
+    """Bias and activation in torch (the reference's ``_epilogue_jnp``)."""
+    if bias is not None:
+        out = out + bias.to(out.dtype)
+    return apply_activation(out, epilogue)
+
+
 def _as_float(x, cdtype) -> torch.Tensor:
     return materialize(x, cdtype) if isinstance(x, eq.QTensor) else x.to(cdtype)
 
@@ -220,39 +278,51 @@ def dense(x, w, *, dtype=None, epilogue: str | None = None, bias=None,
     ``x`` may be an activation ``QTensor``: against 2-D codes both
     operands then cross as codes through the dual kernel, and
     ``out_quant`` (a site entry ``{"lut", "qmeta"}``) re-encodes the
-    result in the kernel and returns a ``QTensor``."""
+    result in the kernel and returns a ``QTensor``.  With
+    ``fuse_epilogues=False`` the kernel runs bare and bias, activation
+    and encode follow in torch; in materialize mode the weight is
+    decoded and multiplied in float32."""
     x_is_q = isinstance(x, eq.QTensor)
     cdtype = dtype or (F32 if x_is_q else x.dtype)
-    if eq.is_qtensor(w) and w.codes.ndim == 2:
+    if eq.is_qtensor(w) and _fused_enabled() and w.codes.ndim == 2:
+        pol = _POLICY
+        fuse_ep = pol.fuse_epilogues
         lead = x.shape[:-1]
         n = w.codes.shape[-1]
         if x_is_q:
             out = _ops.lut_dequant_matmul_dual(
                 x.codes.reshape(-1, x.shape[-1]).contiguous(), w.codes,
                 x.lut, w.lut, x.qmeta, w.qmeta,
-                decode_mode=_POLICY.decode_mode, epilogue=epilogue, bias=bias,
-                out_qmeta=None if out_quant is None else out_quant["qmeta"])
-            if out_quant is not None:
+                decode_mode=pol.decode_mode,
+                epilogue=epilogue if fuse_ep else None,
+                bias=bias if fuse_ep else None,
+                out_qmeta=(out_quant["qmeta"]
+                           if out_quant is not None and fuse_ep else None),
+                autotune=pol.autotune)
+            if out_quant is not None and fuse_ep:
                 return eq.QTensor(out.reshape(lead + (n,)), out_quant["lut"],
                                   out_quant["qmeta"])
         else:
             out = _ops.lut_dequant_matmul(
                 x.reshape(-1, x.shape[-1]).contiguous(), w.codes, w.lut,
-                w.qmeta, decode_mode=_POLICY.decode_mode, epilogue=epilogue,
-                bias=bias, out_dtype=F32)
-        return _finish_out(out.reshape(lead + (n,)).to(cdtype), out_quant)
+                w.qmeta, decode_mode=pol.decode_mode,
+                epilogue=epilogue if fuse_ep else None,
+                bias=bias if fuse_ep else None, out_dtype=F32,
+                autotune=pol.autotune)
+        out = out.reshape(lead + (n,))
+        if not fuse_ep:
+            out = _epilogue(out, epilogue, bias)
+        return _finish_out(out.to(cdtype), out_quant)
     wf = materialize(w, cdtype)
     out = torch.matmul(_as_float(x, cdtype).to(F32), wf.to(F32))
-    if bias is not None:
-        out = out + bias.to(F32)
-    return _finish_out(apply_activation(out, epilogue).to(cdtype), out_quant)
+    return _finish_out(_epilogue(out, epilogue, bias).to(cdtype), out_quant)
 
 
 def dense_general(x, w, contract_spec: str, *, dtype=None) -> torch.Tensor:
     """Einsum with a possibly quantized weight, e.g. ``'bsd,dnh->bsnh'``;
     ``x`` may be an activation ``QTensor``."""
     cdtype = dtype or (F32 if isinstance(x, eq.QTensor) else x.dtype)
-    if eq.is_qtensor(w):
+    if eq.is_qtensor(w) and _fused_enabled():
         plan = _einsum_plan(contract_spec)
         wspec = contract_spec.replace(" ", "").split("->")[0].split(",")[1]
         if plan is not None and w.codes.ndim == len(wspec):
@@ -265,13 +335,16 @@ def dense_general(x, w, contract_spec: str, *, dtype=None) -> torch.Tensor:
 def gated_mlp(x, w_gate, w_up, activation: str, *, dtype=None,
               out_quant: dict | None = None):
     """``act(x @ w_gate) * (x @ w_up)``: one gated kernel when both
-    weights are quantized 2-D codes of one shape, else two dense calls.
-    An activation ``QTensor`` ``x`` takes the dual-gated kernel, and
-    ``out_quant`` re-encodes the gated result in the kernel (a
-    ``QTensor`` comes back) so the down projection reads codes."""
+    weights are quantized 2-D codes of one shape (fused mode, epilogues
+    fused), else two dense calls.  An activation ``QTensor`` ``x`` takes
+    the dual-gated kernel, and ``out_quant`` re-encodes the gated result
+    in the kernel (a ``QTensor`` comes back) so the down projection
+    reads codes."""
     x_is_q = isinstance(x, eq.QTensor)
     cdtype = dtype or (F32 if x_is_q else x.dtype)
+    pol = _POLICY
     if (eq.is_qtensor(w_gate) and eq.is_qtensor(w_up)
+            and _fused_enabled() and pol.fuse_epilogues
             and w_gate.codes.ndim == 2
             and w_gate.codes.shape == w_up.codes.shape):
         lead = x.shape[:-1]
@@ -282,7 +355,7 @@ def gated_mlp(x, w_gate, w_up, activation: str, *, dtype=None,
                 w_up.codes, x.lut, w_gate.lut, w_up.lut, x.qmeta,
                 w_gate.qmeta, w_up.qmeta, activation=activation,
                 out_qmeta=None if out_quant is None else out_quant["qmeta"],
-                decode_mode=_POLICY.decode_mode)
+                decode_mode=pol.decode_mode, autotune=pol.autotune)
             if out_quant is not None:
                 return eq.QTensor(out.reshape(lead + (n,)), out_quant["lut"],
                                   out_quant["qmeta"])
@@ -290,8 +363,8 @@ def gated_mlp(x, w_gate, w_up, activation: str, *, dtype=None,
             out = _ops.lut_dequant_matmul_gated(
                 x.reshape(-1, x.shape[-1]).contiguous(), w_gate.codes,
                 w_up.codes, w_gate.lut, w_up.lut, w_gate.qmeta, w_up.qmeta,
-                activation=activation, decode_mode=_POLICY.decode_mode,
-                out_dtype=F32)
+                activation=activation, decode_mode=pol.decode_mode,
+                out_dtype=F32, autotune=pol.autotune)
         return _finish_out(out.reshape(lead + (n,)).to(cdtype), out_quant)
     g = dense(x, w_gate, dtype=cdtype, epilogue=activation)
     out = (g * dense(x, w_up, dtype=cdtype)).to(cdtype)

@@ -4,14 +4,19 @@ Counterpart of the JAX package's ``lut_dequant_matmul_kernel``,
 ``lut_dequant_matmul_gated_kernel`` and their dual-operand variants
 (``lut_dequant_matmul_dual_kernel``, ``..._dual_gated_kernel``: x as
 uint8 activation codes, optionally uint8 codes out).  There is no
-M-bucketing ladder and no autotuner here: the kernels mask their own
-ragged edges, so any M, K, N runs without padding or a rebuild.  All four
-variants on codes [K, N] run one pair of bodies over their number of
-weights (1: plain and dual, 2: gated), sized by :func:`gemm_plan` from
-shapes alone (so a captured call replays right): at M <= 8 the blocks of
-a column slab split K as one thread-block cluster and sum their partials
-in shared memory, at M > 8 the tensor-core tiles split K, with a reduce
-pass, only when they fill under half the SMs.  The tied
+M-bucketing ladder: the kernels mask their own ragged edges, so any M,
+K, N runs without padding or a rebuild.  All four variants on codes
+[K, N] run one pair of bodies over their number of weights (1: plain and
+dual, 2: gated), and each launch takes a plan, ``(splits,
+k_per_split)``: at M <= 8 the blocks of a column slab split K as one
+thread-block cluster and sum their partials in shared memory, at M > 8
+the tensor-core tiles split K, with a reduce pass.  :func:`gemm_plan`
+sizes the plan from shapes alone (the default; the tiles split K only
+when they fill under half the SMs); the wrappers' autotuner
+(``ops.Autotuner``), when asked for, times other legal plans on the card
+(:func:`candidate_plans`) and launch the fastest, and
+:func:`check_plan` refuses a plan the bodies cannot run.  The tile,
+the pipeline stage and the stage count are compile-time.  The tied
 unembedding (codes [N, K]) streams its code rows at M <= 8 and runs the
 one-weight prefill tiles at M > 8, its code tile staged transposed.
 """
@@ -105,6 +110,70 @@ def gemm_plan(m: int, k: int, n: int, sms: int, nw: int,
     return math.ceil(k / kps), kps
 
 
+def candidate_plans(m: int, k: int, n: int, sms: int, nw: int,
+                    transposed: bool = False) -> list[tuple[int, int]]:
+    """The plans the autotuner times for this GEMM, :func:`gemm_plan`'s
+    first.  M <= 8, codes [K, N]: clusters of 1, 2, 4 and 8 blocks; M <=
+    8, codes [N, K]: none other (the code rows stream, unsplit).  M > 8:
+    K split into ``ceil(K / MAX_K_CHAIN)`` parts, then twice as many,
+    doubling while the tiles times the splits stay within one wave of
+    the blocks the SMs hold (``TILED_BLOCKS_PER_SM``).  Every plan
+    passes :func:`check_plan` and holds for any M of the same side of 8,
+    so one plan serves every M of an autotuner bucket."""
+    out = [gemm_plan(m, k, n, sms, nw, transposed)]
+
+    def add(parts: int) -> None:
+        kps = math.ceil(math.ceil(k / parts) / K_STEP) * K_STEP
+        plan = (math.ceil(k / kps), kps)
+        if plan not in out:
+            out.append(plan)
+
+    if m <= _SKINNY_M:
+        if not transposed:
+            for parts in (1, 2, 4, MAX_CLUSTER):
+                add(parts)
+        return out
+    parts = math.ceil(k / MAX_K_CHAIN)
+    blocks = math.ceil(n / TILE) * math.ceil(m / TILE)
+    wave = max(parts, TILED_BLOCKS_PER_SM[nw] * sms // blocks)
+    while parts <= wave and parts * K_STEP <= k:
+        add(parts)
+        parts *= 2
+    return out
+
+
+def check_plan(m: int, k: int, plan, transposed: bool = False
+               ) -> tuple[int, int]:
+    """``plan`` = (splits, k_per_split) as the bodies take it, or
+    ValueError before any launch: splits must cover K exactly
+    (``ceil(K / k_per_split)``) in whole pipeline stages (``K_STEP``
+    rows); at M <= 8 the splits are one cluster, at most
+    ``MAX_CLUSTER`` blocks, and codes [N, K] take none; at M > 8 no
+    split chains more than ``MAX_K_CHAIN`` rows on the tensor cores."""
+    splits, kps = (int(v) for v in plan)
+    if splits < 1 or kps < 1:
+        raise ValueError(f"plan {tuple(plan)}: splits and k_per_split must "
+                         f"be >= 1")
+    if m <= _SKINNY_M and transposed:
+        if splits != 1 or kps < k:
+            raise ValueError(f"plan {tuple(plan)}: codes [N, K] at M <= "
+                             f"{_SKINNY_M} stream their rows unsplit")
+        return splits, kps
+    if kps % K_STEP:
+        raise ValueError(f"plan {tuple(plan)}: k_per_split must be a "
+                         f"multiple of {K_STEP}")
+    if splits != math.ceil(k / kps):
+        raise ValueError(f"plan {tuple(plan)}: {splits} splits of {kps} "
+                         f"rows do not cover K = {k} exactly")
+    if m <= _SKINNY_M and splits > MAX_CLUSTER:
+        raise ValueError(f"plan {tuple(plan)}: a cluster holds at most "
+                         f"{MAX_CLUSTER} blocks")
+    if m > _SKINNY_M and kps > MAX_K_CHAIN:
+        raise ValueError(f"plan {tuple(plan)}: a chain of {kps} rows > "
+                         f"MAX_K_CHAIN = {MAX_K_CHAIN}")
+    return splits, kps
+
+
 def passes(x_dtype) -> int:
     """The tensor-core passes the prefill body computes per multiply-add:
     x_hi*W_hi and x_hi*W_lo, plus x_lo*W_hi unless x is bfloat16 (exact
@@ -156,8 +225,9 @@ def _tables(lut, qmeta, alu: bool, dev):
 
 
 def launch(x, codes, lut, qmeta, bias, *, transpose_codes: bool,
-           decode_mode: str, epilogue: str | None) -> torch.Tensor:
-    """``act(x @ dec(codes) + bias)`` on the card; returns float32 [M, N]."""
+           decode_mode: str, epilogue: str | None, plan=None) -> torch.Tensor:
+    """``act(x @ dec(codes) + bias)`` on the card; returns float32 [M, N].
+    ``plan``: (splits, k_per_split), :func:`gemm_plan`'s by default."""
     _check(x, "x", (torch.float32, torch.bfloat16))
     if x.ndim != 2:
         raise ValueError(f"x must be [M, K], got {tuple(x.shape)}")
@@ -171,7 +241,7 @@ def launch(x, codes, lut, qmeta, bias, *, transpose_codes: bool,
     if bias is not None:
         bias = bias.to(torch.float32).contiguous()
         _check(bias, "bias", (torch.float32,), (n,))
-    splits, kps = _plan(m, k, n, 1, x.device, transpose_codes)
+    splits, kps = _plan(m, k, n, 1, x.device, plan, transpose_codes)
     out, ws = _out_and_ws(m, n, 1, splits, None, x.device)
     err = _lib().lut_dequant_matmul_launch(
         x.data_ptr(), int(x.dtype == torch.bfloat16), codes.data_ptr(),
@@ -185,7 +255,7 @@ def launch(x, codes, lut, qmeta, bias, *, transpose_codes: bool,
 
 
 def launch_gated(x, codes_g, codes_u, lut_g, lut_u, qmeta_g, qmeta_u, *,
-                 decode_mode: str, activation: str) -> torch.Tensor:
+                 decode_mode: str, activation: str, plan=None) -> torch.Tensor:
     """``act(x @ dec(codes_g)) * (x @ dec(codes_u))`` on the card."""
     name = NAME + "_gated"
     _check(x, "x", (torch.float32, torch.bfloat16))
@@ -200,7 +270,7 @@ def launch_gated(x, codes_g, codes_u, lut_g, lut_u, qmeta_g, qmeta_u, *,
         raise ValueError(decode_mode)
     lut_g, qmeta_g = _tables(lut_g, qmeta_g, alu, x.device)
     lut_u, qmeta_u = _tables(lut_u, qmeta_u, alu, x.device)
-    splits, kps = _plan(m, k, n, 2, x.device)
+    splits, kps = _plan(m, k, n, 2, x.device, plan)
     out, ws = _out_and_ws(m, n, 2, splits, None, x.device)
     err = _lib().lut_dequant_matmul_gated_launch(
         x.data_ptr(), int(x.dtype == torch.bfloat16), codes_g.data_ptr(),
@@ -213,8 +283,16 @@ def launch_gated(x, codes_g, codes_u, lut_g, lut_u, qmeta_g, qmeta_u, *,
     return out
 
 
-def _plan(m, k, n, nw, dev, transposed=False):
-    return gemm_plan(m, k, n, _num_sms(dev.index or 0), nw, transposed)
+def num_sms(dev) -> int:
+    """The SMs of ``dev``'s card."""
+    return _num_sms(dev.index or 0)
+
+
+def _plan(m, k, n, nw, dev, plan=None, transposed=False):
+    """``plan`` checked, or :func:`gemm_plan`'s for these shapes."""
+    if plan is None:
+        return gemm_plan(m, k, n, num_sms(dev), nw, transposed)
+    return check_plan(m, k, plan, transposed)
 
 
 def _out_and_ws(m, n, nw, splits, qmeta_out, dev):
@@ -242,7 +320,7 @@ def _ptr(t):
 
 def launch_dual(x_codes, codes, lut_x, lut_w, qmeta_x, qmeta_w, *,
                 out_qmeta, bias, decode_mode: str,
-                epilogue: str | None) -> torch.Tensor:
+                epilogue: str | None, plan=None) -> torch.Tensor:
     """``act(dec_x(x_codes) @ dec_w(codes) + bias)`` on the card; float32
     [M, N], or uint8 codes under ``out_qmeta``."""
     name = NAME + "_dual"
@@ -261,7 +339,7 @@ def launch_dual(x_codes, codes, lut_x, lut_w, qmeta_x, qmeta_w, *,
     if bias is not None:
         bias = bias.to(torch.float32).contiguous()
         _check(bias, "bias", (torch.float32,), (n,))
-    splits, kps = _plan(m, k, n, 1, x_codes.device)
+    splits, kps = _plan(m, k, n, 1, x_codes.device, plan)
     out, ws = _out_and_ws(m, n, 1, splits, out_qmeta, x_codes.device)
     err = _lib().lut_dequant_matmul_dual_launch(
         x_codes.data_ptr(), codes.data_ptr(), lut_x.data_ptr(),
@@ -275,7 +353,8 @@ def launch_dual(x_codes, codes, lut_x, lut_w, qmeta_x, qmeta_w, *,
 
 def launch_dual_gated(x_codes, codes_g, codes_u, lut_x, lut_g, lut_u,
                       qmeta_x, qmeta_g, qmeta_u, *, out_qmeta,
-                      decode_mode: str, activation: str) -> torch.Tensor:
+                      decode_mode: str, activation: str,
+                      plan=None) -> torch.Tensor:
     """``act(a @ dec(codes_g)) * (a @ dec(codes_u))`` with ``a`` the
     decoded activation codes, on the card; float32 or uint8 codes."""
     name = NAME + "_dual_gated"
@@ -294,7 +373,7 @@ def launch_dual_gated(x_codes, codes_g, codes_u, lut_x, lut_g, lut_u,
     lut_g, qmeta_g = _tables(lut_g, qmeta_g, alu, dev)
     lut_u, qmeta_u = _tables(lut_u, qmeta_u, alu, dev)
     out_qmeta = _out_qmeta(out_qmeta)
-    splits, kps = _plan(m, k, n, 2, dev)
+    splits, kps = _plan(m, k, n, 2, dev, plan)
     out, ws = _out_and_ws(m, n, 2, splits, out_qmeta, dev)
     err = _lib().lut_dequant_matmul_dual_gated_launch(
         x_codes.data_ptr(), codes_g.data_ptr(), codes_u.data_ptr(),

@@ -147,18 +147,21 @@ def _sms():
     return torch.cuda.get_device_properties(0).multi_processor_count
 
 
-def _gated_call(kind, m, k, n, mode, xdt, dev, gen, quant=False):
+def _gated_call(kind, m, k, n, mode, xdt, dev, gen, quant=False,
+                autotune=None):
     """Inputs of #2 (``kind`` "gated": x float32 or bfloat16) or #4
     ("dual_gated": activation codes, u8 out with ``quant``) and
     (kernel call, plain call, float32 plain call) on them; the plain
-    call carries the out qmeta as ``ref.qo`` (None for float out)."""
+    call carries the out qmeta as ``ref.qo`` (None for float out).
+    ``autotune=True`` tunes the plan."""
     cg, lg, qg = _qweight((k, n), dev, gen)
     cu, lu, qu = _qweight((k, n), dev, gen)
     if kind == "gated":
         x = torch.randn(m, k, generator=gen, device=dev).to(xdt)
         args = (x, cg, cu, lg, lu, qg, qu)
         call = lambda: lut_dequant_matmul_gated(
-            *args, decode_mode=mode, out_dtype=torch.float32)
+            *args, decode_mode=mode, out_dtype=torch.float32,
+            autotune=autotune)
         ref = lambda: lut_dequant_matmul_gated_ref(*args, decode_mode=mode)
         return x, call, ref, ref
     xc, lx, qx = _act_codes((m, k), dev, gen)
@@ -166,7 +169,8 @@ def _gated_call(kind, m, k, n, mode, xdt, dev, gen, quant=False):
     ref_f = lambda: lut_dequant_matmul_dual_gated_ref(*args, decode_mode=mode)
     qo = _out_qmeta(ref_f()) if quant else None
     call = lambda: lut_dequant_matmul_dual_gated(*args, out_qmeta=qo,
-                                                 decode_mode=mode)
+                                                 decode_mode=mode,
+                                                 autotune=autotune)
     ref = lambda: lut_dequant_matmul_dual_gated_ref(*args, out_qmeta=qo,
                                                     decode_mode=mode)
     ref.qo = qo
@@ -276,11 +280,12 @@ def test_gated_decode_replays_in_a_cuda_graph(dev, kind):
 
 
 def _plain_call(kind, m, k, n, mode, xdt, dev, gen, quant=False,
-                transposed=False):
+                transposed=False, autotune=None):
     """Inputs of #1 (``kind`` "plain": x float32 or bfloat16, bias,
     gelu; codes [N, K] when ``transposed``) or #3 ("dual": activation
     codes, bias, silu, u8 out with ``quant``) and (x, kernel call, plain
-    call) on them; the plain call carries the out qmeta as ``ref.qo``."""
+    call) on them; the plain call carries the out qmeta as ``ref.qo``.
+    ``autotune=True`` tunes the plan."""
     codes, lut, qmeta = _qweight((n, k) if transposed else (k, n), dev, gen)
     b = torch.randn(n, generator=gen, device=dev)
     if kind == "plain":
@@ -288,14 +293,16 @@ def _plain_call(kind, m, k, n, mode, xdt, dev, gen, quant=False,
         kw = dict(decode_mode=mode, epilogue="gelu", bias=b,
                   transpose_codes=transposed)
         call = lambda: lut_dequant_matmul(x, codes, lut, qmeta,
-                                          out_dtype=torch.float32, **kw)
+                                          out_dtype=torch.float32,
+                                          autotune=autotune, **kw)
         ref = lambda: lut_dequant_matmul_ref(x, codes, lut, qmeta, **kw)
         return x, call, ref
     xc, lx, qx = _act_codes((m, k), dev, gen)
     args = (xc, codes, lx, lut, qx, qmeta)
     kw = dict(decode_mode=mode, epilogue="silu", bias=b)
     qo = _out_qmeta(lut_dequant_matmul_dual_ref(*args, **kw)) if quant else None
-    call = lambda: lut_dequant_matmul_dual(*args, out_qmeta=qo, **kw)
+    call = lambda: lut_dequant_matmul_dual(*args, out_qmeta=qo,
+                                           autotune=autotune, **kw)
     ref = lambda: lut_dequant_matmul_dual_ref(*args, out_qmeta=qo, **kw)
     ref.qo = qo
     return xc, call, ref
@@ -2143,3 +2150,230 @@ def test_moe_engine_graphs_equal_eager_on_the_card(dev, arch):
     assert counts_on == {"lut_dequant_matmul": ((4 + 3 * e) * n + 1) * disp,
                          "flash_prefill_paged": n * on.prefill_batches,
                          "decode_gqa_paged": n * on.total_decode_steps}
+
+
+# ------------------------------- the plans, the autotuner and the policy --
+
+def _launch_module():
+    import importlib
+
+    return importlib.import_module(
+        "repro_torch.kernels.lut_dequant_matmul.lut_dequant_matmul")
+
+
+@pytest.fixture
+def fresh_tuner(tmp_path):
+    """The wrappers' autotuner on a cache file of this test's own."""
+    from unittest import mock
+
+    from repro_torch.kernels.lut_dequant_matmul import ops
+
+    tuner = ops.Autotuner(str(tmp_path / "tune.json"))
+    with mock.patch.object(ops, "_TUNER", tuner):
+        yield tuner
+
+
+def test_a_plan_the_bodies_cannot_run_raises(dev):
+    """Each launch refuses, before launching, a plan its bodies cannot
+    run: a cluster over 8 blocks, a split of the streamed [N, K] codes, a
+    k_per_split off the 32-row stage, a chain over MAX_K_CHAIN rows,
+    splits that do not cover K; a legal plan other than the shape plan
+    runs and agrees with the plain version."""
+    from repro_torch.kernels import _build
+
+    lk = _launch_module()
+    gen = _gen(dev, 70)
+    m, k, n = 8, 2048, 256
+    x = torch.randn(m, k, generator=gen, device=dev)
+    xl = torch.randn(256, 8192, generator=gen, device=dev)
+    c, lut, qm = _qweight((k, n), dev, gen)
+    ct, lt, qt = _qweight((n, k), dev, gen)
+    cl, ll_, ql = _qweight((8192, n), dev, gen)
+    xc, lx, qx = _act_codes((m, k), dev, gen)
+    xcl, lxl, qxl = _act_codes((256, 8192), dev, gen)
+    kw = dict(decode_mode="gather", epilogue=None)
+    gkw = dict(decode_mode="gather", activation="silu")
+    calls = [
+        lambda: lk.launch(x, c, lut, qm, None, transpose_codes=False,
+                          plan=(16, 128), **kw),
+        lambda: lk.launch(x, ct, lt, qt, None, transpose_codes=True,
+                          plan=(2, 1024), **kw),
+        lambda: lk.launch(x, c, lut, qm, None, transpose_codes=False,
+                          plan=(3, 1000), **kw),
+        lambda: lk.launch(xl, cl, ll_, ql, None, transpose_codes=False,
+                          plan=(1, 8192), **kw),
+        lambda: lk.launch(x, c, lut, qm, None, transpose_codes=False,
+                          plan=(1, 1024), **kw),
+        lambda: lk.launch_gated(x, c, c, lut, lut, qm, qm, plan=(16, 128),
+                                **gkw),
+        lambda: lk.launch_dual(xc, c, lx, lut, qx, qm, out_qmeta=None,
+                               bias=None, plan=(2, 1000), **kw),
+        lambda: lk.launch_dual_gated(xcl, cl, cl, lxl, ll_, ll_, qxl, ql, ql,
+                                     out_qmeta=None, plan=(1, 8192), **gkw),
+    ]
+    before = _build.launch_counts()
+    for call in calls:
+        with pytest.raises(ValueError):
+            call()
+    torch.cuda.synchronize()
+    assert _build.launch_counts() == before
+    for plan in ((1, 2048), (2, 1024), (4, 512)):
+        out = lk.launch(x, c, lut, qm, None, transpose_codes=False, plan=plan,
+                        **kw)
+        _close(out, lut_dequant_matmul_ref(x, c, lut, qm))
+    out = lk.launch(xl, cl, ll_, ql, None, transpose_codes=False,
+                    plan=(4, 2048), **kw)
+    _close(out, lut_dequant_matmul_ref(xl, cl, ll_, ql))
+
+
+@pytest.mark.parametrize("kind,m,k,n", [
+    ("plain", 8, 2048, 2048), ("plain", 256, 2048, 2048),
+    ("plain", 300, 6144, 1024), ("gated", 8, 2048, 1536),
+    ("gated", 256, 2048, 1536), ("dual", 8, 2048, 1024),
+    ("dual", 200, 2048, 2048), ("dual_gated", 8, 1024, 1536),
+    ("dual_gated", 256, 2048, 1536),
+])
+def test_tuned_plans_pass_the_gate(dev, fresh_tuner, kind, m, k, n):
+    """A tuned call (float and u8 out) within the plain version's gate;
+    what the tuner kept is a legal plan of the candidates, read back by a
+    second tuner on the same file and launched by the next call, and the
+    timing launches are not counted (one launch a call)."""
+    from unittest import mock
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.lut_dequant_matmul import ops
+
+    lk = _launch_module()
+    gen = _gen(dev, m + k + n)
+    nw = 2 if kind in ("gated", "dual_gated") else 1
+    for quant in ((False,) if kind in ("plain", "gated") else (False, True)):
+        if nw == 1:
+            x, call, ref = _plain_call(kind, m, k, n, "gather", torch.bfloat16,
+                                       dev, gen, quant=quant, autotune=True)
+        else:
+            x, call, ref, _ = _gated_call(kind, m, k, n, "gather",
+                                          torch.bfloat16, dev, gen,
+                                          quant=quant, autotune=True)
+        name = "lut_dequant_matmul" + ("" if kind == "plain" else f"_{kind}")
+        before = _build.launch_counts().get(name, 0)
+        out = call()
+        torch.cuda.synchronize()
+        assert _build.launch_counts()[name] == before + 1
+        if quant:
+            _codes_close(out, ref(), ref.qo)
+        else:
+            _close(out, ref())
+        extra = dict(out_quant=quant)
+        if kind == "plain":
+            extra = dict(epilogue="gelu", bias=True)
+        elif kind == "dual":
+            extra.update(epilogue="silu", bias=True)
+        key = ops.plan_key(kind, m, k, n, x.dtype, dev, **extra)
+        plan = fresh_tuner.peek(key)
+        cands = lk.candidate_plans(m, k, n, _sms(), nw)
+        assert plan in cands
+        assert lk.check_plan(m, k, plan) == plan
+        assert ops.Autotuner(fresh_tuner.path).peek(key) == plan
+        launched = []
+        launch = "launch" + ("" if kind == "plain" else f"_{kind}")
+        orig = getattr(lk, launch)
+
+        def spy(*a, plan=None, **kw):
+            launched.append(plan)
+            return orig(*a, plan=plan, **kw)
+
+        with mock.patch.object(lk, launch, spy):     # the kept plan runs
+            call()
+        assert launched == [plan]
+    assert fresh_tuner.fallbacks == 0 and fresh_tuner.seconds > 0
+
+
+def test_a_replayed_graph_launches_the_eager_steps_plan(dev, fresh_tuner):
+    """The eager call tunes; the capture that follows only peeks (no
+    timing launch, no tuning time) and records the same plan; a key no
+    eager call saw captures the shape plan and keeps nothing; replays
+    agree with the plain version."""
+    from unittest import mock
+
+    from repro_torch.kernels.lut_dequant_matmul import ops
+
+    lk = _launch_module()
+    plans = []
+    orig = lk.launch
+
+    def spy(*a, plan=None, **kw):
+        plans.append(plan)
+        return orig(*a, plan=plan, **kw)
+
+    gen = _gen(dev, 61)
+    m, k = 256, 2048
+    x = torch.randn(m, k, generator=gen, device=dev)
+    c, lut, qm = _qweight((k, 2048), dev, gen)
+    c2, lut2, qm2 = _qweight((k, 1024), dev, gen)
+    call = lambda: lut_dequant_matmul(x, c, lut, qm, out_dtype=torch.float32,
+                                      autotune=True)
+    unseen = lambda: lut_dequant_matmul(x, c2, lut2, qm2,
+                                        out_dtype=torch.float32, autotune=True)
+    with mock.patch.object(lk, "launch", spy):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):                  # eager: tunes
+            call()
+        torch.cuda.current_stream().wait_stream(side)
+        eager_plan, n_eager = plans[-1], len(plans)
+        assert n_eager > 1                             # candidates timed
+        seconds, dropped = fresh_tuner.seconds, fresh_tuner.dropped
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = call()
+            out2 = unseen()
+    assert plans[n_eager:] == [eager_plan, lk.gemm_plan(m, k, 1024, _sms(), 1)]
+    assert fresh_tuner.seconds == seconds and fresh_tuner.dropped == dropped
+    assert fresh_tuner.peek(ops.plan_key("plain", m, k, 1024, x.dtype,
+                                         dev)) is None
+    for seed in (1, 2):
+        x.copy_(torch.randn(m, k, generator=_gen(dev, seed), device=dev))
+        graph.replay()
+        torch.cuda.synchronize()
+        _close(out, lut_dequant_matmul_ref(x, c, lut, qm))
+        _close(out2, lut_dequant_matmul_ref(x, c2, lut2, qm2))
+
+
+@pytest.mark.parametrize("policy_kw", [dict(mode="materialize"),
+                                       dict(fuse_epilogues=False)],
+                         ids=["materialize", "unfused"])
+def test_policy_modes_launch_as_counted_on_the_card(dev, policy_kw):
+    """A small engine with graphs, made and run under the policy: no LUT
+    GEMM in materialize mode; without fused epilogues #1 7L + 1 times a
+    dispatch and no #2; every request ok, the replayed pass's streams
+    equal the first's."""
+    import dataclasses
+
+    from repro_torch.core import lama_layers as ll
+    from repro_torch.kernels import _build
+    from repro_torch.runtime.engine import Engine, EngineConfig, Request
+
+    cfg = _tiny_card_cfg()
+    ec = EngineConfig(num_slots=3, block_size=16, max_seq_len=96,
+                      prefill_chunk=32, prefix_cache=False)
+    params = Engine(cfg, quant_bits=7, engine=ec, device="cuda",
+                    rng_seed=3).params
+    reqs = [Request(i, p, 8) for i, p in enumerate(_tiny_prompts())]
+    n = cfg.num_layers
+    with ll.policy(**policy_kw):
+        eng = Engine(cfg, params=params, engine=ec, device="cuda")
+        _build.reset_launch_counts()
+        a = eng.generate(reqs)
+        counts = _build.launch_counts()
+        disp = eng.prefill_batches + eng.total_decode_steps
+        want = {"flash_prefill_paged": n * eng.prefill_batches,
+                "decode_gqa_paged": n * eng.total_decode_steps}
+        if "fuse_epilogues" in policy_kw:
+            want["lut_dequant_matmul"] = (7 * n + 1) * disp
+        b = eng.generate([dataclasses.replace(r, uid=r.uid + 10)
+                          for r in reqs])
+    assert counts == want
+    assert eng.graph_captures()[0] > 0
+    for x, y in zip(a, b):
+        assert x.status == "ok" and len(x.tokens) == 8
+        np.testing.assert_array_equal(x.tokens, y.tokens)
