@@ -174,6 +174,23 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
      epilogues), streams against the default's where the top-2 gap is
      clear, then a second, replayed pass for the decode ms a step and
      the prefill tok/s; the tuner's seconds are printed.
+ 15. the PIM tables and recurrentgemma-2b: (a) on the host, the port's
+     Table IV, Table V and Figs 12-13 from its cost model, printed with
+     the seconds they take, held to the paper as ``tests/test_pim.py``
+     holds them (Table V's counts exact, its latency and energy within
+     0.5%, the Fig 12 anchors and averages within their bounds); (b)
+     recurrentgemma-2b at full width, 6 of its 26 layers (two whole
+     rec, rec, local patterns), random weights (seed 0) drawn and
+     quantized to 7 bits on the card tensor by tensor: a 3-layer path
+     check card against CPU (phase 3's rule), then
+     ``InferenceServer.generate`` (the bucketed fallback: the hybrid has
+     no Engine) serves 8 requests, prompts 17-700 and one of 2100
+     tokens (its 2048-position ring wraps), 16 new tokens each, with
+     each bucket's decode steps replayed as a CUDA graph and then
+     eagerly: every request ``ok``, #1 and #2 launches exact (#1 35 and
+     #2 6 a dispatch), no attention kernel, equal streams; prefill
+     tok/s, decode ms a step, peak memory, and the decode step alone
+     eager and replayed.
 Phase 3 prints, for olmo-1b, minicpm-2b and qwen3-14b, the card-vs-CPU
 error after each layer beside the CPU's own spread under last-bit
 weight tables, at the prefill chunk and the first decode step.
@@ -4077,20 +4094,22 @@ def moe_gemm_checks(cfg, card) -> None:
     torch.cuda.empty_cache()
 
 
-def moe_random_model(cfg, seed: int):
+def random_quantized_model(cfg, seed: int):
     """A card model of ``cfg`` with random weights drawn on the card from
     ``seed`` and the matmul weights quantized to 7 bits as they are drawn:
     a layer-stacked leaf layer by layer, an expert stack expert by expert
     (one table a layer, shared by its experts, as ``quantize_tree``
-    lays it out), so no float tensor larger than one expert's matrix or
-    one embedding table is ever held.  The stds are ``init_params``'s;
-    the router and the norms stay float."""
+    lays it out), a per-layer leaf (the hybrid's ``layer_XX`` blocks)
+    tensor by tensor, so no float tensor larger than one expert's matrix
+    or one embedding table is ever held.  The stds are ``init_params``'s;
+    the router, the norms and the hybrid's conv taps, decays and biases
+    stay float."""
     import torch
 
     from repro_torch.core import exponential_quant as eq
     from repro_torch.core import lama_layers as ll
+    from repro_torch.models import api as mapi
     from repro_torch.models import params as P
-    from repro_torch.models.transformer import DecoderLM, model_specs
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -4133,7 +4152,8 @@ def moe_random_model(cfg, seed: int):
             return quantized(node)
         return P._init_leaf(node, gen, dev, torch.float32)
 
-    return DecoderLM(cfg, build(model_specs(cfg), ()), device="cuda")
+    api = mapi.get_model(cfg)
+    return api.module(cfg, build(api.specs, ()), device="cuda")
 
 
 def moe_launches(eng, cfg, codes: bool = False) -> dict:
@@ -4261,7 +4281,7 @@ def serve_moe_decoder(name: str, layers: int, check_layers: int,
     moe_gemm_checks(cfg, card)
     fresh_peak()
     t0 = time.perf_counter()
-    model = moe_random_model(cfg, 0)
+    model = random_quantized_model(cfg, 0)
     torch.cuda.synchronize()
     nbytes = sum(b.numel() * b.element_size() for b in model.buffers())
     print(f"    weights drawn and quantized on the card in "
@@ -4825,6 +4845,386 @@ def serve_policies(params, card: str) -> None:
     print_tuner("14b")
 
 
+# ------------------ phase 15: the PIM tables and recurrentgemma-2b --
+
+HYBRID = "recurrentgemma-2b"
+# the served depth: two whole (rec, rec, local) patterns of its 26 layers
+# (all 26 fit in memory; the cut keeps the phase inside its time)
+HYBRID_LAYERS = 6
+HYBRID_CHECK_LAYERS = 3        # one whole pattern, card against CPU
+HYBRID_CHECK_LEN = 100
+# 15b's weight-table jitter: phase 2's gate on the LUT GEMMs (1e-4 of
+# the plain version's scale), as 13c's MOE_JITTER
+HYBRID_JITTER = 1e-4
+HYBRID_NEW = 16
+# Table V as tests/test_pim.py holds it: (latency ns, energy nJ, ACTs,
+# commands) a method and width, 1024 ops over 4 scalars
+TABLE_V = {
+    4: {"Lama": (583, 25.8, 8, 112), "pLUTo": (2240, 247.4, 1088, 2176),
+        "SIMDRAM": (7964, 151.23, 310, 465)},
+    8: {"Lama": (2534, 118.8, 8, 592), "pLUTo": (8963, 989.7, 4352, 8704),
+        "SIMDRAM": (34065, 646.9, 1326, 1989)},
+}
+
+
+def pim_tables_phase() -> None:
+    """15a: the port's Table IV, Table V and Figs 12-13 from the cost
+    model (``launch/pim_tables.py``), printed, with the host seconds of
+    the four tables' rows from a cold calibration; held to the paper as
+    ``tests/test_pim.py`` holds them: Table V's command and ACT counts
+    exact, its latency and energy within 0.5%; the area overhead; Fig
+    12's BERT anchors, averages, BART-CNN and pLUTo deficits; Fig 13's
+    perf per area, energy band and raw speed."""
+    import statistics as st
+
+    from repro_torch.core import pim
+    from repro_torch.core.pim import accel
+    from repro_torch.launch import pim_tables as pt
+
+    accel.calibrated_models.cache_clear()
+    t0 = time.perf_counter()
+    rows = (pt.table4_rows() + pt.table5_rows() + pt.fig12_rows()
+            + pt.fig13_rows())
+    host_s = time.perf_counter() - t0
+    pt.main()
+    for r in rows:
+        print(f"  {r['name']}: {r['derived']}", flush=True)
+    for bits, methods in TABLE_V.items():
+        for c in pt.table5_costs(bits)[:3]:
+            lat, energy, acts, cmds = methods[c.name]
+            require((c.counts.act, c.counts.total) == (acts, cmds),
+                    f"15a Table V int{bits} {c.name}: {c.counts.act} ACTs, "
+                    f"{c.counts.total} commands, paper {acts}, {cmds}")
+            require(abs(c.latency_ns - lat) / lat < 0.005,
+                    f"15a Table V int{bits} {c.name}: {c.latency_ns} ns, "
+                    f"paper {lat}")
+            require(abs(c.energy_nj - energy) / energy < 0.005,
+                    f"15a Table V int{bits} {c.name}: {c.energy_nj} nJ, "
+                    f"paper {energy}")
+    require(abs(pim.lama_command_reduction_vs_pluto() - 19.4) < 0.1,
+            "15a: the command reduction against pLUTo is not 19.4x")
+    area = pim.lama_area_overhead()
+    require(abs(area.total_mm2 - 1.32) < 0.02
+            and abs(area.overhead_pct - 2.47) < 0.05,
+            f"15a Table IV: {area.total_mm2} mm2, {area.overhead_pct}%")
+    f12 = {r["workload"]: r for r in pim.fig12_table()}
+    speed = [r["lama_speedup_vs_tpu"] for r in f12.values()]
+    energy = [r["lama_energy_saving_vs_tpu"] for r in f12.values()]
+    require(abs(f12["BERT-SQuAD1"]["lama_speedup_vs_tpu"] - 3.4) < 0.05
+            and abs(f12["BERT-SST2"]["lama_speedup_vs_tpu"] - 4.7) < 0.15,
+            "15a Fig 12: the BERT anchors moved")
+    require(abs(st.mean(speed) - 4.1) / 4.1 < 0.15
+            and abs(st.mean(energy) - 7.1) / 7.1 < 0.25
+            and abs(f12["BART-CNN-DM"]["lama_speedup_vs_tpu"] - 3.6) < 0.4,
+            f"15a Fig 12: averages {st.mean(speed):.3f} / "
+            f"{st.mean(energy):.3f} (paper 4.1 / 7.1)")
+    vs_pluto = st.mean(r["lama_speedup_vs_tpu"] / r["pluto_speedup_vs_tpu"]
+                       for r in f12.values())
+    e_pluto = st.mean(r["lama_energy_saving_vs_tpu"]
+                      / r["pluto_energy_saving_vs_tpu"] for r in f12.values())
+    require(abs(vs_pluto - 1.7) < 0.2 and abs(e_pluto - 4.0) < 0.6,
+            f"15a Fig 12: {vs_pluto:.3f} / {e_pluto:.3f} against pLUTo "
+            f"(paper 1.7 / 4)")
+    f13 = pim.fig13_table()
+    ppa = st.mean(r["perf_per_area_vs_gpu"] for r in f13)
+    e13 = st.mean(r["energy_saving_vs_gpu"] for r in f13)
+    require(abs(ppa - 7.2) / 7.2 < 0.25 and 6.0 < e13 < 20.0
+            and st.mean(r["raw_speedup_vs_gpu"] for r in f13) < 1.0,
+            f"15a Fig 13: perf/area {ppa:.3f}, energy {e13:.3f}")
+    print(f"  15a: {len(rows)} rows of Tables IV-V and Figs 12-13 in "
+          f"{host_s:.4f} s on the host (calibration cold); the paper's "
+          f"checks hold: Fig 12 averages {st.mean(speed):.3f}x / "
+          f"{st.mean(energy):.3f}x, Fig 13 {ppa:.3f}x / {e13:.3f}x",
+          flush=True)
+
+
+def hybrid_launches(cfg, dispatches: int) -> dict:
+    """The hybrid's launches, exactly: #1 five times a rec layer
+    (w_in_gate, w_in_rec, wa, wx, w_out), four a local layer (wq, wk, wv,
+    wo), once a layer for w_down and once for the tied unembedding; #2
+    (the gated MLP) once a layer; no attention kernel.  A prefill
+    dispatch launches as a decode step does."""
+    from repro_torch.models import rglru
+
+    kinds = rglru.layer_kinds(cfg)
+    n = len(kinds)
+    per = 5 * kinds.count("rec") + 4 * kinds.count("local") + n + 1
+    return {"lut_dequant_matmul": per * dispatches,
+            "lut_dequant_matmul_gated": n * dispatches}
+
+
+def hybrid_requests(cfg):
+    """Phase 15's requests: 7 prompts of 17..700 tokens (seed 0) and one
+    of 2100, past the 2048-position window (its ring wraps), HYBRID_NEW
+    new tokens each."""
+    import numpy as np
+
+    from repro_torch.runtime.server import Request
+
+    rng = np.random.default_rng(0)
+    lens = [int(n) for n in rng.integers(17, 701, 7)] + [2100]
+    return [Request(i, rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                    max_new_tokens=HYBRID_NEW) for i, n in enumerate(lens)]
+
+
+def hybrid_cpu(model, cfg):
+    """The CPU's copy of a card hybrid, every code table decoded to
+    float32 once (the plain versions' products on decoded weights, as
+    13c holds the MoE decoders)."""
+    from repro_torch.core.exponential_quant import QWeight
+    from repro_torch.models import api as mapi
+
+    def walk(tree):
+        return {k: (walk(v) if isinstance(v, dict) else
+                    v.lut[v.codes.long()].cpu() if isinstance(v, QWeight)
+                    else v.cpu())
+                for k, v in tree.items()}
+
+    return mapi.get_model(cfg).module(cfg, walk(model.tree()), device="cpu")
+
+
+def norm_inputs(run):
+    """``run()`` with the input of every norm recorded (on the CPU), in
+    the order the norms ran: a hybrid layer's ln1 and ln2 inputs, then
+    ln_f's -- the residual stream before and after each mixing block."""
+    from repro_torch.models import layers as L
+
+    norm, states = L.apply_norm, []
+
+    def recorded(p, x, cfg, *a, **kw):
+        states.append(x.detach().float().cpu())
+        return norm(p, x, cfg, *a, **kw)
+
+    L.apply_norm = recorded
+    try:
+        return run(), states
+    finally:
+        L.apply_norm = norm
+
+
+def hybrid_path_check(model, cfg_served, jitter: float = HYBRID_JITTER):
+    """15b: the served model's first HYBRID_CHECK_LAYERS layers (rec,
+    rec, local) at float32 compute, card against CPU: a 2-row prefill of
+    HYBRID_CHECK_LEN tokens and PATH_STEPS decode steps (the card taking
+    the CPU's greedy tokens) through the contiguous entry points; the
+    launches exact; logits within 1e-4 of their scale or, if larger, the
+    CPU's own spread under weight tables jittered by ``jitter`` (each
+    entry scaled by 1 +- 1e-4 with random signs, ``_jittered``: phase
+    2's gate on the LUT GEMMs), greedy tokens equal where the top-2 gap
+    is clear; #1's difference from float32 on layer 0's ``w_in_gate``
+    is gated at ``jitter``.  This is 13c's rule, not phase 3's last-bit
+    one: the random ``wq`` and ``wk`` (no qk-norm, drawn with their
+    heads axis' fan-in) make the local attention's scores large, and it
+    amplifies a difference in its input ~160x (on an H100 80GB HBM3 at
+    700 W, the card's split-TF32 prefill GEMMs differ from float32 by
+    ~1e-5, 15-30x a last-bit table change, and its logits by up to
+    3.8e-3 of their scale; ``PERF.md`` §6).  Prints the residual stream's error at every norm input,
+    card and jittered CPU against the CPU.  Returns (the card's error,
+    the spread)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.models import api as mapi
+    from repro_torch.models.transformer import _rewrap
+
+    cfg = cfg_served.replace(num_layers=HYBRID_CHECK_LAYERS,
+                             compute_dtype="float32")
+    api = mapi.get_model(cfg)
+    tree = model.tree()
+    keep = {f"layer_{i:02d}" for i in range(HYBRID_CHECK_LAYERS)}
+    card = api.module(cfg, _rewrap({**tree, "blocks": {
+        k: v for k, v in tree["blocks"].items() if k in keep}}),
+        device="cuda")
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, HYBRID_CHECK_LEN)), dtype=torch.int32)
+
+    def run(m, dev, feed=None):
+        logits, cache = api.prefill(m, toks.to(dev), cfg, 0,
+                                    cache_dtype=torch.float32)
+        outs = [logits[:, -1].float().cpu()]
+        for step in range(PATH_STEPS):
+            nxt = outs[-1].argmax(-1) if feed is None else feed[step]
+            logits, cache = api.decode_step(
+                m, cache, nxt[:, None].to(torch.int32).to(dev), cfg)
+            outs.append(logits[:, -1].float().cpu())
+        return outs
+
+    t0 = time.perf_counter()
+    on_cpu, cpu_states = norm_inputs(
+        lambda: run(hybrid_cpu(card, cfg), torch.device("cpu")))
+    feed = [o.argmax(-1) for o in on_cpu[:-1]]
+    t1 = time.perf_counter()
+    _build.reset_launch_counts()
+    on_card, card_states = norm_inputs(
+        lambda: run(card, torch.device("cuda"), feed))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = _build.launch_counts()
+    require(counts == hybrid_launches(cfg, 1 + PATH_STEPS),
+            f"15b path check: launches {counts}, want "
+            f"{hybrid_launches(cfg, 1 + PATH_STEPS)}")
+    on_jit, jit_states = norm_inputs(lambda: run(
+        hybrid_cpu(_jittered(card, jitter), cfg), torch.device("cpu"), feed))
+    t3 = time.perf_counter()
+    per_step = len(cpu_states) // (1 + PATH_STEPS)
+    for step in range(1 + PATH_STEPS):
+        errs = []
+        for k in range(step * per_step, (step + 1) * per_step):
+            scale = max(cpu_states[k].abs().max().item(), 1e-30)
+            errs.append(f"{(card_states[k] - cpu_states[k]).abs().max().item() / scale:.1e}"
+                        f"/{(jit_states[k] - cpu_states[k]).abs().max().item() / scale:.1e}")
+        print(f"  15b step {step}, the residual stream at each norm input "
+              f"(card / jittered CPU, against the CPU): " + " ".join(errs),
+              flush=True)
+    err, spread = rel_err(on_card, on_cpu), rel_err(on_jit, on_cpu)
+    gemm = gemm_difference(card.layer(0)["rec"]["w_in_gate"])
+    print(f"  15b: the CPU against itself with tables jittered by "
+          f"{jitter:.2e}: logits differ by {spread:.3e} of their scale; #1 "
+          f"against float32 on layer 0's w_in_gate {gemm:.3e}", flush=True)
+    require(gemm <= jitter, f"15b: #1 {gemm} off float32, past the jitter "
+            f"{jitter}")
+    compare(f"15b {HYBRID} {HYBRID_CHECK_LAYERS} layers", on_card, on_cpu,
+            max(1e-4, spread))
+    print(f"  15b path check ok ({HYBRID_CHECK_LAYERS} layers, full width, "
+          f"launches {counts}): max err {err:.3e} of the logits' scale; "
+          f"card {t2 - t1:.2f} s, cpu {t1 - t0:.2f} + {t3 - t2:.2f} s",
+          flush=True)
+    return err, spread
+
+
+def hybrid_step_ms(srv, prompt, iters: int = 20) -> tuple:
+    """The decode step alone, batch 1, after ``prompt``: CUDA events
+    around ``iters`` eager steps (each launch from the host) and around
+    ``iters`` replays of the step captured as one CUDA graph, as
+    ``generate_bucketed`` runs it.  Returns (eager ms, replayed ms, the
+    launches one replay adds)."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.runtime.step_graph import StepGraph
+
+    api, cfg, params = srv.api, srv.cfg, srv.params
+    toks = torch.as_tensor(prompt[None], dtype=torch.int32, device="cuda")
+    logits, cache = api.prefill(params, toks, cfg, srv.max_len,
+                                cache_dtype=srv.kv_dtype)
+    cur = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+    pos = torch.full((), toks.shape[1], dtype=torch.int64, device="cuda")
+    cache["pos"] = pos
+
+    def step(_inputs):
+        out, _ = api.decode_step(params, cache, cur, cfg)
+        cur.copy_(out[:, -1].argmax(-1)[:, None].to(torch.int32))
+        pos.add_(1)
+
+    def timed(run) -> float:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        for _ in range(iters):
+            run.step(step)
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / iters
+
+    run = StepGraph({}, "cuda")
+    run.step(step)                       # warm: every kernel loaded
+    eager = timed(run)
+    run.capture(step)
+    _build.reset_launch_counts()
+    replayed = timed(run)
+    per = {k: v / iters for k, v in _build.launch_counts().items()}
+    return eager, replayed, per
+
+
+def serve_hybrid(card: str) -> None:
+    """15b: recurrentgemma-2b at full width, HYBRID_LAYERS of its 26
+    layers, random weights (seed 0) drawn and quantized to 7 bits on the
+    card tensor by tensor; the path check on its first pattern; then
+    ``InferenceServer.generate`` (the bucketed fallback: no Engine for
+    the hybrid) serves ``hybrid_requests`` with every bucket's decode
+    steps replayed as a CUDA graph, then eagerly: every request ``ok``,
+    #1 and #2 launches exact, no attention kernel, the eager streams and
+    launches equal the graphs'; prefill tok/s, decode ms a step, peak
+    memory, and the decode step alone eager and replayed."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.runtime.server import InferenceServer
+
+    t_phase = time.perf_counter()
+    cfg = get_config(HYBRID)
+    print(f"  {HYBRID}: {HYBRID_LAYERS} of its {cfg.num_layers} layers "
+          f"(depth cut; widths as published: d_model {cfg.d_model}, "
+          f"rnn_width {cfg.rnn_width}, d_ff {cfg.d_ff}, {cfg.num_heads} / "
+          f"{cfg.num_kv_heads} heads of {cfg.resolved_head_dim}, window "
+          f"{cfg.window}, vocab {cfg.vocab_size}, tied)", flush=True)
+    cfg = cfg.replace(num_layers=HYBRID_LAYERS)
+    fresh_peak()
+    t0 = time.perf_counter()
+    model = random_quantized_model(cfg, 0)
+    torch.cuda.synchronize()
+    nbytes = sum(b.numel() * b.element_size() for b in model.buffers())
+    print(f"    weights drawn and quantized on the card in "
+          f"{time.perf_counter() - t0:.1f} s: {nbytes / 1e9:.2f} GB, set-up "
+          f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    hybrid_path_check(model, cfg)
+    reqs = hybrid_requests(cfg)
+    max_len = max(len(r.prompt) for r in reqs) + HYBRID_NEW
+    n_buckets = len({len(r.prompt) for r in reqs})
+    want = hybrid_launches(cfg, n_buckets * HYBRID_NEW)
+    runs = []
+    for graphs in (True, False):
+        srv = InferenceServer(cfg, params=model, max_len=max_len,
+                              device="cuda", cuda_graphs=graphs)
+        fresh_peak()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs = srv.generate(reqs)
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        counts = _build.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        mode = "graphs" if graphs else "eager"
+        require(srv.last_engine is None, f"15b [{mode}]: an Engine was built")
+        check_served(outs, reqs, cfg, HYBRID_NEW)
+        require(counts == want, f"15b [{mode}]: launches {counts}, want "
+                f"{want} ({n_buckets} buckets, {HYBRID_NEW - 1} decode steps "
+                f"each)")
+        require(srv.bucket_graphs == (n_buckets if graphs else 0),
+                f"15b [{mode}]: {srv.bucket_graphs} graphs captured")
+        prompt_toks = sum(len(r.prompt) for r in reqs)
+        prefill_s = sum(c.prefill_s for c in outs)
+        decode_s = sum(c.decode_s for c in outs)
+        steps = sum(c.decode_steps for c in outs)
+        print(f"  15b [{mode}] served {len(outs)} requests in {t_run:.2f} s "
+              f"({n_buckets} buckets), launches {counts}: prefill "
+              f"{prompt_toks / prefill_s:.1f} tok/s ({prompt_toks} tokens in "
+              f"{prefill_s:.3f} s), decode {1e3 * decode_s / steps:.2f} ms a "
+              f"step ({steps} steps of 1 row, first eager step and capture "
+              f"included), peak {peak:.2f} GiB, {srv.bucket_graphs} graphs "
+              f"in {srv.bucket_capture_s:.2f} s [{card}]", flush=True)
+        runs.append(outs)
+    require(all(np.array_equal(a.tokens, b.tokens) for a, b in zip(*runs)),
+            "15b: cuda_graphs=False gave other token streams than the graphs")
+    eager, replayed, per = hybrid_step_ms(srv, reqs[-1].prompt)
+    require(per == hybrid_launches(cfg, 1),
+            f"15b: a replayed step launches {per}")
+    print(f"  15b the decode step alone after the 2100-token prompt (batch "
+          f"1, the ring wrapped): eager {eager:.3f} ms, replayed "
+          f"{replayed:.3f} ms a step, launches a step {per}; streams equal "
+          f"with graphs and eagerly; first completion tokens "
+          f"{runs[0][0].tokens[:8].tolist()} [{card}]", flush=True)
+    del srv, model
+    fresh_peak()
+    print(f"  phase 15b took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -4925,6 +5325,9 @@ def main() -> int:
         phase("phase 14: the policy's A/B modes and the LUT GEMMs' autotuner")
         tuned_vs_shape_plans(card)
         serve_policies(params, card)
+        phase("phase 15: the PIM tables and recurrentgemma-2b")
+        pim_tables_phase()
+        serve_hybrid(card)
         phase("all phases passed")
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

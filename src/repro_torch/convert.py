@@ -2,10 +2,13 @@
 
 The caller turns the JAX arrays into numpy arrays (this module imports
 nothing of JAX); :func:`params_from_jax` copies them byte for byte into
-a :class:`~repro_torch.models.transformer.DecoderLM`, so both sides
-compute with the same values.  It handles float leaves (bfloat16
-included), qtensor leaves ``{codes, lut, qmeta}`` (per-tensor or
-layer-stacked), the stacked blocks, the qk-norm scales, the tied
+the family's params module (a
+:class:`~repro_torch.models.transformer.DecoderLM`, or for the hybrid a
+:class:`~repro_torch.models.rglru.HybridLM`), so both sides compute with
+the same values.  It handles float leaves (bfloat16 included), qtensor
+leaves ``{codes, lut, qmeta}`` (per-tensor or layer-stacked), the
+stacked blocks, the hybrid's ``layer_XX`` blocks (``lam``, ``conv_w``,
+``conv_b``, ``ba``, ``bx`` among them), the qk-norm scales, the tied
 ``embed.tokens`` table, the untied ``unembed.out``, the empty norm
 trees of ``nonparam_ln``, and the calibrated act-quant tables
 ``blocks.act_q[site] = {lut, qmeta}`` (per KV head for attn_k/attn_v),
@@ -19,7 +22,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.exponential_quant import QWeight
-from repro_torch.models.transformer import DecoderLM
+from repro_torch.models import api as mapi
+from repro_torch.models.params import ParamTree
 
 
 # ml_dtypes' types numpy cannot hand to torch: carried through an
@@ -50,7 +54,7 @@ def _convert(node):
 
 
 def params_from_jax(tree: dict, cfg: ModelConfig, *,
-                    device=None) -> DecoderLM:
+                    device=None) -> ParamTree:
     """The port's module holding ``tree``'s values (numpy leaves) on
     ``device`` (the card unless ``device="cpu"``)."""
-    return DecoderLM(cfg, _convert(tree), device=device)
+    return mapi.get_model(cfg).module(cfg, _convert(tree), device=device)

@@ -10,7 +10,12 @@ default, ``cuda``, raises without a card); ``--arch`` names one of
 ``repro_torch.configs``'s architectures.
 
 ``--bucketed`` runs the legacy length-bucketed contiguous-cache path
-instead (the baseline the engine is measured against).
+instead (the baseline the engine is measured against).  A family the
+Engine does not support (``--arch recurrentgemma-2b``, the hybrid)
+serves through ``InferenceServer.generate``, which falls back to that
+path; the Engine's flags (``--act-quant``, ``--kv-codes``,
+``--spec-k``, ``--chaos``, ``--max-queue`` and the cluster's) then raise
+``ValueError``, as the reference's Engine does for such a family.
 
 ``--prefill-workers N --decode-workers M`` serves through the
 disaggregated cluster instead of one unified engine: N prefill
@@ -159,7 +164,22 @@ def main(argv=None):
         ap.error("--spec-k must be >= 0")
     if args.spec_k and args.bucketed:
         ap.error("--spec-k applies to the engine and cluster paths only")
-    if args.bucketed and (args.trace or args.metrics_json):
+    # a family without the Engine serves through generate's fallback
+    fallback = not Engine.supports(cfg) and not args.bucketed
+    if fallback:
+        engine_only = [flag for flag, on in (
+            ("--act-quant", args.act_quant is not None),
+            ("--kv-codes", args.kv_codes), ("--spec-k", args.spec_k > 0),
+            ("--chaos", args.chaos is not None),
+            ("--max-queue", args.max_queue is not None),
+            ("--prefill-workers/--decode-workers", disagg)) if on]
+        if engine_only:
+            raise ValueError(
+                f"family {cfg.family!r} has no Engine (it serves through "
+                f"generate's bucketed fallback): {', '.join(engine_only)} "
+                f"need one")
+    bucketed = args.bucketed or fallback
+    if bucketed and (args.trace or args.metrics_json):
         print("note: --trace/--metrics-json apply to the engine and "
               "cluster paths only; the bucketed baseline is untraced")
 
@@ -212,7 +232,7 @@ def main(argv=None):
         label = (f"cluster ({clu.cluster_cfg.prefill_workers}P/"
                  f"{clu.cluster_cfg.decode_workers}D, {args.slots} "
                  f"slots/worker, block {args.block_size})")
-    elif args.bucketed:
+    elif bucketed:
         if args.act_quant is not None:
             print("note: --act-quant applies to the engine path only; "
                   "the bucketed baseline stays fp-act")
@@ -223,10 +243,15 @@ def main(argv=None):
                                              + args.new_tokens),
                                  kv_dtype=args.kv_dtype, device=device)
         t0 = time.time()
-        outs = server.generate_bucketed(reqs)
+        if fallback:
+            outs = server.generate(reqs)
+            label = (f"generate (family {cfg.family!r}: the bucketed "
+                     f"fallback)")
+        else:
+            outs = server.generate_bucketed(reqs)
+            label = "bucketed (legacy contiguous cache)"
         dt = time.time() - t0
         quant_report = server.quant_report
-        label = "bucketed (legacy contiguous cache)"
     else:
         eng = Engine(
             cfg, quant_bits=args.quant, act_quant=args.act_quant,
@@ -297,7 +322,7 @@ def main(argv=None):
                 ("chaos.",) if args.chaos is not None else ()):
             print(tel.registry.render(prefix))
         clu.check_partition()
-    if not args.bucketed and not disagg:
+    if not bucketed and not disagg:
         import statistics as st
         by_status: dict[str, int] = {}
         for c in outs:
@@ -322,7 +347,7 @@ def main(argv=None):
         print(f"act-quant: {len(sq)} (layer, site) tensors calibrated, "
               f"mean SQNR {st.mean(sq):.1f} dB "
               f"(sites: {', '.join(sorted(clu.act_report))})")
-    if not args.bucketed and not disagg and eng.act_report is not None:
+    if not bucketed and not disagg and eng.act_report is not None:
         import statistics as st
         sq = [float(s) for v in eng.act_report.values()
               for s in np.asarray(v).ravel()]
@@ -335,7 +360,7 @@ def main(argv=None):
         sqnr = [s for _, s in quant_report.values()]
         print(f"quantized {len(bits)} tensors, avg bits {st.mean(bits):.2f}, "
               f"avg SQNR {st.mean(sqnr):.1f} dB")
-    if not args.bucketed:
+    if not bucketed:
         dump_telemetry(label)
 
 

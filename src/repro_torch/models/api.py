@@ -1,10 +1,13 @@
 """Model API (port of the JAX package's ``models/api.py``): one entry per
-architecture family; only the ``decoder`` family is ported, with dense
-or MoE blocks (``models/moe.py``: llama4-scout, grok-1).  Its
-contiguous-cache entry points (``forward``, ``prefill``,
+architecture family.  Two are ported: ``decoder``, with dense or MoE
+blocks (``models/transformer.py``, ``models/moe.py``), and ``hybrid``,
+RecurrentGemma's RG-LRU and local attention (``models/rglru.py``).
+The contiguous-cache entry points (``forward``, ``prefill``,
 ``decode_step``, ``init_cache``) serve ``generate_bucketed``; the paged
 ones (``prefill_into_cache``, ``decode_step_paged`` and
-``spec_verify_into_cache``) serve the Engine."""
+``spec_verify_into_cache``) serve the Engine, and are None for the
+hybrid, as in the reference, so ``InferenceServer.generate`` falls back
+to the bucketed path for it."""
 
 from __future__ import annotations
 
@@ -12,38 +15,46 @@ import dataclasses
 from typing import Any, Callable
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
-from repro_torch.models.params import logical_axes
+from repro_torch.models import rglru, transformer
+from repro_torch.models.params import ParamTree, logical_axes
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelAPI:
     cfg: ModelConfig
     specs: Any
+    module: type           # the params module: (cfg, tree, device=, seed=)
     forward: Callable      # (params, tokens, cfg, prefix_embeds=None)
     prefill: Callable      # (params, tokens, cfg, max_len, ..., cache_dtype)
     decode_step: Callable  # (params, cache, tokens, cfg)
     init_cache: Callable   # (cfg, batch, max_len, dtype, device)
-    prefill_into_cache: Callable
-    decode_step_paged: Callable
+    prefill_into_cache: Callable | None = None
+    decode_step_paged: Callable | None = None
     spec_verify_into_cache: Callable | None = None
     collect_act_calibration: Callable | None = None
 
-    def init(self, device=None, seed: int = 0) -> transformer.DecoderLM:
+    def init(self, device=None, seed: int = 0) -> ParamTree:
         """Random weights from a seeded ``torch.Generator`` on ``device``
         (the card unless ``device="cpu"``)."""
-        return transformer.DecoderLM(self.cfg, device=device, seed=seed)
+        return self.module(self.cfg, device=device, seed=seed)
 
     def logical_axes(self):
         return logical_axes(self.specs)
 
 
 def get_model(cfg: ModelConfig) -> ModelAPI:
-    if cfg.family != "decoder" or cfg.frontend:
+    if cfg.frontend or cfg.family not in ("decoder", "hybrid"):
         raise NotImplementedError(
             f"family {cfg.family!r} (frontend={cfg.frontend!r}) is not "
             f"ported yet (ROADMAP Queue 1 item 13)")
+    if cfg.family == "hybrid":
+        return ModelAPI(cfg=cfg, specs=rglru.model_specs(cfg),
+                        module=rglru.HybridLM, forward=rglru.forward,
+                        prefill=rglru.prefill,
+                        decode_step=rglru.decode_step,
+                        init_cache=rglru.init_cache)
     return ModelAPI(cfg=cfg, specs=transformer.model_specs(cfg),
+                    module=transformer.DecoderLM,
                     forward=transformer.forward,
                     prefill=transformer.prefill,
                     decode_step=transformer.decode_step,

@@ -123,7 +123,7 @@ from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import lama_layers as ll
 from repro_torch.models import api as mapi
-from repro_torch.models.transformer import DecoderLM
+from repro_torch.models.params import ParamTree
 from repro_torch.runtime import calibration as cal
 from repro_torch.runtime.chaos import ChaosConfig, ChaosInjector
 from repro_torch.runtime.drafter import PromptLookupDrafter
@@ -320,7 +320,14 @@ class Engine:
     made when None), ``worker_name`` the engine's key prefix in its
     registry and ``worker_id`` its process row in the trace."""
 
-    def __init__(self, cfg: ModelConfig, params: DecoderLM | None = None,
+    @staticmethod
+    def supports(cfg: ModelConfig) -> bool:
+        """Whether this model family has the paged serving path (the
+        reference's test: the hybrid has none)."""
+        return (mapi.get_model(cfg).prefill_into_cache is not None
+                and not cfg.frontend)
+
+    def __init__(self, cfg: ModelConfig, params: ParamTree | None = None,
                  rng_seed: int = 0, quant_bits: int | None = None,
                  act_quant: int | None = None, calib_prompts=None,
                  engine: EngineConfig | None = None,
@@ -329,6 +336,10 @@ class Engine:
                  telemetry: Telemetry | None = None,
                  worker_name: str = "", worker_id: int = 0,
                  device=None, cuda_graphs: bool = True):
+        if not self.supports(cfg):
+            raise ValueError(
+                f"Engine supports decoder-family models without a frontend; "
+                f"got family={cfg.family!r} frontend={cfg.frontend!r}")
         self.device = resolve_device(device)
         self.cuda_graphs = bool(cuda_graphs) and self.device.type == "cuda"
         self.cfg = cfg
@@ -364,7 +375,7 @@ class Engine:
         if quant_bits is not None:
             qtree, self.quant_report = ll.quantize_tree(
                 params.tree(), quant_bits, axes=self.api.logical_axes())
-            params = DecoderLM(cfg, qtree, device=self.device)
+            params = self.api.module(cfg, qtree, device=self.device)
         params = params.to(self.device)
         self.act_report = None
         if act_quant is not None:

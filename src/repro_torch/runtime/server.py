@@ -20,8 +20,11 @@ feeds the next step's token buffer, the position advances and the token
 lands in a device buffer, all inside the graph, and the bucket's tokens
 come to the host in one copy at the end.  It serves float
 activations (``act_quant`` and ``kv_codes`` apply to the Engine only,
-as in the reference).  The decoder family is the only one ported, so
-``generate`` never falls back to it.
+as in the reference).  ``generate`` falls back to it for a family the
+Engine does not support (``Engine.supports``: the hybrid, whose
+rings and recurrent states have no paged path), as the reference's
+does; the hybrid's decode steps replay a graph the same way, its rings
+and states written in place in the graph's static buffers.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import lama_layers as ll
 from repro_torch.models import api as mapi
-from repro_torch.models.transformer import DecoderLM
+from repro_torch.models.params import ParamTree
 from repro_torch.runtime.engine import (Completion, Engine, EngineConfig,
                                         Request, kv_dtype_of)
 from repro_torch.runtime.step_graph import StepGraph
@@ -46,7 +49,7 @@ __all__ = ["InferenceServer", "Request", "Completion"]
 
 
 class InferenceServer:
-    def __init__(self, cfg: ModelConfig, params: DecoderLM | None = None,
+    def __init__(self, cfg: ModelConfig, params: ParamTree | None = None,
                  rng_seed: int = 0, quant_bits: int | None = None,
                  act_quant: int | None = None, max_len: int = 512,
                  kv_dtype="float32", kv_codes: bool = False,
@@ -99,7 +102,7 @@ class InferenceServer:
             qtree, self.quant_report = ll.quantize_tree(
                 params.to(self.device).tree(), quant_bits,
                 axes=self.api.logical_axes())
-            params = DecoderLM(cfg, qtree, device=self.device)
+            params = self.api.module(cfg, qtree, device=self.device)
         self.params = params.to(self.device)
         self.last_engine: Engine | None = None
         self._engine_max_seq = max_len          # grows monotonically
@@ -129,9 +132,12 @@ class InferenceServer:
         return self.last_engine
 
     def generate(self, requests: Sequence[Request]) -> list[Completion]:
-        """Serve via the paged continuous-batching Engine (greedy)."""
+        """Serve via the paged continuous-batching Engine (greedy); the
+        legacy bucketed path for a family the Engine does not support."""
         if not requests:
             return []
+        if not Engine.supports(self.cfg):
+            return self.generate_bucketed(requests)
         return self.make_engine(requests).generate(requests)
 
     # ------------------------------------------- legacy bucketed path --
@@ -166,7 +172,9 @@ class InferenceServer:
 
         plen = toks.shape[1]
         max_new = max(r.max_new_tokens for r in group)
-        if plen + max_new - 1 > self.max_len:   # the steps cannot check
+        # a decoder's contiguous cache holds max_len positions and its
+        # steps cannot check; the hybrid's rings are bounded by the window
+        if "k" in cache and plen + max_new - 1 > self.max_len:
             raise ValueError(f"cache full: position {plen} + "
                              f"{max_new - 1} decode steps > {self.max_len}")
 

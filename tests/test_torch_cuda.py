@@ -22,7 +22,9 @@ steps run eagerly, the Lama primitives (bulk LUT op, signed
 histogram) on their vector and scalar paths, with out-of-range codes,
 and the MoE layers: a routed layer replayed in a CUDA graph, the kernel
 path against the plain path under the routing rule, and a small MoE
-engine with graphs and eagerly.
+engine with graphs and eagerly; the tiny hybrid (recurrentgemma-2b) on
+the card against the CPU, and its bucketed decode replayed against
+eager.
 The Lama primitives and the histogram are held to exact equality
 (integers, and sums of +-1 in float32).
 Tolerance: 1e-4 of the reference's largest magnitude for float outputs
@@ -2377,3 +2379,121 @@ def test_policy_modes_launch_as_counted_on_the_card(dev, policy_kw):
     for x, y in zip(a, b):
         assert x.status == "ok" and len(x.tokens) == 8
         np.testing.assert_array_equal(x.tokens, y.tokens)
+
+
+# ------------------------------------------------ the hybrid family --
+
+def _hybrid_card_cfg():
+    """recurrentgemma-2b at the reference's tiny size (rec, rec, local;
+    d_model 64, window 16), float32 compute: it runs no attention kernel,
+    so any head_dim serves."""
+    from repro_torch.configs import get_config
+
+    return get_config("recurrentgemma-2b", tiny=True).replace(
+        compute_dtype="float32")
+
+
+def _hybrid_launches(cfg, dispatches: int) -> dict:
+    """#1 five times a rec layer (w_in_gate, w_in_rec, wa, wx, w_out),
+    four a local layer (wq, wk, wv, wo), once a layer for w_down and once
+    for the tied unembedding; #2 once a layer: a prefill and a decode
+    step alike."""
+    from repro_torch.models import rglru
+
+    kinds = rglru.layer_kinds(cfg)
+    n = len(kinds)
+    per = 5 * kinds.count("rec") + 4 * kinds.count("local") + n + 1
+    return {"lut_dequant_matmul": per * dispatches,
+            "lut_dequant_matmul_gated": n * dispatches}
+
+
+def _hybrid_nudged(model, rel: float = 2 ** -22):
+    from repro_torch.core import lama_layers as ll
+
+    def walk(tree):
+        return {k: (walk(v) if isinstance(v, dict) else
+                    eq.QWeight(v.codes, v.lut * (1 + rel), v.qmeta)
+                    if isinstance(v, eq.QWeight) else
+                    v * (1 + rel) if ll.default_predicate((k,), v) else v)
+                for k, v in tree.items()}
+
+    return model.with_tree(walk(model.tree()))
+
+
+def test_hybrid_on_the_card_equals_the_cpu(dev):
+    """The tiny hybrid with 7-bit weights: prefill (longer than the
+    window) and 24 decode steps (the ring wraps) on the card (#1, #2 and
+    #1's streamed unembedding) against the CPU (the plain versions), the
+    card taking the CPU's greedy tokens.  Logits within 1e-4 of their
+    scale or four times the CPU's own spread under a last-bit change of
+    the weights (phase 3's rule: the random local attention reaches
+    scores near 200); greedy tokens equal where the top-2 gap is clear;
+    the launches exact."""
+    from repro_torch.core import lama_layers as ll
+    from repro_torch.kernels import _build
+    from repro_torch.models import api as mapi
+
+    cfg = _hybrid_card_cfg()
+    api = mapi.get_model(cfg)
+    dense = api.init("cpu", seed=5)
+    qtree, _ = ll.quantize_tree(dense.tree(), 7, axes=api.logical_axes())
+    cpu = api.module(cfg, qtree, device="cpu")
+    card = api.module(cfg, copy.deepcopy(qtree), device="cuda")
+    toks = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 21)), dtype=torch.int32)
+
+    def run(model, feed=None):
+        d = model.device
+        logits, cache = api.prefill(model, toks.to(d), cfg, 64,
+                                    cache_dtype=torch.float32)
+        outs = [logits[:, -1].float().cpu()]
+        for step in range(24):
+            nxt = (outs[-1].argmax(-1) if feed is None else feed[step])
+            logits, cache = api.decode_step(
+                model, cache, nxt[:, None].to(torch.int32).to(d), cfg)
+            outs.append(logits[:, -1].float().cpu())
+        return outs
+
+    ref = run(cpu)
+    feed = [o.argmax(-1) for o in ref[:-1]]
+    spread = max((a - r).abs().max().item() / max(1.0, r.abs().max().item())
+                 for a, r in zip(run(_hybrid_nudged(cpu), feed), ref))
+    _build.reset_launch_counts()
+    out = run(card, feed)
+    assert _build.launch_counts() == _hybrid_launches(cfg, 25)
+    rel = max(1e-4, 4 * spread)
+    for a, r in zip(out, ref):
+        tol = rel * max(1.0, r.abs().max().item())
+        assert (a - r).abs().max().item() <= tol
+        top2 = r.topk(2, -1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * tol
+        assert torch.equal(a.argmax(-1)[clear], r.argmax(-1)[clear])
+
+
+def test_hybrid_bucketed_graphs_equal_eager(dev):
+    """``generate`` falls back to ``generate_bucketed`` for the hybrid:
+    with graphs on and off on the same weights, equal token streams and
+    launch counts (exact), one graph captured a bucket, prompts below
+    and past the window."""
+    from repro_torch.kernels import _build
+    from repro_torch.runtime.server import InferenceServer, Request
+
+    cfg = _hybrid_card_cfg()
+    on = InferenceServer(cfg, quant_bits=7, max_len=96, device="cuda",
+                         rng_seed=3)
+    off = InferenceServer(cfg, params=on.params, max_len=96, device="cuda",
+                          cuda_graphs=False)
+    rng = np.random.default_rng(1)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                    12) for i, n in enumerate((9, 9, 33, 50))]
+    outs, counts = [], []
+    for srv in (on, off):
+        _build.reset_launch_counts()
+        outs.append(srv.generate(reqs))
+        counts.append(_build.launch_counts())
+        assert srv.last_engine is None
+    for x, y in zip(*outs):
+        assert x.status == "ok" and len(x.tokens) == 12
+        np.testing.assert_array_equal(x.tokens, y.tokens)
+    assert counts[0] == counts[1] == _hybrid_launches(cfg, 3 + 3 * 11)
+    assert on.bucket_graphs == 3 and off.bucket_graphs == 0

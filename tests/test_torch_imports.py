@@ -3,6 +3,7 @@ JAX package, and its entry points refuse to fall back to the CPU."""
 
 import ast
 import pathlib
+import sys
 
 import pytest
 import torch
@@ -36,8 +37,28 @@ def test_port_files_found():
     assert len(PORT_FILES) > 20
     for rel in ("runtime/cluster.py", "launch/serve.py", "launch/__init__.py",
                 "models/moe.py", "configs/grok_1_314b.py",
-                "configs/llama4_scout_17b_a16e.py"):
+                "configs/llama4_scout_17b_a16e.py", "models/rglru.py",
+                "configs/recurrentgemma_2b.py", "launch/pim_tables.py",
+                "core/pim/__init__.py", "core/pim/accel.py"):
         assert ROOT / "src" / "repro_torch" / rel in PORT_FILES, rel
+
+
+PIM_FILES = sorted((ROOT / "src" / "repro_torch" / "core" / "pim").glob("*.py"))
+
+
+@pytest.mark.parametrize("path", PIM_FILES,
+                         ids=[p.name for p in PIM_FILES])
+def test_pim_modules_import_only_the_stdlib_and_lut(path):
+    """The cost model is pure Python on the host: the standard library
+    and the port's ``core.lut`` (Table II's parallelism), no torch."""
+    assert len(PIM_FILES) == 9
+    for mod in _imports(path):
+        if mod.split(".")[0] == "repro_torch":
+            assert mod == "repro_torch.core.lut" or \
+                mod.startswith("repro_torch.core.pim"), (path.name, mod)
+        else:
+            assert mod.split(".")[0] in sys.stdlib_module_names, (path.name,
+                                                                  mod)
 
 
 def _tiny():
