@@ -243,13 +243,9 @@ def main(argv=None):
                                              + args.new_tokens),
                                  kv_dtype=args.kv_dtype, device=device)
         t0 = time.time()
-        if fallback:
-            outs = server.generate(reqs)
-            label = (f"generate (family {cfg.family!r}: the bucketed "
-                     f"fallback)")
-        else:
-            outs = server.generate_bucketed(reqs)
-            label = "bucketed (legacy contiguous cache)"
+        outs = server.generate_bucketed(reqs)
+        label = (f"generate (family {cfg.family!r}: the bucketed fallback)"
+                 if fallback else "bucketed (legacy contiguous cache)")
         dt = time.time() - t0
         quant_report = server.quant_report
     else:

@@ -32,8 +32,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import lama_layers as ll
 from repro_torch.kernels.lut_dequant_matmul.ref import apply_activation
 from repro_torch.models import layers as L
-from repro_torch.models.params import ParamSpec, ParamTree, init_params
-from repro_torch.models.transformer import _check_prefix, _copy_at, _rewrap, cache_cast
+from repro_torch.models.params import ParamSpec
+from repro_torch.models.transformer import (DecoderLM, _check_prefix,
+                                            _copy_at, cache_cast)
 
 C_RGLRU = 8.0
 F32 = torch.float32
@@ -86,44 +87,20 @@ def model_specs(cfg: ModelConfig) -> dict:
     return s
 
 
-class HybridLM(ParamTree):
-    """The hybrid's parameters as a module, the counterpart of
-    :class:`~repro_torch.models.transformer.DecoderLM`: buffers follow
-    the reference's params paths (``blocks.layer_00.rec.w_in_gate``,
-    ``blocks.layer_02.attn.wq.codes`` for a quantized ``wq``).  Without
-    ``params`` the weights are drawn from a ``torch.Generator`` seeded
-    with ``seed`` on the device, the card unless ``device="cpu"``."""
+class HybridLM(DecoderLM):
+    """The hybrid's parameters as a module: a
+    :class:`~repro_torch.models.transformer.DecoderLM` over this
+    family's specs.  Buffers follow the reference's params paths
+    (``blocks.layer_00.rec.w_in_gate``, ``blocks.layer_02.attn.wq.codes``
+    for a quantized ``wq``); a layer is its own ``layer_XX`` subtree, not
+    a slice of stacked leaves."""
 
-    def __init__(self, cfg: ModelConfig, params: dict | None = None, *,
-                 device=None, seed: int = 0, dtype=torch.float32):
-        dev = resolve_device(device)
-        if params is None:
-            gen = torch.Generator(device=dev).manual_seed(seed)
-            params = init_params(model_specs(cfg), gen, dev, dtype)
-        super().__init__(params)
-        self.cfg = cfg
-        self.to(dev)
-        self._layers: list[dict] | None = None
+    specs = staticmethod(model_specs)
 
-    @property
-    def device(self) -> torch.device:
-        return next(self.buffers()).device
-
-    def with_tree(self, tree: dict) -> "HybridLM":
-        """A new module over ``tree``, sharing every tensor."""
-        return HybridLM(self.cfg, _rewrap(tree), device=self.device)
-
-    def layer(self, i: int) -> dict:
-        """Layer ``i``'s parameters as a nested dict (cached)."""
-        if self._layers is None:
-            blocks = self["blocks"]
-            self._layers = [blocks[f"layer_{j:02d}"].tree()
-                            for j in range(self.cfg.num_layers)]
-        return self._layers[i]
-
-    def _apply(self, fn, *args, **kw):
-        self._layers = None
-        return super()._apply(fn, *args, **kw)
+    def _slice_layers(self) -> list[dict]:
+        blocks = self["blocks"]
+        return [blocks[f"layer_{j:02d}"].tree()
+                for j in range(self.cfg.num_layers)]
 
 
 # --------------------------------------------------------------- rglru --

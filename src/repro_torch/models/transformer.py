@@ -77,29 +77,34 @@ class DecoderLM(ParamTree):
         dev = resolve_device(device)
         if params is None:
             gen = torch.Generator(device=dev).manual_seed(seed)
-            params = init_params(model_specs(cfg), gen, dev, dtype)
+            params = init_params(self.specs(cfg), gen, dev, dtype)
         super().__init__(params)
         self.cfg = cfg
         self.to(dev)
         self._layers: list[dict] | None = None
+
+    specs = staticmethod(model_specs)
 
     @property
     def device(self) -> torch.device:
         return next(self.buffers()).device
 
     def with_tree(self, tree: dict) -> "DecoderLM":
-        """A new module over ``tree`` (e.g. this module's tree with
-        ``blocks.act_q`` attached or removed), sharing every tensor and
-        with its own layer cache; this module is left as it is."""
-        return DecoderLM(self.cfg, _rewrap(tree), device=self.device)
+        """A new module of this class over ``tree`` (e.g. this module's
+        tree with ``blocks.act_q`` attached or removed), sharing every
+        tensor and with its own layer cache; this module is left as it
+        is."""
+        return type(self)(self.cfg, _rewrap(tree), device=self.device)
+
+    def _slice_layers(self) -> list[dict]:
+        blocks = self["blocks"].tree()
+        return [layer_slice(blocks, j) for j in range(self.cfg.num_layers)]
 
     def layer(self, i: int) -> dict:
         """Layer ``i``'s parameters as a nested dict of views (cached:
         serving weights do not change)."""
         if self._layers is None:
-            blocks = self["blocks"].tree()
-            self._layers = [layer_slice(blocks, j)
-                            for j in range(self.cfg.num_layers)]
+            self._layers = self._slice_layers()
         return self._layers[i]
 
     def _apply(self, fn, *args, **kw):

@@ -172,9 +172,10 @@ class InferenceServer:
 
         plen = toks.shape[1]
         max_new = max(r.max_new_tokens for r in group)
-        # a decoder's contiguous cache holds max_len positions and its
-        # steps cannot check; the hybrid's rings are bounded by the window
-        if "k" in cache and plen + max_new - 1 > self.max_len:
+        # an Engine family's contiguous cache holds max_len positions and
+        # its steps cannot check; the hybrid's rings are bounded by the
+        # window
+        if Engine.supports(self.cfg) and plen + max_new - 1 > self.max_len:
             raise ValueError(f"cache full: position {plen} + "
                              f"{max_new - 1} decode steps > {self.max_len}")
 
