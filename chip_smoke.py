@@ -198,6 +198,23 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
      unembedding, #2 1 a layer, a dispatch), no attention kernel, equal
      streams; prefill tok/s at first use and warm, decode ms a step,
      peak memory, and the decode step alone eager and replayed.
+ 16. paligemma-3b (the vlm: 256 stub patch embeddings under the
+     prefix-LM mask; all 18 layers) and rwkv6-3b (the WKV recurrence,
+     parametric LayerNorm; 8 of its 32 layers) at full width, random
+     weights (seed 0) quantized to 7 bits on the card tensor by tensor:
+     (a) #1 at each family's widest K (paligemma-3b's ``w_down``, K
+     16384; rwkv6-3b's ``w_v``, K 8960), the unembeddings (the tied
+     257216-row table through ``mm_stream_t``, the untied 2560 x 65536
+     one), #2 (2048 x 16384, gelu) and #9 at n_kv 1, g 8, head_dim 256
+     over a 768-position cache at the served lengths, against their
+     plain versions at phase 2's gate; (b) 2 layers card against CPU
+     under 15b's jitter rule; (c) ``InferenceServer.generate`` (the
+     bucketed fallback) serves phase 9's 8 requests (prompts 17-400, 16
+     new tokens; a 768-position cache for paligemma-3b) twice with
+     graphs and twice eagerly: every request ``ok``, #1, #2 and #9
+     launches exact, no paged kernel, equal streams; prefill tok/s,
+     decode ms a step, peak memory, the decode step alone eager and
+     replayed against the weight bytes it reads.
 Phase 3 prints, for olmo-1b, minicpm-2b and qwen3-14b, the card-vs-CPU
 error after each layer beside the CPU's own spread under last-bit
 weight tables, at the prefill chunk and the first decode step.
@@ -4101,7 +4118,7 @@ def moe_gemm_checks(cfg, card) -> None:
     torch.cuda.empty_cache()
 
 
-def random_quantized_model(cfg, seed: int):
+def random_quantized_model(cfg, seed: int, fit_elems: int = MOE_FIT_ELEMS):
     """A card model of ``cfg`` with random weights drawn on the card from
     ``seed`` and the matmul weights quantized to 7 bits as they are drawn:
     a layer-stacked leaf layer by layer, an expert stack expert by expert
@@ -4110,7 +4127,9 @@ def random_quantized_model(cfg, seed: int):
     tensor by tensor, so no float tensor larger than one expert's matrix
     or one embedding table is ever held.  The stds are ``init_params``'s;
     the router, the norms and the hybrid's conv taps, decays and biases
-    stay float."""
+    stay float.  Each table is fit on at most ``fit_elems`` leading
+    elements of its tensor (i.i.d. normal draws: a sample of them fits
+    the table the whole would)."""
     import torch
 
     from repro_torch.core import exponential_quant as eq
@@ -4125,7 +4144,7 @@ def random_quantized_model(cfg, seed: int):
         return torch.randn(shape, generator=gen, device=dev).mul_(std)
 
     def fit(x):
-        return eq.fit(x.reshape(-1)[:MOE_FIT_ELEMS], 7)
+        return eq.fit(x.reshape(-1)[:fit_elems], 7)
 
     def quantized(spec):
         std = P.spec_std(spec)
@@ -4960,6 +4979,19 @@ def hybrid_launches(cfg, dispatches: int) -> dict:
             "lut_dequant_matmul_gated": n * dispatches}
 
 
+def gate_vs_plain(phase: str, label: str, kernel, plain, flush) -> None:
+    """A kernel against its plain version on the card at phase 2's gate
+    (1e-4 of the plain version's largest magnitude), with both times
+    printed (``flush`` overwritten before each timed launch)."""
+    out, ref = kernel(), plain()
+    tol = 1e-4 * max(1.0, ref.abs().max().item())
+    err = (out - ref).abs().max().item()
+    print(f"    {label}: err {err:.3e} (tol {tol:.3e}), kernel "
+          f"{time_ms(kernel, flush=flush):.4f} ms, plain "
+          f"{time_ms(plain, flush=flush):.4f} ms", flush=True)
+    require(err <= tol, f"{phase} {label}: max err {err} > {tol}")
+
+
 def hybrid_gemm_checks(model, cfg, reqs, card) -> None:
     """15b: the LUT GEMMs at the hybrid's own shapes, on the served
     model's own codes and tables, each held to its plain version on the
@@ -4994,13 +5026,7 @@ def hybrid_gemm_checks(model, cfg, reqs, card) -> None:
     d = cfg.d_model
 
     def gate(label, kernel, plain):
-        out, ref = kernel(), plain()
-        tol = 1e-4 * max(1.0, ref.abs().max().item())
-        err = (out - ref).abs().max().item()
-        print(f"    {label}: err {err:.3e} (tol {tol:.3e}), kernel "
-              f"{time_ms(kernel, flush=flush):.4f} ms, plain "
-              f"{time_ms(plain, flush=flush):.4f} ms", flush=True)
-        require(err <= tol, f"15b {label}: max err {err} > {tol}")
+        gate_vs_plain("15b", label, kernel, plain, flush)
 
     def x_of(m, k):
         return torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
@@ -5057,17 +5083,25 @@ def hybrid_requests(cfg):
                     max_new_tokens=HYBRID_NEW) for i, n in enumerate(lens)]
 
 
-def hybrid_cpu(model, cfg):
-    """The CPU's copy of a card hybrid, every code table decoded to
-    float32 once (the plain versions' products on decoded weights, as
-    13c holds the MoE decoders)."""
+def decoded_cpu(model, cfg):
+    """The CPU's copy of a card model, every code table decoded to
+    float32 once, a layer at a time when layer-stacked (the plain
+    versions' products on decoded weights, as 13c holds the MoE
+    decoders)."""
+    import torch
+
     from repro_torch.core.exponential_quant import QWeight
     from repro_torch.models import api as mapi
 
+    def decode(w: QWeight):
+        if w.lut.ndim == 1:
+            return w.lut[w.codes.long()].cpu()
+        return torch.stack([w.lut[i][w.codes[i].long()].cpu()
+                            for i in range(w.lut.shape[0])])
+
     def walk(tree):
         return {k: (walk(v) if isinstance(v, dict) else
-                    v.lut[v.codes.long()].cpu() if isinstance(v, QWeight)
-                    else v.cpu())
+                    decode(v) if isinstance(v, QWeight) else v.cpu())
                 for k, v in tree.items()}
 
     return mapi.get_model(cfg).module(cfg, walk(model.tree()), device="cpu")
@@ -5119,7 +5153,6 @@ def hybrid_path_check(model, cfg_served, jitter: float = HYBRID_JITTER):
     import numpy as np
     import torch
 
-    from repro_torch.kernels import _build
     from repro_torch.models import api as mapi
     from repro_torch.models.transformer import _rewrap
 
@@ -5145,9 +5178,33 @@ def hybrid_path_check(model, cfg_served, jitter: float = HYBRID_JITTER):
             outs.append(logits[:, -1].float().cpu())
         return outs
 
+    return jitter_path_check("15b", card, cfg, run,
+                             hybrid_launches(cfg, 1 + PATH_STEPS),
+                             card.layer(0)["rec"]["w_in_gate"], jitter)
+
+
+def jitter_path_check(label, card, cfg, run, want: dict, gemm_w,
+                      jitter: float):
+    """13c's jitter rule on a card model ``card`` of ``cfg`` (float32
+    compute): ``run(model, device, feed)`` (the CPU's greedy tokens fed
+    to the card) gives the logits of a prefill and PATH_STEPS decode
+    steps, on the CPU's decoded copy (``decoded_cpu``), on the card
+    (launches ``want``, exactly) and on the CPU's copy of ``card`` with
+    its tables jittered by ``jitter``.  At each step the card's logits
+    must lie within 1e-4 of their scale or, if larger, that step's
+    jittered spread, and a row's greedy token must equal the CPU's
+    wherever the CPU's top-2 gap exceeds twice that row's jittered
+    spread (at least one such token over the check); #1's difference
+    from float32 on ``gemm_w`` is gated at ``jitter``.  Prints the
+    residual stream's error at every norm input.  Returns (the card's
+    error, the spread), relative to the logits' scale."""
+    import torch
+
+    from repro_torch.kernels import _build
+
     t0 = time.perf_counter()
     on_cpu, cpu_states = norm_inputs(
-        lambda: run(hybrid_cpu(card, cfg), torch.device("cpu")))
+        lambda: run(decoded_cpu(card, cfg), torch.device("cpu")))
     feed = [o.argmax(-1) for o in on_cpu[:-1]]
     t1 = time.perf_counter()
     _build.reset_launch_counts()
@@ -5156,11 +5213,10 @@ def hybrid_path_check(model, cfg_served, jitter: float = HYBRID_JITTER):
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     counts = _build.launch_counts()
-    require(counts == hybrid_launches(cfg, 1 + PATH_STEPS),
-            f"15b path check: launches {counts}, want "
-            f"{hybrid_launches(cfg, 1 + PATH_STEPS)}")
+    require(counts == want,
+            f"{label} path check: launches {counts}, want {want}")
     on_jit, jit_states = norm_inputs(lambda: run(
-        hybrid_cpu(_jittered(card, jitter), cfg), torch.device("cpu"), feed))
+        decoded_cpu(_jittered(card, jitter), cfg), torch.device("cpu"), feed))
     t3 = time.perf_counter()
     per_step = len(cpu_states) // (1 + PATH_STEPS)
     for step in range(1 + PATH_STEPS):
@@ -5169,16 +5225,17 @@ def hybrid_path_check(model, cfg_served, jitter: float = HYBRID_JITTER):
             scale = max(cpu_states[k].abs().max().item(), 1e-30)
             errs.append(f"{(card_states[k] - cpu_states[k]).abs().max().item() / scale:.1e}"
                         f"/{(jit_states[k] - cpu_states[k]).abs().max().item() / scale:.1e}")
-        print(f"  15b step {step}, the residual stream at each norm input "
+        print(f"  {label} step {step}, the residual stream at each norm input "
               f"(card / jittered CPU, against the CPU): " + " ".join(errs),
               flush=True)
     err, spread = rel_err(on_card, on_cpu), rel_err(on_jit, on_cpu)
-    gemm = gemm_difference(card.layer(0)["rec"]["w_in_gate"])
-    print(f"  15b: the CPU against itself with tables jittered by "
+    gemm = gemm_difference(gemm_w)
+    print(f"  {label}: the CPU against itself with tables jittered by "
           f"{jitter:.2e}: logits differ by {spread:.3e} of their scale; #1 "
-          f"against float32 on layer 0's w_in_gate {gemm:.3e}", flush=True)
-    require(gemm <= jitter, f"15b: #1 {gemm} off float32, past the jitter "
-            f"{jitter}")
+          f"against float32 on layer 0's {gemm_w.codes.shape} weight "
+          f"{gemm:.3e}", flush=True)
+    require(gemm <= jitter, f"{label}: #1 {gemm} off float32, past the "
+            f"jitter {jitter}")
     compared = 0
     for step, (a, r, j) in enumerate(zip(on_card, on_cpu, on_jit)):
         row_spread = (j - r).abs().amax(-1)
@@ -5189,27 +5246,29 @@ def hybrid_path_check(model, cfg_served, jitter: float = HYBRID_JITTER):
         gaps = top2[:, 0] - top2[:, 1]
         clear = gaps > 2 * row_spread
         compared += int(clear.sum())
-        print(f"  15b step {step}: logits max err {diff:.3e} (tol {tol:.3e}, "
+        print(f"  {label} step {step}: logits max err {diff:.3e} (tol {tol:.3e}, "
               f"the jittered spread); top-2 gaps {gaps.tolist()} against "
               f"twice the rows' spreads {(2 * row_spread).tolist()}",
               flush=True)
-        require(diff <= tol, f"15b path check step {step}: err {diff} > "
-                f"{tol}")
+        require(diff <= tol, f"{label} path check step {step}: err {diff} "
+                f"> {tol}")
         require(torch.equal(a.argmax(-1)[clear], r.argmax(-1)[clear]),
-                f"15b path check step {step}: greedy tokens differ where "
-                f"the CPU's top-2 gap clears its jittered spread")
-    require(compared > 0, "15b path check: no token's top-2 gap cleared "
-            "the jittered spread, so no greedy token was compared")
-    print(f"  15b path check ok ({HYBRID_CHECK_LAYERS} layers, full width, "
+                f"{label} path check step {step}: greedy tokens differ "
+                f"where the CPU's top-2 gap clears its jittered spread")
+    require(compared > 0, f"{label} path check: no token's top-2 gap "
+            f"cleared the jittered spread, so no greedy token was compared")
+    rows = on_cpu[0].shape[0]
+    print(f"  {label} path check ok ({cfg.num_layers} layers, full width, "
           f"launches {counts}): max err {err:.3e} of the logits' scale, "
-          f"{compared} of {2 * (1 + PATH_STEPS)} greedy tokens compared; "
+          f"{compared} of {rows * (1 + PATH_STEPS)} greedy tokens compared; "
           f"card {t2 - t1:.2f} s, cpu {t1 - t0:.2f} + {t3 - t2:.2f} s",
           flush=True)
     return err, spread
 
 
-def hybrid_step_ms(srv, prompt, iters: int = 20) -> tuple:
-    """The decode step alone, batch 1, after ``prompt``: CUDA events
+def bucket_step_ms(srv, prompt, iters: int = 20) -> tuple:
+    """The decode step alone, batch 1, after ``prompt`` (and a vlm's
+    patches, ``srv._frames_for``): CUDA events
     around ``iters`` eager steps (each launch from the host) and around
     ``iters`` replays of the step captured as one CUDA graph, as
     ``generate_bucketed`` runs it.  Returns (eager ms, replayed ms, the
@@ -5221,10 +5280,12 @@ def hybrid_step_ms(srv, prompt, iters: int = 20) -> tuple:
 
     api, cfg, params = srv.api, srv.cfg, srv.params
     toks = torch.as_tensor(prompt[None], dtype=torch.int32, device="cuda")
+    pe = srv._frames_for(1, toks.shape[1])
     logits, cache = api.prefill(params, toks, cfg, srv.max_len,
-                                cache_dtype=srv.kv_dtype)
+                                prefix_embeds=pe, cache_dtype=srv.kv_dtype)
     cur = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
-    pos = torch.full((), toks.shape[1], dtype=torch.int64, device="cuda")
+    start = toks.shape[1] + (0 if pe is None else pe.shape[1])
+    pos = torch.full((), start, dtype=torch.int64, device="cuda")
     cache["pos"] = pos
 
     def step(_inputs):
@@ -5335,7 +5396,7 @@ def serve_hybrid(card: str) -> None:
                   f"included), peak {peak:.2f} GiB, {srv.bucket_graphs} "
                   f"graphs in {srv.bucket_capture_s:.2f} s [{card}]",
                   flush=True)
-    eager, replayed, per = hybrid_step_ms(srv, reqs[-1].prompt)
+    eager, replayed, per = bucket_step_ms(srv, reqs[-1].prompt)
     require(per == hybrid_launches(cfg, 1),
             f"15b: a replayed step launches {per}")
     print(f"  15b the decode step alone after the 2100-token prompt (batch "
@@ -5346,6 +5407,342 @@ def serve_hybrid(card: str) -> None:
     del srv, model
     fresh_peak()
     print(f"  phase 15b took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+# ------------------------------- phase 16: paligemma-3b and rwkv6-3b --
+
+VLM, RWKV = "paligemma-3b", "rwkv6-3b"
+# the served depth: all 18 of paligemma-3b's layers; rwkv6-3b at 8 of its
+# 32 (its prefill runs the WKV scan a token at a time, ~10 kernels a
+# token a layer, and the phase has ~60 s of the script's time)
+FAMILY_LAYERS = {VLM: 18, RWKV: 8}
+FAMILY_CHECK_LAYERS = 2        # card against CPU, full width
+FAMILY_CHECK_LEN = 32
+FAMILY_NEW = 16
+VLM_MAX_LEN = 768              # 256 patches + prompts up to 400 + 16 new
+# each of phase 16's weight tables is fit on at most this many leading
+# elements (2^26 took 11.6 s of the phase for paligemma-3b's 127 tables)
+FAMILY_FIT_ELEMS = 2 ** 22
+# 16b's weight-table jitter: phase 2's gate on the LUT GEMMs, as 15b's
+FAMILY_JITTER = 1e-4
+
+
+def family_launches(cfg, dispatches: int, decode_steps: int) -> dict:
+    """The launches of ``dispatches`` prefills and decode steps, exactly.
+    paligemma-3b: #1 five times a layer (wq, wk, wv, wo, w_down) and
+    once for the tied unembedding, #2 (the gelu-gated MLP) once a layer,
+    #9 once a layer a decode step (prefill attends through the plain
+    ``mha`` under the prefix mask).  rwkv6-3b: #1 eight times a layer
+    (w_r, w_k, w_v, w_g, w_o; the channel mix's w_k, w_v, w_r) and once
+    for the untied unembedding; the LoRA and decay matrices are float
+    (plain matmuls) and no attention kernel runs."""
+    n = cfg.num_layers
+    if cfg.family == "rwkv":
+        return {"lut_dequant_matmul": (8 * n + 1) * dispatches}
+    return {"lut_dequant_matmul": (5 * n + 1) * dispatches,
+            "lut_dequant_matmul_gated": n * dispatches,
+            "decode_gqa": n * decode_steps}
+
+
+def family_requests(cfg):
+    """Phase 9's requests: 8 prompts of 17..400 tokens (seed 3),
+    FAMILY_NEW new tokens each."""
+    import numpy as np
+
+    from repro_torch.runtime.server import Request
+
+    rng = np.random.default_rng(3)
+    return [Request(i, rng.integers(0, cfg.vocab_size, int(n))
+                    .astype(np.int32), max_new_tokens=FAMILY_NEW)
+            for i, n in enumerate(rng.integers(17, 401, 8))]
+
+
+def family_gemm_checks(model, cfg, reqs, card) -> None:
+    """16a: the kernels at the family's own shapes, on the served model's
+    own codes and tables, each held to its plain version on the card at
+    phase 2's gate (1e-4 of the plain version's largest magnitude), x in
+    the served bfloat16: #1 at the widest K (paligemma-3b's ``w_down``,
+    K 16384 in four 4096-row chains; rwkv6-3b's channel-mix ``w_v``, K
+    8960 in three) and a d_model-square projection, and for
+    paligemma-3b #2 (d_model x d_ff, gelu), at M = 1 (a decode step) and
+    at the shortest and longest bucket's prefill rows (the patches
+    included); the unembedding at M = 1, the only M the served path
+    gives it (prefill takes the last position): paligemma-3b's tied
+    257216-row table through ``mm_stream_t``, rwkv6-3b's untied 2560 x
+    65536 ``unembed.out``.  paligemma-3b's #9 at n_kv 1, g 8, head_dim
+    256 over a VLM_MAX_LEN-position float32 cache, the query bfloat16 as
+    the path passes it, at the served lengths: the 8 requests' last
+    decode positions in one call and the longest alone.  Prints each
+    shape's kernel and plain-version times; none enters the kernels
+    line."""
+    import torch
+
+    from repro_torch.kernels.decode_gqa import decode_gqa
+    from repro_torch.kernels.decode_gqa.ref import decode_gqa_ref
+    from repro_torch.kernels.lut_dequant_matmul import (
+        lut_dequant_matmul, lut_dequant_matmul_gated)
+    from repro_torch.kernels.lut_dequant_matmul.ref import (
+        lut_dequant_matmul_gated_ref, lut_dequant_matmul_ref)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(16)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    vlm = cfg.family == "vlm"
+    p = cfg.num_prefix_tokens if vlm else 0
+    lens = sorted(len(r.prompt) for r in reqs)
+    rows = (1, p + lens[0], p + lens[-1])
+    d = cfg.d_model
+    lp = model.layer(0)
+
+    def gate(label, kernel, plain):
+        gate_vs_plain(f"16a {cfg.name}", label, kernel, plain, flush)
+
+    def x_of(m, k):
+        return torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+
+    print(f"  16a {cfg.name}: the kernels at its shapes, M = {list(rows)}, "
+          f"x bfloat16 [{card}]", flush=True)
+    ws = ((("w_down", lp["mlp"]["w_down"]), ("wq", lp["attn"]["wq"])) if vlm
+          else (("cmix w_v", lp["cmix"]["w_v"]), ("tmix w_r", lp["tmix"]["w_r"])))
+    for name, w in ws:
+        k = w.codes.shape[0]
+        c = w.codes.reshape(k, -1)
+        for m in rows:
+            x = x_of(m, k)
+            gate(f"#1 {name} M={m} K={k} N={c.shape[1]}",
+                 lambda: lut_dequant_matmul(x, c, w.lut, w.qmeta,
+                                            out_dtype=torch.float32),
+                 lambda: lut_dequant_matmul_ref(x, c, w.lut, w.qmeta))
+    x = x_of(1, d)
+    if vlm:
+        emb = model.tree()["embed"]["tokens"]
+        gate(f"#1 tied unembedding (mm_stream_t) M=1 K={d} "
+             f"N={emb.codes.shape[0]}",
+             lambda: lut_dequant_matmul(x, emb.codes, emb.lut, emb.qmeta,
+                                        transpose_codes=True,
+                                        out_dtype=torch.float32),
+             lambda: lut_dequant_matmul_ref(x, emb.codes, emb.lut, emb.qmeta,
+                                            transpose_codes=True))
+        wg, wu = lp["mlp"]["w_gate"], lp["mlp"]["w_up"]
+        for m in rows:
+            x = x_of(m, d)
+            gate(f"#2 M={m} K={d} N={cfg.d_ff} ({cfg.activation})",
+                 lambda: lut_dequant_matmul_gated(
+                     x, wg.codes, wu.codes, wg.lut, wu.lut, wg.qmeta,
+                     wu.qmeta, activation=cfg.activation,
+                     out_dtype=torch.float32),
+                 lambda: lut_dequant_matmul_gated_ref(
+                     x, wg.codes, wu.codes, wg.lut, wu.lut, wg.qmeta,
+                     wu.qmeta, activation=cfg.activation))
+        n_kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+        g = cfg.num_heads // n_kv
+        served = torch.tensor([p + len(r.prompt) + FAMILY_NEW - 1
+                               for r in reqs], dtype=torch.int32, device=dev)
+        for lengths in (served, served.max()[None]):
+            b = lengths.shape[0]
+            q = torch.randn(b, n_kv, g, hd, generator=gen,
+                            device=dev).to(torch.bfloat16)
+            kc, vc = (torch.randn(b, VLM_MAX_LEN, n_kv, hd, generator=gen,
+                                  device=dev) for _ in range(2))
+            print(f"    #9 grid at lengths {lengths.tolist()}: "
+                  f"{contiguous_split(lengths, n_kv, VLM_MAX_LEN)}",
+                  flush=True)
+            gate(f"#9 B={b} n_kv={n_kv} g={g} hd={hd} S={VLM_MAX_LEN}",
+                 lambda: decode_gqa(q, kc, vc, lengths),
+                 lambda: decode_gqa_ref(q, kc, vc, lengths))
+    else:
+        out = model.tree()["unembed"]["out"]
+        gate(f"#1 unembed.out M=1 K={d} N={out.codes.shape[1]}",
+             lambda: lut_dequant_matmul(x, out.codes, out.lut, out.qmeta,
+                                        out_dtype=torch.float32),
+             lambda: lut_dequant_matmul_ref(x, out.codes, out.lut,
+                                            out.qmeta))
+    del flush
+    torch.cuda.empty_cache()
+
+
+def family_path_check(model, cfg_served):
+    """16b: the served model's first FAMILY_CHECK_LAYERS layers at full
+    width and float32 compute, card against CPU, under 15b's jitter rule
+    (``jitter_path_check``): a 2-row prefill of FAMILY_CHECK_LEN tokens
+    (after the 256 patches for paligemma-3b, the server's frames) and
+    PATH_STEPS decode steps through the contiguous entry points, the
+    launches exact.  The jitter rule, not phase 3's last-bit one, for
+    both families: the card's split-TF32 prefill GEMMs differ from
+    float32 by ~1e-5 (15b), 15-30x a last-bit table change, so a
+    last-bit spread does not bound what #1 and #2 at their gate may do;
+    paligemma-3b's random ``wq``/``wk`` (no qk-norm) also give large
+    scores, which amplify it as the hybrid's local attention does."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.exponential_quant import QWeight
+    from repro_torch.models import api as mapi
+    from repro_torch.models.transformer import _rewrap
+
+    n = FAMILY_CHECK_LAYERS
+    cfg = cfg_served.replace(num_layers=n, compute_dtype="float32")
+    api = mapi.get_model(cfg)
+
+    def head(v):
+        if isinstance(v, QWeight):
+            return QWeight(v.codes[:n], v.lut[:n], v.qmeta[:n])
+        return v[:n]
+
+    def cut(node):
+        return {k: cut(v) if isinstance(v, dict) else head(v)
+                for k, v in node.items()}
+
+    tree = model.tree()
+    tree["blocks"] = cut(tree["blocks"])
+    card = api.module(cfg, _rewrap(tree), device="cuda")
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, FAMILY_CHECK_LEN)), dtype=torch.int32)
+    frames = None
+    if cfg.frontend:
+        frames = torch.as_tensor((np.random.default_rng(0).normal(
+            size=(2, cfg.num_prefix_tokens, cfg.d_model)) * 0.02
+        ).astype(np.float32))
+    max_len = (cfg.num_prefix_tokens + FAMILY_CHECK_LEN + PATH_STEPS)
+
+    def run(m, dev, feed=None):
+        pe = None if frames is None else frames.to(dev)
+        logits, cache = api.prefill(m, toks.to(dev), cfg, max_len,
+                                    prefix_embeds=pe,
+                                    cache_dtype=torch.float32)
+        outs = [logits[:, -1].float().cpu()]
+        for step in range(PATH_STEPS):
+            nxt = outs[-1].argmax(-1) if feed is None else feed[step]
+            logits, cache = api.decode_step(
+                m, cache, nxt[:, None].to(torch.int32).to(dev), cfg)
+            outs.append(logits[:, -1].float().cpu())
+        return outs
+
+    lp = card.layer(0)
+    w = lp["mlp"]["w_up"] if cfg.family == "vlm" else lp["cmix"]["w_k"]
+    return jitter_path_check(f"16b {cfg.name}", card, cfg, run,
+                             family_launches(cfg, 1 + PATH_STEPS, PATH_STEPS),
+                             w, FAMILY_JITTER)
+
+
+def serve_family(name: str, card: str) -> None:
+    """16: ``name`` at full width, FAMILY_LAYERS[name] layers, random
+    weights (seed 0) drawn and quantized to 7 bits on the card tensor by
+    tensor (``random_quantized_model``); the kernels at its shapes
+    (``family_gemm_checks``); the path check on its first layers
+    (``family_path_check``); then ``InferenceServer.generate`` (the
+    bucketed fallback: no Engine for either family) serves
+    ``family_requests`` (paligemma-3b: 256 patch frames a request and a
+    VLM_MAX_LEN-position cache) twice on one server with every bucket's
+    decode steps replayed as a CUDA graph, then twice on another
+    eagerly: every request ``ok``, the launches exact
+    (``family_launches``: #1, #2 and #9, no paged kernel), every pass's
+    streams equal the first's; prefill tok/s at first use and warm,
+    decode ms a step, peak memory, the decode step alone eager and
+    replayed after the longest prompt, and the bytes a decode step reads
+    against their bound at HBM_BYTES_PER_S."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.exponential_quant import QWeight
+    from repro_torch.kernels import _build
+    from repro_torch.runtime.server import InferenceServer
+
+    t_phase = time.perf_counter()
+    cfg = get_config(name)
+    layers = FAMILY_LAYERS[name]
+    cut = ("all layers" if layers == cfg.num_layers else
+           f"{layers} of its {cfg.num_layers} layers (depth cut)")
+    extra = (f"{cfg.num_heads} / {cfg.num_kv_heads} heads of "
+             f"{cfg.resolved_head_dim}, {cfg.num_prefix_tokens} patches, tied"
+             if cfg.family == "vlm" else
+             f"{cfg.d_model // cfg.rwkv_head_dim} WKV heads of "
+             f"{cfg.rwkv_head_dim}, untied")
+    print(f"  {name}: {cut}; widths as published: d_model {cfg.d_model}, "
+          f"d_ff {cfg.d_ff}, {extra}, vocab {cfg.vocab_size}", flush=True)
+    cfg = cfg.replace(num_layers=layers)
+    fresh_peak()
+    t0 = time.perf_counter()
+    model = random_quantized_model(cfg, 0, FAMILY_FIT_ELEMS)
+    torch.cuda.synchronize()
+    nbytes = sum(b.numel() * b.element_size() for b in model.buffers())
+    print(f"    weights drawn and quantized on the card in "
+          f"{time.perf_counter() - t0:.1f} s (each table fit on at most "
+          f"{FAMILY_FIT_ELEMS} elements): {nbytes / 1e9:.2f} GB, set-up "
+          f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    reqs = family_requests(cfg)
+    family_gemm_checks(model, cfg, reqs, card)
+    family_path_check(model, cfg)
+    vlm = cfg.family == "vlm"
+    max_len = (VLM_MAX_LEN if vlm
+               else max(len(r.prompt) for r in reqs) + FAMILY_NEW)
+    n_buckets = len({len(r.prompt) for r in reqs})
+    steps = n_buckets * (FAMILY_NEW - 1)
+    want = family_launches(cfg, n_buckets + steps, steps)
+    prompt_toks = sum(len(r.prompt) for r in reqs)
+    first = None
+    for graphs in (True, False):
+        mode = "graphs" if graphs else "eager"
+        srv = InferenceServer(cfg, params=model, max_len=max_len,
+                              device="cuda", cuda_graphs=graphs)
+        for n, when in ((1, "first use"), (2, "warm")):
+            fresh_peak()
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            outs = srv.generate(reqs)
+            torch.cuda.synchronize()
+            t_run = time.perf_counter() - t0
+            counts = _build.launch_counts()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            label = f"16c {name} [{mode}, pass {n}]"
+            require(srv.last_engine is None, f"{label}: an Engine was built")
+            check_served(outs, reqs, cfg, FAMILY_NEW)
+            require(counts == want, f"{label}: launches {counts}, want "
+                    f"{want} ({n_buckets} buckets, {FAMILY_NEW - 1} decode "
+                    f"steps each; no paged kernel)")
+            require(srv.bucket_graphs == (n * n_buckets if graphs else 0),
+                    f"{label}: {srv.bucket_graphs} graphs captured")
+            first = first or outs
+            require(all(np.array_equal(a.tokens, b.tokens)
+                        for a, b in zip(first, outs)),
+                    f"{label}: other token streams than the first pass's")
+            prefill_s = sum(c.prefill_s for c in outs)
+            decode_s = sum(c.decode_s for c in outs)
+            print(f"  {label} ({when}) served {len(outs)} requests in "
+                  f"{t_run:.2f} s ({n_buckets} buckets), launches {counts}: "
+                  f"prefill {prompt_toks / prefill_s:.1f} tok/s "
+                  f"({prompt_toks} prompt tokens in {prefill_s:.3f} s), "
+                  f"decode {1e3 * decode_s / steps:.2f} ms a step ({steps} "
+                  f"steps of 1 row, each bucket's first eager step and "
+                  f"capture included), peak {peak:.2f} GiB, "
+                  f"{srv.bucket_graphs} graphs in {srv.bucket_capture_s:.2f} "
+                  f"s [{card}]", flush=True)
+    longest = max(reqs, key=lambda r: len(r.prompt))
+    eager, replayed, per = bucket_step_ms(srv, longest.prompt)
+    require(per == family_launches(cfg, 1, 1),
+            f"16c {name}: a replayed step launches {per}")
+    # what a step reads: every weight but the embedding rows it gathers
+    # (the tied table is read whole by the unembedding)
+    read = nbytes
+    emb = model.tree()["embed"]["tokens"]
+    if not cfg.tie_embeddings:
+        read -= sum(t.numel() * t.element_size() for t in (
+            (emb.codes, emb.lut, emb.qmeta) if isinstance(emb, QWeight)
+            else (emb,)))
+    bound = 1e3 * read / HBM_BYTES_PER_S
+    print(f"  16c {name}: the decode step alone after the "
+          f"{len(longest.prompt)}-token prompt (batch 1): eager {eager:.3f} "
+          f"ms, replayed {replayed:.3f} ms a step, launches a step {per}; it "
+          f"reads {read / 1e9:.3f} GB of weights, {bound:.3f} ms at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s ({replayed / bound:.1f}x); "
+          f"first completion tokens {first[0].tokens[:8].tolist()} [{card}]",
+          flush=True)
+    del srv, model
+    fresh_peak()
+    print(f"  phase 16 {name} took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
 
 
@@ -5452,6 +5849,9 @@ def main() -> int:
         phase("phase 15: the PIM tables and recurrentgemma-2b")
         pim_tables_phase()
         serve_hybrid(card)
+        phase("phase 16: paligemma-3b and rwkv6-3b")
+        for name in (VLM, RWKV):
+            serve_family(name, card)
         phase("all phases passed")
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -3,12 +3,16 @@
 The caller turns the JAX arrays into numpy arrays (this module imports
 nothing of JAX); :func:`params_from_jax` copies them byte for byte into
 the family's params module (a
-:class:`~repro_torch.models.transformer.DecoderLM`, or for the hybrid a
-:class:`~repro_torch.models.rglru.HybridLM`), so both sides compute with
+:class:`~repro_torch.models.transformer.DecoderLM`, the vlm's too: its
+tree is the decoder's; for the hybrid a
+:class:`~repro_torch.models.rglru.HybridLM`; for rwkv a
+:class:`~repro_torch.models.rwkv6.RwkvLM`), so both sides compute with
 the same values.  It handles float leaves (bfloat16 included), qtensor
 leaves ``{codes, lut, qmeta}`` (per-tensor or layer-stacked), the
 stacked blocks, the hybrid's ``layer_XX`` blocks (``lam``, ``conv_w``,
-``conv_b``, ``ba``, ``bx`` among them), the qk-norm scales, the tied
+``conv_b``, ``ba``, ``bx`` among them), rwkv's ``blocks.{ln1, tmix,
+ln2, cmix}`` with the LayerNorm biases and the float LoRA and decay
+matrices, the qk-norm scales, the tied
 ``embed.tokens`` table, the untied ``unembed.out``, the empty norm
 trees of ``nonparam_ln``, and the calibrated act-quant tables
 ``blocks.act_q[site] = {lut, qmeta}`` (per KV head for attn_k/attn_v),

@@ -11,9 +11,13 @@ default, ``cuda``, raises without a card); ``--arch`` names one of
 
 ``--bucketed`` runs the legacy length-bucketed contiguous-cache path
 instead (the baseline the engine is measured against).  A family the
-Engine does not support (``--arch recurrentgemma-2b``, the hybrid)
-serves through ``InferenceServer.generate``, which falls back to that
-path; the Engine's flags (``--act-quant``, ``--kv-codes``,
+Engine does not support (``--arch recurrentgemma-2b``, the hybrid;
+``--arch paligemma-3b``, the vlm, each request after 256 stub patch
+embeddings; ``--arch rwkv6-3b``) serves through
+``InferenceServer.generate``, which falls back to that path.  As in the
+reference, ``--max-len`` sizes the cache without the patches: the
+server raises ``ValueError`` when a vlm bucket's patches, prompt and new
+tokens do not fit it.  The Engine's flags (``--act-quant``, ``--kv-codes``,
 ``--spec-k``, ``--chaos``, ``--max-queue`` and the cluster's) then raise
 ``ValueError``, as the reference's Engine does for such a family.
 

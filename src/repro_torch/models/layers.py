@@ -44,27 +44,31 @@ def norm_specs(cfg: ModelConfig, kind: str | None = None) -> dict:
     kind = kind or cfg.norm
     if kind == "rmsnorm":
         return {"scale": ParamSpec((cfg.d_model,), ("embed",), "ones")}
+    if kind == "layernorm":
+        return {"scale": ParamSpec((cfg.d_model,), ("embed",), "ones"),
+                "bias": ParamSpec((cfg.d_model,), ("embed",), "zeros")}
     if kind == "nonparam_ln":   # OLMo: LayerNorm without scale or bias
         return {}
-    raise NotImplementedError(f"norm {kind!r} is not ported yet (ROADMAP "
-                              f"Queue 1 item 13)")
+    raise ValueError(kind)
 
 
 def apply_norm(p: Params, x: torch.Tensor, cfg: ModelConfig,
-               eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm, or (``nonparam_ln``) ``(x - mean) * rsqrt(var + eps)``
-    with the biased variance; in float32, back to x's dtype."""
+               kind: str | None = None, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm, or LayerNorm ``(x - mean) * rsqrt(var + eps)`` with the
+    biased variance, times ``scale`` plus ``bias`` for ``layernorm`` and
+    bare for ``nonparam_ln``; ``kind`` defaults to ``cfg.norm``.  In
+    float32, back to x's dtype."""
+    kind = kind or cfg.norm
     xf = x.to(F32)
-    if cfg.norm == "rmsnorm":
+    if kind == "rmsnorm":
         var = (xf * xf).mean(-1, keepdim=True)
         out = xf * torch.rsqrt(var + eps) * p["scale"].to(F32)
-    elif cfg.norm == "nonparam_ln":
+    else:
         mu = xf.mean(-1, keepdim=True)
         var = xf.var(-1, keepdim=True, unbiased=False)
         out = (xf - mu) * torch.rsqrt(var + eps)
-    else:
-        raise NotImplementedError(f"norm {cfg.norm!r} is not ported yet "
-                                  f"(ROADMAP Queue 1 item 13)")
+        if kind == "layernorm":
+            out = out * p["scale"].to(F32) + p["bias"].to(F32)
     return out.to(x.dtype)
 
 

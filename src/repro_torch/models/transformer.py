@@ -5,7 +5,10 @@ the contiguous-cache entry points and the paged serving entry points.
 ``forward``, ``prefill`` and ``decode_step`` are the legacy contiguous
 path (``InferenceServer.generate_bucketed``): one ``[L, B, max_len,
 n_kv, hd]`` cache per batch, written *in place* at ``pos`` (the
-reference returns a new cache from ``dynamic_update_slice``).
+reference returns a new cache from ``dynamic_update_slice``).  The vlm
+family (paligemma-3b) runs them too: ``forward`` and ``prefill`` take
+``prefix_embeds``, the stub frontend's patch embeddings, ahead of the
+tokens under the prefix-LM mask, and the cache holds their K/V.
 ``prefill_into_cache``, ``spec_verify_into_cache`` and
 ``decode_step_paged`` take a
 :class:`~repro_torch.runtime.paged_cache.PagedView` and update its page
@@ -154,10 +157,24 @@ def _copy_at(cache: torch.Tensor, at: torch.Tensor, new: torch.Tensor) -> None:
 
 
 def _check_prefix(prefix_embeds) -> None:
+    """Refuse prefix embeddings in a family without a stub frontend (the
+    reference's hybrid and rwkv entry points take the argument and drop
+    it)."""
     if prefix_embeds is not None:
         raise NotImplementedError("prefix embeddings (the vlm stub "
-                                  "frontend) are not ported yet (ROADMAP "
-                                  "Queue 1 item 13)")
+                                  "frontend) are taken by the decoder and "
+                                  "vlm families only")
+
+
+def _embed_with_prefix(params, tokens, cfg: ModelConfig, prefix_embeds):
+    """The token embeddings [B, S, D], after the prefix embeddings [B, P,
+    D] cast to their dtype when given, and the attention mask: ``("prefix",
+    P)`` (full within the prefix, causal after it), else causal."""
+    x = L.embed_tokens(params["embed"], tokens, cfg)
+    if prefix_embeds is None:
+        return x, ("causal", None)
+    x = torch.cat([prefix_embeds.to(x.dtype), x], 1)
+    return x, ("prefix", prefix_embeds.shape[1])
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -197,16 +214,17 @@ def _block(lp: dict, x, cfg: ModelConfig, positions, mask):
 
 def forward(params: DecoderLM, tokens: torch.Tensor, cfg: ModelConfig,
             prefix_embeds=None):
-    """Full-sequence causal forward.  Returns (logits [B, S, V], the
-    auxiliary loss: the MoE layers' load-balancing loss averaged over
-    the layers, 0.0 for dense blocks)."""
-    _check_prefix(prefix_embeds)
-    x = L.embed_tokens(params["embed"], tokens, cfg)
+    """Full-sequence forward over ``prefix_embeds`` [B, P, D] (the vlm's
+    patch embeddings, attended under the prefix-LM mask) and then
+    ``tokens`` [B, S].  Returns (logits [B, P + S, V], the auxiliary
+    loss: the MoE layers' load-balancing loss averaged over the layers,
+    0.0 for dense blocks)."""
+    x, mask = _embed_with_prefix(params, tokens, cfg, prefix_embeds)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.num_layers):
-        x, a, _ = _block(params.layer(i), x, cfg, positions, ("causal", None))
+        x, a, _ = _block(params.layer(i), x, cfg, positions, mask)
         if a is not None:
             aux = aux + a
     x = L.apply_norm(params["ln_f"], x, cfg)
@@ -215,19 +233,18 @@ def forward(params: DecoderLM, tokens: torch.Tensor, cfg: ModelConfig,
 
 def prefill(params: DecoderLM, tokens: torch.Tensor, cfg: ModelConfig,
             max_len: int, prefix_embeds=None, cache_dtype=torch.bfloat16):
-    """Run the prompts ``tokens`` [B, S] and build a contiguous cache of
-    ``max_len`` positions holding their K/V.  Returns (logits [B, 1, V]
-    at the last position, the cache with ``pos = S``)."""
-    _check_prefix(prefix_embeds)
-    x = L.embed_tokens(params["embed"], tokens, cfg)
+    """Run ``prefix_embeds`` [B, P, D] (if given) and the prompts
+    ``tokens`` [B, S], and build a contiguous cache of ``max_len``
+    positions holding the K/V of all ``P + S``.  Returns (logits [B, 1,
+    V] at the last position, the cache with ``pos = P + S``)."""
+    x, mask = _embed_with_prefix(params, tokens, cfg, prefix_embeds)
     b, s, _ = x.shape
     if s > max_len:
         raise ValueError(f"prompt length {s} exceeds the cache's {max_len}")
     positions = torch.arange(s, device=x.device).expand(b, s)
     cache = init_cache(cfg, b, max_len, cache_dtype, device=x.device)
     for i in range(cfg.num_layers):
-        x, _, (k, v) = _block(params.layer(i), x, cfg, positions,
-                              ("causal", None))
+        x, _, (k, v) = _block(params.layer(i), x, cfg, positions, mask)
         cache["k"][i, :, :s] = cache_cast(k, cache_dtype)
         cache["v"][i, :, :s] = cache_cast(v, cache_dtype)
     x = L.apply_norm(params["ln_f"], x, cfg)

@@ -22,9 +22,13 @@ come to the host in one copy at the end.  It serves float
 activations (``act_quant`` and ``kv_codes`` apply to the Engine only,
 as in the reference).  ``generate`` falls back to it for a family the
 Engine does not support (``Engine.supports``: the hybrid, whose
-rings and recurrent states have no paged path), as the reference's
-does; the hybrid's decode steps replay a graph the same way, its rings
-and states written in place in the graph's static buffers.
+rings and recurrent states have no paged path, rwkv, whose state has
+none either, and the vlm, whose stub frontend the Engine does not
+take), as the reference's does; the hybrid's and rwkv's decode steps
+replay a graph the same way, their rings and states written in place
+in the graph's static buffers.  A vlm bucket is prefilled after its
+patch embeddings (``_frames_for``), which take the cache's first
+``num_prefix_tokens`` positions.
 """
 
 from __future__ import annotations
@@ -159,39 +163,61 @@ class InferenceServer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _frames_for(self, batch: int, seq: int):
+        """The stub frontend's prefix embeddings for a bucket of ``batch``
+        rows, on the server's device: for a vlm, ``num_prefix_tokens``
+        patch embeddings a row, the reference's draw (numpy's
+        ``default_rng(0)``, ``normal * 0.02``, float32: the same bytes);
+        None for a family without a frontend."""
+        del seq
+        if self.cfg.family == "encdec":
+            raise NotImplementedError("the encoder-decoder family's audio "
+                                      "frames are not ported yet (ROADMAP "
+                                      "Queue 1 item 13)")
+        if not self.cfg.frontend:
+            return None
+        rng = np.random.default_rng(0)
+        frames = rng.normal(size=(batch, self.cfg.num_prefix_tokens,
+                                  self.cfg.d_model)) * 0.02
+        return torch.as_tensor(frames.astype(np.float32), device=self.device)
+
     def _run_bucket(self, group: list[Request]) -> list[Completion]:
         toks = torch.as_tensor(np.stack([r.prompt for r in group]),
                                dtype=torch.int32, device=self.device)
+        plen = toks.shape[1]
+        pe = self._frames_for(len(group), plen)
+        # the first decode step's position: a vlm's patch positions come
+        # first
+        start = plen + (0 if pe is None else pe.shape[1])
+        max_new = max(r.max_new_tokens for r in group)
+        # a positional family's contiguous cache holds max_len positions
+        # and its steps cannot check; the hybrid's rings are bounded by
+        # the window and rwkv's state does not grow
+        if (self.cfg.family in ("decoder", "vlm")
+                and start + max_new - 1 > self.max_len):
+            raise ValueError(f"cache full: position {start} + "
+                             f"{max_new - 1} decode steps > {self.max_len}")
         t0 = time.perf_counter()
         logits, cache = self.api.prefill(self.params, toks, self.cfg,
-                                         self.max_len,
+                                         self.max_len, prefix_embeds=pe,
                                          cache_dtype=self.kv_dtype)
         cur = logits[:, -1, :].argmax(-1)[:, None].to(torch.int32)
         self._sync()
         t_prefill = time.perf_counter() - t0
-
-        plen = toks.shape[1]
-        max_new = max(r.max_new_tokens for r in group)
-        # an Engine family's contiguous cache holds max_len positions and
-        # its steps cannot check; the hybrid's rings are bounded by the
-        # window
-        if Engine.supports(self.cfg) and plen + max_new - 1 > self.max_len:
-            raise ValueError(f"cache full: position {plen} + "
-                             f"{max_new - 1} decode steps > {self.max_len}")
 
         # the decode loop's state lives on the device: the step reads
         # and advances it, so its graph replays with no host input
         gen = torch.zeros((len(group), max(max_new, 1)), dtype=torch.int32,
                           device=self.device)
         gen[:, :1] = cur
-        pos = torch.full((), plen, dtype=torch.int64, device=self.device)
+        pos = torch.full((), start, dtype=torch.int64, device=self.device)
         cache["pos"] = pos
 
         def step(_inputs):
             logits, _ = self.api.decode_step(self.params, cache, cur,
                                              self.cfg)
             nxt = logits[:, -1, :].argmax(-1)[:, None].to(torch.int32)
-            gen.index_copy_(1, (pos - (plen - 1)).reshape(1), nxt)
+            gen.index_copy_(1, (pos - (start - 1)).reshape(1), nxt)
             cur.copy_(nxt)
             pos.add_(1)
 

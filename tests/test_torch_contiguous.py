@@ -230,7 +230,8 @@ def test_prefill_and_decode_match_reference_under_flash_attend(
 
 def test_decode_step_launch_paths(monkeypatch):
     """The flash branch calls ``mha_decode`` once per layer and step, the
-    dense branch ``mha``; a full cache raises instead of clamping."""
+    dense branch ``mha``; a full cache raises instead of clamping; a
+    prefix is taken."""
     _, cfg, _, model = _setup(None)
     tapi = torch_api.get_model(cfg)
     calls = {"mha_decode": 0, "mha": 0}
@@ -252,8 +253,10 @@ def test_decode_step_launch_paths(monkeypatch):
     assert calls == {"mha_decode": cfg.num_layers, "mha": cfg.num_layers}
     with pytest.raises(ValueError, match="cache full"):
         tapi.decode_step(model, cache, toks[:, 5:6], cfg)
-    with pytest.raises(NotImplementedError, match="prefix"):
-        tapi.forward(model, toks, cfg, prefix_embeds=torch.zeros(1, 2, 64))
+    # a prefix goes ahead of the tokens, under the prefix-LM mask
+    logits, _ = tapi.forward(model, toks, cfg,
+                             prefix_embeds=torch.zeros(1, 2, 64))
+    assert logits.shape == (1, 2 + 6, cfg.vocab_size)
 
 
 # ----------------------------------------------------------- serving --

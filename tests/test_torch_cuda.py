@@ -22,9 +22,10 @@ steps run eagerly, the Lama primitives (bulk LUT op, signed
 histogram) on their vector and scalar paths, with out-of-range codes,
 and the MoE layers: a routed layer replayed in a CUDA graph, the kernel
 path against the plain path under the routing rule, and a small MoE
-engine with graphs and eagerly; the tiny hybrid (recurrentgemma-2b) on
-the card against the CPU, and its bucketed decode replayed against
-eager.
+engine with graphs and eagerly; the tiny hybrid (recurrentgemma-2b),
+the tiny vlm (paligemma-3b at its n_kv 1, g 8, head_dim 256) and the
+tiny rwkv6-3b on the card against the CPU, and their bucketed decode
+replayed against eager.
 The Lama primitives and the histogram are held to exact equality
 (integers, and sums of +-1 in float32).
 Tolerance: 1e-4 of the reference's largest magnitude for float outputs
@@ -2497,3 +2498,140 @@ def test_hybrid_bucketed_graphs_equal_eager(dev):
         np.testing.assert_array_equal(x.tokens, y.tokens)
     assert counts[0] == counts[1] == _hybrid_launches(cfg, 3 + 3 * 11)
     assert on.bucket_graphs == 3 and off.bucket_graphs == 0
+
+
+# --------------------------------------------- the vlm and rwkv families --
+
+def _family_card_cfg(arch):
+    """The reference's tiny paligemma-3b with the full model's head
+    layout (n_kv 1, g 8, head_dim 256: #9 takes no head_dim 32), or the
+    tiny rwkv6-3b (no attention kernel); float32 compute."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch, tiny=True).replace(compute_dtype="float32")
+    if cfg.family == "vlm":
+        cfg = cfg.replace(num_heads=8, num_kv_heads=1, head_dim=256)
+    return cfg
+
+
+def _family_launches(cfg, dispatches: int, decode_steps: int) -> dict:
+    """paligemma-3b: #1 five times a layer (wq, wk, wv, wo, w_down) and
+    once for the tied unembedding, #2 once a layer, #9 once a layer a
+    decode step; rwkv6-3b: #1 eight times a layer and once for the
+    untied unembedding."""
+    n = cfg.num_layers
+    if cfg.family == "rwkv":
+        return {"lut_dequant_matmul": (8 * n + 1) * dispatches}
+    return {"lut_dequant_matmul": (5 * n + 1) * dispatches,
+            "lut_dequant_matmul_gated": n * dispatches,
+            "decode_gqa": n * decode_steps}
+
+
+def _family_jittered(model, rel: float = 1e-4):
+    """``model`` with each code table's entries scaled by ``1 +- rel``
+    (signs from seed 0): phase 2's gate on the LUT GEMMs."""
+    gen = torch.Generator().manual_seed(0)
+
+    def walk(tree):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = walk(v)
+            elif isinstance(v, eq.QWeight):
+                sign = torch.randint(0, 2, v.lut.shape, generator=gen) * 2 - 1
+                out[k] = eq.QWeight(v.codes, v.lut * (1 + rel * sign.to(
+                    v.lut.device, v.lut.dtype)), v.qmeta)
+            else:
+                out[k] = v
+        return out
+
+    return model.with_tree(walk(model.tree()))
+
+
+@pytest.mark.parametrize("arch", ["paligemma-3b", "rwkv6-3b"])
+def test_vlm_and_rwkv_on_the_card_equal_the_cpu(dev, arch):
+    """7-bit weights: a prefill (after 8 patches for the vlm) and 16
+    decode steps on the card (#1, #2, #9) against the CPU (the plain
+    versions), the card taking the CPU's greedy tokens.  Logits within
+    1e-4 of their scale or, if larger, the CPU's own spread under code
+    tables jittered by 1e-4 (15b's rule: the card's split-TF32 GEMMs
+    differ from float32 by up to phase 2's gate); greedy tokens equal
+    where the top-2 gap clears twice that; the launches exact."""
+    from repro_torch.core import lama_layers as ll
+    from repro_torch.kernels import _build
+    from repro_torch.models import api as mapi
+
+    cfg = _family_card_cfg(arch)
+    api = mapi.get_model(cfg)
+    dense = api.init("cpu", seed=5)
+    qtree, _ = ll.quantize_tree(dense.tree(), 7, axes=api.logical_axes())
+    cpu = api.module(cfg, qtree, device="cpu")
+    card = api.module(cfg, copy.deepcopy(qtree), device="cuda")
+    rng = np.random.default_rng(2)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 21)),
+                           dtype=torch.int32)
+    frames = (torch.as_tensor((rng.normal(size=(
+        2, cfg.num_prefix_tokens, cfg.d_model)) * 0.02).astype(np.float32))
+        if cfg.frontend else None)
+
+    def run(model, feed=None):
+        d = model.device
+        logits, cache = api.prefill(
+            model, toks.to(d), cfg, 64,
+            prefix_embeds=None if frames is None else frames.to(d),
+            cache_dtype=torch.float32)
+        outs = [logits[:, -1].float().cpu()]
+        for step in range(16):
+            nxt = (outs[-1].argmax(-1) if feed is None else feed[step])
+            logits, cache = api.decode_step(
+                model, cache, nxt[:, None].to(torch.int32).to(d), cfg)
+            outs.append(logits[:, -1].float().cpu())
+        return outs
+
+    ref = run(cpu)
+    feed = [o.argmax(-1) for o in ref[:-1]]
+    spread = max((a - r).abs().max().item() / max(1.0, r.abs().max().item())
+                 for a, r in zip(run(_family_jittered(cpu), feed), ref))
+    _build.reset_launch_counts()
+    out = run(card, feed)
+    assert _build.launch_counts() == _family_launches(cfg, 17, 16)
+    rel = max(1e-4, spread)
+    for a, r in zip(out, ref):
+        tol = rel * max(1.0, r.abs().max().item())
+        assert (a - r).abs().max().item() <= tol
+        top2 = r.topk(2, -1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * tol
+        assert torch.equal(a.argmax(-1)[clear], r.argmax(-1)[clear])
+
+
+@pytest.mark.parametrize("arch", ["paligemma-3b", "rwkv6-3b"])
+def test_vlm_and_rwkv_bucketed_graphs_equal_eager(dev, arch):
+    """``generate`` falls back to ``generate_bucketed`` for both
+    families: with graphs on and off on the same weights, equal token
+    streams and launch counts (exact; no paged kernel), one graph
+    captured a bucket; the vlm's cache counts its patches."""
+    from repro_torch.kernels import _build
+    from repro_torch.runtime.server import InferenceServer, Request
+
+    cfg = _family_card_cfg(arch)
+    on = InferenceServer(cfg, quant_bits=7, max_len=96, device="cuda",
+                         rng_seed=3)
+    off = InferenceServer(cfg, params=on.params, max_len=96, device="cuda",
+                          cuda_graphs=False)
+    rng = np.random.default_rng(1)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                    12) for i, n in enumerate((9, 9, 33, 50))]
+    outs, counts = [], []
+    for srv in (on, off):
+        _build.reset_launch_counts()
+        outs.append(srv.generate(reqs))
+        counts.append(_build.launch_counts())
+        assert srv.last_engine is None
+    for x, y in zip(*outs):
+        assert x.status == "ok" and len(x.tokens) == 12
+        np.testing.assert_array_equal(x.tokens, y.tokens)
+    assert counts[0] == counts[1] == _family_launches(cfg, 3 + 3 * 11, 3 * 11)
+    assert on.bucket_graphs == 3 and off.bucket_graphs == 0
+    if cfg.frontend:
+        with pytest.raises(ValueError, match="cache full"):
+            on.generate([Request(0, reqs[3].prompt, 96 - 50 - 8 + 2)])

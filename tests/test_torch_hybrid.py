@@ -569,8 +569,7 @@ def test_hybrid_entry_points_default_to_the_card():
 
 def test_not_ported_lists_the_other_families():
     assert ARCH not in NOT_PORTED
-    assert set(NOT_PORTED) == {"paligemma-3b", "rwkv6-3b",
-                               "seamless-m4t-medium"}
+    assert set(NOT_PORTED) == {"seamless-m4t-medium"}
 
 
 def _served(main, argv, capsys, monkeypatch):

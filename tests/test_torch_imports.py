@@ -39,7 +39,9 @@ def test_port_files_found():
                 "models/moe.py", "configs/grok_1_314b.py",
                 "configs/llama4_scout_17b_a16e.py", "models/rglru.py",
                 "configs/recurrentgemma_2b.py", "launch/pim_tables.py",
-                "core/pim/__init__.py", "core/pim/accel.py"):
+                "core/pim/__init__.py", "core/pim/accel.py",
+                "models/rwkv6.py", "configs/paligemma_3b.py",
+                "configs/rwkv6_3b.py"):
         assert ROOT / "src" / "repro_torch" / rel in PORT_FILES, rel
 
 

@@ -9,8 +9,11 @@ metrics snapshot (wall-time keys left out), and the number of trace
 events.  The two packages draw their random weights differently, so no
 token is compared here (``tests/test_torch_cluster.py`` and the engine
 tests do that on shared weights); what the launcher counts does not
-depend on the weights.  An architecture the port lacks raises its
-not-ported error.
+depend on the weights.  The families without an Engine (paligemma-3b,
+the vlm; rwkv6-3b) serve through ``generate``'s bucketed fallback with
+the counts of the reference's ``--bucketed`` launcher (its Engine
+refuses them), and both launchers refuse the Engine's flags for them.
+An architecture the port lacks raises its not-ported error.
 """
 
 import json
@@ -110,6 +113,51 @@ def test_moe_archs_launch_as_the_reference(arch, path, tmp_path, capsys,
     seen = _both_launchers(flags, path, tmp_path, capsys, monkeypatch)
     assert seen[0] == seen[1]
     assert seen[1][:2] == (4, 20)
+
+
+FALLBACK_ARCHS = ("paligemma-3b", "rwkv6-3b")
+
+
+@pytest.mark.parametrize("arch", FALLBACK_ARCHS)
+def test_fallback_archs_launch_as_the_reference(arch, tmp_path, capsys,
+                                                monkeypatch):
+    """``--arch`` takes the vlm and rwkv families: the port's default
+    path falls back to the bucketed server and counts what the
+    reference's ``--bucketed`` launcher counts, with no trace or
+    metrics written on either side (the bucketed path is untraced).
+    Float weights: the reference's 7-bit fit alone takes ~10 s to
+    compile at the tiny size, and the counts do not depend on them."""
+    flags = ["--arch", arch, "--tiny", "--requests", "3", "--new-tokens",
+             "5", "--prompt-len", "20"]
+    seen = []
+    for name, main, extra in (("ref", jserve.main, ["--bucketed"]),
+                              ("port", tserve.main, ["--device", "cpu"])):
+        trace = tmp_path / f"{name}.trace.json"
+        met = tmp_path / f"{name}.metrics.jsonl"
+        n_req, n_tok, text = _run(main, flags + extra + [
+            "--trace", str(trace), "--metrics-json", str(met)], capsys,
+            monkeypatch)
+        assert not trace.exists() and not met.exists()
+        seen.append((n_req, n_tok))
+    assert seen[0] == seen[1] == (3, 15)
+    assert "bucketed fallback" in text and "device: cpu" in text
+
+
+@pytest.mark.parametrize("flags", [["--act-quant", "7"], ["--spec-k", "2"],
+                                   ["--prefill-workers", "1",
+                                    "--decode-workers", "1"]],
+                         ids=["act-quant", "spec-k", "cluster"])
+@pytest.mark.parametrize("arch", FALLBACK_ARCHS)
+def test_launchers_refuse_engine_flags_for_the_fallback_archs(arch, flags,
+                                                             monkeypatch):
+    """The Engine's flags raise ``ValueError`` for a family without an
+    Engine in both launchers (the reference's from its Engine)."""
+    argv = ["serve", "--arch", arch, "--tiny", "--requests", "1",
+            "--new-tokens", "2", *flags]
+    for main, extra in ((jserve.main, []), (tserve.main, ["--device", "cpu"])):
+        monkeypatch.setattr(sys, "argv", argv + extra)
+        with pytest.raises(ValueError):
+            main()
 
 
 @pytest.mark.parametrize("arch", NOT_PORTED)
