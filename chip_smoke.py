@@ -215,6 +215,34 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
      launches exact, no paged kernel, equal streams; prefill tok/s,
      decode ms a step, peak memory, the decode step alone eager and
      replayed against the weight bytes it reads.
+ 17. seamless-m4t-medium (the encdec: stub audio frames into a
+     bidirectional encoder, cross-attention in the decoder) at full
+     width, 6 of its 12 encoder and 6 of its 12 decoder layers (depth
+     cut for the script's time), phase 16's way: (a) #1 at its shapes
+     (the decoder's K 4096 ``w_down`` and K 1024 cross ``wq`` at M = 1
+     and the shortest and longest bucket's rows; the untied 1024 x
+     256206 unembedding at M = 1); (b) 1 encoder and 1 decoder layer
+     card against CPU under 15b's jitter rule; (c) phase 9's 8 requests
+     through ``generate``'s fallback, graphs twice and eager twice,
+     #1's launches exact (no other kernel: attention is the plain
+     ``mha``), equal streams, the decode step alone against the bytes of
+     the decoder and unembedding codes it reads.
+ 18. training (no kernel runs: the parameters are float): (a)
+     olmo-1b at full width, all 16 layers, ``Trainer`` with the
+     ``TrainConfig`` defaults (batch 8, seq 128, remat a block) for 12
+     steps on the card, every loss and gradient norm finite; ms a step,
+     tokens/s, model FLOP/s (6 N tokens over the step) and peak memory;
+     (b) one step of a 1-layer full-width olmo-1b at float32 compute,
+     TF32 off, on the card against the CPU from the same parameters and
+     batch: the loss, the gradient norm and each gradient leaf within a
+     float32 bound or four times the CPU's spread under a one-ulp
+     parameter change, and the updated parameters within the bound
+     Adam's first step puts on a gradient difference; (c) the
+     preemption flow at 1 layer: a straight run to step 6 (twice: their
+     spread printed), a run to 3 with a checkpoint every 3, its resume
+     to 6 equal to the straight run (exactly, or within twice the spread
+     where the card's backward is not deterministic), the checkpoint
+     restored on the CPU to the same bytes.
 Phase 3 prints, for olmo-1b, minicpm-2b and qwen3-14b, the card-vs-CPU
 error after each layer beside the CPU's own spread under last-bit
 weight tables, at the prefill chunk and the first decode step.
@@ -5184,7 +5212,7 @@ def hybrid_path_check(model, cfg_served, jitter: float = HYBRID_JITTER):
 
 
 def jitter_path_check(label, card, cfg, run, want: dict, gemm_w,
-                      jitter: float):
+                      jitter: float, norms_a_step=None):
     """13c's jitter rule on a card model ``card`` of ``cfg`` (float32
     compute): ``run(model, device, feed)`` (the CPU's greedy tokens fed
     to the card) gives the logits of a prefill and PATH_STEPS decode
@@ -5197,7 +5225,9 @@ def jitter_path_check(label, card, cfg, run, want: dict, gemm_w,
     spread (at least one such token over the check); #1's difference
     from float32 on ``gemm_w`` is gated at ``jitter``.  Prints the
     residual stream's error at every norm input.  Returns (the card's
-    error, the spread), relative to the logits' scale."""
+    error, the spread), relative to the logits' scale.  ``norms_a_step``:
+    the number of norms the prefill and each decode step run, where they
+    differ (an encoder-decoder's prefill runs the encoder's too)."""
     import torch
 
     from repro_torch.kernels import _build
@@ -5218,10 +5248,14 @@ def jitter_path_check(label, card, cfg, run, want: dict, gemm_w,
     on_jit, jit_states = norm_inputs(lambda: run(
         decoded_cpu(_jittered(card, jitter), cfg), torch.device("cpu"), feed))
     t3 = time.perf_counter()
-    per_step = len(cpu_states) // (1 + PATH_STEPS)
+    # the norms each step runs (the prefill's first: an encoder-decoder's
+    # prefill runs more than its decode steps)
+    per_step = (list(norms_a_step) if norms_a_step else
+                [len(cpu_states) // (1 + PATH_STEPS)] * (1 + PATH_STEPS))
+    ends = [sum(per_step[:i + 1]) for i in range(len(per_step))]
     for step in range(1 + PATH_STEPS):
         errs = []
-        for k in range(step * per_step, (step + 1) * per_step):
+        for k in range(ends[step] - per_step[step], ends[step]):
             scale = max(cpu_states[k].abs().max().item(), 1e-30)
             errs.append(f"{(card_states[k] - cpu_states[k]).abs().max().item() / scale:.1e}"
                         f"/{(jit_states[k] - cpu_states[k]).abs().max().item() / scale:.1e}")
@@ -5268,7 +5302,7 @@ def jitter_path_check(label, card, cfg, run, want: dict, gemm_w,
 
 def bucket_step_ms(srv, prompt, iters: int = 20) -> tuple:
     """The decode step alone, batch 1, after ``prompt`` (and a vlm's
-    patches, ``srv._frames_for``): CUDA events
+    patches or an encdec's frames, ``srv._frames_for``): CUDA events
     around ``iters`` eager steps (each launch from the host) and around
     ``iters`` replays of the step captured as one CUDA graph, as
     ``generate_bucketed`` runs it.  Returns (eager ms, replayed ms, the
@@ -5284,7 +5318,13 @@ def bucket_step_ms(srv, prompt, iters: int = 20) -> tuple:
     logits, cache = api.prefill(params, toks, cfg, srv.max_len,
                                 prefix_embeds=pe, cache_dtype=srv.kv_dtype)
     cur = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
-    start = toks.shape[1] + (0 if pe is None else pe.shape[1])
+    start = srv._start(toks.shape[1], pe)
+    # a step with a device ``pos`` cannot check the cache's room: a
+    # positional family's cache must hold every step timed here
+    require(cfg.family not in ("decoder", "vlm", "encdec")
+            or start + 1 + 2 * iters <= srv.max_len,
+            f"bucket_step_ms: {1 + 2 * iters} steps after position {start} "
+            f"pass the {srv.max_len}-position cache")
     pos = torch.full((), start, dtype=torch.int64, device="cuda")
     cache["pos"] = pos
 
@@ -5410,13 +5450,15 @@ def serve_hybrid(card: str) -> None:
           flush=True)
 
 
-# ------------------------------- phase 16: paligemma-3b and rwkv6-3b --
+# -------- phases 16-17: paligemma-3b, rwkv6-3b and seamless-m4t-medium --
 
-VLM, RWKV = "paligemma-3b", "rwkv6-3b"
+VLM, RWKV, ENCDEC = "paligemma-3b", "rwkv6-3b", "seamless-m4t-medium"
 # the served depth: all 18 of paligemma-3b's layers; rwkv6-3b at 8 of its
 # 32 (its prefill runs the WKV scan a token at a time, ~10 kernels a
-# token a layer, and the phase has ~60 s of the script's time)
-FAMILY_LAYERS = {VLM: 18, RWKV: 8}
+# token a layer, and the phase has ~60 s of the script's time);
+# seamless-m4t-medium at 6 of its 12 encoder and 6 of its 12 decoder
+# layers (the whole script took 1014 s with all of them, PR 29)
+FAMILY_LAYERS = {VLM: 18, RWKV: 8, ENCDEC: 12}
 FAMILY_CHECK_LAYERS = 2        # card against CPU, full width
 FAMILY_CHECK_LEN = 32
 FAMILY_NEW = 16
@@ -5436,8 +5478,19 @@ def family_launches(cfg, dispatches: int, decode_steps: int) -> dict:
     ``mha`` under the prefix mask).  rwkv6-3b: #1 eight times a layer
     (w_r, w_k, w_v, w_g, w_o; the channel mix's w_k, w_v, w_r) and once
     for the untied unembedding; the LoRA and decay matrices are float
-    (plain matmuls) and no attention kernel runs."""
+    (plain matmuls) and no attention kernel runs.  seamless-m4t-medium:
+    #1 alone (attention is the plain ``mha``, as in the reference); a
+    prefill once for ``enc_in``, six times an encoder layer (wq, wk, wv,
+    wo, w_up with its gelu epilogue, w_down), ten times a decoder layer
+    (the self-attention's K/V computed once and handed to ``mha``, the
+    cross-attention's wq, wk, wv, wo, the MLP's two) and once for the
+    untied unembedding; a decode step eight times a decoder layer (the
+    cross K/V are read from the cache) and once more."""
     n = cfg.num_layers
+    if cfg.family == "encdec":
+        e, d = cfg.enc_layers, cfg.dec_layers
+        return {"lut_dequant_matmul": (2 + 6 * e + 10 * d)
+                * (dispatches - decode_steps) + (8 * d + 1) * decode_steps}
     if cfg.family == "rwkv":
         return {"lut_dequant_matmul": (8 * n + 1) * dispatches}
     return {"lut_dequant_matmul": (5 * n + 1) * dispatches,
@@ -5458,11 +5511,11 @@ def family_requests(cfg):
             for i, n in enumerate(rng.integers(17, 401, 8))]
 
 
-def family_gemm_checks(model, cfg, reqs, card) -> None:
-    """16a: the kernels at the family's own shapes, on the served model's
-    own codes and tables, each held to its plain version on the card at
-    phase 2's gate (1e-4 of the plain version's largest magnitude), x in
-    the served bfloat16: #1 at the widest K (paligemma-3b's ``w_down``,
+def family_gemm_checks(model, cfg, reqs, card, ph: str = "16") -> None:
+    """16a (17a): the kernels at the family's own shapes, on the served
+    model's own codes and tables, each held to its plain version on the
+    card at phase 2's gate (1e-4 of the plain version's largest
+    magnitude), x in the served bfloat16: #1 at the widest K (paligemma-3b's ``w_down``,
     K 16384 in four 4096-row chains; rwkv6-3b's channel-mix ``w_v``, K
     8960 in three) and a d_model-square projection, and for
     paligemma-3b #2 (d_model x d_ff, gelu), at M = 1 (a decode step) and
@@ -5470,7 +5523,9 @@ def family_gemm_checks(model, cfg, reqs, card) -> None:
     included); the unembedding at M = 1, the only M the served path
     gives it (prefill takes the last position): paligemma-3b's tied
     257216-row table through ``mm_stream_t``, rwkv6-3b's untied 2560 x
-    65536 ``unembed.out``.  paligemma-3b's #9 at n_kv 1, g 8, head_dim
+    65536 ``unembed.out``, seamless-m4t-medium's untied 1024 x 256206
+    one (decoder layer 0's K 4096 ``w_down`` and K 1024 cross-attention
+    ``wq`` are its other two).  paligemma-3b's #9 at n_kv 1, g 8, head_dim
     256 over a VLM_MAX_LEN-position float32 cache, the query bfloat16 as
     the path passes it, at the served lengths: the 8 requests' last
     decode positions in one call and the longest alone.  Prints each
@@ -5496,15 +5551,21 @@ def family_gemm_checks(model, cfg, reqs, card) -> None:
     lp = model.layer(0)
 
     def gate(label, kernel, plain):
-        gate_vs_plain(f"16a {cfg.name}", label, kernel, plain, flush)
+        gate_vs_plain(f"{ph}a {cfg.name}", label, kernel, plain, flush)
 
     def x_of(m, k):
         return torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
 
-    print(f"  16a {cfg.name}: the kernels at its shapes, M = {list(rows)}, "
+    print(f"  {ph}a {cfg.name}: the kernels at its shapes, M = {list(rows)}, "
           f"x bfloat16 [{card}]", flush=True)
-    ws = ((("w_down", lp["mlp"]["w_down"]), ("wq", lp["attn"]["wq"])) if vlm
-          else (("cmix w_v", lp["cmix"]["w_v"]), ("tmix w_r", lp["tmix"]["w_r"])))
+    if cfg.family == "encdec":
+        dp = model.dec_layer(0)
+        ws = (("dec w_down", dp["mlp"]["w_down"]),
+              ("dec xattn wq", dp["xattn"]["wq"]))
+    elif vlm:
+        ws = (("w_down", lp["mlp"]["w_down"]), ("wq", lp["attn"]["wq"]))
+    else:
+        ws = (("cmix w_v", lp["cmix"]["w_v"]), ("tmix w_r", lp["tmix"]["w_r"]))
     for name, w in ws:
         k = w.codes.shape[0]
         c = w.codes.reshape(k, -1)
@@ -5562,11 +5623,13 @@ def family_gemm_checks(model, cfg, reqs, card) -> None:
     torch.cuda.empty_cache()
 
 
-def family_path_check(model, cfg_served):
-    """16b: the served model's first FAMILY_CHECK_LAYERS layers at full
-    width and float32 compute, card against CPU, under 15b's jitter rule
+def family_path_check(model, cfg_served, ph: str = "16"):
+    """16b (17b): the served model's first FAMILY_CHECK_LAYERS layers (for
+    seamless-m4t-medium the first layer of each stack) at full width and
+    float32 compute, card against CPU, under 15b's jitter rule
     (``jitter_path_check``): a 2-row prefill of FAMILY_CHECK_LEN tokens
-    (after the 256 patches for paligemma-3b, the server's frames) and
+    (after the 256 patches for paligemma-3b, the server's frames; with
+    FAMILY_CHECK_LEN frames through seamless-m4t-medium's encoder) and
     PATH_STEPS decode steps through the contiguous entry points, the
     launches exact.  The jitter rule, not phase 3's last-bit one, for
     both families: the card's split-TF32 prefill GEMMs differ from
@@ -5581,8 +5644,17 @@ def family_path_check(model, cfg_served):
     from repro_torch.models import api as mapi
     from repro_torch.models.transformer import _rewrap
 
-    n = FAMILY_CHECK_LAYERS
-    cfg = cfg_served.replace(num_layers=n, compute_dtype="float32")
+    encdec = cfg_served.family == "encdec"
+    # the encdec's check takes one layer of each stack, 2 in all: at 2 + 2
+    # the CPU's own spread under the jitter reached 0.47 of the logits'
+    # scale on the card (the cross-attention amplifies the encoder's
+    # spread ~50x; PR 29's first run) and no greedy token's top-2 gap
+    # cleared it, so the check compared nothing
+    n = 1 if encdec else FAMILY_CHECK_LAYERS
+    cfg = cfg_served.replace(num_layers=2 * n if encdec else n,
+                             compute_dtype="float32")
+    if encdec:
+        cfg = cfg.replace(enc_layers=n, dec_layers=n)
     api = mapi.get_model(cfg)
 
     def head(v):
@@ -5595,16 +5667,18 @@ def family_path_check(model, cfg_served):
                 for k, v in node.items()}
 
     tree = model.tree()
-    tree["blocks"] = cut(tree["blocks"])
+    for k in ("enc_blocks", "dec_blocks") if encdec else ("blocks",):
+        tree[k] = cut(tree[k])
     card = api.module(cfg, _rewrap(tree), device="cuda")
     toks = torch.as_tensor(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (2, FAMILY_CHECK_LEN)), dtype=torch.int32)
     frames = None
     if cfg.frontend:
         frames = torch.as_tensor((np.random.default_rng(0).normal(
-            size=(2, cfg.num_prefix_tokens, cfg.d_model)) * 0.02
-        ).astype(np.float32))
-    max_len = (cfg.num_prefix_tokens + FAMILY_CHECK_LEN + PATH_STEPS)
+            size=(2, FAMILY_CHECK_LEN if encdec else cfg.num_prefix_tokens,
+                  cfg.d_model)) * 0.02).astype(np.float32))
+    max_len = ((0 if encdec else cfg.num_prefix_tokens) + FAMILY_CHECK_LEN
+               + PATH_STEPS)
 
     def run(m, dev, feed=None):
         pe = None if frames is None else frames.to(dev)
@@ -5620,14 +5694,19 @@ def family_path_check(model, cfg_served):
         return outs
 
     lp = card.layer(0)
-    w = lp["mlp"]["w_up"] if cfg.family == "vlm" else lp["cmix"]["w_k"]
-    return jitter_path_check(f"16b {cfg.name}", card, cfg, run,
+    w = lp["cmix"]["w_k"] if cfg.family == "rwkv" else lp["mlp"]["w_up"]
+    # an encoder-decoder's prefill runs the encoder's norms (two a layer
+    # and the last) before the decoder's (three a layer and ln_f)
+    norms = ([2 * n + 1 + 3 * n + 1] + [3 * n + 1] * PATH_STEPS if encdec
+             else None)
+    return jitter_path_check(f"{ph}b {cfg.name}", card, cfg, run,
                              family_launches(cfg, 1 + PATH_STEPS, PATH_STEPS),
-                             w, FAMILY_JITTER)
+                             w, FAMILY_JITTER, norms)
 
 
-def serve_family(name: str, card: str) -> None:
-    """16: ``name`` at full width, FAMILY_LAYERS[name] layers, random
+def serve_family(name: str, card: str, ph: str = "16") -> None:
+    """16 (17 for seamless-m4t-medium): ``name`` at full width,
+    FAMILY_LAYERS[name] layers, random
     weights (seed 0) drawn and quantized to 7 bits on the card tensor by
     tensor (``random_quantized_model``); the kernels at its shapes
     (``family_gemm_checks``); the path check on its first layers
@@ -5641,7 +5720,8 @@ def serve_family(name: str, card: str) -> None:
     streams equal the first's; prefill tok/s at first use and warm,
     decode ms a step, peak memory, the decode step alone eager and
     replayed after the longest prompt, and the bytes a decode step reads
-    against their bound at HBM_BYTES_PER_S."""
+    (an encoder-decoder's: the decoder's and the unembedding's, not the
+    encoder's) against their bound at HBM_BYTES_PER_S."""
     import numpy as np
     import torch
 
@@ -5654,15 +5734,22 @@ def serve_family(name: str, card: str) -> None:
     cfg = get_config(name)
     layers = FAMILY_LAYERS[name]
     cut = ("all layers" if layers == cfg.num_layers else
-           f"{layers} of its {cfg.num_layers} layers (depth cut)")
-    extra = (f"{cfg.num_heads} / {cfg.num_kv_heads} heads of "
-             f"{cfg.resolved_head_dim}, {cfg.num_prefix_tokens} patches, tied"
-             if cfg.family == "vlm" else
-             f"{cfg.d_model // cfg.rwkv_head_dim} WKV heads of "
-             f"{cfg.rwkv_head_dim}, untied")
+           f"{layers} of its {cfg.num_layers} layers (depth cut"
+           + (f": {layers // 2} encoder + {layers // 2} decoder)"
+              if cfg.family == "encdec" else ")"))
+    extra = {"vlm": f"{cfg.num_heads} / {cfg.num_kv_heads} heads of "
+                    f"{cfg.resolved_head_dim}, {cfg.num_prefix_tokens} "
+                    f"patches, tied",
+             "rwkv": f"{cfg.d_model // cfg.rwkv_head_dim} WKV heads of "
+                     f"{cfg.rwkv_head_dim}, untied",
+             "encdec": f"{cfg.num_heads} / {cfg.num_kv_heads} heads of "
+                       f"{cfg.resolved_head_dim}, a frame a prompt token "
+                       f"into the encoder, untied"}[cfg.family]
     print(f"  {name}: {cut}; widths as published: d_model {cfg.d_model}, "
           f"d_ff {cfg.d_ff}, {extra}, vocab {cfg.vocab_size}", flush=True)
     cfg = cfg.replace(num_layers=layers)
+    if cfg.family == "encdec":
+        cfg = cfg.replace(enc_layers=layers // 2, dec_layers=layers // 2)
     fresh_peak()
     t0 = time.perf_counter()
     model = random_quantized_model(cfg, 0, FAMILY_FIT_ELEMS)
@@ -5674,11 +5761,13 @@ def serve_family(name: str, card: str) -> None:
           f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
     reqs = family_requests(cfg)
-    family_gemm_checks(model, cfg, reqs, card)
-    family_path_check(model, cfg)
+    family_gemm_checks(model, cfg, reqs, card, ph)
+    family_path_check(model, cfg, ph)
     vlm = cfg.family == "vlm"
+    # room for the served tokens, and for bucket_step_ms's 41 steps after
+    # the longest prompt (the encdec's self-attention cache)
     max_len = (VLM_MAX_LEN if vlm
-               else max(len(r.prompt) for r in reqs) + FAMILY_NEW)
+               else max(len(r.prompt) for r in reqs) + max(FAMILY_NEW, 41))
     n_buckets = len({len(r.prompt) for r in reqs})
     steps = n_buckets * (FAMILY_NEW - 1)
     want = family_launches(cfg, n_buckets + steps, steps)
@@ -5697,7 +5786,7 @@ def serve_family(name: str, card: str) -> None:
             t_run = time.perf_counter() - t0
             counts = _build.launch_counts()
             peak = torch.cuda.max_memory_allocated() / 2**30
-            label = f"16c {name} [{mode}, pass {n}]"
+            label = f"{ph}c {name} [{mode}, pass {n}]"
             require(srv.last_engine is None, f"{label}: an Engine was built")
             check_served(outs, reqs, cfg, FAMILY_NEW)
             require(counts == want, f"{label}: launches {counts}, want "
@@ -5723,17 +5812,25 @@ def serve_family(name: str, card: str) -> None:
     longest = max(reqs, key=lambda r: len(r.prompt))
     eager, replayed, per = bucket_step_ms(srv, longest.prompt)
     require(per == family_launches(cfg, 1, 1),
-            f"16c {name}: a replayed step launches {per}")
+            f"{ph}c {name}: a replayed step launches {per}")
     # what a step reads: every weight but the embedding rows it gathers
-    # (the tied table is read whole by the unembedding)
+    # (the tied table is read whole by the unembedding); an
+    # encoder-decoder's step reads the decoder and the unembedding only
     read = nbytes
     emb = model.tree()["embed"]["tokens"]
-    if not cfg.tie_embeddings:
+    if cfg.family == "encdec":
+        # the cross-attention's wk / wv made the cache's cross K/V at
+        # prefill: a step reads neither
+        read = sum(b.numel() * b.element_size()
+                   for k in ("dec_blocks", "ln_f", "unembed")
+                   for name, b in model[k].named_buffers()
+                   if not name.startswith(("xattn.wk.", "xattn.wv.")))
+    elif not cfg.tie_embeddings:
         read -= sum(t.numel() * t.element_size() for t in (
             (emb.codes, emb.lut, emb.qmeta) if isinstance(emb, QWeight)
             else (emb,)))
     bound = 1e3 * read / HBM_BYTES_PER_S
-    print(f"  16c {name}: the decode step alone after the "
+    print(f"  {ph}c {name}: the decode step alone after the "
           f"{len(longest.prompt)}-token prompt (batch 1): eager {eager:.3f} "
           f"ms, replayed {replayed:.3f} ms a step, launches a step {per}; it "
           f"reads {read / 1e9:.3f} GB of weights, {bound:.3f} ms at "
@@ -5742,8 +5839,264 @@ def serve_family(name: str, card: str) -> None:
           flush=True)
     del srv, model
     fresh_peak()
-    print(f"  phase 16 {name} took {time.perf_counter() - t_phase:.1f} s",
+    print(f"  phase {ph} {name} took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
+
+
+# -------------------------------------------------- phase 18: training --
+
+TRAIN_ARCH = "olmo-1b"          # the training launcher's default
+TRAIN_STEPS = 12
+# 18b's and 18c's depth: 1 of olmo-1b's 16 layers (2 took 45 s of the
+# phase, the CPU's two steps and four 2.85 GB checkpoint writes; the
+# whole script 1014 s, PR 29)
+TRAIN_CHECK_LAYERS = 1
+TRAIN_CHECK_ROWS = 4            # 18b's batch (its CPU side sets the time)
+RESUME_STEPS, RESUME_EVERY = 6, 3
+
+
+def param_bytes(tree) -> int:
+    from repro_torch import tree as T
+
+    return sum(t.numel() * t.element_size() for t in T.leaves(tree))
+
+
+def train_full_width(card: str) -> None:
+    """18a: olmo-1b at full width, all its layers, through ``Trainer``
+    with the ``TrainConfig`` defaults (batch 8, seq 128, lr 3e-4, warmup
+    10, remat a block: the full config's) for TRAIN_STEPS steps on the
+    card, no checkpoint (the float32 parameters and the AdamW state are
+    ~19 GB).  Every loss and gradient norm finite; the median step after
+    the first two, tokens/s, model FLOP/s (6 N tokens over the step, N
+    every parameter) and peak memory printed."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.trainer import TrainConfig, Trainer
+
+    cfg = get_config(TRAIN_ARCH)
+    tcfg = TrainConfig(steps=TRAIN_STEPS, log_every=10 ** 9)
+    fresh_peak()
+    t0 = time.perf_counter()
+    out = Trainer(cfg, tcfg).run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    h = out["history"]
+    require(len(h) == TRAIN_STEPS and out["stopped_at"] == TRAIN_STEPS,
+            f"18a: {len(h)} steps, stopped at {out['stopped_at']}")
+    require(all(math.isfinite(x["loss"]) and math.isfinite(x["grad_norm"])
+                for x in h), f"18a: a loss or gradient norm is not finite: "
+            f"{[(x['loss'], x['grad_norm']) for x in h]}")
+    n = sum(b.numel() for b in out["params"].buffers())
+    warm = sorted(x["dt"] for x in h[2:])
+    dt = warm[len(warm) // 2]
+    tokens = tcfg.global_batch * tcfg.seq_len
+    print(f"  18a {TRAIN_ARCH}: all {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {n / 1e9:.3f}"
+          f"B float32 parameters, remat {cfg.remat!r}, compute "
+          f"{cfg.compute_dtype}; batch {tcfg.global_batch} x seq "
+          f"{tcfg.seq_len}, {TRAIN_STEPS} steps in {wall:.1f} s (set-up "
+          f"included)", flush=True)
+    print(f"  18a losses {[round(x['loss'], 4) for x in h]}, gradient norms "
+          f"{[round(x['grad_norm'], 3) for x in h]}", flush=True)
+    print(f"  18a: {1e3 * dt:.1f} ms a step (median of steps 2..), "
+          f"{tokens / dt:.0f} tokens/s, model {6 * n * tokens / dt / 1e12:.1f}"
+          f" TFLOP/s (6 N tokens a step), peak {peak:.2f} GiB; first step "
+          f"{1e3 * h[0]['dt']:.0f} ms [{card}]", flush=True)
+    del out
+    fresh_peak()
+
+
+def adam_step_bound(g_a, g_b, n_a, n_b, lr, max_norm, eps=1e-8):
+    """Per element, how far apart Adam's first step (bias-corrected:
+    ``lr * g / (|g| + eps)`` for the clipped ``g``, plus the same weight
+    decay on both sides) may move two copies of a parameter whose
+    gradients are ``g_a`` and ``g_b`` (global norms ``n_a``, ``n_b``):
+    ``|r(a) - r(b)| <= |a - b| / (min(|a|, |b|) + eps)`` for ``r(x) = x /
+    (|x| + eps)`` (on one side of zero ``eps |a - b| / ((|a| + eps)(|b| +
+    eps))``; across it ``|a| / (|a| + eps) + |b| / (|b| + eps)``), and at
+    most 2."""
+    import torch
+
+    a = g_a * min(1.0, max_norm / (n_a + 1e-9))
+    b = g_b * min(1.0, max_norm / (n_b + 1e-9))
+    r = (a - b).abs() / (torch.minimum(a.abs(), b.abs()) + eps)
+    return lr * torch.clamp(r, max=2.0)
+
+
+def train_step_check(card: str) -> None:
+    """18b: one ``Trainer`` step of a TRAIN_CHECK_LAYERS-layer,
+    full-width olmo-1b at float32 compute, TF32 off, on the card and on
+    the CPU from the same parameters (seed 0, drawn on the CPU) and the
+    same batch (step 0's, TRAIN_CHECK_ROWS rows of 128), warmup 0 so the
+    step moves.  Tolerances, as phase 3 derives them: the larger of a
+    float32 bound (products over K <= 8192 summed in another order: the
+    loss within 1e-5, the gradient's global norm within 1e-4, each
+    gradient leaf within 1e-3 of its largest magnitude) and four times
+    the CPU's own spread when every parameter moves by one float32 ulp
+    (signs from seed 0): the random model's attention scores reach ~1e2
+    (``wq`` / ``wk`` drawn with their heads axis' fan-in), so the score
+    gradients of near-tied keys amplify the last bits.  The updated
+    parameters within ``adam_step_bound`` of the two gradients plus 1e-6
+    of the leaf's scale (Adam's first step moves an element by ``lr * g
+    / (|g| + eps)``: a gradient near zero may step either way)."""
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.trainer import TrainConfig, Trainer
+
+    require(not torch.backends.cuda.matmul.allow_tf32,
+            "18b: TF32 is on for float32 matmuls")
+    cfg = get_config(TRAIN_ARCH).replace(num_layers=TRAIN_CHECK_LAYERS,
+                                         compute_dtype="float32")
+    tcfg = TrainConfig(steps=1, warmup=0, global_batch=TRAIN_CHECK_ROWS)
+    init = Trainer(cfg, tcfg, device="cpu").api.init("cpu", seed=0)
+    gen = torch.Generator().manual_seed(0)
+    nudged = T.tree_map(lambda p: p * (1 + 2.0 ** -23 * (torch.randint(
+        0, 2, p.shape, generator=gen) * 2 - 1)), init)
+    got, secs = {}, {}
+    for side, d, params0 in (("card", "cuda", init), ("cpu", "cpu", init),
+                             ("nudged", "cpu", nudged)):
+        t0 = time.perf_counter()
+        tr = Trainer(cfg, tcfg, device=d, params=params0)
+        params, opt, _ = tr.init_or_restore()
+        old = [p.detach().cpu().clone() for p in T.leaves(params)]
+        batch = {k: torch.as_tensor(v, device=d)
+                 for k, v in tr.data.batch(0).items()}
+        grads, metrics = tr.loss_and_grads(params, batch)
+        opt, metrics = tr.apply(params, opt, grads, metrics)
+        require(not torch.backends.cuda.matmul.allow_tf32,
+                "18b: TF32 turned on during the step")
+        got[side] = (float(metrics["loss"]), float(metrics["grad_norm"]),
+                     [g.cpu() for g in T.leaves(grads)],
+                     [p.detach().cpu() for p in T.leaves(params)], old,
+                     float(metrics["lr"]))
+        secs[side] = time.perf_counter() - t0
+    gl, gn, gg, gp, old, lr = got["card"]
+    cl, cn, cg, cp, _, _ = got["cpu"]
+    nl, nn, ng, _, _, _ = got["nudged"]
+    worst_g = worst_p = 0.0
+    for a, b, c, new_a, new_b, p0 in zip(gg, cg, ng, gp, cp, old):
+        scale = max(b.abs().max().item(), 1e-30)
+        tol = max(1e-3 * scale, 4 * (c - b).abs().max().item())
+        err = (a - b).abs().max().item()
+        worst_g = max(worst_g, err / tol)
+        require(err <= tol, f"18b: a gradient leaf {tuple(b.shape)} differs "
+                f"by {err:.3e} (tol {tol:.3e}, scale {scale:.3e})")
+        bound = adam_step_bound(a, b, gn, cn, lr, tcfg.max_grad_norm)
+        slack = 1e-6 * max(1.0, p0.abs().max().item())
+        excess = ((new_a - new_b).abs() - bound).max().item()
+        worst_p = max(worst_p, excess / slack)
+        require(excess <= slack, f"18b: an updated leaf {tuple(b.shape)} "
+                f"passes the Adam-step bound by {excess:.3e} (> {slack:.1e})")
+    loss_tol = max(1e-5 * abs(cl), 4 * abs(nl - cl))
+    norm_tol = max(1e-4 * cn, 4 * abs(nn - cn))
+    print(f"  18b {TRAIN_ARCH} (depth {TRAIN_CHECK_LAYERS}, full width, "
+          f"float32 compute, TF32 off): loss card {gl:.6f} / CPU {cl:.6f} / "
+          f"CPU one ulp off {nl:.6f} (tol {loss_tol:.2e}), gradient norm "
+          f"{gn:.6e} / {cn:.6e} / {nn:.6e} (tol {norm_tol:.2e}), the worst "
+          f"gradient leaf at {worst_g:.2f} of its tolerance, updated "
+          f"parameters at most {max(worst_p, 0.0):.2f} of the slack past the "
+          f"Adam-step bound at lr {lr:.1e}; card {secs['card']:.1f} s, CPU "
+          f"{secs['cpu']:.1f} + {secs['nudged']:.1f} s [{card}]", flush=True)
+    require(abs(gl - cl) <= loss_tol, f"18b: loss {gl} against the CPU's {cl}")
+    require(abs(gn - cn) <= norm_tol,
+            f"18b: grad norm {gn} against the CPU's {cn}")
+    fresh_peak()
+
+
+def train_resume(card: str) -> None:
+    """18c: the preemption flow at TRAIN_CHECK_LAYERS layers, full width
+    and the config's own bfloat16 compute on the card (the
+    ``tests/test_runtime.py`` case): two straight runs to RESUME_STEPS
+    (their largest difference is the card's spread: 0 where its backward
+    is deterministic), a run to RESUME_EVERY with a checkpoint every
+    RESUME_EVERY steps, its resume to RESUME_STEPS from that checkpoint;
+    the resumed parameters equal the straight run's exactly, or within
+    twice the spread where it is not 0; the last checkpoint restored on
+    the CPU holds the card's parameters and AdamW state byte for byte.
+    Warmup 10: every step's lr is the warmup's, whatever the total."""
+    import shutil
+
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.trainer import TrainConfig, Trainer
+
+    cfg = get_config(TRAIN_ARCH).replace(num_layers=TRAIN_CHECK_LAYERS)
+    ckdir = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    shutil.rmtree(ckdir, ignore_errors=True)
+
+    def tc(steps, d=None):
+        return TrainConfig(steps=steps, ckpt_every=RESUME_EVERY, ckpt_dir=d,
+                           keep=1, log_every=10 ** 9)
+
+    def leaves(out):
+        return [t.detach() for t in T.leaves(out["params"])]
+
+    def diff(a, b):
+        return max((x - y).abs().max().item() for x, y in zip(a, b))
+
+    t0 = time.perf_counter()
+    straight = [Trainer(cfg, tc(RESUME_STEPS)).run() for _ in range(2)]
+    spread = diff(leaves(straight[0]), leaves(straight[1]))
+    t1 = time.perf_counter()
+    first = Trainer(cfg, tc(RESUME_EVERY, ckdir)).run()
+    require(first["stopped_at"] == RESUME_EVERY,
+            f"18c: the first run stopped at {first['stopped_at']}")
+    resumed = Trainer(cfg, tc(RESUME_STEPS, ckdir)).run()
+    t2 = time.perf_counter()
+    require(resumed["history"][0]["step"] == RESUME_EVERY,
+            f"18c: the resume started at {resumed['history'][0]['step']}")
+    err = diff(leaves(resumed), leaves(straight[0]))
+    losses = [(round(a["loss"], 5), round(b["loss"], 5)) for a, b in zip(
+        resumed["history"], straight[0]["history"][RESUME_EVERY:])]
+    print(f"  18c {TRAIN_ARCH} (depth {TRAIN_CHECK_LAYERS}, full width, "
+          f"{cfg.compute_dtype}): two straight runs to {RESUME_STEPS} differ "
+          f"by {spread:.3e} (the card's spread); the run stopped at "
+          f"{RESUME_EVERY} and resumed differs from the straight one by "
+          f"{err:.3e}; losses after the resume (resumed, straight) {losses}; "
+          f"{t1 - t0:.1f} s + {t2 - t1:.1f} s with "
+          f"{param_bytes({'p': resumed['params'], 'o': resumed['opt']}) / 1e9:.2f}"
+          f" GB a checkpoint [{card}]", flush=True)
+    if spread == 0.0:
+        require(err == 0.0, f"18c: the resumed run differs by {err} from a "
+                f"straight run the card repeats exactly")
+    else:
+        require(err <= 2 * spread, f"18c: the resumed run differs by {err}, "
+                f"past twice the straight runs' spread {spread}")
+    state = {"params": resumed["params"].tree(), "opt": resumed["opt"]}
+    t3 = time.perf_counter()
+    back, meta = ckpt.restore(ckdir, state, device="cpu")
+    require(meta["step"] == RESUME_STEPS, f"18c: restored step {meta['step']}")
+    def raw(t):
+        return t.detach().reshape(-1).view(torch.uint8)
+
+    for a, b in zip(T.leaves(back), T.leaves(state)):
+        require(a.device.type == "cpu" and a.dtype == b.dtype
+                and torch.equal(raw(a), raw(b.cpu())),
+                f"18c: a leaf {tuple(b.shape)} restored on the CPU differs "
+                f"from the card's")
+    print(f"  18c: the step-{RESUME_STEPS} checkpoint restored on the CPU in "
+          f"{time.perf_counter() - t3:.1f} s, every one of its "
+          f"{len(T.leaves(state))} leaves byte-equal to the card's", flush=True)
+    shutil.rmtree(ckdir, ignore_errors=True)
+    del straight, first, resumed, state, back
+    fresh_peak()
+
+
+def training_phase(card: str) -> None:
+    t0 = time.perf_counter()
+    train_full_width(card)
+    train_step_check(card)
+    train_resume(card)
+    print(f"  phase 18 took {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -5852,6 +6205,10 @@ def main() -> int:
         phase("phase 16: paligemma-3b and rwkv6-3b")
         for name in (VLM, RWKV):
             serve_family(name, card)
+        phase("phase 17: seamless-m4t-medium (the encoder-decoder)")
+        serve_family(ENCDEC, card, "17")
+        phase("phase 18: training")
+        training_phase(card)
         phase("all phases passed")
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

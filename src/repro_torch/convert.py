@@ -6,10 +6,13 @@ the family's params module (a
 :class:`~repro_torch.models.transformer.DecoderLM`, the vlm's too: its
 tree is the decoder's; for the hybrid a
 :class:`~repro_torch.models.rglru.HybridLM`; for rwkv a
-:class:`~repro_torch.models.rwkv6.RwkvLM`), so both sides compute with
-the same values.  It handles float leaves (bfloat16 included), qtensor
-leaves ``{codes, lut, qmeta}`` (per-tensor or layer-stacked), the
-stacked blocks, the hybrid's ``layer_XX`` blocks (``lam``, ``conv_w``,
+:class:`~repro_torch.models.rwkv6.RwkvLM`; for the encdec an
+:class:`~repro_torch.models.encdec.EncDecLM`), so both sides compute with
+the same values.  It handles float leaves
+(bfloat16 included), qtensor leaves ``{codes, lut, qmeta}`` (per-tensor
+or layer-stacked), the stacked blocks (the encdec's ``enc_blocks`` and
+``dec_blocks`` with ``lnx`` / ``xattn``, its ``enc_in`` and
+``enc_ln_f``), the hybrid's ``layer_XX`` blocks (``lam``, ``conv_w``,
 ``conv_b``, ``ba``, ``bx`` among them), rwkv's ``blocks.{ln1, tmix,
 ln2, cmix}`` with the LayerNorm biases and the float LoRA and decay
 matrices, the qk-norm scales, the tied

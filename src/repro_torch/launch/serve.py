@@ -13,7 +13,8 @@ default, ``cuda``, raises without a card); ``--arch`` names one of
 instead (the baseline the engine is measured against).  A family the
 Engine does not support (``--arch recurrentgemma-2b``, the hybrid;
 ``--arch paligemma-3b``, the vlm, each request after 256 stub patch
-embeddings; ``--arch rwkv6-3b``) serves through
+embeddings; ``--arch rwkv6-3b``; ``--arch seamless-m4t-medium``, the
+encdec, each prompt's stub audio frames into its encoder) serves through
 ``InferenceServer.generate``, which falls back to that path.  As in the
 reference, ``--max-len`` sizes the cache without the patches: the
 server raises ``ValueError`` when a vlm bucket's patches, prompt and new

@@ -1,24 +1,35 @@
 """Model API (port of the JAX package's ``models/api.py``): one entry per
-architecture family.  Four are ported: ``decoder``, with dense or MoE
-blocks (``models/transformer.py``, ``models/moe.py``); ``vlm``, the
-decoder's entry points behind a stub patch frontend (``prefix_embeds``);
-``hybrid``, RecurrentGemma's RG-LRU and local attention
-(``models/rglru.py``); and ``rwkv``, RWKV-6's WKV recurrence
-(``models/rwkv6.py``).  The contiguous-cache entry points (``forward``,
-``prefill``, ``decode_step``, ``init_cache``) serve
+architecture family, all five of the reference's: ``decoder``, with
+dense or MoE blocks (``models/transformer.py``, ``models/moe.py``);
+``vlm``, the decoder's entry points behind a stub patch frontend
+(``prefix_embeds``); ``hybrid``, RecurrentGemma's RG-LRU and local
+attention (``models/rglru.py``); ``rwkv``, RWKV-6's WKV recurrence
+(``models/rwkv6.py``); and ``encdec``, seamless-m4t's encoder and
+cross-attending decoder behind stub audio frames
+(``models/encdec.py``).  The contiguous-cache entry points
+(``forward``, ``prefill``, ``decode_step``, ``init_cache``) serve
 ``generate_bucketed``; the paged ones (``prefill_into_cache``,
 ``decode_step_paged`` and ``spec_verify_into_cache``) serve the Engine,
-and are None for the hybrid and rwkv, as in the reference.  The Engine
-takes no frontend (``Engine.supports``), so ``InferenceServer.generate``
-falls back to the bucketed path for the vlm, the hybrid and rwkv."""
+and are None for the hybrid, rwkv and the encdec, as in the reference.
+The Engine takes no frontend (``Engine.supports``), so
+``InferenceServer.generate`` falls back to the bucketed path for every
+family but the decoder's.
+
+Training: :func:`loss_fn` (the next-token cross-entropy with the
+z-loss, over any family's ``forward``) and :func:`synth_batch` (a
+random batch, the reference's numpy draws)."""
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable
 
-from repro_torch.configs.base import ModelConfig
-from repro_torch.models import rglru, rwkv6, transformer
+import numpy as np
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch.configs.base import ModelConfig, RunShape
+from repro_torch.models import encdec, rglru, rwkv6, transformer
 from repro_torch.models.params import ParamTree, logical_axes
 
 
@@ -58,6 +69,12 @@ def get_model(cfg: ModelConfig) -> ModelAPI:
                         prefill=rwkv6.prefill,
                         decode_step=rwkv6.decode_step,
                         init_cache=rwkv6.init_cache)
+    if cfg.family == "encdec":
+        return ModelAPI(cfg=cfg, specs=encdec.model_specs(cfg),
+                        module=encdec.EncDecLM, forward=encdec.forward,
+                        prefill=encdec.prefill,
+                        decode_step=encdec.decode_step,
+                        init_cache=encdec.init_cache)
     if not (cfg.family == "decoder" and not cfg.frontend
             or cfg.family == "vlm" and cfg.frontend == "patch"):
         raise NotImplementedError(
@@ -73,3 +90,51 @@ def get_model(cfg: ModelConfig) -> ModelAPI:
                     decode_step_paged=transformer.decode_step_paged,
                     spec_verify_into_cache=transformer.spec_verify_into_cache,
                     collect_act_calibration=transformer.collect_act_calibration)
+
+
+# ------------------------------------------------------------- losses --
+
+def loss_fn(api: ModelAPI, params, batch: dict):
+    """The training loss of any family: the next-token cross-entropy
+    over ``forward``'s logits, the z-loss and ``0.01 * aux``.  A vlm's
+    patch positions are dropped; the encdec's logits are the decoder's
+    only.  Returns (total, ``{"loss", "z_loss", "aux_loss"}``)."""
+    cfg = api.cfg
+    pe = batch.get("prefix_embeds")
+    logits, aux = api.forward(params, batch["tokens"], cfg, prefix_embeds=pe)
+    if cfg.family == "vlm" and pe is not None:
+        logits = logits[:, pe.shape[1]:, :]
+    logz = torch.logsumexp(logits, -1)
+    tgt = torch.gather(logits, -1, batch["targets"].long()[..., None])[..., 0]
+    loss = torch.mean(logz - tgt)
+    zl = cfg.z_loss * torch.mean(logz ** 2)
+    total = loss + zl + 0.01 * aux
+    return total, {"loss": loss, "z_loss": zl, "aux_loss": aux}
+
+
+def synth_batch(cfg: ModelConfig, shape: RunShape, rng=None, seq_len=None,
+                device=None) -> dict:
+    """A random batch of ``shape``'s global batch, the reference's numpy
+    draws in its order (``default_rng(0)`` unless ``rng``): ``tokens``
+    and ``targets`` int32 [B, S]; the encdec's S frames or a frontend's
+    ``num_prefix_tokens`` patches, ``normal * 0.02``, in the compute
+    dtype (through float32, as the reference's cast goes).  On
+    ``device`` (the card unless ``"cpu"``)."""
+    dev = resolve_device(device)
+    rng = rng or np.random.default_rng(0)
+    b = shape.global_batch
+    s = seq_len or shape.seq_len
+
+    def ints():
+        return torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s)),
+                               dtype=torch.int32, device=dev)
+
+    batch = {"tokens": ints(), "targets": ints()}
+    n = s if cfg.family == "encdec" else (cfg.num_prefix_tokens
+                                          if cfg.frontend else 0)
+    if n:
+        frames = rng.normal(size=(b, n, cfg.d_model)) * 0.02
+        batch["prefix_embeds"] = torch.as_tensor(
+            frames.astype(np.float32), device=dev).to(
+                getattr(torch, cfg.compute_dtype))
+    return batch

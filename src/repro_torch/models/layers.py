@@ -20,6 +20,7 @@ import math
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import lama_layers as ll
@@ -82,6 +83,19 @@ def apply_head_rms(p: Params, x: torch.Tensor,
     xf = x.to(F32)
     var = (xf * xf).mean(-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * p["scale"].to(F32)).to(x.dtype)
+
+
+# ------------------------------------------------------------- remat --
+
+def remat(cfg: ModelConfig, block, *args):
+    """``block(*args)``; where ``cfg.remat == "block"`` and autograd is
+    recording, under activation checkpointing (the block's activations
+    recomputed in the backward pass): the reference's
+    ``jax.checkpoint(blk)``."""
+    if cfg.remat == "block" and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(block, *args,
+                                                 use_reentrant=False)
+    return block(*args)
 
 
 # -------------------------------------------------------------- rope --
@@ -184,15 +198,17 @@ def roped_q(p: Params, x: torch.Tensor, cfg: ModelConfig,
 
 
 def self_kv(p: Params, x: torch.Tensor, cfg: ModelConfig,
-            positions: torch.Tensor, act_q: dict | None = None):
-    """Project K, V for cache writes (K normed and roped); ``x`` is
+            positions: torch.Tensor, act_q: dict | None = None,
+            use_rope: bool = True):
+    """Project K, V for cache writes (K normed, and roped unless
+    ``use_rope`` is False: the encoder-decoder's cross K/V); ``x`` is
     encoded once at attn_in for both."""
     xq = _q(x, act_q, "attn_in")
     k = ll.dense_general(xq, p["wk"], "bsd,dnh->bsnh", dtype=x.dtype)
     v = ll.dense_general(xq, p["wv"], "bsd,dnh->bsnh", dtype=x.dtype)
     if cfg.qk_norm:
         k = apply_head_rms(p["k_norm"], k)
-    return rope(k, positions, cfg.rope_theta), v
+    return (rope(k, positions, cfg.rope_theta) if use_rope else k), v
 
 
 # Above this many score elements, ``mha`` with a mask descriptor takes

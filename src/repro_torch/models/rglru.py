@@ -245,6 +245,18 @@ def local_attn_block(p, x: torch.Tensor, cfg: ModelConfig, positions,
 
 # --------------------------------------------------------------- model --
 
+def _block(p: dict, x, cfg: ModelConfig, positions, kind: str):
+    """One layer over a whole sequence from zero states."""
+    h = L.apply_norm(p["ln1"], x, cfg)
+    if kind == "local":
+        y, _ = local_attn_block(p["attn"], h, cfg, positions, None, None)
+    else:
+        y, _ = rec_block(p["rec"], h, cfg)
+    x = x + y
+    h = L.apply_norm(p["ln2"], x, cfg)
+    return x + L.apply_mlp(p["mlp"], h, cfg)
+
+
 def forward(params: HybridLM, tokens: torch.Tensor, cfg: ModelConfig,
             prefix_embeds=None):
     """Full-sequence forward.  Returns (logits [B, S, V], 0.0)."""
@@ -253,15 +265,7 @@ def forward(params: HybridLM, tokens: torch.Tensor, cfg: ModelConfig,
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     for i, kind in enumerate(layer_kinds(cfg)):
-        p = params.layer(i)
-        h = L.apply_norm(p["ln1"], x, cfg)
-        if kind == "local":
-            y, _ = local_attn_block(p["attn"], h, cfg, positions, None, None)
-        else:
-            y, _ = rec_block(p["rec"], h, cfg)
-        x = x + y
-        h = L.apply_norm(p["ln2"], x, cfg)
-        x = x + L.apply_mlp(p["mlp"], h, cfg)
+        x = L.remat(cfg, _block, params.layer(i), x, cfg, positions, kind)
     x = L.apply_norm(params["ln_f"], x, cfg)
     aux = torch.zeros((), dtype=F32, device=x.device)
     return L.logits_fn(params, x, cfg), aux

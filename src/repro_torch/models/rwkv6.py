@@ -207,7 +207,7 @@ def forward(params: RwkvLM, tokens: torch.Tensor, cfg: ModelConfig,
     _check_prefix(prefix_embeds)
     x = _embed(params, tokens, cfg)
     for i in range(cfg.num_layers):
-        x, _, _ = _layer(params.layer(i), x, cfg, None, None)
+        x = L.remat(cfg, _layer, params.layer(i), x, cfg, None, None)[0]
     x = L.apply_norm(params["ln_f"], x, cfg, LN)
     aux = torch.zeros((), dtype=F32, device=x.device)
     return L.logits_fn(params, x, cfg), aux

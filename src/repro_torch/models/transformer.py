@@ -224,7 +224,8 @@ def forward(params: DecoderLM, tokens: torch.Tensor, cfg: ModelConfig,
     positions = torch.arange(s, device=x.device).expand(b, s)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.num_layers):
-        x, a, _ = _block(params.layer(i), x, cfg, positions, mask)
+        x, a, _ = L.remat(cfg, _block, params.layer(i), x, cfg, positions,
+                          mask)
         if a is not None:
             aux = aux + a
     x = L.apply_norm(params["ln_f"], x, cfg)
@@ -307,6 +308,32 @@ def decode_step(params: DecoderLM, cache: dict, tokens: torch.Tensor,
         x = x + _ffn(lp, h, cfg, aq)[0]
     x = L.apply_norm(params["ln_f"], x, cfg)
     return L.logits_fn(params, x, cfg), {**cache, "pos": pos + 1}
+
+
+# ---------------------------------------------------------------- loss --
+
+def lm_loss(params: DecoderLM, batch: dict, cfg: ModelConfig):
+    """Next-token cross-entropy with the z-loss; ``batch``: ``tokens`` /
+    ``targets`` [B, S], and optionally ``prefix_embeds`` (whose
+    positions' logits are dropped) and a float ``mask`` [B, S].  Returns
+    (loss + z-loss + 0.01 aux, ``{"loss", "z_loss", "aux_loss",
+    "ppl_proxy"}``)."""
+    pe = batch.get("prefix_embeds")
+    logits, aux = forward(params, batch["tokens"], cfg, prefix_embeds=pe)
+    if pe is not None:
+        logits = logits[:, pe.shape[1]:, :]
+    logz = torch.logsumexp(logits, -1)
+    tgt = torch.gather(logits, -1, batch["targets"].long()[..., None])[..., 0]
+    nll = logz - tgt
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones_like(nll)
+    denom = torch.clamp_min(torch.sum(mask), 1.0)
+    loss = torch.sum(nll * mask) / denom
+    zl = cfg.z_loss * torch.sum((logz ** 2) * mask) / denom
+    total = loss + zl + 0.01 * aux
+    return total, {"loss": loss, "z_loss": zl, "aux_loss": aux,
+                   "ppl_proxy": torch.exp(torch.clamp(loss, max=20.0))}
 
 
 # ------------------------------------------------------- paged serving --

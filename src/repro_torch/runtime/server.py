@@ -24,11 +24,13 @@ as in the reference).  ``generate`` falls back to it for a family the
 Engine does not support (``Engine.supports``: the hybrid, whose
 rings and recurrent states have no paged path, rwkv, whose state has
 none either, and the vlm, whose stub frontend the Engine does not
-take), as the reference's does; the hybrid's and rwkv's decode steps
-replay a graph the same way, their rings and states written in place
-in the graph's static buffers.  A vlm bucket is prefilled after its
-patch embeddings (``_frames_for``), which take the cache's first
-``num_prefix_tokens`` positions.
+take, nor the encdec's encoder), as the reference's does; the
+hybrid's, rwkv's and the encdec's decode steps replay a graph the same
+way, their rings, states and caches written in place in the graph's
+static buffers.  A vlm bucket is prefilled after its patch embeddings
+(``_frames_for``), which take the cache's first ``num_prefix_tokens``
+positions; an encdec bucket's prompts of S tokens come with S stub audio
+frames, which go to the encoder.
 """
 
 from __future__ import annotations
@@ -164,36 +166,43 @@ class InferenceServer:
             torch.cuda.synchronize(self.device)
 
     def _frames_for(self, batch: int, seq: int):
-        """The stub frontend's prefix embeddings for a bucket of ``batch``
-        rows, on the server's device: for a vlm, ``num_prefix_tokens``
-        patch embeddings a row, the reference's draw (numpy's
-        ``default_rng(0)``, ``normal * 0.02``, float32: the same bytes);
-        None for a family without a frontend."""
-        del seq
+        """The stub frontend's embeddings for a bucket of ``batch`` rows
+        of ``seq``-token prompts, on the server's device, the reference's
+        draw (numpy's ``default_rng(0)``, ``normal * 0.02``, float32: the
+        same bytes): for the encdec, ``seq`` audio frames a row; for a
+        vlm, ``num_prefix_tokens`` patch embeddings a row; None for a
+        family without a frontend."""
         if self.cfg.family == "encdec":
-            raise NotImplementedError("the encoder-decoder family's audio "
-                                      "frames are not ported yet (ROADMAP "
-                                      "Queue 1 item 13)")
-        if not self.cfg.frontend:
+            n = seq
+        elif self.cfg.frontend:
+            n = self.cfg.num_prefix_tokens
+        else:
             return None
         rng = np.random.default_rng(0)
-        frames = rng.normal(size=(batch, self.cfg.num_prefix_tokens,
-                                  self.cfg.d_model)) * 0.02
+        frames = rng.normal(size=(batch, n, self.cfg.d_model)) * 0.02
         return torch.as_tensor(frames.astype(np.float32), device=self.device)
+
+    def _start(self, plen: int, pe) -> int:
+        """The first decode step's cache position after a ``plen``-token
+        prompt and its frontend embeddings ``pe``: a vlm's patches take
+        the cache's first positions; the encdec's frames go to the
+        encoder and take none of its self-attention cache."""
+        if pe is None or self.cfg.family == "encdec":
+            return plen
+        return plen + pe.shape[1]
 
     def _run_bucket(self, group: list[Request]) -> list[Completion]:
         toks = torch.as_tensor(np.stack([r.prompt for r in group]),
                                dtype=torch.int32, device=self.device)
         plen = toks.shape[1]
         pe = self._frames_for(len(group), plen)
-        # the first decode step's position: a vlm's patch positions come
-        # first
-        start = plen + (0 if pe is None else pe.shape[1])
+        start = self._start(plen, pe)
         max_new = max(r.max_new_tokens for r in group)
-        # a positional family's contiguous cache holds max_len positions
-        # and its steps cannot check; the hybrid's rings are bounded by
-        # the window and rwkv's state does not grow
-        if (self.cfg.family in ("decoder", "vlm")
+        # a positional family's contiguous cache (the encdec's
+        # self-attention cache) holds max_len positions and its steps
+        # cannot check; the hybrid's rings are bounded by the window and
+        # rwkv's state does not grow
+        if (self.cfg.family in ("decoder", "vlm", "encdec")
                 and start + max_new - 1 > self.max_len):
             raise ValueError(f"cache full: position {start} + "
                              f"{max_new - 1} decode steps > {self.max_len}")

@@ -2635,3 +2635,154 @@ def test_vlm_and_rwkv_bucketed_graphs_equal_eager(dev, arch):
     if cfg.frontend:
         with pytest.raises(ValueError, match="cache full"):
             on.generate([Request(0, reqs[3].prompt, 96 - 50 - 8 + 2)])
+
+
+# ------------------------------------------ the encdec family and training --
+
+def _encdec_launches(cfg, prefills: int, decode_steps: int) -> dict:
+    """seamless-m4t-medium: a prefill launches #1 for ``enc_in``, six
+    times an encoder layer (wq, wk, wv, wo, w_up, w_down), ten times a
+    decoder layer (the self and the cross wq, wk, wv, wo, w_up, w_down)
+    and once for the unembedding; a decode step eight times a decoder
+    layer (the cross K/V are read from the cache) and once more."""
+    e, d = cfg.enc_layers, cfg.dec_layers
+    return {"lut_dequant_matmul": (2 + 6 * e + 10 * d) * prefills
+            + (8 * d + 1) * decode_steps}
+
+
+def _encdec_card_cfg():
+    from repro_torch.configs import get_config
+
+    return get_config("seamless-m4t-medium", tiny=True).replace(
+        compute_dtype="float32")
+
+
+def test_encdec_on_the_card_equals_the_cpu(dev):
+    """7-bit weights: a prefill of 21 tokens after 30 frames and 16
+    decode steps on the card (#1 only: attention is the plain ``mha``)
+    against the CPU, the card taking the CPU's greedy tokens, under the
+    rule of ``test_vlm_and_rwkv_on_the_card_equal_the_cpu``; the
+    launches exact."""
+    from repro_torch.core import lama_layers as ll
+    from repro_torch.kernels import _build
+    from repro_torch.models import api as mapi
+
+    cfg = _encdec_card_cfg()
+    api = mapi.get_model(cfg)
+    dense = api.init("cpu", seed=5)
+    qtree, _ = ll.quantize_tree(dense.tree(), 7, axes=api.logical_axes())
+    cpu = api.module(cfg, qtree, device="cpu")
+    card = api.module(cfg, copy.deepcopy(qtree), device="cuda")
+    rng = np.random.default_rng(2)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 21)),
+                           dtype=torch.int32)
+    frames = torch.as_tensor((rng.normal(size=(2, 30, cfg.d_model)) * 0.02
+                              ).astype(np.float32))
+
+    def run(model, feed=None):
+        d = model.device
+        logits, cache = api.prefill(model, toks.to(d), cfg, 40,
+                                    prefix_embeds=frames.to(d),
+                                    cache_dtype=torch.float32)
+        outs = [logits[:, -1].float().cpu()]
+        for step in range(16):
+            nxt = (outs[-1].argmax(-1) if feed is None else feed[step])
+            logits, cache = api.decode_step(
+                model, cache, nxt[:, None].to(torch.int32).to(d), cfg)
+            outs.append(logits[:, -1].float().cpu())
+        return outs
+
+    ref = run(cpu)
+    feed = [o.argmax(-1) for o in ref[:-1]]
+    spread = max((a - r).abs().max().item() / max(1.0, r.abs().max().item())
+                 for a, r in zip(run(_family_jittered(cpu), feed), ref))
+    _build.reset_launch_counts()
+    out = run(card, feed)
+    assert _build.launch_counts() == _encdec_launches(cfg, 1, 16)
+    rel = max(1e-4, spread)
+    for a, r in zip(out, ref):
+        tol = rel * max(1.0, r.abs().max().item())
+        assert (a - r).abs().max().item() <= tol
+        top2 = r.topk(2, -1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * tol
+        assert torch.equal(a.argmax(-1)[clear], r.argmax(-1)[clear])
+
+
+def test_encdec_bucketed_graphs_equal_eager(dev):
+    """``generate`` falls back to ``generate_bucketed``: graphs on and
+    off on the same weights give equal streams and launches (exact),
+    one graph a bucket; the self-attention cache holds the prompt and
+    the new tokens, not the frames."""
+    from repro_torch.kernels import _build
+    from repro_torch.runtime.server import InferenceServer, Request
+
+    cfg = _encdec_card_cfg()
+    on = InferenceServer(cfg, quant_bits=7, max_len=64, device="cuda",
+                         rng_seed=3)
+    off = InferenceServer(cfg, params=on.params, max_len=64, device="cuda",
+                          cuda_graphs=False)
+    rng = np.random.default_rng(1)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                    12) for i, n in enumerate((9, 9, 33, 50))]
+    outs, counts = [], []
+    for srv in (on, off):
+        _build.reset_launch_counts()
+        outs.append(srv.generate(reqs))
+        counts.append(_build.launch_counts())
+        assert srv.last_engine is None
+    for x, y in zip(*outs):
+        assert x.status == "ok" and len(x.tokens) == 12
+        np.testing.assert_array_equal(x.tokens, y.tokens)
+    assert counts[0] == counts[1] == _encdec_launches(cfg, 3, 3 * 11)
+    assert on.bucket_graphs == 3 and off.bucket_graphs == 0
+    with pytest.raises(ValueError, match="cache full"):
+        on.generate([Request(0, reqs[3].prompt, 64 - 50 + 2)])
+
+
+def test_training_step_on_the_card_equals_the_cpu(dev):
+    """One ``Trainer`` step of the tiny olmo-1b at float32 compute (TF32
+    off) on the card and on the CPU from the same parameters and batch,
+    warmup 0: the loss within 1e-5, the gradient's global norm within
+    1e-4, every gradient leaf within 1e-3 of its largest magnitude, and
+    the updated parameters within the bound Adam's first step puts on
+    the two gradients' difference (``chip_smoke.adam_step_bound``: an
+    element moves by ``lr * g / (|g| + eps)``, so a gradient near zero
+    may step either way) plus 1e-6 of the leaf's scale."""
+    import importlib.util
+    import pathlib
+
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.trainer import TrainConfig, Trainer
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).resolve().parents[1]
+        / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = get_config("olmo-1b", tiny=True).replace(compute_dtype="float32")
+    tcfg = TrainConfig(steps=1, warmup=0, lr=1e-3)
+    init = Trainer(cfg, tcfg, device="cpu").api.init("cpu", seed=4)
+    got = {}
+    for d in ("cpu", "cuda"):
+        tr = Trainer(cfg, tcfg, device=d, params=init)
+        params, opt, _ = tr.init_or_restore()
+        b = {k: torch.as_tensor(v, device=d)
+             for k, v in tr.data.batch(0).items()}
+        grads, m = tr.loss_and_grads(params, b)
+        opt, m = tr.apply(params, opt, grads, m)
+        got[d] = (float(m["loss"]), float(m["grad_norm"]),
+                  [g.cpu() for g in T.leaves(grads)],
+                  [p.detach().cpu() for p in T.leaves(params)],
+                  float(m["lr"]))
+    cl, cn, cg, cp, lr = got["cpu"]
+    gl, gn, gg, gp, _ = got["cuda"]
+    assert lr > 0
+    assert abs(gl - cl) <= 1e-5 * abs(cl)
+    assert abs(gn - cn) <= 1e-4 * cn
+    for a, b, new_a, new_b, old in zip(gg, cg, gp, cp, T.leaves(init)):
+        assert (a - b).abs().max().item() <= 1e-3 * b.abs().max().item()
+        bound = smoke.adam_step_bound(a, b, gn, cn, lr, tcfg.max_grad_norm)
+        slack = 1e-6 * max(1.0, old.abs().max().item())
+        assert ((new_a - new_b).abs() - bound).max().item() <= slack

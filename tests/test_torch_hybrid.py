@@ -45,7 +45,7 @@ from repro.models import api as jax_api
 from repro.models import rglru as jr
 from repro.runtime.engine import Request as JaxRequest
 from repro.runtime.server import InferenceServer as JaxServer
-from repro_torch.configs import NOT_PORTED, get_config
+from repro_torch.configs import get_config
 from repro_torch.convert import params_from_jax
 from repro_torch.core import lama_layers as ll
 from repro_torch.core.exponential_quant import QWeight
@@ -568,8 +568,16 @@ def test_hybrid_entry_points_default_to_the_card():
 
 
 def test_not_ported_lists_the_other_families():
-    assert ARCH not in NOT_PORTED
-    assert set(NOT_PORTED) == {"seamless-m4t-medium"}
+    """Nothing is left out: the port's registry is the reference's, in
+    its order, and every architecture's configs equal the reference's."""
+    from repro.configs import ARCH_NAMES as JAX_ARCH_NAMES
+    from repro_torch.configs import ARCH_NAMES
+
+    assert ARCH_NAMES == JAX_ARCH_NAMES and ARCH in ARCH_NAMES
+    for name in ARCH_NAMES:
+        for tiny in (False, True):
+            want = dataclasses.asdict(jax_get_config(name, tiny=tiny))
+            assert dataclasses.asdict(get_config(name, tiny=tiny)) == want
 
 
 def _served(main, argv, capsys, monkeypatch):

@@ -41,7 +41,11 @@ def test_port_files_found():
                 "configs/recurrentgemma_2b.py", "launch/pim_tables.py",
                 "core/pim/__init__.py", "core/pim/accel.py",
                 "models/rwkv6.py", "configs/paligemma_3b.py",
-                "configs/rwkv6_3b.py"):
+                "configs/rwkv6_3b.py", "models/encdec.py",
+                "configs/seamless_m4t_medium.py", "tree.py",
+                "optim/adamw.py", "optim/schedule.py", "optim/compress.py",
+                "data/pipeline.py", "checkpoint/manager.py",
+                "runtime/trainer.py", "launch/train.py"):
         assert ROOT / "src" / "repro_torch" / rel in PORT_FILES, rel
 
 
@@ -86,6 +90,24 @@ def test_entry_points_default_to_the_card(entry):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cls(_tiny())
     cls(_tiny(), device="cpu")     # the explicit CPU request works
+
+
+def test_trainer_and_train_launcher_default_to_the_card():
+    """``Trainer`` without ``device=`` and ``python -m
+    repro_torch.launch.train`` without ``--device cpu`` ask for the card;
+    with no card they raise instead of training on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.runtime.trainer import TrainConfig, Trainer
+
+    cfg = get_config("olmo-1b", tiny=True)
+    for make in (lambda: Trainer(cfg, TrainConfig(steps=1)),
+                 lambda: train.main(["--tiny", "--steps", "1"])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    Trainer(cfg, TrainConfig(steps=1), device="cpu")
 
 
 @pytest.mark.parametrize("path", [[], ["--bucketed"],

@@ -10,10 +10,10 @@ events.  The two packages draw their random weights differently, so no
 token is compared here (``tests/test_torch_cluster.py`` and the engine
 tests do that on shared weights); what the launcher counts does not
 depend on the weights.  The families without an Engine (paligemma-3b,
-the vlm; rwkv6-3b) serve through ``generate``'s bucketed fallback with
-the counts of the reference's ``--bucketed`` launcher (its Engine
-refuses them), and both launchers refuse the Engine's flags for them.
-An architecture the port lacks raises its not-ported error.
+the vlm; rwkv6-3b; seamless-m4t-medium, the encdec) serve through
+``generate``'s bucketed fallback with the counts of the reference's
+``--bucketed`` launcher (its Engine refuses them), and both launchers
+refuse the Engine's flags for them.
 """
 
 import json
@@ -24,7 +24,6 @@ import pytest
 import torch
 
 from repro.launch import serve as jserve
-from repro_torch.configs import NOT_PORTED
 from repro_torch.launch import serve as tserve
 
 
@@ -115,13 +114,13 @@ def test_moe_archs_launch_as_the_reference(arch, path, tmp_path, capsys,
     assert seen[1][:2] == (4, 20)
 
 
-FALLBACK_ARCHS = ("paligemma-3b", "rwkv6-3b")
+FALLBACK_ARCHS = ("paligemma-3b", "rwkv6-3b", "seamless-m4t-medium")
 
 
 @pytest.mark.parametrize("arch", FALLBACK_ARCHS)
 def test_fallback_archs_launch_as_the_reference(arch, tmp_path, capsys,
                                                 monkeypatch):
-    """``--arch`` takes the vlm and rwkv families: the port's default
+    """``--arch`` takes the vlm, rwkv and encdec families: the port's default
     path falls back to the bucketed server and counts what the
     reference's ``--bucketed`` launcher counts, with no trace or
     metrics written on either side (the bucketed path is untraced).
@@ -159,10 +158,3 @@ def test_launchers_refuse_engine_flags_for_the_fallback_archs(arch, flags,
         with pytest.raises(ValueError):
             main()
 
-
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_archs_the_port_lacks_raise_not_ported(arch, monkeypatch):
-    monkeypatch.setattr(sys, "argv", ["serve", "--arch", arch, "--tiny",
-                                      "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tserve.main()

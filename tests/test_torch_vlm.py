@@ -333,7 +333,6 @@ def test_get_model_takes_the_vlm_and_the_engine_refuses_it():
     with pytest.raises(ValueError, match="frontend"):
         Engine(cfg, device="cpu")
     for bad in (cfg.replace(frontend="audio"),
-                cfg.replace(family="encdec", frontend=None),
                 get_config("qwen3-1.7b", tiny=True).replace(frontend="patch")):
         with pytest.raises(NotImplementedError, match="item 13"):
             torch_api.get_model(bad)
