@@ -4216,12 +4216,18 @@ def moe_launches(eng, cfg, codes: bool = False) -> dict:
     #3 for gate and up (2E, the buffer encoded once at mlp_in) and #1
     for down (E) -- beside the attention's four projections (#1, or #3
     on codes); the dense mixture runs #2 (gate and up) and #1 (down)
-    an expert; the untied unembedding #1; #5 / #6 L times a prefill
-    dispatch and #7 / #8 L times a decode step."""
+    an expert; the expert-parallel dispatch on one rank none (its
+    experts materialised); the untied unembedding #1; #5 / #6 L times a
+    prefill dispatch and #7 / #8 L times a decode step."""
     n, e = cfg.num_layers, cfg.num_experts
     pre, dec = eng.prefill_batches, eng.total_decode_steps
     disp = pre + dec
-    if codes:
+    if cfg.moe_impl == "ep_a2a":
+        # one rank holds every expert: the one-hot einsums over weights
+        # decoded from their codes (``ll.materialize``), no GEMM launch
+        want = {"lut_dequant_matmul": (4 * n + 1) * disp,
+                "flash_prefill_paged": n * pre, "decode_gqa_paged": n * dec}
+    elif codes:
         want = {"lut_dequant_matmul_dual": (4 + 2 * e) * n * disp,
                 "lut_dequant_matmul": (e * n + 1) * disp,
                 "flash_prefill_paged_codes": n * pre,
@@ -4354,7 +4360,7 @@ def serve_moe_decoder(name: str, layers: int, check_layers: int,
           flush=True)
     PHASE13[name] = dict(ms=ms, peak=peak, cap=cap, launches=launches,
                          steps=eng.total_decode_steps,
-                         prefill=eng.prefill_batches)
+                         prefill=eng.prefill_batches, outs=outs, ec=ec)
     del eng
     eager, eng, launches_e, cap_e, peak_e, t_e = serve_moe_engine(
         "13a eager", cfg, model, reqs, ec, graphs=False)
@@ -6099,6 +6105,271 @@ def training_phase(card: str) -> None:
     print(f"  phase 18 took {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# ------------------------------------------------- phase 19: the mesh --
+
+MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS = 2, 3      # 19a: olmo-1b, full width
+MESH_EP_ARCH, MESH_EP_LAYERS = "llama4-scout-17b-a16e", 4   # phase 13's
+PSUM_ELEMS = 16 * 2 ** 20                       # 19b: 64 MiB of float32
+# 19d: the dry run's cells on the single production mesh
+DRYRUN_CELLS = (("qwen3-1.7b", None, "train_4k"),
+                ("qwen3-1.7b", None, "decode_32k"),
+                ("llama4-scout-17b-a16e", "ep_a2a", "train_4k"),
+                ("llama4-scout-17b-a16e", "ep_a2a", "decode_32k"))
+DRYRUN_SECONDS = 600
+
+# the dry run in a process of its own (its ``fake`` process group is
+# the default group there): 19a's cell (olmo-1b, 2 layers, batch 8 x
+# 128, a 1 x 1 mesh), then DRYRUN_CELLS; one JSON line out
+_DRYRUN = r"""
+import json, sys, time
+from repro_torch.configs import get_config
+from repro_torch.configs.base import RunShape
+from repro_torch.launch import dryrun as D
+out, cells, layers = sys.argv[1], json.loads(sys.argv[2]), int(sys.argv[3])
+res = {}
+def keep(key, rec, t0):
+    mem = rec.get("memory_analysis", {})
+    res[key] = {"status": rec["status"], "s": time.perf_counter() - t0,
+                "peak": mem.get("peak_per_device_bytes"),
+                "fits": mem.get("fits_80gb_hbm"),
+                "error": rec.get("error"), "mesh": rec["mesh"],
+                "dominant": rec.get("roofline", {}).get("dominant")}
+t0 = time.perf_counter()
+keep("predict", D.run_cell(
+    "olmo-1b", "train_8x128", False, out, force=True,
+    cfg=get_config("olmo-1b").replace(num_layers=layers),
+    shape=RunShape("train_8x128", 128, 8, "train"),
+    mesh_shape={"data": 1, "model": 1}), t0)
+for arch, moe, shape in cells:
+    t0 = time.perf_counter()
+    keep(f"{arch} {shape} {moe}", D.run_cell(
+        arch, shape, False, out, force=True, moe_impl=moe), t0)
+print(json.dumps(res))
+"""
+
+
+def start_dryrun():
+    """The dry-run process (host only, no card), started so it runs
+    beside 19a-c."""
+    import subprocess
+
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    return subprocess.Popen(
+        [sys.executable, "-c", _DRYRUN,
+         os.path.join(ROOT, "build", "chip_smoke_dryrun"),
+         json.dumps(DRYRUN_CELLS), str(MESH_TRAIN_LAYERS)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def one_ulp_off(tree, seed: int = 0):
+    """``tree`` with every element moved by one float32 ulp (a factor
+    ``1 +- 2**-23``, the signs drawn from ``seed``)."""
+    import torch
+
+    from repro_torch import tree as T
+
+    gen = torch.Generator().manual_seed(seed)
+    return T.tree_map(lambda p: p * (1 + 2.0 ** -23 * (torch.randint(
+        0, 2, p.shape, generator=gen) * 2 - 1).to(p.device)), tree)
+
+
+def train_on_mesh(mesh, card: str) -> float:
+    """19a: olmo-1b at full width, MESH_TRAIN_LAYERS of its 16 layers,
+    MESH_TRAIN_STEPS steps of the ``TrainConfig`` defaults (batch 8 x
+    128; warmup 0 so every step moves) on the 1 x 1 mesh against no
+    mesh, from the same parameters (seed 0): losses within max(1e-5 of
+    the loss, 4x the card's spread when the initial parameters move one
+    ulp), each trained leaf within max(1e-4 of its scale, 4x that
+    spread) (phase 18b's rule; the card's spread stands in for the
+    CPU's, whose 3 full-width steps would take minutes).  Prints ms a
+    step both ways and the meshed run's peak GiB; returns that peak in
+    bytes, less what was allocated before it (earlier phases, and the
+    initial parameters the Trainer copies): the dry run predicts the
+    training step's own."""
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.trainer import TrainConfig, Trainer
+
+    cfg = get_config(TRAIN_ARCH).replace(num_layers=MESH_TRAIN_LAYERS)
+    tcfg = TrainConfig(steps=MESH_TRAIN_STEPS, warmup=0, log_every=10 ** 9)
+    init = Trainer(cfg, tcfg).api.init("cuda", seed=0).tree()
+
+    def run(params, m=None):
+        out = Trainer(cfg, tcfg, params=params, mesh=m).run()
+        torch.cuda.synchronize()
+        h = out["history"]
+        return ([x["loss"] for x in h], [t.detach() for t in
+                                         T.leaves(out["params"])],
+                1e3 * sorted(x["dt"] for x in h[1:])[(len(h) - 1) // 2])
+
+    fresh_peak()
+    held = torch.cuda.memory_allocated()     # earlier phases and ``init``
+    meshed = run(init, mesh)
+    peak = torch.cuda.max_memory_allocated() - held
+    plain = run(init)
+    nudged = run(one_ulp_off(init))
+    worst = 0.0
+    for a, b, c in zip(meshed[0], plain[0], nudged[0]):
+        tol = max(1e-5 * abs(b), 4 * abs(c - b))
+        worst = max(worst, abs(a - b) / tol)
+        require(abs(a - b) <= tol, f"19a: loss {a} on the mesh, {b} without "
+                f"(tol {tol:.3e})")
+    for a, b, c in zip(meshed[1], plain[1], nudged[1]):
+        tol = max(1e-4 * max(1.0, b.abs().max().item()),
+                  4 * (c - b).abs().max().item())
+        err = (a - b).abs().max().item()
+        worst = max(worst, err / tol)
+        require(err <= tol, f"19a: a trained leaf {tuple(b.shape)} differs "
+                f"by {err:.3e} on the mesh (tol {tol:.3e})")
+    print(f"  19a {TRAIN_ARCH} ({MESH_TRAIN_LAYERS} of 16 layers, full width, "
+          f"{cfg.compute_dtype} compute, batch {tcfg.global_batch} x "
+          f"{tcfg.seq_len}, {MESH_TRAIN_STEPS} steps): losses on the 1 x 1 "
+          f"mesh {[round(x, 5) for x in meshed[0]]}, without "
+          f"{[round(x, 5) for x in plain[0]]}; worst difference at "
+          f"{worst:.2f} of its tolerance; {meshed[2]:.1f} ms a step on the "
+          f"mesh, {plain[2]:.1f} without (median after the first); peak "
+          f"{peak / 2**30:.2f} GiB on the mesh beyond the {held / 2**30:.2f}"
+          f" GiB allocated before it [{card}]", flush=True)
+    del meshed, plain, nudged, init
+    fresh_peak()
+    return peak
+
+
+def psum_check(card: str) -> None:
+    """19b: ``compressed_psum`` on the one-rank NCCL world equals
+    ``int8_decode(*int8_encode(x))`` exactly on a 64 MiB tensor."""
+    import torch
+
+    from repro_torch.optim.compress import (compressed_psum, int8_decode,
+                                            int8_encode)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(PSUM_ELEMS, generator=gen, device="cuda")
+    got = compressed_psum(x)
+    want = int8_decode(*int8_encode(x))
+    require(torch.equal(got, want),
+            f"19b: compressed_psum differs from the int8 round trip by "
+            f"{(got - want).abs().max().item():.3e}")
+    ms = time_ms(lambda: compressed_psum(x))
+    print(f"  19b: compressed_psum of {PSUM_ELEMS * 4 / 2**20:.0f} MiB on one "
+          f"rank equals the int8 round trip exactly; {ms:.3f} ms a call "
+          f"[{card}]", flush=True)
+    del x, got, want
+
+
+def serve_ep(mesh, card: str) -> None:
+    """19c: llama4-scout at phase 13's depth, 7-bit codes, phase 13's
+    requests and engine shape with ``moe_impl="ep_a2a"`` under the 1 x 1
+    mesh (one rank holds the 16 experts: the one-hot einsums over
+    decoded weights, the two all-to-alls on the NCCL group), graphs and
+    then eagerly: every request ``ok``, the launches of #1, #5 and #7
+    exact and equal both ways, eager streams equal the graphs'; streams
+    against phase 13's routed ones where the top-2 gap is clear (the
+    capacities differ: a rank's against an expert's); the replayed
+    decode ms beside phase 13's."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import use_mesh
+
+    cfg = get_config(MESH_EP_ARCH).replace(num_layers=MESH_EP_LAYERS)
+    model = random_quantized_model(cfg, 0)
+    reqs = moe_requests(cfg)
+    ref = PHASE13.get(MESH_EP_ARCH)
+    require(ref is not None, "19c: phase 13's routed llama4-scout run is "
+            "missing")
+    ecfg = cfg.replace(moe_impl="ep_a2a")
+    with use_mesh(mesh):
+        outs, eng, launches, cap, peak, t_run = serve_moe_engine(
+            "19c", ecfg, model, reqs, ref["ec"])
+        print_moe_run("19c ep_a2a [graphs]", eng, launches, cap, peak, t_run,
+                      card)
+        ms = moe_replayed_ms(eng, reqs)
+        del eng
+        eager, eng, launches_e, _, peak_e, t_e = serve_moe_engine(
+            "19c eager", ecfg, model, reqs, ref["ec"], graphs=False)
+    require(launches_e == launches, f"19c: eager launches {launches_e}, "
+            f"graphs {launches}")
+    require(all(np.array_equal(a.tokens, b.tokens)
+                for a, b in zip(outs, eager)),
+            "19c: cuda_graphs=False gave other token streams")
+    print_moe_run("19c ep_a2a [eager, streams equal]", eng, launches_e,
+                  {"calls": 0}, peak_e, t_e, card)
+    del eng
+    apart = gate_streams("19c", model, cfg, reqs, outs, ref["outs"])
+    print(f"  19c: {len(reqs) - apart} of {len(reqs)} ep_a2a streams equal "
+          f"phase 13's routed ones, {apart} apart at a near-tie; decode "
+          f"{ms:.3f} ms a step replayed against the routed {ref['ms']:.3f} "
+          f"[{card}]", flush=True)
+    del model
+    fresh_peak()
+
+
+def finish_dryrun(proc, measured: float, card: str) -> None:
+    """19a's prediction against the card's peak (within a factor of 2)
+    and 19d's cells (each ``ok``)."""
+    try:
+        out, err = proc.communicate(timeout=DRYRUN_SECONDS)
+    except Exception:
+        proc.kill()
+        proc.communicate()
+        raise
+    require(proc.returncode == 0 and out.strip(),
+            f"19d: the dry run exited {proc.returncode}: {err[-2000:]}")
+    res = json.loads(out.strip().splitlines()[-1])
+    pred = res.pop("predict")
+    require(pred["status"] == "ok", f"19a: the dry run's cell: {pred}")
+    ratio = pred["peak"] / measured
+    print(f"  19a: the dry run predicts {pred['peak'] / 2**30:.2f} GiB a "
+          f"device for this cell ({pred['mesh']}), the card's peak "
+          f"{measured / 2**30:.2f} GiB: ratio {ratio:.3f} ({pred['s']:.1f} s "
+          f"on the host) [{card}]", flush=True)
+    require(0.5 <= ratio <= 2.0, f"19a: predicted / measured peak {ratio:.3f}")
+    for key, r in res.items():
+        print(f"  19d {key}: {r['status']} in {r['s']:.1f} s on the host; "
+              f"per-device peak {r['peak']} B (fits 80 GB: {r['fits']}), "
+              f"{r['dominant']} dominates", flush=True)
+        require(r["status"] == "ok", f"19d {key}: {r['status']} "
+                f"{r.get('error')}")
+
+
+def mesh_phase(card: str) -> None:
+    """Phase 19: the dry run starts on the host; then, on a one-rank
+    NCCL group opened here and destroyed at the end, the Trainer on a 1
+    x 1 mesh (19a), the int8 all-reduce (19b) and the expert-parallel
+    MoE served (19c); then the dry run's figures (19a's prediction,
+    19d)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t0 = time.perf_counter()
+    proc = start_dryrun()
+    try:
+        dist.init_process_group("nccl", rank=0, world_size=1,
+                                store=dist.HashStore())
+        try:
+            mesh = make_host_mesh(model=1)
+            measured = train_on_mesh(mesh, card)
+            psum_check(card)
+            serve_ep(mesh, card)
+        finally:
+            dist.destroy_process_group()
+        t1 = time.perf_counter()
+        finish_dryrun(proc, measured, card)
+        print(f"  phase 19 took {time.perf_counter() - t0:.1f} s "
+              f"({t1 - t0:.1f} s on the card, then "
+              f"{time.perf_counter() - t1:.1f} s waiting for the dry run)",
+              flush=True)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+
+
 def main() -> int:
     try:
         import torch
@@ -6209,6 +6480,9 @@ def main() -> int:
         serve_family(ENCDEC, card, "17")
         phase("phase 18: training")
         training_phase(card)
+        phase("phase 19: the mesh, the int8 all-reduce, expert-parallel MoE "
+              "and the dry run")
+        mesh_phase(card)
         phase("all phases passed")
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

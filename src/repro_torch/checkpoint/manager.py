@@ -11,8 +11,11 @@ restores a checkpoint the other wrote).
   an ``AdamWState``'s fields in order, ``{"opt", "params"}`` sorted at
   the top), with their logical shapes; ``metadata.json`` holds the step,
   the leaf count and the caller's metadata;
-* **placement**: ``restore`` puts the leaves on a given device, the
-  one-device form of the reference's ``shardings=``.
+* **placement**: ``restore`` puts the leaves on a given device, or
+  with ``shardings=`` lays them out as DTensors on a mesh (the
+  reference's elastic path: a checkpoint holds the full logical tensors,
+  so it restores onto any mesh's placements, whatever mesh wrote it);
+  ``save`` writes DTensors as their full tensors.
 """
 
 from __future__ import annotations
@@ -31,6 +34,8 @@ from repro_torch import tree as T
 
 
 def _numpy(leaf) -> np.ndarray:
+    if hasattr(leaf, "full_tensor"):        # a DTensor: every rank gathers
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
@@ -83,12 +88,16 @@ def latest_step(ckpt_dir: str | Path) -> int | None:
 
 
 def restore(ckpt_dir: str | Path, like: Any, step: int | None = None,
-            device=None) -> tuple[Any, dict]:
+            device=None, shardings: Any = None) -> tuple[Any, dict]:
     """Restore into the structure of ``like`` (the latest step unless
     ``step``): each leaf a tensor of the matching ``like`` leaf's dtype
     (the saved one for a leaf that is not a tensor), on ``device``
-    (default: that leaf's device, else the CPU).  Raises ``ValueError``
-    on another leaf count or shape."""
+    (default: that leaf's device, else the CPU).  ``shardings``: a tree
+    of ``like``'s structure whose leaves are
+    :class:`~repro_torch.sharding.rules.NamedSharding`; each leaf then
+    becomes a DTensor laid out by its sharding (every rank reads the
+    file and keeps its own shards; ``mesh=None`` keeps a plain tensor).
+    Raises ``ValueError`` on another leaf count or shape."""
     ckpt_dir = Path(ckpt_dir)
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
@@ -109,8 +118,18 @@ def restore(ckpt_dir: str | Path, like: Any, step: int | None = None,
             raise ValueError(f"leaf {i}: saved {arr.shape} != {want_shape}")
         t = torch.from_numpy(np.array(arr))
         if isinstance(leaf, torch.Tensor):
-            t = t.to(device or leaf.device, leaf.dtype)
+            t = t.to(device or _device_of(leaf), leaf.dtype)
         else:
             t = t.to(device or "cpu")
         new_leaves.append(t)
+    if shardings is not None:
+        from repro_torch.sharding.rules import distribute
+
+        new_leaves = [distribute(t, sh) for t, sh in
+                      zip(new_leaves, T.leaves(shardings), strict=True)]
     return T.unflatten(like, new_leaves), meta
+
+
+def _device_of(leaf: torch.Tensor):
+    """A tensor's device; a DTensor's local shard's."""
+    return getattr(leaf, "_local_tensor", leaf).device

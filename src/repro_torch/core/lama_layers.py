@@ -328,8 +328,51 @@ def dense_general(x, w, contract_spec: str, *, dtype=None) -> torch.Tensor:
         if plan is not None and w.codes.ndim == len(wspec):
             return _fused_einsum(x, w, plan, contract_spec, cdtype)
     wf = materialize(w, cdtype)
-    return torch.einsum(contract_spec, _as_float(x, cdtype).to(F32),
-                        wf.to(F32)).to(cdtype)
+    return _einsum(contract_spec, _as_float(x, cdtype).to(F32),
+                   wf.to(F32)).to(cdtype)
+
+
+def _einsum(spec: str, x, w):
+    """``torch.einsum(spec, x, w)``; on DTensors, by named dimensions
+    (:func:`_einsum_by_letters`)."""
+    if type(w).__name__ == "DTensor" or type(x).__name__ == "DTensor":
+        return _einsum_by_letters(spec, x, w)
+    return torch.einsum(spec, x, w)
+
+
+def _einsum_by_letters(spec: str, x, w):
+    """A DTensor einsum run on each rank's shards.  DTensor's own einsum
+    flattens dimensions and cannot unflatten a result sharded inside a
+    merged group (``head_dim`` sharded while the heads are not: the
+    rules' GQA fallback), so each mesh dimension here shards one einsum
+    letter: x's (the batch over the FSDP axes, the weight gathered
+    there: FSDP), else the weight's (tensor parallelism: x sliced to
+    match where the letter is contracted, the result then a partial
+    sum, or sharded on that letter in the output)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    ins, out = spec.replace(" ", "").split("->")
+    xs, ws = ins.split(",")
+    mesh = (w if type(w).__name__ == "DTensor" else x).device_mesh
+
+    def letter(t, sub, m):
+        p = t.placements[m] if type(t).__name__ == "DTensor" else None
+        return sub[p.dim] if isinstance(p, Shard) else None
+
+    def shard(sub, c):
+        return Shard(sub.index(c)) if c in sub else Replicate()
+
+    x_pl, w_pl, o_pl = [], [], []
+    for m in range(mesh.ndim):
+        c = letter(x, xs, m) or letter(w, ws, m)
+        x_pl.append(shard(xs, c) if c else Replicate())
+        w_pl.append(shard(ws, c) if c else Replicate())
+        o_pl.append(Replicate() if not c else shard(out, c)
+                    if c in out else Partial())
+    return local_map(lambda a, b: torch.einsum(spec, a, b), o_pl,
+                     in_placements=(x_pl, w_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(x, w)
 
 
 def gated_mlp(x, w_gate, w_up, activation: str, *, dtype=None,
@@ -377,6 +420,16 @@ def embed_lookup(w, idx: torch.Tensor, dtype) -> torch.Tensor:
     if eq.is_qtensor(w):
         rows = w.codes[idx.long()].long()
         return w.lut.to(dtype)[rows]
+    if type(w).__name__ == "DTensor":
+        # the same rows from the gathered table: DTensor has no rule for
+        # an indexed gather's backward on a sharded table in every
+        # version, and a vocab-sharded embedding's mask partial does not
+        # add to a tied unembedding's partial gradient
+        from torch.distributed.tensor import Replicate
+
+        full = w.redistribute(w.device_mesh,
+                              [Replicate()] * w.device_mesh.ndim)
+        return torch.nn.functional.embedding(idx.long(), full.to(dtype))
     return w.to(dtype)[idx.long()]
 
 
@@ -438,6 +491,39 @@ def quantize_tree(params: dict, bits: int = 7,
         return eq.pack_qtensor(codes, qp, lut_dtype)
 
     return visit(params, axes, ()), report
+
+
+def abstract_quantize(aparams: dict, axes: dict, bits: int = 7,
+                      lut_dtype=F32, predicate: Callable = default_predicate):
+    """Shape-only mirror of :func:`quantize_tree` (the reference's, for
+    the dry run): eligible ``meta`` weights become ``{codes: uint8, lut,
+    qmeta}`` dicts of ``meta`` tensors (a table a layer for a stacked
+    weight).  ``bits`` sets no shape.  Returns (the abstract quantized
+    tree, its logical-axes tree: the codes take the weight's axes, the
+    tables ``("layers", None)`` or ``(None,)``)."""
+    del bits
+
+    def meta(shape, dt):
+        return torch.empty(shape, dtype=dt, device="meta")
+
+    def walk(node, ax, path):
+        if isinstance(node, dict):
+            pairs = {k: walk(v, (ax or {}).get(k), path + (k,))
+                     for k, v in node.items()}
+            return ({k: p for k, (p, _) in pairs.items()},
+                    {k: a for k, (_, a) in pairs.items()})
+        if not predicate(path, node):
+            return node, ax
+        ax = ax or (None,) * node.ndim
+        lead, lead_ax = (((node.shape[0],), ("layers",)) if ax[:1] ==
+                         ("layers",) else ((), ()))
+        return ({"codes": meta(node.shape, torch.uint8),
+                 "lut": meta(lead + (256,), lut_dtype),
+                 "qmeta": meta(lead + (4,), F32)},
+                {"codes": ax, "lut": lead_ax + (None,),
+                 "qmeta": lead_ax + (None,)})
+
+    return walk(aparams, axes, ())
 
 
 def quantize_tree_mixed(params: dict, min_sqnr_db: float = 22.0,

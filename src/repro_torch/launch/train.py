@@ -6,9 +6,11 @@ package's ``launch/train.py``, with its flags), on the card:
 
 ``--device cpu`` trains on the CPU instead (the default, ``cuda``,
 raises without a card).  Selects the WSD schedule for minicpm-2b (its
-paper's schedule), cosine elsewhere.  The reference's
-``--compress-grads`` (the int8 cross-pod reduction) needs a mesh and is
-not ported (ROADMAP Queue 1 item 13, the sharding bullet).
+paper's schedule), cosine elsewhere.  The reference's launcher has no
+``--compress-grads`` flag (only its ``optim/compress.py`` docstring
+names one), so neither has this; the int8 cross-pod reduction is
+``optim.compress.compressed_psum``, and a sharded run is
+``Trainer(..., mesh=launch.mesh.make_host_mesh(...))``.
 """
 
 from __future__ import annotations

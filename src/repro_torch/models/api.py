@@ -30,6 +30,7 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig, RunShape
 from repro_torch.models import encdec, rglru, rwkv6, transformer
+from repro_torch.models import params as P
 from repro_torch.models.params import ParamTree, logical_axes
 
 
@@ -42,6 +43,7 @@ class ModelAPI:
     prefill: Callable      # (params, tokens, cfg, max_len, ..., cache_dtype)
     decode_step: Callable  # (params, cache, tokens, cfg)
     init_cache: Callable   # (cfg, batch, max_len, dtype, device)
+    abstract_cache: Callable  # (cfg, batch, max_len[, enc_len], dtype)
     prefill_into_cache: Callable | None = None
     decode_step_paged: Callable | None = None
     spec_verify_into_cache: Callable | None = None
@@ -52,8 +54,17 @@ class ModelAPI:
         (the card unless ``device="cpu"``)."""
         return self.module(self.cfg, device=device, seed=seed)
 
+    def abstract_params(self, dtype=None) -> dict:
+        """The parameters as ``meta`` tensors (``cfg.param_dtype``
+        unless ``dtype``)."""
+        return P.abstract_params(
+            self.specs, dtype or getattr(torch, self.cfg.param_dtype))
+
     def logical_axes(self):
         return logical_axes(self.specs)
+
+    def param_count(self) -> int:
+        return P.param_count(self.specs)
 
 
 def get_model(cfg: ModelConfig) -> ModelAPI:
@@ -62,19 +73,22 @@ def get_model(cfg: ModelConfig) -> ModelAPI:
                         module=rglru.HybridLM, forward=rglru.forward,
                         prefill=rglru.prefill,
                         decode_step=rglru.decode_step,
-                        init_cache=rglru.init_cache)
+                        init_cache=rglru.init_cache,
+                        abstract_cache=rglru.abstract_cache)
     if cfg.family == "rwkv":
         return ModelAPI(cfg=cfg, specs=rwkv6.model_specs(cfg),
                         module=rwkv6.RwkvLM, forward=rwkv6.forward,
                         prefill=rwkv6.prefill,
                         decode_step=rwkv6.decode_step,
-                        init_cache=rwkv6.init_cache)
+                        init_cache=rwkv6.init_cache,
+                        abstract_cache=rwkv6.abstract_cache)
     if cfg.family == "encdec":
         return ModelAPI(cfg=cfg, specs=encdec.model_specs(cfg),
                         module=encdec.EncDecLM, forward=encdec.forward,
                         prefill=encdec.prefill,
                         decode_step=encdec.decode_step,
-                        init_cache=encdec.init_cache)
+                        init_cache=encdec.init_cache,
+                        abstract_cache=encdec.abstract_cache)
     if not (cfg.family == "decoder" and not cfg.frontend
             or cfg.family == "vlm" and cfg.frontend == "patch"):
         raise NotImplementedError(
@@ -86,6 +100,7 @@ def get_model(cfg: ModelConfig) -> ModelAPI:
                     prefill=transformer.prefill,
                     decode_step=transformer.decode_step,
                     init_cache=transformer.init_cache,
+                    abstract_cache=transformer.abstract_cache,
                     prefill_into_cache=transformer.prefill_into_cache,
                     decode_step_paged=transformer.decode_step_paged,
                     spec_verify_into_cache=transformer.spec_verify_into_cache,
@@ -105,11 +120,54 @@ def loss_fn(api: ModelAPI, params, batch: dict):
     if cfg.family == "vlm" and pe is not None:
         logits = logits[:, pe.shape[1]:, :]
     logz = torch.logsumexp(logits, -1)
-    tgt = torch.gather(logits, -1, batch["targets"].long()[..., None])[..., 0]
+    if type(logits).__name__ == "DTensor":
+        # a vocab-sharded gather has no working DTensor rule (its mask
+        # partial assumes an embedding's 2-D index); a one-hot sum picks
+        # the same element
+        tgt = (logits * torch.nn.functional.one_hot(
+            batch["targets"].long(), logits.shape[-1])).sum(-1)
+    else:
+        tgt = torch.gather(logits, -1,
+                           batch["targets"].long()[..., None])[..., 0]
     loss = torch.mean(logz - tgt)
     zl = cfg.z_loss * torch.mean(logz ** 2)
     total = loss + zl + 0.01 * aux
     return total, {"loss": loss, "z_loss": zl, "aux_loss": aux}
+
+
+# -------------------------------------------------------- input specs --
+
+def input_specs(cfg: ModelConfig, shape: RunShape) -> dict:
+    """Every model input of one run-shape cell as ``meta`` tensors (the
+    reference's shapes and dtypes): train ``tokens`` / ``targets`` [B,
+    S]; prefill ``tokens`` [B, S - P] (P the frontend's patches); decode
+    ``tokens`` [B, 1]; int32.  The encdec's stub frames [B, S, d] and a
+    frontend's ``num_prefix_tokens`` patches as ``prefix_embeds`` in the
+    compute dtype."""
+    b = shape.global_batch
+    cdt = getattr(torch, cfg.compute_dtype)
+
+    def meta(shp, dt=torch.int32):
+        return torch.empty(shp, dtype=dt, device="meta")
+
+    def prefix(s):
+        if cfg.family == "encdec":
+            return meta((b, s, cfg.d_model), cdt)
+        if cfg.frontend:
+            return meta((b, cfg.num_prefix_tokens, cfg.d_model), cdt)
+        return None
+
+    if shape.kind == "decode":
+        return {"tokens": meta((b, 1))}
+    if shape.kind == "train":
+        s = shape.seq_len
+        out = {"tokens": meta((b, s)), "targets": meta((b, s))}
+    else:
+        s = shape.seq_len - (cfg.num_prefix_tokens if cfg.frontend else 0)
+        out = {"tokens": meta((b, s))}
+    if (p := prefix(s)) is not None:
+        out["prefix_embeds"] = p
+    return out
 
 
 def synth_batch(cfg: ModelConfig, shape: RunShape, rng=None, seq_len=None,

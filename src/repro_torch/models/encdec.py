@@ -88,7 +88,7 @@ def _enc_block(lp: dict, x, cfg: ModelConfig, positions):
     h = L.apply_norm(lp["ln1"], x, cfg)
     x = x + L.mha(lp["attn"], h, cfg, positions, FULL)
     h = L.apply_norm(lp["ln2"], x, cfg)
-    return x + L.apply_mlp(lp["mlp"], h, cfg)
+    return L.constrain_act(x + L.apply_mlp(lp["mlp"], h, cfg))
 
 
 def encode(params: EncDecLM, frames: torch.Tensor,
@@ -96,7 +96,8 @@ def encode(params: EncDecLM, frames: torch.Tensor,
     """frames [B, S_enc, D] (the stub frontend's embeddings) -> the
     encoder's states: ``enc_in``, then bidirectional self-attention
     blocks (RoPE on), then ``enc_ln_f``."""
-    x = ll.dense(frames.to(L.cdtype(cfg)), params["enc_in"])
+    x = L.constrain_act(ll.dense(frames.to(L.cdtype(cfg)),
+                                 params["enc_in"]))
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     for i in range(cfg.enc_layers):
@@ -122,11 +123,11 @@ def _dec_block(lp: dict, x, enc_out, cfg: ModelConfig, positions):
     x = x + L.mha(lp["xattn"], h, cfg, positions, FULL, kv=xkv,
                   use_rope=False)
     h = L.apply_norm(lp["ln2"], x, cfg)
-    return x + L.apply_mlp(lp["mlp"], h, cfg), kv, xkv
+    return L.constrain_act(x + L.apply_mlp(lp["mlp"], h, cfg)), kv, xkv
 
 
 def _decoder(params: EncDecLM, tokens, enc_out, cfg: ModelConfig):
-    x = L.embed_tokens(params["embed"], tokens, cfg)
+    x = L.constrain_act(L.embed_tokens(params["embed"], tokens, cfg))
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     for i in range(cfg.dec_layers):
@@ -172,6 +173,20 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             "xv": z(enc_len), "pos": 0}
 
 
+def abstract_cache(cfg: ModelConfig, batch: int, max_len: int,
+                   enc_len: int | None = None, dtype=torch.bfloat16) -> dict:
+    """:func:`init_cache`'s shapes and dtypes as ``meta`` tensors, ``pos``
+    a 0-d int32 (the reference's signature and tree)."""
+    kv, hd, n = cfg.num_kv_heads, cfg.resolved_head_dim, cfg.dec_layers
+
+    def meta(t):
+        return torch.empty((n, batch, t, kv, hd), dtype=dtype, device="meta")
+
+    return {"k": meta(max_len), "v": meta(max_len),
+            "xk": meta(enc_len or max_len), "xv": meta(enc_len or max_len),
+            "pos": torch.empty((), dtype=torch.int32, device="meta")}
+
+
 def prefill(params: EncDecLM, tokens: torch.Tensor, cfg: ModelConfig,
             max_len: int, prefix_embeds=None, cache_dtype=torch.bfloat16):
     """Encode the frames and run the decoder over the prompts ``tokens``
@@ -181,7 +196,7 @@ def prefill(params: EncDecLM, tokens: torch.Tensor, cfg: ModelConfig,
     with ``pos = S``)."""
     frames = _frames(prefix_embeds)
     enc_out = encode(params, frames, cfg)
-    x = L.embed_tokens(params["embed"], tokens, cfg)
+    x = L.constrain_act(L.embed_tokens(params["embed"], tokens, cfg))
     b, s, _ = x.shape
     if s > max_len:
         raise ValueError(f"prompt length {s} exceeds the cache's {max_len}")
@@ -212,7 +227,7 @@ def decode_step(params: EncDecLM, cache: dict, tokens: torch.Tensor,
     the cache's device, read nowhere on the host, so a captured step
     replays.  Returns (logits [B, S, V], the cache with ``pos`` advanced
     by one)."""
-    x = L.embed_tokens(params["embed"], tokens, cfg)
+    x = L.constrain_act(L.embed_tokens(params["embed"], tokens, cfg))
     b, s, _ = x.shape
     pos = cache["pos"]
     max_len = cache["k"].shape[2]
@@ -250,6 +265,6 @@ def decode_step(params: EncDecLM, cache: dict, tokens: torch.Tensor,
                       kv=(cache["xk"][i].to(dt), cache["xv"][i].to(dt)),
                       use_rope=False)
         h = L.apply_norm(lp["ln2"], x, cfg)
-        x = x + L.apply_mlp(lp["mlp"], h, cfg)
+        x = L.constrain_act(x + L.apply_mlp(lp["mlp"], h, cfg))
     x = L.apply_norm(params["ln_f"], x, cfg)
     return L.logits_fn(params, x, cfg), {**cache, "pos": pos + 1}

@@ -213,11 +213,93 @@ def self_kv(p: Params, x: torch.Tensor, cfg: ModelConfig,
 
 # Above this many score elements, ``mha`` with a mask descriptor takes
 # the chunked online-softmax path, so scores never materialize (the
-# reference's values; its FLASH_UNROLL and CONTEXT_PARALLEL are TPU
-# partitioning switches and are not ported).
+# reference's values).  The reference's FLASH_UNROLL (Python loops in
+# place of ``lax.scan``, for the dry run's cost extraction: XLA's cost
+# analysis counts a loop body once) has no counterpart: the chunk loops
+# here are Python loops, and the dry run's op counter counts every op
+# they run.
 FLASH_THRESHOLD = 32 * 1024 * 1024
 FLASH_Q_CHUNK = 1024
 FLASH_K_CHUNK = 1024
+
+# Context-parallel training: activations shard their *sequence* over the
+# model axis (``constrain_act``) and the chunked attend keeps q whole,
+# so the scores split along q's sharded sequence; the sharding rules
+# drop tensor parallelism for 2-D FSDP (``sharding.rules.TRAIN_CP``).
+# Read only where the tensors are DTensors on a mesh.
+CONTEXT_PARALLEL = False
+
+
+def set_context_parallel(enable: bool) -> None:
+    global CONTEXT_PARALLEL
+    CONTEXT_PARALLEL = enable
+
+
+def reshape(x: torch.Tensor, *shape) -> torch.Tensor:
+    """``x.reshape(*shape)``.  A DTensor whose sharded dimension the new
+    shape splits unevenly (16 heads over 16 ranks into 8 KV heads x 2:
+    DTensor has no layout for it) is first gathered on every dimension
+    but the batch."""
+    if type(x).__name__ != "DTensor":
+        return x.reshape(*shape)
+    try:
+        return x.reshape(*shape)
+    except RuntimeError:
+        from torch.distributed.tensor import Replicate, Shard
+
+        pl = [Replicate() if isinstance(p, Shard) and p.dim else p
+              for p in x.placements]
+        return x.redistribute(x.device_mesh, pl).reshape(*shape)
+
+
+def _constrained(x) -> bool:
+    from repro_torch.launch.mesh import get_abstract_mesh
+
+    return type(x).__name__ == "DTensor" and get_abstract_mesh() is not None
+
+
+def constrain(x: torch.Tensor, *spec) -> torch.Tensor:
+    """Redistribute a DTensor under the ambient mesh
+    (``launch.mesh.use_mesh``) to ``spec`` (one entry a dimension:
+    ``"fsdp"`` for the (pod, data) axes present, a mesh axis name, or
+    None); an axis the mesh lacks or a dimension its size does not
+    divide is left replicated.  A plain tensor, or no ambient mesh,
+    comes back as it is, so the one-device paths do not change (the
+    reference's ``with_sharding_constraint``)."""
+    if not _constrained(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.launch.mesh import axis_sizes
+
+    mesh = x.device_mesh
+    sizes = axis_sizes(mesh)
+    fsdp = tuple(a for a in ("pod", "data") if a in sizes)
+    want = {}
+    for dim, part in enumerate(spec):
+        axes = fsdp if part == "fsdp" else (part,) if part else ()
+        if (axes and all(a in sizes for a in axes) and x.shape[dim] %
+                math.prod(sizes[a] for a in axes) == 0):
+            want.update({a: Shard(dim) for a in axes})
+    return x.redistribute(mesh, [want.get(a, Replicate())
+                                 for a in mesh.mesh_dim_names])
+
+
+def constrain_act(x: torch.Tensor) -> torch.Tensor:
+    """Pin an activation's layout (:func:`constrain`): batch over the
+    FSDP axes, feature dims replicated, and under CONTEXT_PARALLEL the
+    sequence over "model".  A batch the FSDP axes do not divide leaves
+    ``x`` alone, as in the reference."""
+    if not _constrained(x) or x.ndim < 2:
+        return x
+    from repro_torch.launch.mesh import axis_sizes
+
+    sizes = axis_sizes(x.device_mesh)
+    fsdp = [sizes[a] for a in ("pod", "data") if a in sizes]
+    if not fsdp or x.shape[0] % math.prod(fsdp):
+        return x
+    seq = "model" if CONTEXT_PARALLEL and x.ndim >= 3 else None
+    return constrain(x, "fsdp", seq, *([None] * (x.ndim - 2)))
 
 
 def _block_mask(kind: str, arg, qp: torch.Tensor,
@@ -255,6 +337,14 @@ def _attend_dense(q, k, v, mask, dt):
     return torch.einsum("bnsgt,btnh->bsngh", probs.to(rt), v.to(rt))
 
 
+def _pad_seq(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x`` with ``n`` zero positions after its sequence (dim 1); ``x``
+    itself when ``n`` is 0."""
+    if not n:
+        return x
+    return torch.nn.functional.pad(x, (0, 0) * (x.ndim - 2) + (0, n))
+
+
 def _attend_flash(q, k, v, kind: str, arg, q_offset, dt,
                   q_chunk=FLASH_Q_CHUNK, k_chunk=FLASH_K_CHUNK):
     """Chunked online-softmax attention (the FlashAttention recurrence
@@ -266,12 +356,14 @@ def _attend_flash(q, k, v, kind: str, arg, q_offset, dt,
     chunks and padded keys masked, as in the reference."""
     b, s, n, g, hd = q.shape
     t = k.shape[1]
+    if CONTEXT_PARALLEL:
+        q_chunk = s     # the scores split along q's sharded sequence
     q_chunk, k_chunk = min(q_chunk, s), min(k_chunk, t)
     nq, nk = -(-s // q_chunk), -(-t // k_chunk)
     op_dt = dt if dt == torch.bfloat16 else F32
-    qf = torch.nn.functional.pad(q.to(op_dt), (0, 0, 0, 0, 0, 0, 0, nq * q_chunk - s))
-    kf = torch.nn.functional.pad(k.to(op_dt), (0, 0, 0, 0, 0, nk * k_chunk - t))
-    vf = torch.nn.functional.pad(v.to(op_dt), (0, 0, 0, 0, 0, nk * k_chunk - t))
+    qf = _pad_seq(q.to(op_dt), nq * q_chunk - s)
+    kf = _pad_seq(k.to(op_dt), nk * k_chunk - t)
+    vf = _pad_seq(v.to(op_dt), nk * k_chunk - t)
     dev = q.device
     neg = torch.tensor(-1e30, dtype=F32, device=dev)
     scale = 1.0 / math.sqrt(hd)
@@ -332,7 +424,8 @@ def mha(p: Params, x: torch.Tensor, cfg: ModelConfig, positions, mask,
             k = rope(k, positions, cfg.rope_theta)
     b, s, h, hd = q.shape
     t = k.shape[1]
-    qg = q.reshape(b, s, cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, hd)
+    qg = reshape(q, b, s, cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads,
+                 hd)
     if isinstance(mask, tuple):
         kind, arg = mask[0], (mask[1] if len(mask) > 1 else None)
         if b * h * s * t > FLASH_THRESHOLD:
@@ -342,7 +435,7 @@ def mha(p: Params, x: torch.Tensor, cfg: ModelConfig, positions, mask,
                 kind, arg, s, t, q_offset, x.device), dt)
     else:
         out = _attend_dense(qg, k, v, mask, dt)
-    out = out.reshape(b, s, h, hd)
+    out = reshape(out, b, s, h, hd)
     proj = ll.dense_general(_q(out, act_q, "attn_out"), p["wo"],
                             "bsnh,nhd->bsd", dtype=dt)
     return (proj, out) if return_ctx else proj

@@ -21,8 +21,14 @@ take capacity, as in the reference.  ``top_k`` breaks ties toward the
 lower expert index, as ``jax.lax.top_k`` does, and the sort is stable,
 so the same slots are dropped as in the reference.
 
-``moe_impl="ep_a2a"`` (the reference's expert-parallel ``shard_map``
-all-to-all) is not ported: the port has no mesh.
+``moe_impl="ep_a2a"``: the expert-parallel dispatch of
+:mod:`repro_torch.models.moe_ep` (token all-to-alls along the mesh's
+"model" axis), the routed path when there is no ambient mesh.
+
+On DTensors under an ambient mesh the dispatch buffers carry the
+reference's layout constraints (``layers.constrain``): token-indexed
+arrays over the FSDP axes, the expert buffer over "model" on E and the
+FSDP axes on the capacity.  Plain tensors pass through untouched.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import exponential_quant as eq
 from repro_torch.core import lama_layers as ll
 from repro_torch.kernels.lut_dequant_matmul.ref import apply_activation
+from repro_torch.models import layers as L
 from repro_torch.models.params import ParamSpec
 
 F32 = torch.float32
@@ -81,9 +88,8 @@ def _router(p, xf: torch.Tensor, cfg: ModelConfig):
     top_w, top_e = top_k(probs, cfg.experts_per_token)
     top_w = top_w / top_w.sum(-1, keepdim=True)
     e = cfg.num_experts
-    first = torch.zeros(e, dtype=F32, device=xf.device).scatter_add_(
-        0, top_e[:, 0], torch.ones(top_e.shape[0], dtype=F32,
-                                   device=xf.device))
+    first = xf.new_zeros(e, dtype=F32).scatter_add_(
+        0, top_e[:, 0], xf.new_ones(top_e.shape[0], dtype=F32))
     density = first / top_e.shape[0]
     aux = e * torch.sum(density * probs.mean(0))
     return probs, top_w, top_e, aux
@@ -120,7 +126,7 @@ def apply_moe_routed(p, x: torch.Tensor, cfg: ModelConfig,
     k = cfg.experts_per_token
     e = cfg.num_experts
     dev = x.device
-    xf = x.reshape(t, d)
+    xf = L.constrain(x.reshape(t, d), "fsdp", None)
 
     _, top_w, top_e, aux = _router(p, xf, cfg)
 
@@ -131,8 +137,8 @@ def apply_moe_routed(p, x: torch.Tensor, cfg: ModelConfig,
 
     order = torch.sort(flat_e, stable=True).indices    # group slots by expert
     sorted_e = flat_e[order]
-    load = torch.zeros(e, dtype=torch.int64, device=dev).scatter_add_(
-        0, flat_e, torch.ones_like(flat_e))
+    load = flat_e.new_zeros(e).scatter_add_(0, flat_e,
+                                             torch.ones_like(flat_e))
     starts = torch.cumsum(load, 0) - load
     within = slot - starts[sorted_e]
 
@@ -146,17 +152,19 @@ def apply_moe_routed(p, x: torch.Tensor, cfg: ModelConfig,
             torch.full((), t * k, dtype=torch.int64, device=dev),
             (~keep).sum()]))
 
-    buf = torch.zeros(e * cap + 1, d, dtype=x.dtype, device=dev)
+    buf = xf.new_zeros(e * cap + 1, d)
     buf.index_put_((dest,), xf[src_tok])
-    out_buf = _expert_ffn(p, buf[: e * cap].reshape(e, cap, d), cfg,
-                          act_q=act_q)
-    out_flat = torch.cat([out_buf.reshape(e * cap, d),
-                          torch.zeros(1, d, dtype=x.dtype, device=dev)])
+    buf = L.constrain(buf[: e * cap].reshape(e, cap, d),
+                     "model", "fsdp", None)
+    out_buf = L.constrain(_expert_ffn(p, buf, cfg, act_q=act_q),
+                         "model", "fsdp", None)
+    out_flat = torch.cat([out_buf.reshape(e * cap, d), xf.new_zeros(1, d)])
 
     y_slots = out_flat[dest] * flat_w[order][:, None].to(x.dtype)
-    y = torch.zeros(t, d, dtype=x.dtype, device=dev).index_add_(
-        0, src_tok, y_slots)
-    return y.reshape(b, s, d), aux
+    # out of place: DTensor's in-place index_add_ may change the
+    # placement its output reports
+    y = xf.new_zeros(t, d).index_add(0, src_tok, y_slots)
+    return L.constrain(y, "fsdp", None).reshape(b, s, d), aux
 
 
 def _expert(w, i: int):
@@ -197,10 +205,12 @@ def apply_moe(p, x: torch.Tensor, cfg: ModelConfig,
     :func:`apply_moe_routed` (the dense mixture drops nothing and leaves
     it alone)."""
     if cfg.moe_impl == "ep_a2a":
-        raise NotImplementedError(
-            "moe_impl='ep_a2a' (the expert-parallel shard_map all-to-all) "
-            "is not ported: the port has no mesh yet (ROADMAP Queue 1 item "
-            "13, the sharding bullet); use 'routed' or 'dense_mixture'")
+        from repro_torch.models.moe_ep import apply_moe_ep
+
+        # the EP body manages its own dispatch buffers; activation codes
+        # and the capacity tally stop at its boundary, as in the
+        # reference
+        return apply_moe_ep(p, x, cfg)
     if cfg.moe_impl == "routed":
         return apply_moe_routed(p, x, cfg, act_q=act_q, counts=counts)
     return apply_moe_dense(p, x, cfg, act_q=act_q)

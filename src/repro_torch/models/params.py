@@ -54,6 +54,19 @@ def logical_axes(specs):
     return _map(lambda s: s.axes, specs)
 
 
+def abstract_params(specs, dtype=torch.float32):
+    """The spec tree as tensors on the ``meta`` device (the reference's
+    ``ShapeDtypeStruct`` stand-ins): shapes and dtypes, no storage."""
+    return _map(lambda s: torch.empty(s.shape, dtype=s.dtype or dtype,
+                                      device="meta"), specs)
+
+
+def param_count(specs) -> int:
+    if isinstance(specs, dict):
+        return sum(param_count(v) for v in specs.values())
+    return math.prod(specs.shape)
+
+
 def spec_std(spec: ParamSpec) -> float:
     """The standard deviation a ``normal``, ``embed`` or ``scaled`` leaf is
     drawn with.  ``fan_in_axis`` indexes the spec's shape as given, so

@@ -254,14 +254,14 @@ def _block(p: dict, x, cfg: ModelConfig, positions, kind: str):
         y, _ = rec_block(p["rec"], h, cfg)
     x = x + y
     h = L.apply_norm(p["ln2"], x, cfg)
-    return x + L.apply_mlp(p["mlp"], h, cfg)
+    return L.constrain_act(x + L.apply_mlp(p["mlp"], h, cfg))
 
 
 def forward(params: HybridLM, tokens: torch.Tensor, cfg: ModelConfig,
             prefix_embeds=None):
     """Full-sequence forward.  Returns (logits [B, S, V], 0.0)."""
     _check_prefix(prefix_embeds)
-    x = L.embed_tokens(params["embed"], tokens, cfg)
+    x = L.constrain_act(L.embed_tokens(params["embed"], tokens, cfg))
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     for i, kind in enumerate(layer_kinds(cfg)):
@@ -285,6 +285,30 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return cache
 
 
+def abstract_cache(cfg: ModelConfig, batch: int, max_len: int,
+                   dtype=torch.bfloat16) -> dict:
+    """The reference's cache shapes and dtypes as ``meta`` tensors: a
+    local layer's ring ``k``/``v`` in ``dtype`` and ``kpos`` int32, a
+    rec layer's ``conv`` and ``h`` in ``dtype`` (the port's live state
+    keeps ``conv`` in the compute dtype and ``h`` in float32, what a
+    step writes), ``pos`` a 0-d int32."""
+    del max_len
+    kv, hd, w = cfg.num_kv_heads, cfg.resolved_head_dim, cfg.window
+    dr = cfg.rnn_width or cfg.d_model
+
+    def meta(shape, dt=dtype):
+        return torch.empty(shape, dtype=dt, device="meta")
+
+    cache: dict = {"pos": meta((), torch.int32)}
+    for i, kind in enumerate(layer_kinds(cfg)):
+        cache[f"layer_{i:02d}"] = (
+            {"k": meta((batch, w, kv, hd)), "v": meta((batch, w, kv, hd)),
+             "kpos": meta((w,), torch.int32)} if kind == "local" else
+            {"conv": meta((batch, cfg.conv_width - 1, dr)),
+             "h": meta((batch, dr))})
+    return cache
+
+
 def decode_step(params: HybridLM, cache: dict, tokens: torch.Tensor,
                 cfg: ModelConfig):
     """One step of every row: tokens [B, 1] at position ``cache["pos"]``
@@ -292,7 +316,7 @@ def decode_step(params: HybridLM, cache: dict, tokens: torch.Tensor,
     on the host, so a captured step replays at whatever position it
     holds).  The rings and recurrent states are written in place.
     Returns (logits [B, 1, V], the cache with ``pos`` advanced by one)."""
-    x = L.embed_tokens(params["embed"], tokens, cfg)
+    x = L.constrain_act(L.embed_tokens(params["embed"], tokens, cfg))
     b, s, _ = x.shape
     if s != 1:
         raise ValueError(f"the hybrid decodes one token a step, got {s}")
@@ -312,7 +336,7 @@ def decode_step(params: HybridLM, cache: dict, tokens: torch.Tensor,
             st["h"].copy_(new["h"])
         x = x + y
         h = L.apply_norm(p["ln2"], x, cfg)
-        x = x + L.apply_mlp(p["mlp"], h, cfg)
+        x = L.constrain_act(x + L.apply_mlp(p["mlp"], h, cfg))
     x = L.apply_norm(params["ln_f"], x, cfg)
     return L.logits_fn(params, x, cfg), {**cache, "pos": pos + 1}
 
@@ -328,7 +352,7 @@ def prefill(params: HybridLM, tokens: torch.Tensor, cfg: ModelConfig,
     values).  Returns (logits [B, 1, V] at the last position, the cache
     with ``pos = S``)."""
     _check_prefix(prefix_embeds)
-    x = L.embed_tokens(params["embed"], tokens, cfg)
+    x = L.constrain_act(L.embed_tokens(params["embed"], tokens, cfg))
     b, s, _ = x.shape
     dev = x.device
     positions = torch.arange(s, device=dev).expand(b, s)
@@ -356,6 +380,6 @@ def prefill(params: HybridLM, tokens: torch.Tensor, cfg: ModelConfig,
                                .to(st[name].dtype))
         x = x + y
         h = L.apply_norm(p["ln2"], x, cfg)
-        x = x + L.apply_mlp(p["mlp"], h, cfg)
+        x = L.constrain_act(x + L.apply_mlp(p["mlp"], h, cfg))
     x = L.apply_norm(params["ln_f"], x, cfg)
     return L.logits_fn(params, x[:, -1:], cfg), cache

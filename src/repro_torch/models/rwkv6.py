@@ -108,7 +108,7 @@ def _dd_lerp(p, x: torch.Tensor, x_prev: torch.Tensor) -> list:
     z = x + diff * p["mu_base"].to(x.dtype)
     lora = torch.tanh(ll.dense(z, p["lora_a"]))               # [B, S, 5r]
     b, s, _ = lora.shape
-    lora = lora.reshape(b, s, 5, LORA_SHIFT)
+    lora = L.reshape(lora, b, s, 5, LORA_SHIFT)
     adj = torch.einsum("bsnr,nrd->nbsd", lora,
                        ll.materialize(p["lora_b"], x.dtype))
     return [x + diff * (p["mu"][i].to(x.dtype) + adj[i])
@@ -151,20 +151,20 @@ def time_mix(p, x: torch.Tensor, cfg: ModelConfig, state: dict | None):
     h, hd = _heads(cfg), cfg.rwkv_head_dim
     last = state["tshift"] if state else None
     xw, xk, xv, xr, xg = _dd_lerp(p, x, _shift(x, last))
-    r = ll.dense(xr, p["w_r"]).reshape(b, s, h, hd)
-    k = ll.dense(xk, p["w_k"]).reshape(b, s, h, hd)
-    v = ll.dense(xv, p["w_v"]).reshape(b, s, h, hd)
+    r = L.reshape(ll.dense(xr, p["w_r"]), b, s, h, hd)
+    k = L.reshape(ll.dense(xk, p["w_k"]), b, s, h, hd)
+    v = L.reshape(ll.dense(xv, p["w_v"]), b, s, h, hd)
     g = torch.nn.functional.silu(ll.dense(xg, p["w_g"]))
     dec = p["decay_base"].to(F32) + ll.dense(
         torch.tanh(ll.dense(xw, p["decay_a"])), p["decay_b"]).to(F32)
-    w = torch.exp(-torch.exp(dec)).reshape(b, s, h, hd)
+    w = L.reshape(torch.exp(-torch.exp(dec)), b, s, h, hd)
     y, wkv = wkv_scan(r, k, v, w, p["bonus_u"].to(F32),
                       state["wkv"] if state else None)
     # the per-head group norm, eps 1e-5
     yf = y.to(F32)
     mu = yf.mean(-1, keepdim=True)
     var = yf.var(-1, keepdim=True, unbiased=False)
-    y = ((yf - mu) * torch.rsqrt(var + 1e-5)).reshape(b, s, d)
+    y = L.reshape((yf - mu) * torch.rsqrt(var + 1e-5), b, s, d)
     y = (y * p["gn_scale"].to(F32)).to(x.dtype)
     return ll.dense(y * g, p["w_o"]), {"tshift": x[:, -1, :], "wkv": wkv}
 
@@ -192,11 +192,11 @@ def _layer(p: dict, x, cfg: ModelConfig, st_t: dict | None,
     x = x + y
     y, new_c = channel_mix(p["cmix"], L.apply_norm(p["ln2"], x, cfg, LN),
                            st_c)
-    return x + y, new_t, new_c
+    return L.constrain_act(x + y), new_t, new_c
 
 
 def _embed(params: RwkvLM, tokens: torch.Tensor, cfg: ModelConfig):
-    x = L.embed_tokens(params["embed"], tokens, cfg)
+    x = L.constrain_act(L.embed_tokens(params["embed"], tokens, cfg))
     return L.apply_norm(params["ln_in"], x, cfg, LN)
 
 
@@ -226,6 +226,21 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             "wkv": torch.zeros((n, batch, h, hd, hd), dtype=F32, device=dev),
             "tshift_c": torch.zeros((n, batch, d), dtype=dtype, device=dev),
             "pos": 0}
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_len: int,
+                   dtype=torch.bfloat16) -> dict:
+    """:func:`init_cache`'s shapes and dtypes as ``meta`` tensors, ``pos``
+    a 0-d int32 (the reference's)."""
+    del max_len
+    h, hd, n, d = _heads(cfg), cfg.rwkv_head_dim, cfg.num_layers, cfg.d_model
+
+    def meta(shape, dt=dtype):
+        return torch.empty(shape, dtype=dt, device="meta")
+
+    return {"tshift_t": meta((n, batch, d)),
+            "wkv": meta((n, batch, h, hd, hd), F32),
+            "tshift_c": meta((n, batch, d)), "pos": meta((), torch.int32)}
 
 
 def decode_step(params: RwkvLM, cache: dict, tokens: torch.Tensor,

@@ -170,11 +170,11 @@ def _embed_with_prefix(params, tokens, cfg: ModelConfig, prefix_embeds):
     """The token embeddings [B, S, D], after the prefix embeddings [B, P,
     D] cast to their dtype when given, and the attention mask: ``("prefix",
     P)`` (full within the prefix, causal after it), else causal."""
-    x = L.embed_tokens(params["embed"], tokens, cfg)
+    x = L.constrain_act(L.embed_tokens(params["embed"], tokens, cfg))
     if prefix_embeds is None:
         return x, ("causal", None)
     x = torch.cat([prefix_embeds.to(x.dtype), x], 1)
-    return x, ("prefix", prefix_embeds.shape[1])
+    return L.constrain_act(x), ("prefix", prefix_embeds.shape[1])
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -187,6 +187,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
              cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev), "pos": 0}
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_len: int,
+                   dtype=torch.bfloat16) -> dict:
+    """The contiguous cache's shapes and dtypes as ``meta`` tensors, the
+    reference's (``pos`` a 0-d int32)."""
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    return {"k": torch.empty(shape, dtype=dtype, device="meta"),
+            "v": torch.empty(shape, dtype=dtype, device="meta"),
+            "pos": torch.empty((), dtype=torch.int32, device="meta")}
 
 
 def _ffn(lp: dict, h, cfg: ModelConfig, act_q, moe_counts=None):
@@ -209,7 +220,7 @@ def _block(lp: dict, x, cfg: ModelConfig, positions, mask):
     x = x + L.mha(lp["attn"], h, cfg, positions, mask, kv=kv, act_q=aq)
     h = L.apply_norm(lp["ln2"], x, cfg)
     y, aux = _ffn(lp, h, cfg, aq)
-    return x + y, aux, kv
+    return L.constrain_act(x + y), aux, kv
 
 
 def forward(params: DecoderLM, tokens: torch.Tensor, cfg: ModelConfig,
@@ -266,7 +277,7 @@ def decode_step(params: DecoderLM, cache: dict, tokens: torch.Tensor,
     reference's traced position): then nothing here reads it on the
     host, so a captured step replays at whatever position the tensor
     holds, and the caller checks that the cache has room."""
-    x = L.embed_tokens(params["embed"], tokens, cfg)
+    x = L.constrain_act(L.embed_tokens(params["embed"], tokens, cfg))
     b, s, _ = x.shape
     pos = cache["pos"]
     max_len = cache["k"].shape[2]
@@ -305,7 +316,7 @@ def decode_step(params: DecoderLM, cache: dict, tokens: torch.Tensor,
                          kv=(kc.to(x.dtype), vc.to(x.dtype)), act_q=aq)
         x = x + attn
         h = L.apply_norm(lp["ln2"], x, cfg)
-        x = x + _ffn(lp, h, cfg, aq)[0]
+        x = L.constrain_act(x + _ffn(lp, h, cfg, aq)[0])
     x = L.apply_norm(params["ln_f"], x, cfg)
     return L.logits_fn(params, x, cfg), {**cache, "pos": pos + 1}
 
@@ -355,7 +366,7 @@ def _paged_block(lp: dict, x, cfg: ModelConfig, positions, k_pages, v_pages,
     v_pages.index_put_((page, off), cache_cast(v_new, v_pages.dtype))
     x = x + attend(lp["attn"], h, k_pages, v_pages, aq)
     h = L.apply_norm(lp["ln2"], x, cfg)
-    return x + _ffn(lp, h, cfg, aq, moe_counts)[0]
+    return L.constrain_act(x + _ffn(lp, h, cfg, aq, moe_counts)[0])
 
 
 def _window_layers(params: DecoderLM, x, view, cfg: ModelConfig, start,
@@ -401,7 +412,7 @@ def prefill_into_cache(params: DecoderLM, tokens: torch.Tensor, view,
     page *before* the attend; a row with nothing to do writes nothing
     and attends nothing.  Returns (logits [B, 1, V] at each row's true
     last token ``lengths - 1 - start``, the view)."""
-    x = L.embed_tokens(params["embed"], tokens, cfg)
+    x = L.constrain_act(L.embed_tokens(params["embed"], tokens, cfg))
     b, s, _ = x.shape
     start = (torch.zeros(b, dtype=torch.int32, device=x.device)
              if start_pos is None else start_pos.to(torch.int32))
@@ -432,7 +443,7 @@ def spec_verify_into_cache(params: DecoderLM, tokens: torch.Tensor, view,
     <= accept <= n_tokens - 1``), ``ok [B]`` (finite logits at the
     row's valid positions; True for a parked row) and the view, whose
     lengths the engine advances itself."""
-    x = L.embed_tokens(params["embed"], tokens, cfg)
+    x = L.constrain_act(L.embed_tokens(params["embed"], tokens, cfg))
     s = x.shape[1]
     start = start_pos.to(torch.int32)
     valid = torch.clamp(n_tokens.to(torch.int32), 0, s)
@@ -458,7 +469,7 @@ def decode_step_paged(params: DecoderLM, view, tokens: torch.Tensor,
     flash-decode kernel attends with lengths ``len + 1`` (0 for inactive
     slots).  Returns (logits [B, 1, V], the view with active lengths
     advanced by one)."""
-    x = L.embed_tokens(params["embed"], tokens, cfg)
+    x = L.constrain_act(L.embed_tokens(params["embed"], tokens, cfg))
     b, s, _ = x.shape
     assert s == 1, s
     bs = view.block_size
@@ -501,7 +512,7 @@ def collect_act_calibration(params: DecoderLM, tokens: torch.Tensor,
     projections go through the usual dispatch.  No act-quant table is
     consulted.
     Returns ``{site: [L, B, S, ...]}``."""
-    x = L.embed_tokens(params["embed"], tokens, cfg)
+    x = L.constrain_act(L.embed_tokens(params["embed"], tokens, cfg))
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     samples: dict[str, list] = {site: [] for site in L.ACT_SITES
@@ -524,5 +535,5 @@ def collect_act_calibration(params: DecoderLM, tokens: torch.Tensor,
                                               return_mid=True)
         for site, t in sites.items():
             samples[site].append(t)
-        x = x + y
+        x = L.constrain_act(x + y)
     return {site: torch.stack(ts) for site, ts in samples.items()}

@@ -39,6 +39,17 @@ def init(params) -> AdamWState:
         nu=T.tree_map(lambda p: torch.zeros_like(p, dtype=F32), params))
 
 
+def abstract_state(abstract_params) -> AdamWState:
+    """The state's shapes and dtypes as ``meta`` tensors (the moments
+    float32, ``step`` a 0-d int32)."""
+    def f32(p):
+        return torch.empty(p.shape, dtype=F32, device="meta")
+
+    return AdamWState(step=torch.empty((), dtype=torch.int32, device="meta"),
+                      mu=T.tree_map(f32, abstract_params),
+                      nu=T.tree_map(f32, abstract_params))
+
+
 def global_norm(tree) -> torch.Tensor:
     """The float32 2-norm of every leaf together, the leaves' squared
     sums added in tree order."""

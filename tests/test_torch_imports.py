@@ -45,7 +45,9 @@ def test_port_files_found():
                 "configs/seamless_m4t_medium.py", "tree.py",
                 "optim/adamw.py", "optim/schedule.py", "optim/compress.py",
                 "data/pipeline.py", "checkpoint/manager.py",
-                "runtime/trainer.py", "launch/train.py"):
+                "runtime/trainer.py", "launch/train.py", "launch/mesh.py",
+                "launch/dryrun.py", "sharding/__init__.py",
+                "sharding/rules.py", "models/moe_ep.py"):
         assert ROOT / "src" / "repro_torch" / rel in PORT_FILES, rel
 
 

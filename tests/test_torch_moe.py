@@ -14,7 +14,8 @@ experts): grok-1 (top-2, gelu, logit softcap) and llama4-scout (top-1).
 - ``forward``, ``prefill``, ``decode_step``, ``prefill_into_cache`` and
   ``decode_step_paged`` logits within TOL of their scale (``atol`` times
   the largest magnitude when that exceeds 1); no qtensor reaches
-  ``materialize`` on the MoE path; ``ep_a2a`` is refused.
+  ``materialize`` on the MoE path.  (``ep_a2a`` across ranks:
+  ``tests/test_torch_dist.py``.)
 
 Both sides hold the same bytes (the reference's params converted with
 ``params_from_jax``).  TOL: rtol/atol 2e-5 in float32, the two sides
@@ -183,14 +184,6 @@ def test_top_k_breaks_ties_to_the_lower_index():
     jv, ji = jax.lax.top_k(jnp.asarray(probs.numpy()), 2)
     np.testing.assert_array_equal(idx.numpy(), np.asarray(ji))
     np.testing.assert_array_equal(vals.numpy(), np.asarray(jv))
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_ep_a2a_is_refused(arch):
-    _, cfg = _cfgs(arch, moe_impl="ep_a2a")
-    _, _, _, tp, x, _, _ = _layer(arch, "float")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        TM.apply_moe(tp, torch.from_numpy(x), cfg)
 
 
 # ------------------------------------------------------------ models --
